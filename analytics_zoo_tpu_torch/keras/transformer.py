@@ -1,0 +1,263 @@
+"""Transformer blocks and the BERT encoder as Keras-style layers.
+
+Port of `analytics_zoo_tpu/keras/transformer.py`: `dot_product_attention`
+(L44), `MultiHeadSelfAttention` (L71), `TransformerEncoderBlock` (L127),
+`stack_block_params` / `unstack_block_params` (L238/L252) and `BERT`
+(L261) with `make_mask` (L358). Same math, same layouts:
+
+- fused QKV: one `[D, 3D]` matmul, reshaped `(B, T, 3, H, Dh)`;
+- attention on `[B, H, T, Dh]` with an additive `[B, 1, 1, T]` mask of
+  -10000 on padded keys; `use_flash` runs the CUDA flash-attention kernel
+  (`kernels/flash_attention.py`) on the card;
+- post-norm blocks: x + MHA → LN → x + FFN(tanh-gelu) → LN, eps 1e-12.
+
+Dense weights are stored `[in, out]` as in the JAX package, so a JAX
+parameter tree maps onto the port's state dict by name alone
+(`convert.py`). The stacked layout (`BERT(stacked=True)`, one `[L, ...]`
+buffer per tensor, a `lax.scan` over blocks) has no counterpart in eager
+PyTorch: the port keeps one module per block and `convert.py` accepts both
+JAX layouts. Dropout (training) and `remat` wait for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from analytics_zoo_tpu_torch.common.device import DeviceLike
+from analytics_zoo_tpu_torch.common.tree import tree_map
+from analytics_zoo_tpu_torch.keras.engine import Layer, new_parameter
+from analytics_zoo_tpu_torch.keras.layers import (LayerNormalization, fill_,
+                                                  get_activation, get_init)
+from analytics_zoo_tpu_torch.kernels.flash_attention import (
+    DROPOUT_NOT_PORTED, _reference_attention, flash_attention)
+from analytics_zoo_tpu_torch.serving.quantization import maybe_int8_matmul
+
+
+def _no_training_dropout(training: bool, *rates: float) -> None:
+    if training and any(r > 0.0 for r in rates):
+        raise NotImplementedError(DROPOUT_NOT_PORTED)
+
+
+def dot_product_attention(q, k, v, mask=None, use_flash: bool = False):
+    """q, k, v: `[B, H, T, Dh]`; mask: additive `[B,1,1,T]` or `[B,1,T,T]`.
+    Softmax statistics in f32 whatever the input dtype. Attention dropout
+    (the JAX `dropout_rng`/`dropout_rate`) comes with the training slice."""
+    if use_flash:
+        return flash_attention(q, k, v, mask=mask)
+    return _reference_attention(q, k, v, mask)
+
+
+class MultiHeadSelfAttention(Layer):
+    """Fused-QKV self attention."""
+
+    def __init__(self, hidden_size: int, n_head: int,
+                 attn_dropout: float = 0.0, output_dropout: float = 0.0,
+                 use_flash: bool = False, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        if hidden_size % n_head:
+            raise ValueError(f"hidden_size {hidden_size} not divisible by "
+                             f"n_head {n_head}")
+        self.hidden_size = hidden_size
+        self.n_head = n_head
+        self.head_dim = hidden_size // n_head
+        self.attn_dropout = attn_dropout
+        self.output_dropout = output_dropout
+        self.use_flash = use_flash
+        d = hidden_size
+        self.qkv_kernel = new_parameter((d, 3 * d), device, dtype)
+        self.qkv_bias = new_parameter((3 * d,), device, dtype)
+        self.out_kernel = new_parameter((d, d), device, dtype)
+        self.out_bias = new_parameter((d,), device, dtype)
+
+    def build(self, generator):
+        init = get_init("glorot_uniform")
+        fill_(self.qkv_kernel, init(generator, tuple(self.qkv_kernel.shape)))
+        fill_(self.qkv_bias, torch.zeros(self.qkv_bias.shape))
+        fill_(self.out_kernel, init(generator, tuple(self.out_kernel.shape)))
+        fill_(self.out_bias, torch.zeros(self.out_bias.shape))
+        return self
+
+    def call(self, x, *, training: bool = False, mask=None):
+        if isinstance(x, (list, tuple)):
+            x, mask = x
+        _no_training_dropout(training, self.attn_dropout, self.output_dropout)
+        B, T, D = x.shape
+        qkv = maybe_int8_matmul(x, self, "qkv_kernel") + self.qkv_bias
+        # (B, T, 3, H, Dh) → (3, B, H, T, Dh): one copy leaves q, k and v
+        # each contiguous [B, H, T, Dh], as the kernel takes them
+        qkv = qkv.reshape(B, T, 3, self.n_head, self.head_dim)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        ctx = dot_product_attention(q, k, v, mask=mask,
+                                    use_flash=self.use_flash)
+        ctx = ctx.permute(0, 2, 1, 3).reshape(B, T, D)
+        return maybe_int8_matmul(ctx, self, "out_kernel") + self.out_bias
+
+
+class TransformerEncoderBlock(Layer):
+    """Post-norm BERT block: x + MHA → LN → x + FFN(gelu) → LN."""
+
+    def __init__(self, hidden_size: int, n_head: int,
+                 intermediate_size: Optional[int] = None,
+                 hidden_dropout: float = 0.1, attn_dropout: float = 0.1,
+                 hidden_act: str = "gelu", use_flash: bool = False,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.hidden_size = hidden_size
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.attn = MultiHeadSelfAttention(
+            hidden_size, n_head, attn_dropout=attn_dropout,
+            output_dropout=hidden_dropout, use_flash=use_flash,
+            device=device, dtype=dtype, name=self.name + "_attn")
+        self.ln1 = LayerNormalization(hidden_size, device=device, dtype=dtype,
+                                      name=self.name + "_ln1")
+        self.ln2 = LayerNormalization(hidden_size, device=device, dtype=dtype,
+                                      name=self.name + "_ln2")
+        self.act = get_activation(hidden_act)
+        self.hidden_dropout = hidden_dropout
+        d, f = hidden_size, self.intermediate_size
+        self.ffn_in_kernel = new_parameter((d, f), device, dtype)
+        self.ffn_in_bias = new_parameter((f,), device, dtype)
+        self.ffn_out_kernel = new_parameter((f, d), device, dtype)
+        self.ffn_out_bias = new_parameter((d,), device, dtype)
+
+    def build(self, generator):
+        super().build(generator)
+        init = get_init("glorot_uniform")
+        fill_(self.ffn_in_kernel,
+              init(generator, tuple(self.ffn_in_kernel.shape)))
+        fill_(self.ffn_in_bias, torch.zeros(self.ffn_in_bias.shape))
+        fill_(self.ffn_out_kernel,
+              init(generator, tuple(self.ffn_out_kernel.shape)))
+        fill_(self.ffn_out_bias, torch.zeros(self.ffn_out_bias.shape))
+        return self
+
+    def call(self, x, *, training: bool = False, mask=None):
+        if isinstance(x, (list, tuple)):
+            x, mask = x
+        _no_training_dropout(training, self.hidden_dropout)
+        a = self.attn.call(x, training=training, mask=mask)
+        x = self.ln1.call(x + a)
+        h = self.act(maybe_int8_matmul(x, self, "ffn_in_kernel")
+                     + self.ffn_in_bias)
+        h = maybe_int8_matmul(h, self, "ffn_out_kernel") + self.ffn_out_bias
+        return self.ln2.call(x + h)
+
+
+def stack_block_params(params: Dict, n_block: int, prefix: str) -> Dict:
+    """UNSTACKED JAX-layout BERT tree (per-block subtrees named
+    `{prefix}_block{i}`) → the stacked layout (`blocks` = one `[L, ...]`
+    array per tensor). Works on nested dicts of numpy arrays."""
+    per_block = [params[f"{prefix}_block{i}"] for i in range(n_block)]
+    out = {k: v for k, v in params.items()
+           if not k.startswith(prefix + "_block")}
+    out["blocks"] = tree_map(lambda *xs: np.stack([np.asarray(x)
+                                                   for x in xs]), *per_block)
+    return out
+
+
+def unstack_block_params(params: Dict, n_block: int, prefix: str) -> Dict:
+    """Inverse of `stack_block_params`."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for i in range(n_block):
+        out[f"{prefix}_block{i}"] = tree_map(lambda x, _i=i: x[_i],
+                                             params["blocks"])
+    return out
+
+
+class BERT(Layer):
+    """BERT encoder as a layer. Inputs: `[ids, token_type, mask]`,
+    `[ids, mask]` or `ids` (position ids are implicit, token types default
+    to zeros, the mask to all ones). Outputs `(sequence, pooled)`, or just
+    pooled with `pooled_only=True`."""
+
+    def __init__(self, vocab: int = 30522, hidden_size: int = 768,
+                 n_block: int = 12, n_head: int = 12,
+                 seq_len: int = 512, intermediate_size: int = 3072,
+                 type_vocab: int = 2, hidden_drop: float = 0.1,
+                 attn_drop: float = 0.1, pooled_only: bool = False,
+                 use_flash: bool = False, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.vocab, self.hidden_size = vocab, hidden_size
+        self.seq_len, self.type_vocab = seq_len, type_vocab
+        self.hidden_drop = hidden_drop
+        self.pooled_only = pooled_only
+        self.n_block = n_block
+        self.word_embeddings = new_parameter((vocab, hidden_size), device,
+                                             dtype)
+        self.position_embeddings = new_parameter((seq_len, hidden_size),
+                                                 device, dtype)
+        self.token_type_embeddings = new_parameter((type_vocab, hidden_size),
+                                                   device, dtype)
+        self.emb_ln = LayerNormalization(hidden_size, device=device,
+                                         dtype=dtype,
+                                         name=self.name + "_emb_ln")
+        self.pooler_kernel = new_parameter((hidden_size, hidden_size),
+                                           device, dtype)
+        self.pooler_bias = new_parameter((hidden_size,), device, dtype)
+        self.blocks = nn.ModuleList(
+            TransformerEncoderBlock(hidden_size, n_head, intermediate_size,
+                                    hidden_dropout=hidden_drop,
+                                    attn_dropout=attn_drop,
+                                    use_flash=use_flash, device=device,
+                                    dtype=dtype,
+                                    name=f"{self.name}_block{i}")
+            for i in range(n_block))
+
+    def build(self, generator):
+        for emb in (self.word_embeddings, self.position_embeddings,
+                    self.token_type_embeddings):
+            fill_(emb, torch.randn(tuple(emb.shape), generator=generator)
+                  * 0.02)
+        fill_(self.pooler_kernel, get_init("glorot_uniform")(
+            generator, tuple(self.pooler_kernel.shape)))
+        fill_(self.pooler_bias, torch.zeros(self.pooler_bias.shape))
+        return super().build(generator)
+
+    @staticmethod
+    def make_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+        """`[B, T]` {0,1} → additive `[B, 1, 1, T]` float32 (-10000 on
+        padding, the reference's masked-logit convention)."""
+        m = attention_mask.to(torch.float32)
+        return ((1.0 - m)[:, None, None, :] * -10000.0).contiguous()
+
+    def call(self, x, *, training: bool = False):
+        if isinstance(x, (list, tuple)):
+            if len(x) == 3:
+                ids, token_type, attn_mask = x
+            elif len(x) == 2:
+                ids, attn_mask = x
+                token_type = None
+            else:
+                raise ValueError("BERT expects [ids, (token_type), mask]")
+        else:
+            ids, token_type, attn_mask = x, None, None
+        _no_training_dropout(training, self.hidden_drop)
+        device = self.word_embeddings.device
+        ids = torch.as_tensor(ids, device=device).long()
+        token_type = (torch.zeros_like(ids) if token_type is None else
+                      torch.as_tensor(token_type, device=device).long())
+        attn_mask = (torch.ones_like(ids) if attn_mask is None else
+                     torch.as_tensor(attn_mask, device=device))
+        T = ids.shape[1]
+        h = (self.word_embeddings[ids]
+             + self.position_embeddings[None, :T]
+             + self.token_type_embeddings[token_type])
+        h = self.emb_ln.call(h)
+        mask = self.make_mask(attn_mask)
+        for blk in self.blocks:
+            h = blk.call([h, mask], training=training)
+        pooled = torch.tanh(maybe_int8_matmul(h[:, 0], self, "pooler_kernel")
+                            + self.pooler_bias)
+        if self.pooled_only:
+            return pooled
+        return h, pooled

@@ -1,0 +1,117 @@
+"""Build the CUDA sources under `csrc/` with nvcc and load them with ctypes.
+
+Each source has a plain C interface and is compiled on its own into a
+shared library for `sm_90a` (Hopper):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas=-v -o <lib>.so csrc/<source>.cu
+
+The build runs at first use, into `analytics_zoo_tpu_torch/_build/`, under
+a name keyed on a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one loads at once. ptxas's report (registers,
+shared memory, spills per kernel) is kept beside each library as `.log`.
+Nothing here runs at import: this module imports on hosts without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's usual home."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and the default "
+        "toolkit location); the CUDA kernels cannot be built")
+
+
+def library_path(source: str) -> Path:
+    """Where `source` (a file name under csrc/) builds to."""
+    text = (CSRC_DIR / source).read_bytes()
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}-{key[:16]}.so"
+
+
+def build(sources: Sequence[str]) -> Dict[str, float]:
+    """Compile every source not yet built, one nvcc per source, all started
+    together. Returns the seconds each build took (0.0 if it was cached).
+    Raises KernelBuildError with nvcc's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {s: library_path(s) for s in sources}
+    todo = {s: p for s, p in todo.items() if not p.exists()}
+    seconds = {s: 0.0 for s in sources}
+    if not todo:
+        return seconds
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for src, out in todo.items():
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    failures = []
+    for src, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[src] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    if failures:
+        raise KernelBuildError("CUDA build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def build_log(source: str) -> str:
+    """ptxas's report from the build of `source` ('' before it is built)."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `source`, building it first if needed."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(str(library_path(source)))
+            _libs[source] = lib
+        return lib

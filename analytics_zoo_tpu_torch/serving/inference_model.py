@@ -1,0 +1,271 @@
+"""InferenceModel — the concurrent inference façade, single device.
+
+Port of `analytics_zoo_tpu/serving/inference_model.py`: `_next_bucket`
+(L64), `PendingPrediction` (L71), `_JoinedPending` (L276), the buckets and
+the admission semaphore of `InferenceModel.__init__` (L305-395),
+`load_keras` (L398), `load_fn` (L495), `predict` (L1135), `predict_async`
+(L1140) and `warmup` (L1231).
+
+- A batch is padded to a power-of-two bucket by repeating its last row on
+  the device, and a batch above `max_batch` is split into chunks that are
+  all dispatched before any is awaited.
+- Dispatch is asynchronous: `predict_async` returns once the forward is
+  queued on the device; `PendingPrediction.result()` copies the valid rows
+  to the host (the one sync) and records dispatch + materialize time in
+  the `predict` Timer.
+- `warmup` runs every bucket once at load time, so the kernel build (nvcc),
+  each kernel's first launch and the cuBLAS set-up never land on the
+  request path. (The JAX package warms to compile one XLA program per
+  bucket; PyTorch runs eagerly, so there is nothing to compile per shape.)
+
+Not ported yet: replicas and the router, sharded placement, the persistent
+compile cache, roofline accounting, fault points, hot swap and the
+generative mode.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.serving.quantization import INT8_NOT_PORTED
+from analytics_zoo_tpu_torch.serving.timer import Timer
+
+
+def _next_bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def _as_host_tensor(a) -> torch.Tensor:
+    """A request leaf as a C-contiguous CPU tensor (a copy, so a read-only
+    or broadcast array is safe); float64 narrows to float32, as jax
+    canonicalizes it with x64 off."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a, order="C"))
+    return t.float() if t.dtype == torch.float64 else t
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:      # numpy has no bfloat16
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class PendingPrediction:
+    """Async handle from `predict_async`: the device computes while the
+    caller keeps dispatching; `result()` materializes the output (the one
+    blocking copy) and slices off bucket padding. Idempotent and
+    thread-safe."""
+
+    def __init__(self, out, valid_n: int, timer: Optional[Timer] = None,
+                 dispatch_s: float = 0.0,
+                 ready: Optional[torch.cuda.Event] = None):
+        self._out = out
+        self._n = valid_n
+        self._timer = timer
+        self._dispatch_s = dispatch_s
+        self._ready = ready
+        self._result = None
+        self._done = False
+        self._lock = threading.Lock()
+
+    def done(self) -> bool:
+        """True once the device output is ready; never blocks."""
+        if self._done:
+            return True
+        ready = self._ready
+        return ready is None or ready.query()
+
+    def result(self):
+        with self._lock:
+            if not self._done:
+                t0 = time.perf_counter()
+                self._result = tree_map(lambda t: _to_numpy(t[:self._n]),
+                                         self._out)
+                self._out = None            # free device memory promptly
+                self._done = True
+                if self._timer is not None:
+                    # model time = dispatch + materialize wait
+                    self._timer.record(self._dispatch_s
+                                       + time.perf_counter() - t0)
+        return self._result
+
+
+class _JoinedPending:
+    """PendingPrediction over max_batch chunks: each chunk was dispatched
+    independently; result() syncs them in order and concatenates."""
+
+    def __init__(self, parts: List[PendingPrediction]):
+        self._parts = parts
+        self._result = None
+        self._done = False
+        self._lock = threading.Lock()
+
+    def done(self) -> bool:
+        return self._done or all(p.done() for p in self._parts)
+
+    def result(self):
+        with self._lock:
+            if not self._done:
+                chunks = [p.result() for p in self._parts]
+                self._result = tree_map(lambda *cs: np.concatenate(cs),
+                                        *chunks)
+                self._parts = []
+                self._done = True
+        return self._result
+
+
+class InferenceModel:
+    def __init__(self, concurrent_num: int = 1, auto_scaling: bool = False,
+                 max_batch: int = 512, device: DeviceLike = None):
+        """`device`: where the model serves; `None` is `cuda`, and asking
+        for `cuda` without a GPU raises. `concurrent_num` permits bound the
+        predict calls dispatching at once (`auto_scaling` grows them on
+        contention)."""
+        self.device = resolve_device(device)
+        self.concurrent_num = concurrent_num
+        self.auto_scaling = auto_scaling
+        self._sema = threading.BoundedSemaphore(concurrent_num) \
+            if not auto_scaling else threading.Semaphore(concurrent_num)
+        self._fn: Optional[Callable] = None
+        self._params = None
+        self.max_batch = max_batch
+        self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+                        if b <= max_batch] or [max_batch]
+        self.timer = Timer("predict")
+        self.warmup_report: Dict[str, float] = {}
+        self.warmed_buckets: set = set()
+        self.serving_dtype: str = "float32"
+
+    # -- loaders ---------------------------------------------------------
+    def load_keras(self, model, params=None,
+                   quantize: Optional[str] = None) -> "InferenceModel":
+        """A port Keras-style model (a built `KerasNet`). `params`, a state
+        dict, is loaded into it first. The model moves to this
+        InferenceModel's device in place and is put in eval mode."""
+        if quantize is not None:
+            if quantize != "int8":
+                raise ValueError(
+                    f"Unsupported quantize={quantize!r}; only 'int8'")
+            raise NotImplementedError(INT8_NOT_PORTED)
+        if params is not None:
+            model.load_state_dict(params)
+        if not model.built:
+            raise ValueError("Model has no parameters; fit or load first")
+        return self.load_fn(lambda m, x: m.apply(x, training=False), model)
+
+    @staticmethod
+    def _infer_serving_dtype(module: nn.Module) -> str:
+        """What precision this model serves in, from its weights: any int8
+        tensor → "int8", else bf16 → "bfloat16", else "float32"."""
+        dtypes = {t.dtype for t in module.state_dict().values()}
+        if torch.int8 in dtypes:
+            return "int8"
+        if torch.bfloat16 in dtypes:
+            return "bfloat16"
+        return "float32"
+
+    def load_fn(self, fn: Callable, params: nn.Module) -> "InferenceModel":
+        """Forward `fn(params, x)`; `params` is the module holding the
+        weights (moved to the device in place, put in eval mode)."""
+        self._fn = fn
+        self.serving_dtype = self._infer_serving_dtype(params)
+        self._params = params.to(self.device).eval()
+        self.warmup_report = {}
+        self.warmed_buckets = set()
+        return self
+
+    # -- predict ---------------------------------------------------------
+    def predict(self, x) -> np.ndarray:
+        """Sync predict: dispatch + materialize."""
+        return self.predict_async(x).result()
+
+    def _forward(self, x):
+        with torch.inference_mode():
+            return self._fn(self._params, x)
+
+    def predict_async(self, x, valid_n: Optional[int] = None):
+        """Dispatch without syncing: upload the raw batch once, pad it to
+        its bucket on the device by repeating the last row, queue the
+        forward and return a `PendingPrediction`. `valid_n` marks how many
+        leading records are real when the caller already padded."""
+        if self._fn is None:
+            raise RuntimeError("No model loaded")
+        x = tree_map(_as_host_tensor, x)
+        leaves = tree_leaves(x)
+        n = leaves[0].shape[0] if leaves[0].dim() > 0 else 1
+        valid_n = n if valid_n is None else min(valid_n, n)
+
+        if n > self.max_batch:
+            # split oversize inputs into max_batch chunks, all in flight
+            parts = []
+            for s in range(0, n, self.max_batch):
+                part = tree_map(lambda a: a[s:s + self.max_batch], x)
+                remain = max(0, valid_n - s)
+                parts.append(self.predict_async(
+                    part, valid_n=min(remain, self.max_batch)))
+            return _JoinedPending(parts)
+
+        acquired = self._sema.acquire(timeout=60)
+        if not acquired:
+            if not self.auto_scaling:
+                raise TimeoutError("predict queue exhausted "
+                                   "(concurrent_num permits busy)")
+            self._sema.release()  # grow like the reference's auto-scaling
+        t0 = time.perf_counter()
+        try:
+            bucket = _next_bucket(n, self.buckets)
+            x = tree_map(lambda a: a.to(self.device, non_blocking=True), x)
+            if n != bucket:
+                pad = bucket - n
+                x = tree_map(lambda a: torch.cat(
+                    [a, a[-1:].expand((pad,) + tuple(a.shape[1:]))]), x)
+            out = self._forward(x)
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+        finally:
+            # the permit bounds dispatch admission, not result lifetime
+            if acquired:
+                self._sema.release()
+        return PendingPrediction(out, valid_n, timer=self.timer,
+                                 dispatch_s=time.perf_counter() - t0,
+                                 ready=ready)
+
+    # -- warmup ----------------------------------------------------------
+    def warmup(self, sample, buckets: Optional[List[int]] = None
+               ) -> "InferenceModel":
+        """Run every shape bucket once at load time. `sample` is ONE record
+        (no batch dim), or a list/dict of records for multi-input models.
+        Per-bucket seconds land in `warmup_report`, keyed
+        `"{record shape}:b{bucket}"`; warmed buckets in `warmed_buckets`.
+        Warmup bypasses `predict`, so the serving Timer stays clean."""
+        if self._fn is None:
+            raise RuntimeError("No model loaded")
+        buckets = list(buckets) if buckets is not None else list(self.buckets)
+        sample = tree_map(np.asarray, sample)
+        tag = "x".join(map(str, tree_leaves(sample)[0].shape)) or "scalar"
+        for b in buckets:
+            batch = tree_map(
+                lambda a: _as_host_tensor(np.broadcast_to(
+                    a[None], (b,) + a.shape)).to(self.device), sample)
+            t0 = time.perf_counter()
+            self._forward(batch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            rkey = f"{tag}:b{b}"
+            self.warmup_report[rkey] = round(time.perf_counter() - t0, 4)
+            self.warmed_buckets.add(b)
+        return self
