@@ -17,12 +17,20 @@ as the JAX package does (no transpose; the fused QKV kernel keeps its
 q|k|v column order) and names its modules after the tree's keys, so a
 state-dict key is the tree path joined by "." with `{enc}_block{i}`
 renamed `blocks.{i}`.
+
+Loaded with `load_state_dict`, the weights land in the model's own
+parameters, which are trainable (`requires_grad`), so a converted model
+fine-tunes as it is. Optimizer state crosses too: a JAX Adam state (optax's
+`ScaleByAdamState`, an optax chain holding one, as `optax.adam`/`adamw`
+build, or the JAX package's `FusedAdamState`) maps onto the port's
+`ops.optimizers.FusedAdamState` and back, its moment trees mapped like the
+parameters.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -30,6 +38,7 @@ import torch
 from analytics_zoo_tpu_torch.common.tree import tree_leaves
 from analytics_zoo_tpu_torch.keras.transformer import (stack_block_params,
                                                        unstack_block_params)
+from analytics_zoo_tpu_torch.ops.optimizers import FusedAdamState
 from analytics_zoo_tpu_torch.serving.quantization import INT8_NOT_PORTED
 
 _BLOCK_KEY = re.compile(r"^(?P<prefix>.+)_block(?P<index>\d+)$")
@@ -62,6 +71,16 @@ def _encoder_to_port(name: str, tree: Mapping) -> Mapping:
     return out
 
 
+def _to_tensor(a) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor; numpy's bfloat16 (the `ml_dtypes`
+    type jax hands out), which torch cannot wrap, crosses through float32
+    exactly."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX `BERTClassifier` tree (stacked or not) → the port's state dict
     (CPU tensors in the tree's dtypes; `load_state_dict` copies them onto
@@ -71,13 +90,14 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             for key, value in tree.items()}
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
-    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+    return {k: _to_tensor(v) for k, v in flat.items()}
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor],
                   stacked: bool = False) -> Dict:
     """Inverse of `params_from_jax`: the port's state dict → the JAX tree,
-    in the stacked layout when `stacked`."""
+    in the stacked layout when `stacked` (bfloat16 leaves come back as
+    float32 arrays: numpy has no bfloat16)."""
     tree: Dict = {}
     for key, value in state_dict.items():
         parts = key.split(".")
@@ -86,7 +106,10 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = value.detach().cpu().numpy()
+        value = value.detach().cpu()
+        if value.dtype == torch.bfloat16:    # numpy has no bfloat16
+            value = value.float()
+        node[parts[-1]] = value.numpy()
     if stacked:
         for name, sub in tree.items():
             if isinstance(sub, dict):
@@ -94,3 +117,37 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
                 if n_block:
                     tree[name] = stack_block_params(sub, n_block, name)
     return tree
+
+
+def _adam_state(state) -> Any:
+    """The (count, mu, nu) record inside a JAX optimizer state."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for part in state:
+            try:
+                return _adam_state(part)
+            except ValueError:
+                continue
+    raise ValueError(f"no Adam state (count, mu, nu) in {type(state)}")
+
+
+def opt_state_from_jax(state, device=None) -> FusedAdamState:
+    """A JAX Adam state → the port's `FusedAdamState` (count as an int,
+    moments as state dicts, on `device`)."""
+    adam = _adam_state(state)
+
+    def moments(tree):
+        return {k: v.to(device) for k, v in params_from_jax(tree).items()}
+    return FusedAdamState(int(np.asarray(adam.count)), moments(adam.mu),
+                          moments(adam.nu))
+
+
+def opt_state_to_jax(state: FusedAdamState,
+                     stacked: bool = False) -> FusedAdamState:
+    """The port's state → (count as int32, mu, nu as JAX trees of numpy
+    arrays); wrap it as the JAX side needs (`optax.ScaleByAdamState(*t)`,
+    `FusedAdamState(*t)`)."""
+    return FusedAdamState(np.int32(state.count),
+                          params_to_jax(state.mu, stacked),
+                          params_to_jax(state.nu, stacked))

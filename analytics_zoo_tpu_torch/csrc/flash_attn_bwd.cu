@@ -1,0 +1,557 @@
+// Flash-attention backward for Hopper (sm_90a), with a plain C interface:
+// two kernels, dK/dV and dQ, plus a helper that exports the attention
+// dropout's keep-scale matrix for the checks.
+//
+// Replaces the three backward kernels of
+// analytics_zoo_tpu/pallas/flash_attention.py, launched by `_flash_bwd`
+// (L462): `_bwd_fused_kernel` (L407, `pl.pallas_call` at L497), `_dq_kernel`
+// (L323, L540) and `_dkv_kernel` (L362, L562). The TPU picks the fused
+// kernel or the pair by how many k-blocks fit its VMEM (`n_kb <= 4`, L496);
+// that choice is about VMEM and does not carry over: here there is always
+// the pair.
+//
+// What they compute, for each (batch*head), query row i and key j, from the
+// forward's inputs, its lse and delta_i = rowsum(dO_i * O_i) (L480,
+// computed outside the kernels as there):
+//   P_ij  = exp((q_i . k_j) * scale + mask_j - lse_i)     softmax weights
+//   dP_ij = (dO_i . v_j) * keep_ij
+//   dS_ij = P_ij * (dP_ij - delta_i)
+//   dV_j  = sum_i P_ij * keep_ij * dO_i
+//   dK_j  = scale * sum_i dS_ij * q_i                        (L384-404)
+//   dQ_i  = scale * sum_j dS_ij * k_j                        (L346-359)
+// keep_ij is the forward's keep scale, regenerated from the seed by the
+// same Philox byte rule (`philox.cuh`), so no mask is stored. Inputs are
+// f32 or bf16, every product and sum is f32, dQ, dK and dV are written in
+// the input dtype. The padding mask gets no gradient (zero in the TPU
+// version, L594-596).
+//
+// What bounds them on an H100: the pair does 7 T x T x D products per head
+// (the fused TPU kernel 5), about 2*T FLOP per element moved, so they are
+// compute-shaped. This first version does them as f32 FMAs on the CUDA
+// cores (67 TFLOP/s peak), like the forward; mma/wgmma tiles are later work.
+//
+// What their design does about that. The TPU grid accumulates over a
+// sequential axis in VMEM scratch; on Hopper blocks run in no order, so each
+// kernel owns its output rows and loops over the other axis itself, and no
+// partial sums cross blocks:
+//   - dkv: one block owns one (b*h, tile of 128/TPR keys); a thread owns a
+//     32-wide slice of one key's k, v and its dK, dV accumulators in
+//     registers (TPR = 1, 2, 4 threads per key for D <= 32, 64, 128; one
+//     or two shuffles join the partial dots). The block walks the query
+//     tiles, staging q, dO, lse and delta of 32-64 rows in shared memory,
+//     read back as 16-byte broadcasts; the dropout keep bytes of a tile are
+//     drawn once per tile into shared memory (one Philox call per 16 keys).
+//   - dq: one block owns one (b*h, tile of 128/TPR query rows); a thread
+//     owns a 32-wide slice of one row's q, dO and dQ accumulator, and walks
+//     the key tiles staged in shared memory, 16 keys at a time, so one
+//     Philox call gives the 16 keep bytes, as in the forward.
+//   - ragged T: keys past T get a -inf bias (dq) or are never stored
+//     (dkv); query rows past T are never visited (dkv) or stored (dq).
+// Threads past the end still run the loops, on zeros, so every lane takes
+// part in the shuffles.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using azt::axpy4;
+using azt::dot4;
+using azt::load4;
+using azt::load_group;
+using azt::store4;
+using azt::store_group;
+
+constexpr int kThreads = 128;  // threads per block
+constexpr int kGroups = 8;     // float4 groups one thread owns: 32 dims
+constexpr int kChunk = 16;     // keys per step of the dq loop
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Sum over the TPR neighbouring lanes that share one row.
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+  if (TPR >= 2) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+  }
+  if (TPR >= 4) {
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+  }
+  return x;
+}
+
+// A 32-wide slice of one row: thread h of the row's TPR lanes owns the
+// float4 groups g = h + TPR*i, so neighbouring lanes read neighbouring
+// 16-byte words.
+template <typename T, int TPR>
+__device__ __forceinline__ void load_slice(const T* row, int h, int dim,
+                                           bool vec, bool ok, float4* out) {
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    const int d = 4 * (h + TPR * i);
+    out[i] = (ok && d < dim) ? load_group(row, d, dim, vec)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <typename T, int TPR>
+__device__ __forceinline__ void store_slice(T* row, int h, int dim, bool vec,
+                                            const float4* acc, float s) {
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    const int d = 4 * (h + TPR * i);
+    if (d < dim) {
+      store_group(row, d, dim, vec, azt::scale4(acc[i], s));
+    }
+  }
+}
+
+template <typename T, int TPR, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ mask,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int heads, int seq, int dim,
+                     float scale, azt::AttnDropout drop) {
+  constexpr int kDMax = 32 * TPR;
+  constexpr int kRowGroups = kDMax / 4;
+  constexpr int kKeysPerBlock = kThreads / TPR;
+  constexpr int kQRows = TPR == 4 ? 32 : 64;  // q rows per staged tile
+  constexpr int kCol16 = kKeysPerBlock / kChunk;
+  static_assert(kKeysPerBlock % kChunk == 0, "whole 16-key groups");
+
+  __shared__ __align__(16) float qs[kQRows * kDMax];
+  __shared__ __align__(16) float dos[kQRows * kDMax];
+  __shared__ float lse_s[kQRows];  // log2 domain
+  __shared__ float delta_s[kQRows];
+  __shared__ uint8_t keep_s[kDrop ? kQRows * kKeysPerBlock : 1];
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int h = tid % TPR;
+  const int key0 = blockIdx.x * kKeysPerBlock;
+  const int jl = tid / TPR;
+  const int key = key0 + jl;
+  const bool key_ok = key < seq;
+  const size_t head = (size_t)bh * seq * dim;
+  const float scale_log2 = scale * kLog2e;
+  const bool vec = dim % 4 == 0;
+
+  float4 kr[kGroups], vr[kGroups], dk_acc[kGroups], dv_acc[kGroups];
+  load_slice<T, TPR>(k + head + (size_t)key * dim, h, dim, vec, key_ok, kr);
+  load_slice<T, TPR>(v + head + (size_t)key * dim, h, dim, vec, key_ok, vr);
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    dk_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    dv_acc[i] = dk_acc[i];
+  }
+  const float mj = (key_ok && mask != nullptr)
+                       ? mask[(size_t)b * seq + key] * kLog2e
+                       : 0.f;
+
+  for (int i0 = 0; i0 < seq; i0 += kQRows) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = tid; e < kQRows * kRowGroups; e += kThreads) {
+      const int r = e / kRowGroups;
+      const int d = 4 * (e % kRowGroups);
+      const int row = i0 + r;
+      float4 qq = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 dd = qq;
+      if (row < seq && d < dim) {
+        qq = load_group(q + head + (size_t)row * dim, d, dim, vec);
+        dd = load_group(dout + head + (size_t)row * dim, d, dim, vec);
+      }
+      store4(&qs[r * kDMax + d], qq);
+      store4(&dos[r * kDMax + d], dd);
+    }
+    for (int r = tid; r < kQRows; r += kThreads) {
+      const int row = i0 + r;
+      lse_s[r] = row < seq ? lse[(size_t)bh * seq + row] * kLog2e : 0.f;
+      delta_s[r] = row < seq ? delta[(size_t)bh * seq + row] : 0.f;
+    }
+    if (kDrop) {
+      for (int e = tid; e < kQRows * kCol16; e += kThreads) {
+        const int r = e / kCol16;
+        const int c16 = e % kCol16;
+        const azt::Philox4 bits = azt::attn_keep_bits(
+            drop.k0, drop.k1, bh, i0 + r, key0 / kChunk + c16);
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          keep_s[r * kKeysPerBlock + c16 * kChunk + c] =
+              azt::keep_byte(bits, c) < drop.t;
+        }
+      }
+    }
+    __syncthreads();
+
+    const int n_rows = min(kQRows, seq - i0);
+    for (int r = 0; r < n_rows; ++r) {
+      const float* qrow = &qs[r * kDMax];
+      const float* drow = &dos[r * kDMax];
+      float s = 0.f;
+      float dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < kGroups; ++i) {
+        const int off = 4 * (h + TPR * i);
+        s = dot4(load4(qrow + off), kr[i], s);
+        dp = dot4(load4(drow + off), vr[i], dp);
+      }
+      s = row_sum<TPR>(s);
+      dp = row_sum<TPR>(dp);
+      const float p = exp2f(fmaf(s, scale_log2, mj) - lse_s[r]);
+      float pv = p;
+      if (kDrop) {
+        const float ksc = keep_s[r * kKeysPerBlock + jl] ? drop.keep_scale
+                                                         : 0.f;
+        pv = p * ksc;
+        dp = dp * ksc;
+      }
+      const float ds = p * (dp - delta_s[r]);
+#pragma unroll
+      for (int i = 0; i < kGroups; ++i) {
+        const int off = 4 * (h + TPR * i);
+        axpy4(pv, load4(drow + off), dv_acc[i]);
+        axpy4(ds, load4(qrow + off), dk_acc[i]);
+      }
+    }
+  }
+
+  if (key_ok) {
+    store_slice<T, TPR>(dk + head + (size_t)key * dim, h, dim, vec, dk_acc,
+                        scale);
+    store_slice<T, TPR>(dv + head + (size_t)key * dim, h, dim, vec, dv_acc,
+                        1.f);
+  }
+}
+
+template <typename T, int TPR, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ mask,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int heads, int seq, int dim, float scale,
+                    azt::AttnDropout drop) {
+  constexpr int kDMax = 32 * TPR;
+  constexpr int kRowGroups = kDMax / 4;
+  constexpr int kRows = kThreads / TPR;  // query rows per block
+  constexpr int kKeys = 4096 / kDMax;    // keys per tile: K+V = 32 KB f32
+  static_assert(kKeys % kChunk == 0, "tile must hold whole chunks");
+
+  __shared__ __align__(16) float ks[kKeys * kDMax];
+  __shared__ __align__(16) float vs[kKeys * kDMax];
+  __shared__ float ms[kKeys];
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int h = tid % TPR;
+  const int row = blockIdx.x * kRows + tid / TPR;
+  const bool row_ok = row < seq;
+  const size_t head = (size_t)bh * seq * dim;
+  const float scale_log2 = scale * kLog2e;
+  const bool vec = dim % 4 == 0;
+
+  float4 qr[kGroups], dor[kGroups], dq_acc[kGroups];
+  load_slice<T, TPR>(q + head + (size_t)row * dim, h, dim, vec, row_ok, qr);
+  load_slice<T, TPR>(dout + head + (size_t)row * dim, h, dim, vec, row_ok,
+                     dor);
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    dq_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float lse_i = row_ok ? lse[(size_t)bh * seq + row] * kLog2e : 0.f;
+  const float delta_i = row_ok ? delta[(size_t)bh * seq + row] : 0.f;
+
+  for (int k0 = 0; k0 < seq; k0 += kKeys) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = tid; e < kKeys * kRowGroups; e += kThreads) {
+      const int j = e / kRowGroups;
+      const int d = 4 * (e % kRowGroups);
+      const int key = k0 + j;
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 vv = kk;
+      if (key < seq && d < dim) {
+        kk = load_group(k + head + (size_t)key * dim, d, dim, vec);
+        vv = load_group(v + head + (size_t)key * dim, d, dim, vec);
+      }
+      store4(&ks[j * kDMax + d], kk);
+      store4(&vs[j * kDMax + d], vv);
+    }
+    for (int j = tid; j < kKeys; j += kThreads) {
+      const int key = k0 + j;
+      float bias = -INFINITY;  // ragged edge: keys past T never count
+      if (key < seq) {
+        bias = mask != nullptr ? mask[(size_t)b * seq + key] * kLog2e : 0.f;
+      }
+      ms[j] = bias;
+    }
+    __syncthreads();
+
+    const int n_keys = min(kKeys, seq - k0);
+    for (int c0 = 0; c0 < n_keys; c0 += kChunk) {
+      float s[kChunk];
+      float dp[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const float* kr = &ks[(c0 + c) * kDMax];
+        const float* vr = &vs[(c0 + c) * kDMax];
+        float a = 0.f;
+        float bsum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kGroups; ++i) {
+          const int off = 4 * (h + TPR * i);
+          a = dot4(qr[i], load4(kr + off), a);
+          bsum = dot4(dor[i], load4(vr + off), bsum);
+        }
+        s[c] = row_sum<TPR>(a);
+        dp[c] = row_sum<TPR>(bsum);
+      }
+      azt::Philox4 bits = {};
+      if (kDrop) {
+        bits = azt::attn_keep_bits(drop.k0, drop.k1, bh, row,
+                                   (k0 + c0) / kChunk);
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const float p =
+            exp2f(fmaf(s[c], scale_log2, ms[c0 + c]) - lse_i);
+        float dpk = dp[c];
+        if (kDrop) {
+          dpk = azt::keep_byte(bits, c) < drop.t ? dpk * drop.keep_scale
+                                                 : 0.f;
+        }
+        s[c] = p * (dpk - delta_i);  // dS
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const float* kr = &ks[(c0 + c) * kDMax];
+#pragma unroll
+        for (int i = 0; i < kGroups; ++i) {
+          axpy4(s[c], load4(kr + 4 * (h + TPR * i)), dq_acc[i]);
+        }
+      }
+    }
+  }
+
+  if (row_ok) {
+    store_slice<T, TPR>(dq + head + (size_t)row * dim, h, dim, vec, dq_acc,
+                        scale);
+  }
+}
+
+__global__ void keep_scale_kernel(float* __restrict__ out, int bh_count,
+                                  int seq, azt::AttnDropout drop) {
+  const int n16 = (seq + kChunk - 1) / kChunk;
+  const long long total = (long long)bh_count * seq * n16;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += stride) {
+    const int c16 = static_cast<int>(e % n16);
+    const long long rest = e / n16;
+    const int row = static_cast<int>(rest % seq);
+    const int bh = static_cast<int>(rest / seq);
+    const azt::Philox4 bits =
+        azt::attn_keep_bits(drop.k0, drop.k1, bh, row, c16);
+    float* dst = out + ((size_t)bh * seq + row) * seq + c16 * kChunk;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (c16 * kChunk + c < seq) {
+        dst[c] = azt::keep_byte(bits, c) < drop.t ? drop.keep_scale : 0.f;
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *mask, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int bh, heads, seq, dim;
+  float scale;
+  azt::AttnDropout drop;
+  cudaStream_t stream;
+};
+
+template <typename T, int TPR, bool kDrop>
+void launch_dkv(const Args& a) {
+  constexpr int kKeysPerBlock = kThreads / TPR;
+  const dim3 grid((a.seq + kKeysPerBlock - 1) / kKeysPerBlock, a.bh);
+  flash_bwd_dkv_kernel<T, TPR, kDrop><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.mask),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.heads, a.seq, a.dim, a.scale, a.drop);
+}
+
+template <typename T, int TPR, bool kDrop>
+void launch_dq(const Args& a) {
+  constexpr int kRows = kThreads / TPR;
+  const dim3 grid((a.seq + kRows - 1) / kRows, a.bh);
+  flash_bwd_dq_kernel<T, TPR, kDrop><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.mask),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.heads,
+      a.seq, a.dim, a.scale, a.drop);
+}
+
+template <typename T, int TPR>
+void dkv_by_drop(const Args& a) {
+  if (a.drop.t != 0) {
+    launch_dkv<T, TPR, true>(a);
+  } else {
+    launch_dkv<T, TPR, false>(a);
+  }
+}
+
+template <typename T, int TPR>
+void dq_by_drop(const Args& a) {
+  if (a.drop.t != 0) {
+    launch_dq<T, TPR, true>(a);
+  } else {
+    launch_dq<T, TPR, false>(a);
+  }
+}
+
+template <typename T>
+void dkv_by_dim(const Args& a) {
+  if (a.dim <= 32) {
+    dkv_by_drop<T, 1>(a);
+  } else if (a.dim <= 64) {
+    dkv_by_drop<T, 2>(a);
+  } else {
+    dkv_by_drop<T, 4>(a);
+  }
+}
+
+template <typename T>
+void dq_by_dim(const Args& a) {
+  if (a.dim <= 32) {
+    dq_by_drop<T, 1>(a);
+  } else if (a.dim <= 64) {
+    dq_by_drop<T, 2>(a);
+  } else {
+    dq_by_drop<T, 4>(a);
+  }
+}
+
+bool valid(int bh, int heads, int seq, int dim, int dtype, int t) {
+  return bh > 0 && bh <= 65535 && heads > 0 && bh % heads == 0 && seq > 0 &&
+         dim > 0 && dim <= 128 && (dtype == 0 || dtype == 1) && t >= 0 &&
+         t <= 255;
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* mask,
+               const void* dout, const void* lse, const void* delta,
+               void* dq, void* dk, void* dv, int bh, int heads, int seq,
+               int dim, float scale, unsigned long long seed,
+               int keep_threshold, float keep_scale, void* stream) {
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = mask;
+  a.dout = dout;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.bh = bh;
+  a.heads = heads;
+  a.seq = seq;
+  a.dim = dim;
+  a.scale = scale;
+  a.drop = {static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
+            static_cast<uint32_t>(keep_threshold), keep_scale};
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, dout, dk, dv: contiguous
+// [bh, seq, dim], 16-byte aligned, dim <= 128; mask: contiguous f32
+// [bh / heads, seq] or null; lse, delta: f32 [bh, seq]. keep_threshold:
+// the byte rule's t in [1, 255], or 0 for no dropout; keep_scale = 256 / t.
+// Returns the cudaError_t of the launch (0 on success).
+int azt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
+                           const void* mask, const void* dout,
+                           const void* lse, const void* delta, void* dk,
+                           void* dv, int bh, int heads, int seq, int dim,
+                           float scale, int dtype, unsigned long long seed,
+                           int keep_threshold, float keep_scale,
+                           void* stream) {
+  if (!valid(bh, heads, seq, dim, dtype, keep_threshold)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a = make_args(q, k, v, mask, dout, lse, delta, nullptr, dk, dv,
+                           bh, heads, seq, dim, scale, seed, keep_threshold,
+                           keep_scale, stream);
+  if (dtype == 0) {
+    dkv_by_dim<float>(a);
+  } else {
+    dkv_by_dim<__nv_bfloat16>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As `azt_flash_attn_bwd_dkv`, writing dq [bh, seq, dim].
+int azt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
+                          const void* mask, const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int heads,
+                          int seq, int dim, float scale, int dtype,
+                          unsigned long long seed, int keep_threshold,
+                          float keep_scale, void* stream) {
+  if (!valid(bh, heads, seq, dim, dtype, keep_threshold)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a = make_args(q, k, v, mask, dout, lse, delta, dq, nullptr,
+                           nullptr, bh, heads, seq, dim, scale, seed,
+                           keep_threshold, keep_scale, stream);
+  if (dtype == 0) {
+    dq_by_dim<float>(a);
+  } else {
+    dq_by_dim<__nv_bfloat16>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The attention dropout's keep-scale matrix: out f32 [bh, seq, seq] gets
+// keep_scale where the byte of (seed, b*h, row, column) is below
+// keep_threshold (in [1, 255]), else 0. A test aid: the checks hand it to
+// the plain version as an injected mask.
+int azt_attn_keep_scale(void* out, int bh, int seq, unsigned long long seed,
+                        int keep_threshold, float keep_scale, void* stream) {
+  if (bh <= 0 || seq <= 0 || keep_threshold < 1 || keep_threshold > 255) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const azt::AttnDropout drop = {static_cast<uint32_t>(seed),
+                                 static_cast<uint32_t>(seed >> 32),
+                                 static_cast<uint32_t>(keep_threshold),
+                                 keep_scale};
+  const long long total =
+      (long long)bh * seq * ((seq + kChunk - 1) / kChunk);
+  long long blocks = (total + 255) / 256;
+  blocks = blocks < 132 * 16 ? blocks : 132 * 16;
+  keep_scale_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), bh, seq, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* azt_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -2,12 +2,18 @@
 //
 // Replaces `_fwd_kernel` of analytics_zoo_tpu/pallas/flash_attention.py
 // (L217), launched there by `_flash_fwd` (L278) through `pl.pallas_call`
-// (L290), at dropout rate 0 (the serving path).
+// (L290), with its in-kernel attention dropout (L242-250).
 //
 // What it computes, for each (batch*head) and query row i of [B*H, T, D]:
 //   s_j   = (q_i . k_j) * (1/sqrt(D)) + mask[b, j]    additive [B,1,1,T] f32
-//   O_i   = sum_j softmax(s)_j * v_j                   stored in the input dtype
+//   p_j   = exp(s_j - max_j s_j)
+//   O_i   = sum_j p_j * keep_ij * v_j / sum_j p_j     in the input dtype
 //   lse_i = max_j s_j + log(sum_j exp(s_j - max))      f32, for the backward
+// keep_ij is 1 without dropout; with dropout it is the keep scale of the
+// byte rule (`philox.cuh`: 256/t where the byte of (seed, b*h, i, j) is
+// below t, else 0). As in the TPU kernel, the denominator sums the
+// undropped p, so dropout applies to the normalised weights. The backward
+// kernels (`flash_attn_bwd.cu`) regenerate the same bits.
 // Inputs are f32 or bf16; every score, softmax statistic and accumulator is
 // f32. D may be any size up to 128 (rows whose length is not a multiple of 4
 // are read element by element); T need not be a multiple of the
@@ -18,7 +24,8 @@
 // 4*T*D elements moved, about T FLOP per element (512 at BERT's T = 512),
 // so it is compute-shaped, not a memory stream. This first version does its
 // FLOPs as f32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the tensor
-// cores; mma/wgmma tiles are later work.
+// cores; mma/wgmma tiles are later work. Dropout adds one Philox call (10
+// rounds) per 16 scores.
 //
 // What its design does about that. The TPU grid carries (acc, m, l) across a
 // sequential k-block grid axis in VMEM scratch; on Hopper blocks run in no
@@ -35,7 +42,9 @@
 //     key), one per four FMAs;
 //   - the softmax runs in the log2 domain (log2 e folded into the scale,
 //     exp2f), rescaling the accumulator once per chunk of 16 keys, and the
-//     division by l happens once at the end.
+//     division by l happens once at the end;
+//   - a chunk of 16 keys starts at a multiple of 16, so one Philox call
+//     gives the chunk's 16 keep bytes.
 // A row whose running max is still -inf (no finite score yet) uses 0 as the
 // exponent base, so exp(-inf - -inf) never occurs.
 
@@ -44,7 +53,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+#include "philox.cuh"
+
 namespace {
+
+using azt::axpy4;
+using azt::dot4;
+using azt::load4;
+using azt::load_group;
+using azt::store4;
+using azt::store_group;
 
 constexpr int kThreads = 128;       // threads per block
 constexpr int kDimsPerThread = 64;  // head dims one thread owns
@@ -53,97 +72,15 @@ constexpr int kChunk = 16;          // keys per online-softmax update
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_float(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Four elements [d, d+4) of a row of `dim` (zeros past `dim`): one vector
-// access when rows are a whole number of 4-element groups (`vec`), else
-// element by element, since such rows are not 8/16-byte aligned.
-template <typename T>
-__device__ __forceinline__ float4 load_group(const T* row, int d, int dim,
-                                             bool vec) {
-  if (vec) {
-    return load4(row + d);
-  }
-  float x[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    x[e] = d + e < dim ? to_float(row[d + e]) : 0.f;
-  }
-  return make_float4(x[0], x[1], x[2], x[3]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_group(T* row, int d, int dim, bool vec,
-                                            float4 v) {
-  if (vec) {
-    store4(row + d, v);
-    return;
-  }
-  const float x[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if (d + e < dim) {
-      from_float(row + d + e, x[e]);
-    }
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float p, float4 v, float4& acc) {
-  acc.x = fmaf(p, v.x, acc.x);
-  acc.y = fmaf(p, v.y, acc.y);
-  acc.z = fmaf(p, v.z, acc.z);
-  acc.w = fmaf(p, v.w, acc.w);
-}
-
 // TPR: threads per query row (1 for D <= 64, 2 for D <= 128). Thread h of a
 // row owns the float4 groups g = h + TPR*i, i < kGroups, so the lanes of a
 // row pair read neighbouring 16-byte words of a key (no bank conflict).
-template <typename T, int TPR>
+template <typename T, int TPR, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, int heads,
-                 int seq, int dim, float scale) {
+                 int seq, int dim, float scale, azt::AttnDropout drop) {
   constexpr int kDMax = kDimsPerThread * TPR;
   constexpr int kRows = kThreads / TPR;   // query rows per block
   constexpr int kKeys = 4096 / kDMax;     // keys per tile: K+V = 32 KB f32
@@ -175,7 +112,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = -INFINITY;  // running max of the log2-domain scores
-  float l = 0.f;        // running sum of 2^(s - m)
+  float l = 0.f;        // running sum of 2^(s - m), undropped
 
   for (int k0 = 0; k0 < seq; k0 += kKeys) {
     __syncthreads();  // every thread is done with the previous tile
@@ -232,6 +169,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       l = fmaf(l, alpha, psum);
       m = m_new;
+      if (kDrop) {
+        // the denominator above took the undropped p; the PV product
+        // takes p * keep scale
+        const azt::Philox4 bits = azt::attn_keep_bits(
+            drop.k0, drop.k1, bh, row, (k0 + c0) / kChunk);
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          s[c] = azt::keep_byte(bits, c) < drop.t ? s[c] * drop.keep_scale
+                                                  : 0.f;
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kGroups; ++i) {
         acc[i].x *= alpha;
@@ -257,8 +205,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = 4 * (h + TPR * i);
       if (d < dim) {
         store_group(o + head + (size_t)row * dim, d, dim, vec,
-                    make_float4(acc[i].x * inv_l, acc[i].y * inv_l,
-                                acc[i].z * inv_l, acc[i].w * inv_l));
+                    azt::scale4(acc[i], inv_l));
       }
     }
     if (h == 0) {
@@ -270,13 +217,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int TPR>
 void launch(const void* q, const void* k, const void* v, const void* mask,
             void* o, void* lse, int bh, int heads, int seq, int dim,
-            float scale, cudaStream_t stream) {
+            float scale, azt::AttnDropout drop, cudaStream_t stream) {
   constexpr int kRows = kThreads / TPR;
   const dim3 grid((seq + kRows - 1) / kRows, bh);
-  flash_fwd_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(mask),
-      static_cast<T*>(o), static_cast<float*>(lse), heads, seq, dim, scale);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const float* mp = static_cast<const float*>(mask);
+  T* op = static_cast<T*>(o);
+  float* lp = static_cast<float*>(lse);
+  if (drop.t != 0) {
+    flash_fwd_kernel<T, TPR, true><<<grid, kThreads, 0, stream>>>(
+        qp, kp, vp, mp, op, lp, heads, seq, dim, scale, drop);
+  } else {
+    flash_fwd_kernel<T, TPR, false><<<grid, kThreads, 0, stream>>>(
+        qp, kp, vp, mp, op, lp, heads, seq, dim, scale, drop);
+  }
 }
 
 }  // namespace
@@ -285,30 +241,38 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous [bh, seq, dim],
 // 16-byte aligned, dim <= 128; mask: contiguous f32 [bh / heads, seq] or
-// null; lse: f32 [bh, seq]. Returns the cudaError_t of the launch (0 on
-// success).
+// null; lse: f32 [bh, seq]. keep_threshold: the byte rule's t in [1, 255],
+// or 0 for no dropout; keep_scale = 256 / t. Returns the cudaError_t of the
+// launch (0 on success).
 int azt_flash_attn_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* o, void* lse, int bh,
                        int heads, int seq, int dim, float scale, int dtype,
-                       void* stream) {
+                       unsigned long long seed, int keep_threshold,
+                       float keep_scale, void* stream) {
   if (bh <= 0 || bh > 65535 || heads <= 0 || bh % heads != 0 || seq <= 0 ||
-      dim <= 0 || dim > 128 || (dtype != 0 && dtype != 1)) {
+      dim <= 0 || dim > 128 || (dtype != 0 && dtype != 1) ||
+      keep_threshold < 0 || keep_threshold > 255) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const azt::AttnDropout drop = {static_cast<uint32_t>(seed),
+                        static_cast<uint32_t>(seed >> 32),
+                        static_cast<uint32_t>(keep_threshold), keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (dim <= 64) {
-      launch<float, 1>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale, s);
+      launch<float, 1>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
+                       drop, s);
     } else {
-      launch<float, 2>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale, s);
+      launch<float, 2>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
+                       drop, s);
     }
   } else {
     if (dim <= 64) {
       launch<__nv_bfloat16, 1>(q, k, v, mask, o, lse, bh, heads, seq, dim,
-                               scale, s);
+                               scale, drop, s);
     } else {
       launch<__nv_bfloat16, 2>(q, k, v, mask, o, lse, bh, heads, seq, dim,
-                               scale, s);
+                               scale, drop, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

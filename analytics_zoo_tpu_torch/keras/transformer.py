@@ -16,15 +16,25 @@ parameter tree maps onto the port's state dict by name alone
 (`convert.py`). The stacked layout (`BERT(stacked=True)`, one `[L, ...]`
 buffer per tensor, a `lax.scan` over blocks) has no counterpart in eager
 PyTorch: the port keeps one module per block and `convert.py` accepts both
-JAX layouts. Dropout (training) and `remat` wait for the training slice.
+JAX layouts.
+
+Dropout runs where the JAX package runs it, when `training` and a seed are
+given (the JAX `rng`): after the embedding LayerNorm, on the attention
+weights (inside the flash kernels with `use_flash`), on the attention
+output and after the FFN of every block. Each site's seed derives from its
+parent's by a fixed rule (`kernels.philox.site_seed(seed, site index)`),
+the port's stand-in for splitting a `jax.random` key, so one integer
+reproduces a whole step. `remat` is not ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.device import DeviceLike
@@ -32,23 +42,51 @@ from analytics_zoo_tpu_torch.common.tree import tree_map
 from analytics_zoo_tpu_torch.keras.engine import Layer, new_parameter
 from analytics_zoo_tpu_torch.keras.layers import (LayerNormalization, fill_,
                                                   get_activation, get_init)
+from analytics_zoo_tpu_torch.kernels.dropout import fused_dropout
 from analytics_zoo_tpu_torch.kernels.flash_attention import (
-    DROPOUT_NOT_PORTED, _reference_attention, flash_attention)
+    _reference_attention, flash_attention)
+from analytics_zoo_tpu_torch.kernels.philox import site_seed
 from analytics_zoo_tpu_torch.serving.quantization import maybe_int8_matmul
 
 
-def _no_training_dropout(training: bool, *rates: float) -> None:
-    if training and any(r > 0.0 for r in rates):
-        raise NotImplementedError(DROPOUT_NOT_PORTED)
+def _dropout(seed: int, rate: float, x):
+    """Shared inverted dropout: the dropout kernel on the card."""
+    return fused_dropout(x, rate, seed=seed)
 
 
-def dot_product_attention(q, k, v, mask=None, use_flash: bool = False):
+def _site_seeds(training: bool, seed: Optional[int], n: int):
+    """The seeds of a layer's `n` dropout sites, or Nones when the layer
+    runs without dropout (not training, or no seed — as the JAX layers do
+    without an `rng`)."""
+    if not training or seed is None:
+        return [None] * n
+    return [site_seed(seed, i) for i in range(n)]
+
+
+def dot_product_attention(q, k, v, mask=None,
+                          dropout_seed: Optional[int] = None,
+                          dropout_rate: float = 0.0,
+                          use_flash: bool = False):
     """q, k, v: `[B, H, T, Dh]`; mask: additive `[B,1,1,T]` or `[B,1,T,T]`.
-    Softmax statistics in f32 whatever the input dtype. Attention dropout
-    (the JAX `dropout_rng`/`dropout_rate`) comes with the training slice."""
+    Softmax statistics in f32 whatever the input dtype. With `use_flash`
+    the flash kernels run forward and backward, with attention dropout
+    inside them; without, dropout runs on the weights through the dropout
+    kernel (JAX L59-68)."""
+    no_drop = dropout_seed is None or dropout_rate == 0.0
     if use_flash:
-        return flash_attention(q, k, v, mask=mask)
-    return _reference_attention(q, k, v, mask)
+        return flash_attention(q, k, v, mask=mask,
+                               dropout_rate=0.0 if no_drop else dropout_rate,
+                               dropout_seed=None if no_drop else dropout_seed)
+    if no_drop:
+        return _reference_attention(q, k, v, mask)
+    depth = q.shape[-1]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(depth)
+    scores = scores.float()
+    if mask is not None:
+        scores = scores + mask
+    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    weights = _dropout(dropout_seed, dropout_rate, weights)
+    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
 class MultiHeadSelfAttention(Layer):
@@ -83,10 +121,11 @@ class MultiHeadSelfAttention(Layer):
         fill_(self.out_bias, torch.zeros(self.out_bias.shape))
         return self
 
-    def call(self, x, *, training: bool = False, mask=None):
+    def call(self, x, *, training: bool = False,
+             seed: Optional[int] = None, mask=None):
         if isinstance(x, (list, tuple)):
             x, mask = x
-        _no_training_dropout(training, self.attn_dropout, self.output_dropout)
+        attn_seed, out_seed = _site_seeds(training, seed, 2)
         B, T, D = x.shape
         qkv = maybe_int8_matmul(x, self, "qkv_kernel") + self.qkv_bias
         # (B, T, 3, H, Dh) → (3, B, H, T, Dh): one copy leaves q, k and v
@@ -94,9 +133,14 @@ class MultiHeadSelfAttention(Layer):
         qkv = qkv.reshape(B, T, 3, self.n_head, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         ctx = dot_product_attention(q, k, v, mask=mask,
+                                    dropout_seed=attn_seed,
+                                    dropout_rate=self.attn_dropout,
                                     use_flash=self.use_flash)
         ctx = ctx.permute(0, 2, 1, 3).reshape(B, T, D)
-        return maybe_int8_matmul(ctx, self, "out_kernel") + self.out_bias
+        out = maybe_int8_matmul(ctx, self, "out_kernel") + self.out_bias
+        if out_seed is not None and self.output_dropout > 0:
+            out = _dropout(out_seed, self.output_dropout, out)
+        return out
 
 
 class TransformerEncoderBlock(Layer):
@@ -139,15 +183,18 @@ class TransformerEncoderBlock(Layer):
         fill_(self.ffn_out_bias, torch.zeros(self.ffn_out_bias.shape))
         return self
 
-    def call(self, x, *, training: bool = False, mask=None):
+    def call(self, x, *, training: bool = False,
+             seed: Optional[int] = None, mask=None):
         if isinstance(x, (list, tuple)):
             x, mask = x
-        _no_training_dropout(training, self.hidden_dropout)
-        a = self.attn.call(x, training=training, mask=mask)
+        attn_seed, ffn_seed = _site_seeds(training, seed, 2)
+        a = self.attn.call(x, training=training, seed=attn_seed, mask=mask)
         x = self.ln1.call(x + a)
         h = self.act(maybe_int8_matmul(x, self, "ffn_in_kernel")
                      + self.ffn_in_bias)
         h = maybe_int8_matmul(h, self, "ffn_out_kernel") + self.ffn_out_bias
+        if ffn_seed is not None and self.hidden_dropout > 0:
+            h = _dropout(ffn_seed, self.hidden_dropout, h)
         return self.ln2.call(x + h)
 
 
@@ -230,7 +277,8 @@ class BERT(Layer):
         m = attention_mask.to(torch.float32)
         return ((1.0 - m)[:, None, None, :] * -10000.0).contiguous()
 
-    def call(self, x, *, training: bool = False):
+    def call(self, x, *, training: bool = False,
+             seed: Optional[int] = None):
         if isinstance(x, (list, tuple)):
             if len(x) == 3:
                 ids, token_type, attn_mask = x
@@ -241,7 +289,7 @@ class BERT(Layer):
                 raise ValueError("BERT expects [ids, (token_type), mask]")
         else:
             ids, token_type, attn_mask = x, None, None
-        _no_training_dropout(training, self.hidden_drop)
+        seeds = _site_seeds(training, seed, 1 + len(self.blocks))
         device = self.word_embeddings.device
         ids = torch.as_tensor(ids, device=device).long()
         token_type = (torch.zeros_like(ids) if token_type is None else
@@ -249,13 +297,18 @@ class BERT(Layer):
         attn_mask = (torch.ones_like(ids) if attn_mask is None else
                      torch.as_tensor(attn_mask, device=device))
         T = ids.shape[1]
-        h = (self.word_embeddings[ids]
+        # F.embedding, the counterpart of `jnp.take`: its backward sums
+        # the rows deterministically (an index's backward does not, on the
+        # CPU), so a step is reproducible from its seed
+        h = (F.embedding(ids, self.word_embeddings)
              + self.position_embeddings[None, :T]
-             + self.token_type_embeddings[token_type])
+             + F.embedding(token_type, self.token_type_embeddings))
         h = self.emb_ln.call(h)
+        if seeds[0] is not None and self.hidden_drop > 0:
+            h = _dropout(seeds[0], self.hidden_drop, h)
         mask = self.make_mask(attn_mask)
-        for blk in self.blocks:
-            h = blk.call([h, mask], training=training)
+        for blk, blk_seed in zip(self.blocks, seeds[1:]):
+            h = blk.call([h, mask], training=training, seed=blk_seed)
         pooled = torch.tanh(maybe_int8_matmul(h[:, 0], self, "pooler_kernel")
                             + self.pooler_bias)
         if self.pooled_only:

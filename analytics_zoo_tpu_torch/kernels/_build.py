@@ -7,9 +7,11 @@ shared library for `sm_90a` (Hopper):
          -Xcompiler -fPIC -Xptxas=-v -o <lib>.so csrc/<source>.cu
 
 The build runs at first use, into `analytics_zoo_tpu_torch/_build/`, under
-a name keyed on a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. ptxas's report (registers,
-shared memory, spills per kernel) is kept beside each library as `.log`.
+a name keyed on a hash of the source, the headers it includes from `csrc/`
+(`#include "x.cuh"`, followed recursively) and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once. ptxas's
+report (registers, shared memory, spills per kernel) is kept beside each
+library as `.log`.
 Nothing here runs at import: this module imports on hosts without nvcc.
 """
 
@@ -18,13 +20,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -32,6 +35,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -58,11 +63,27 @@ def nvcc_path() -> str:
         "toolkit location); the CUDA kernels cannot be built")
 
 
+def source_files(source: str) -> List[str]:
+    """`source` and every header under csrc/ it includes, directly or
+    through another header, in a fixed order."""
+    seen: List[str] = []
+    todo = [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        text = (CSRC_DIR / name).read_bytes()
+        todo.extend(m.decode() for m in _INCLUDE.findall(text))
+    return seen
+
+
 def library_path(source: str) -> Path:
     """Where `source` (a file name under csrc/) builds to."""
-    text = (CSRC_DIR / source).read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{key[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in source_files(source):
+        digest.update(name.encode() + b"\0" + (CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(sources: Sequence[str]) -> Dict[str, float]:
@@ -115,3 +136,25 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(source)))
             _libs[source] = lib
         return lib
+
+
+def bind(source: str, name: str, argtypes: Sequence) -> Callable:
+    """The C function `name` of `source`'s library with its ctypes
+    signature set; it returns the launch's cudaError_t."""
+    lib = load(source)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        lib.azt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.azt_cuda_error_string.restype = ctypes.c_char_p
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def check_launch(source: str, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if rc != 0:
+        msg = load(source).azt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} "
+                           f"(cudaError {rc})")

@@ -1,0 +1,135 @@
+"""Inverted dropout — the CUDA kernel and its plain version.
+
+Port of `analytics_zoo_tpu/pallas/dropout.py`: `_dropout_threshold` (L58),
+`_byte_threshold` (L64), the kernel `_kernel` (L110), which becomes
+`csrc/dropout.cu`, its custom VJP `_fused` (L152-167) and `fused_dropout`
+(L183). Semantics kept: rate <= 0 returns x; rate >= 1 returns zeros;
+otherwise a seed is required. The backward reruns the same kernel on dout
+with the same seed and stores no mask.
+
+The JAX package chooses among three implementations (`ZOO_DROPOUT_IMPL`:
+uint8 bytes, uint32 bernoulli, the Pallas kernel); the port has one rule,
+the kernel's uint32 rule (keep iff bits >= `_dropout_threshold(rate)`,
+scale 1/(1-rate)), on bits from Philox (`kernels/philox.py`). Routing is
+static: a CPU tensor takes the plain version (`_reference_dropout`, with the
+same Philox bits, so it drops the same elements), a CUDA tensor launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build
+from analytics_zoo_tpu_torch.kernels.philox import dropout_bits
+
+KERNEL_NAME = "dropout"
+SOURCE = "dropout.cu"
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _dropout_threshold(rate: float) -> int:
+    """keep iff bits >= threshold (uint32 compare) — the kernel's rule."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _byte_threshold(rate: float) -> int:
+    """keep iff byte < t — the byte rule of the attention dropout:
+    t = round(keep*256), clamped to [1, 255]; scale by the exact keep
+    probability 256/t (the rate is quantized to 1/256)."""
+    return max(1, min(255, int(round((1.0 - rate) * 256))))
+
+
+def _scale(rate: float, dtype: torch.dtype) -> torch.Tensor:
+    """1/(1-rate) in `dtype`, as the kernel applies it."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=dtype)
+
+
+def dropout_keep(shape, seed: int, rate: float, device=None) -> torch.Tensor:
+    """The kernel's keep mask (bool, `shape`) for `seed` at `rate`."""
+    n = 1
+    for s in shape:
+        n *= s
+    bits = dropout_bits(n, seed, device)
+    return (bits >= _dropout_threshold(rate)).reshape(shape)
+
+
+def _reference_dropout(x: torch.Tensor, rate: float,
+                       keep: torch.Tensor) -> torch.Tensor:
+    """The plain version, with the keep mask injected: x * scale where
+    kept, else 0 (JAX `_kernel` L116-120)."""
+    scale = _scale(rate, x.dtype).to(x.device)
+    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+def _check_kernel_input(x: torch.Tensor) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dropout kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("dropout kernel needs a contiguous tensor")
+
+
+def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    _check_kernel_input(x)
+    fn = _build.bind(SOURCE, "azt_dropout", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    vec = n % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), out.data_ptr(), n, seed,
+                _dropout_threshold(rate), float(_scale(rate, x.dtype)),
+                _DTYPE_CODES[x.dtype], int(vec), stream)
+    _build.check_launch(SOURCE, rc, "dropout")
+    LAUNCHES.add(KERNEL_NAME)
+    return out
+
+
+def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """One pass of the rule over `x` (0 < rate < 1): CPU tensors take the
+    plain version, CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return _reference_dropout(x, rate, dropout_keep(x.shape, seed, rate))
+    if x.device.type != "cuda":
+        raise ValueError(f"dropout: unsupported device {x.device}")
+    return _launch(x, rate, seed)
+
+
+class _Dropout(torch.autograd.Function):
+    """d/dx [keep * scale * x] = keep * scale: the backward is the same
+    pass over dout with the same seed (JAX `_fused_bwd`, L162)."""
+
+    @staticmethod
+    def forward(ctx, x, rate: float, seed: int):
+        ctx.rate, ctx.seed = rate, seed
+        return dropout_apply(x, rate, seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return dropout_apply(dout.contiguous(), ctx.rate, ctx.seed), None, None
+
+
+def fused_dropout(x: torch.Tensor, rate: float, *,
+                  seed: Optional[int] = None) -> torch.Tensor:
+    """Inverted dropout over `x` at `rate`, reproducible from the integer
+    `seed`. Differentiable. rate >= 1 zeroes the tensor."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if seed is None:
+        raise ValueError("fused_dropout needs a `seed`")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Dropout.apply(x, float(rate), int(seed))
+    return dropout_apply(x, float(rate), int(seed))

@@ -1,9 +1,10 @@
 """BERT task models.
 
-Port of `analytics_zoo_tpu/models/bert.py`: `_BERTTask` (L28) and
-`BERTClassifier` (L61), a thin head over the port's `keras.transformer.BERT`.
-`BERTNER`, `BERTSQuAD`, `default_compile` and `load_tf_checkpoint` (which
-needs TensorFlow) are not ported yet.
+Port of `analytics_zoo_tpu/models/bert.py`: `_BERTTask` (L28) with
+`default_compile` (L36) and `BERTClassifier` (L61), a thin head over the
+port's `keras.transformer.BERT`. `BERTNER`, `BERTSQuAD` and
+`load_tf_checkpoint` (which needs TensorFlow) are not ported yet
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import torch
 from analytics_zoo_tpu_torch.common.device import DeviceLike
 from analytics_zoo_tpu_torch.keras.engine import KerasNet, new_parameter
 from analytics_zoo_tpu_torch.keras.layers import fill_
-from analytics_zoo_tpu_torch.keras.transformer import (BERT,
-                                                       _no_training_dropout)
+from analytics_zoo_tpu_torch.keras.transformer import (BERT, _dropout,
+                                                       _site_seeds)
 from analytics_zoo_tpu_torch.serving.quantization import maybe_int8_matmul
 
 
@@ -26,6 +27,19 @@ class _BERTTask(KerasNet):
     def __init__(self, bert: BERT, name: Optional[str] = None):
         super().__init__(name)
         self.bert = bert
+
+    def default_compile(self, lr: float = 5e-5, total_steps: int = -1,
+                        loss: str = "sparse_categorical_crossentropy",
+                        metrics=None):
+        """The reference's fine-tuning defaults: AdamWeightDecay with a
+        10% linear warmup, logits crossentropy. (The JAX default metrics,
+        `("accuracy",)`, wait for `ops/metrics.py`; ROADMAP.md queue 1.)"""
+        from analytics_zoo_tpu_torch.ops.objectives import get as get_loss
+        from analytics_zoo_tpu_torch.ops.optimizers import adam_weight_decay
+        self.compile(adam_weight_decay(lr, warmup_portion=0.1,
+                                       total_steps=total_steps),
+                     get_loss(loss, from_logits=True), metrics)
+        return self
 
 
 class BERTClassifier(_BERTTask):
@@ -54,7 +68,10 @@ class BERTClassifier(_BERTTask):
               * 0.02)
         fill_(self.cls_bias, torch.zeros(self.cls_bias.shape))
 
-    def apply(self, inputs, *, training: bool = False):
-        pooled = self.bert.call(inputs, training=training)
-        _no_training_dropout(training, self.dropout)
+    def apply(self, inputs, *, training: bool = False,
+              seed: Optional[int] = None):
+        bert_seed, drop_seed = _site_seeds(training, seed, 2)
+        pooled = self.bert.call(inputs, training=training, seed=bert_seed)
+        if drop_seed is not None and self.dropout > 0:
+            pooled = _dropout(drop_seed, self.dropout, pooled)
         return maybe_int8_matmul(pooled, self, "cls_kernel") + self.cls_bias

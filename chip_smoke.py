@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (`analytics_zoo_tpu_torch`) on one NVIDIA
 GPU: build its kernels, hold each against its plain PyTorch version, serve
-a full-width BERT-base classifier through the port's `InferenceModel`, and
-print what it measured.
+a full-width BERT-base classifier through the port's `InferenceModel`,
+train it through `Estimator.fit`, and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,18 +10,36 @@ Run it from the repository root on a host with an H100 (sm_90a) and the
 CUDA toolkit. Phases, in order; any failure exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), the
-   build of every kernel from `analytics_zoo_tpu_torch/csrc/`;
-2. kernels against their plain versions on the card, one JSON line per
-   case, with the error, its tolerance and the times of the kernel, the
-   plain version and the PyTorch library call of the same function;
-3. serving: BERT-base (vocab 30522, hidden 768, 12 blocks, 12 heads,
+   build of every kernel from `analytics_zoo_tpu_torch/csrc/`, all sources
+   at once, with each build's seconds;
+2. the flash-attention forward against its plain version on the card, one
+   JSON line per case, with the error, its tolerance and the times of the
+   kernel, the plain version and the PyTorch library call of the same
+   function;
+3. the flash-attention backward kernels (dK/dV and dQ) against autograd of
+   the plain version, f32 and bf16, with and without a padding mask, at the
+   training shape, the seq-2048 shape and odd shapes; times and bounds;
+4. attention dropout at rate 0.1: the kernels' exported keep-scale matrix
+   injected into the plain version, forward and gradients compared, keep
+   fraction, seeds;
+5. the dropout kernel on `[32,512,768]`: exact against its own mask, keep
+   fraction, backward mask, rates 0 and 1; times;
+6. the fused-Adam kernel over tensors shaped like BERT-base's leaves, 3
+   steps against the plain version, in place; times;
+7. serving: BERT-base (vocab 30522, hidden 768, 12 blocks, 12 heads,
    intermediate 3072, seq 512, 2 classes, `use_flash=True`) with random
    weights from the seed, warmed over buckets 1-32, answering requests of
    batch 1, 3, 8 and 32 in f32 and bf16; launches counted; a profiled
    window of batch-32 predicts (device time by kernel, idle share); logits
    checked against the same weights served by the port on the CPU;
-4. a `kernels` line listing every kernel of the port;
-5. the last line, `{"ok": true, "device": {...}}`.
+8. training: the same BERT-base (dropout 0.1 everywhere) through
+   `Estimator.from_keras(..., optimizer=fused_adam(...)).fit(...,
+   mixed_precision=True, fused_optimizer=True)` at seq 512, batch 32:
+   step time, tokens/s, MFU, peak memory, launches per step of every
+   kernel, a profiled fit; f32 kernel path against the plain path (dropout
+   0, 3 steps); the bf16 loss falling over 20 steps on one batch;
+9. a `kernels` line listing every kernel of the port;
+10. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -39,13 +57,20 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from analytics_zoo_tpu_torch import convert  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build  # noqa: E402
+from analytics_zoo_tpu_torch.kernels import dropout as dr  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from analytics_zoo_tpu_torch.kernels import fused_adam as fad  # noqa: E402
+from analytics_zoo_tpu_torch.kernels.philox import \
+    attention_keep_scale  # noqa: E402
+from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
 from analytics_zoo_tpu_torch.models.bert import BERTClassifier  # noqa: E402
+from analytics_zoo_tpu_torch.ops import objectives, optimizers  # noqa: E402
 from analytics_zoo_tpu_torch.serving.inference_model import \
     InferenceModel  # noqa: E402
 
@@ -55,12 +80,27 @@ from analytics_zoo_tpu_torch.serving.inference_model import \
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 MEM_BYTES_PER_S = 3.35e12
 
-KERNELS = [{
-    "name": fa.KERNEL_NAME,
-    "route": "cuda",
-    "source": "analytics_zoo_tpu_torch/csrc/" + fa.SOURCE,
-    "replaces": "analytics_zoo_tpu/pallas/flash_attention.py:217",
-}]
+SOURCES = [fa.SOURCE, fa.BWD_SOURCE, dr.SOURCE, fad.SOURCE]
+CSRC = "analytics_zoo_tpu_torch/csrc/"
+KERNELS = [
+    {"name": fa.KERNEL_NAME, "route": "cuda", "source": CSRC + fa.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/flash_attention.py:217"},
+    {"name": fa.BWD_DKV_NAME, "route": "cuda",
+     "source": CSRC + fa.BWD_SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/flash_attention.py:362"},
+    {"name": fa.BWD_DQ_NAME, "route": "cuda", "source": CSRC + fa.BWD_SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/flash_attention.py:323"},
+    {"name": dr.KERNEL_NAME, "route": "cuda", "source": CSRC + dr.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/dropout.py:110"},
+    {"name": fad.KERNEL_NAME, "route": "cuda", "source": CSRC + fad.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/fused_adam.py:93"},
+    # a test aid, on no main path: exports the keep mask the three flash
+    # kernels draw (the byte rule of `_keep_scale`) for the checks
+    {"name": fa.KEEP_SCALE_NAME, "route": "cuda",
+     "source": CSRC + fa.BWD_SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/flash_attention.py:189",
+     "test_aid": True},
+]
 
 # Phase 2 cases: the slice's shape (BERT-base at seq 512, batch 8) and the
 # smallest and largest buckets phase 3 serves, a ragged T, the widest head
@@ -118,6 +158,27 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time per call: the time of every CUDA kernel and copy
+    `torch.profiler` records over `reps` calls (after three warm ones),
+    summed. For calls whose kernels are shorter than their host-side
+    launch, CUDA events around a run of calls measure the host's launch
+    rate instead; this measures the kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / reps
+
+
 def attention_bound(shape, dtype):
     """(ms, "bytes" | "operations"): the least time for one forward. FLOP:
     QKᵀ and PV, 2·T²·D each per head, every key scored (the kernel skips
@@ -147,9 +208,10 @@ def phase_device_and_build():
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    per_source = _build.build([fa.SOURCE])
-    ptxas = [line.strip() for line in _build.build_log(fa.SOURCE).splitlines()
-             if "registers" in line or "spill" in line]
+    per_source = _build.build(SOURCES)
+    ptxas = {src: [line.strip() for line in _build.build_log(src).splitlines()
+                   if "registers" in line]
+             for src in SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": ptxas,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -366,7 +428,8 @@ def phase_serving(card: str, seed: int):
         raise SystemExit(f"chip_smoke: {launches} flash launches over "
                          f"{forwards} forwards, expected "
                          f"{cfg['n_block']} per forward")
-    missing = [k["name"] for k in KERNELS if counts.get(k["name"], 0) == 0]
+    missing = [name for name in (fa.KERNEL_NAME,)
+               if counts.get(name, 0) == 0]
     if missing:
         raise SystemExit(f"chip_smoke: kernels not launched on the main "
                          f"path: {missing}")
@@ -410,6 +473,638 @@ def phase_serving(card: str, seed: int):
     return counts
 
 
+
+
+# ---------------------------------------------------------------------------
+# backward kernels
+# ---------------------------------------------------------------------------
+# The training shape (BERT-base, seq 512, batch 32), a smaller batch, the
+# seq-2048 leg of bench.py:171, a ragged T, the widest head the kernels
+# take and a head dim that is not a multiple of 4.
+BWD_SHAPES = [(32, 12, 512, 64), (8, 12, 512, 64), (16, 12, 2048, 64),
+              (2, 12, 200, 64), (2, 4, 256, 128), (2, 3, 45, 30)]
+BWD_MAIN = (BWD_SHAPES[0], True, torch.bfloat16)
+# Gradients of the kernels against autograd of the plain version on the
+# same input values (upcast to f32), max abs error over max(1, max |ref|).
+# f32: both sum in f32 in other orders, rounding only (a short first call
+# measured <= 1.4e-6). bf16: the kernels store dQ, dK, dV in bf16 (2^-9
+# relative each) and form delta from the bf16-rounded O (first call
+# <= 3.8e-3). The f32 checks run with TF32 off.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def bwd_bound(shape, dtype, products: int, outputs: int):
+    """(ms, "bytes" | "operations") for `products` T×T×D products per head
+    (2 FLOP each per multiply-add) against q, k, v, dO read once, the f32
+    mask, lse and delta, and `outputs` gradients written once."""
+    B, H, T, D = shape
+    item = torch.finfo(dtype).bits // 8
+    flops = 2.0 * products * B * H * T * T * D
+    nbytes = ((4 + outputs) * B * H * T * D * item + B * T * 4
+              + 2 * B * H * T * 4)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def plain_grads(q, k, v, mask, do, keep=None):
+    """O and (dq, dk, dv) by autograd of the plain version, in f32 from the
+    inputs' values."""
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    out = fa._reference_attention(qf, kf, vf, mask, keep)
+    out.backward(do.float())
+    return out.detach(), (qf.grad, kf.grad, vf.grad)
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want).abs().max().item()
+            / max(1.0, want.abs().max().item()))
+
+
+def library_bwd_ms(q, k, v, mask, do, reps: int) -> float:
+    """SDPA forward+backward minus SDPA forward: a yardstick only."""
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_mask = None if mask is None else mask.to(q.dtype)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lib_mask)
+    fwd_ms = time_ms(fwd, reps)
+    both_ms = time_ms(lambda: torch.autograd.backward(fwd(), do), reps)
+    return both_ms - fwd_ms
+
+
+def random_attention_inputs(shape, dtype, masked: bool, gen):
+    B, H, T, D = shape
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        lengths = torch.randint(1, T + 1, (B,), device="cuda", generator=gen)
+        mask = padding_mask(lengths, T)
+    return q, k, v, do, mask
+
+
+def phase_backward(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    results, failed = {}, []
+    for shape in BWD_SHAPES:
+        B, H, T, D = shape
+        for masked in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, do, mask = random_attention_inputs(shape, dtype,
+                                                            masked, gen)
+                o, lse = fa.flash_attention_fwd(q, k, v, mask)
+                dq, dk, dv = fa.flash_attention_bwd(q, k, v, mask, o, lse, do)
+                torch.cuda.synchronize()
+                _, ref = plain_grads(q, k, v, mask, do)
+                errs = {n: rel_err(g, r) for n, g, r in
+                        zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+                del ref
+                tol = BWD_TOL[dtype]
+                ok = (max(errs.values()) <= tol and all(
+                    bool(torch.isfinite(g).all()) for g in (dq, dk, dv)))
+                reps = 3 if T >= 2048 else (5 if B * T >= 16384 else 10)
+                delta = fa._delta(o, do)
+                kernel_ms = time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, mask, o, lse, do), reps)
+                dkv_ms = time_ms(lambda: fa._launch_bwd_dkv(
+                    q, k, v, mask, do, lse, delta), reps)
+                dq_ms = time_ms(lambda: fa._launch_bwd_dq(
+                    q, k, v, mask, do, lse, delta), reps)
+                plain_ms = time_ms(lambda: fa._reference_attention_bwd(
+                    q, k, v, mask, o, lse, do), reps)
+                library_ms = library_bwd_ms(q, k, v, mask, do, reps)
+                bound_ms, bound_by = bwd_bound(shape, dtype, 5, 3)
+                row = {"phase": "backward", "shape": list(shape),
+                       "dtype": str(dtype)[6:], "masked": masked,
+                       "rel_err": errs, "tol": tol, "ok": ok,
+                       "kernel_ms": kernel_ms, "dkv_ms": dkv_ms,
+                       "dq_ms": dq_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       "dkv_bound": bwd_bound(shape, dtype, 4, 2),
+                       "dq_bound": bwd_bound(shape, dtype, 3, 1),
+                       "card": card}
+                emit(row)
+                results[(shape, masked, dtype)] = row
+                if not ok:
+                    failed.append(row)
+                del q, k, v, do, mask, o, lse, dq, dk, dv, delta
+                torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: {len(failed)} backward case(s) "
+                         "outside tolerance")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# attention dropout
+# ---------------------------------------------------------------------------
+ATTN_DROP_RATE = 0.1
+ATTN_DROP_SHAPES = [(8, 12, 512, 64), (2, 3, 45, 30)]
+
+
+def keep_fraction_z(frac: float, p: float, n: int) -> float:
+    """How many standard deviations a Bernoulli(p) mean over n draws is
+    from p."""
+    return (frac - p) / math.sqrt(p * (1.0 - p) / n)
+
+
+def phase_attention_dropout(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    rate = ATTN_DROP_RATE
+    t = dr._byte_threshold(rate)
+    rows = []
+    for shape in ATTN_DROP_SHAPES:
+        B, H, T, D = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, mask = random_attention_inputs(shape, dtype, True,
+                                                        gen)
+            s1 = seed * 1000 + 17
+            keep = fa.keep_scale_matrix(shape, rate, s1, "cuda")
+            same = torch.equal(keep, fa.keep_scale_matrix(shape, rate, s1,
+                                                          "cuda"))
+            other = fa.keep_scale_matrix(shape, rate, s1 + 1, "cuda")
+            other_differs = float((other != keep).float().mean())
+            philox_equal = torch.equal(keep, attention_keep_scale(
+                B * H, T, s1, t, "cuda").view(B, H, T, T))
+            frac = float((keep > 0).float().mean())
+            z = keep_fraction_z(frac, t / 256.0, keep.numel())
+            o, lse = fa.flash_attention_fwd(q, k, v, mask, rate, s1)
+            grads = fa.flash_attention_bwd(q, k, v, mask, o, lse, do, rate,
+                                           s1)
+            torch.cuda.synchronize()
+            ref_o, ref = plain_grads(q, k, v, mask, do, keep)
+            # the gradients agree with the plain version given the forward's
+            # mask, and not given another seed's: the backward drew the
+            # forward's bits
+            _, ref_other = plain_grads(q, k, v, mask, do, other)
+            errs = {n: rel_err(g, r) for n, g, r in
+                    zip(("dq", "dk", "dv"), grads, ref)}
+            err_o = rel_err(o, ref_o)
+            err_other = min(rel_err(g, r) for g, r in zip(grads, ref_other))
+            tol = BWD_TOL[dtype]
+            ok = (max(errs.values()) <= tol and err_o <= tol
+                  and err_other > 10 * tol and same and philox_equal
+                  and other_differs > 0.05 and abs(z) <= 5.0)
+            row = {"phase": "attention_dropout", "shape": list(shape),
+                   "dtype": str(dtype)[6:], "rate": rate, "byte_t": t,
+                   "rel_err_o": err_o, "rel_err": errs,
+                   "rel_err_other_seed_mask": err_other, "tol": tol,
+                   "keep_fraction": frac, "expected": t / 256.0,
+                   "z": z, "same_seed_same_mask": same,
+                   "other_seed_differs_frac": other_differs,
+                   "export_equals_plain_philox": philox_equal, "ok": ok,
+                   "card": card}
+            emit(row)
+            rows.append(row)
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("chip_smoke: attention dropout check failed")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# dropout kernel
+# ---------------------------------------------------------------------------
+DROPOUT_SHAPE = (32, 512, 768)
+DROPOUT_RATE = 0.1
+
+
+def phase_dropout(card: str, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    rate = DROPOUT_RATE
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(DROPOUT_SHAPE, device="cuda", generator=gen).to(dtype)
+        s1 = seed * 1000 + 29
+        out = dr.dropout_apply(x, rate, s1)
+        torch.cuda.synchronize()
+        keep = (out != 0) & (x != 0)
+        zero = torch.zeros((), dtype=dtype, device="cuda")
+        scale_t = dr._scale(rate, dtype).cuda()
+        exact = torch.equal(out, torch.where(keep, x * scale_t, zero))
+        keep_bits = dr.dropout_keep(x.shape, s1, rate, "cuda")
+        plain = dr._reference_dropout(x, rate, keep_bits)
+        max_abs_err = (out.float() - plain.float()).abs().max().item()
+        p_keep = 1.0 - dr._dropout_threshold(rate) / 2 ** 32
+        frac = float(keep.float().mean())
+        z = keep_fraction_z(frac, p_keep, keep.numel())
+        xg = x.clone().requires_grad_()
+        y = dr.fused_dropout(xg, rate, seed=s1)
+        y.backward(torch.ones_like(y))
+        # dout = 1: the gradient is the backward's mask times the scale
+        bwd_mismatch = int((xg.grad != torch.where(
+            keep_bits, scale_t, zero)).sum())
+        bwd_same = torch.equal(y.detach(), out) and bwd_mismatch == 0
+        rate0 = dr.fused_dropout(x, 0.0, seed=s1) is x
+        rate1 = not bool(dr.fused_dropout(x, 1.0, seed=s1).any())
+        ok = (exact and max_abs_err == 0.0 and abs(z) <= 5.0 and bwd_same
+              and rate0 and rate1)
+        # device time: one launch of this kernel is shorter than the
+        # host's side of it (CUDA events over 50 calls are kept as wall_ms)
+        kernel_ms = device_ms(lambda: dr.dropout_apply(x, rate, s1), 50)
+        wall_ms = time_ms(lambda: dr.dropout_apply(x, rate, s1), 50)
+        plain_ms = device_ms(lambda: dr._reference_dropout(
+            x, rate, dr.dropout_keep(x.shape, s1, rate, "cuda")), 5)
+        library_ms = device_ms(lambda: F.dropout(x, rate, training=True), 50)
+        item = torch.finfo(dtype).bits // 8
+        bound_ms = 2.0 * x.numel() * item / MEM_BYTES_PER_S * 1e3
+        row = {"phase": "dropout", "shape": list(DROPOUT_SHAPE),
+               "dtype": str(dtype)[6:], "rate": rate,
+               "exact_vs_own_mask": exact, "max_abs_err": max_abs_err,
+               "keep_fraction": frac, "expected": p_keep, "z": z,
+               "backward_mask_equal": bwd_same,
+               "backward_mismatches": bwd_mismatch,
+               "zeros_in_x": int((x == 0).sum()), "rate0_identity": rate0,
+               "rate1_zeros": rate1, "ok": ok, "kernel_ms": kernel_ms,
+               "wall_ms": wall_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes", "card": card}
+        emit(row)
+        results[dtype] = row
+        del x, out, plain, xg, y
+    if not all(r["ok"] for r in results.values()):
+        raise SystemExit("chip_smoke: dropout kernel check failed")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# fused Adam
+# ---------------------------------------------------------------------------
+ADAM_HP = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+
+
+def phase_fused_adam(card: str, seed: int):
+    shapes = [tuple(p.shape) for p in BERTClassifier(
+        NUM_CLASSES, device="cuda", **BERT_BASE).parameters()]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    hp = ADAM_HP
+    results = {}
+    for pdtype in (torch.float32, torch.bfloat16):
+        def rnd(shape, s=1.0, dtype=torch.float32):
+            return (torch.randn(shape, device="cuda", generator=gen)
+                    * s).to(dtype)
+        params = {i: rnd(s, 0.02, pdtype) for i, s in enumerate(shapes)}
+        mu = {i: rnd(s, 1e-3) for i, s in enumerate(shapes)}
+        nu = {i: rnd(s, 1e-3) ** 2 for i, s in enumerate(shapes)}
+        plain = [{i: t.clone() for i, t in d.items()}
+                 for d in (params, mu, nu)]
+        ptrs = [{i: t.data_ptr() for i, t in d.items()}
+                for d in (params, mu, nu)]
+        before = LAUNCHES.get(fad.KERNEL_NAME)
+        for count in (1, 2, 3):
+            grads = {i: rnd(s, 1e-2, pdtype) for i, s in enumerate(shapes)}
+            fad.fused_adam_step(params, mu, nu, grads, count, lr=hp["lr"],
+                                b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                                weight_decay=hp["weight_decay"])
+            sc = fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"],
+                                   hp["eps"], hp["weight_decay"])
+            for i in params:
+                pn, mn, vn = fad._adam_math(
+                    plain[0][i].float(), plain[1][i], plain[2][i],
+                    grads[i].float(), *sc, hp["b1"], hp["b2"])
+                plain[0][i].copy_(pn)
+                plain[1][i].copy_(mn)
+                plain[2][i].copy_(vn)
+        torch.cuda.synchronize()
+        launches = LAUNCHES.get(fad.KERNEL_NAME) - before
+        max_abs_err = max((a[i].float() - b[i].float()).abs().max().item()
+                          for a, b in zip((params, mu, nu), plain)
+                          for i in params)
+        in_place = all(d[i].data_ptr() == ptr[i]
+                       for d, ptr in zip((params, mu, nu), ptrs)
+                       for i in params)
+        del plain
+        ok = max_abs_err == 0.0 and in_place and launches == 3 * len(shapes)
+
+        def sweep():
+            fad.fused_adam_step(params, mu, nu, grads, 4, lr=hp["lr"],
+                                b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                                weight_decay=hp["weight_decay"])
+
+        def plain_sweep():
+            sc = fad._fold_scalars(4, hp["lr"], hp["b1"], hp["b2"],
+                                   hp["eps"], hp["weight_decay"])
+            for i in params:
+                pn, mn, vn = fad._adam_math(params[i].float(), mu[i], nu[i],
+                                            grads[i].float(), *sc, hp["b1"],
+                                            hp["b2"])
+                params[i].copy_(pn)
+                mu[i].copy_(mn)
+                nu[i].copy_(vn)
+        # device time of the 153 launches of a sweep; the host needs
+        # longer to issue them (one ctypes call per leaf), kept as wall_ms
+        kernel_ms = device_ms(sweep, 10)
+        wall_ms = time_ms(sweep, 10)
+        plain_ms = device_ms(plain_sweep, 3)
+        leaves = [params[i].detach().clone() for i in params]
+        for t, i in zip(leaves, params):
+            t.grad = grads[i]
+        opt = torch.optim.AdamW(leaves, lr=hp["lr"],
+                                betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
+                                weight_decay=hp["weight_decay"], fused=True)
+        library_ms = device_ms(opt.step, 10)
+        del opt, leaves
+        flops, nbytes = fad.update_cost(params)
+        t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        row = {"phase": "fused_adam", "param_dtype": str(pdtype)[6:],
+               "leaves": len(shapes),
+               "elements": sum(math.prod(s) for s in shapes),
+               "steps": 3, "max_abs_err": max_abs_err,
+               "in_place": in_place, "launches": launches, "ok": ok,
+               "kernel_ms_per_sweep": kernel_ms, "wall_ms": wall_ms,
+               "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": max(t_mem, t_ops),
+               "bound_by": "bytes" if t_mem >= t_ops else "operations",
+               "bytes": nbytes, "card": card}
+        emit(row)
+        results[pdtype] = row
+        del params, mu, nu, grads
+        torch.cuda.empty_cache()
+    if not all(r["ok"] for r in results.values()):
+        raise SystemExit("chip_smoke: fused Adam check failed")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 32
+TRAIN_STEPS = 8
+PEAK_BF16 = PEAK_FLOPS[torch.bfloat16]
+# f32, dropout 0, 3 steps: the kernel path (flash kernels, fused Adam)
+# against the plain path (plain attention, plain AdamW), same weights and
+# batches. Losses: f32 rounding through 12 blocks in two attention
+# algorithms, ~1e-6 relative per op — 1e-4 absolute. Parameters: Adam's
+# m/√v turns rounding noise in a gradient that is near zero (the key bias,
+# whose true gradient is zero) into a step of up to ~lr, so a parameter may
+# differ by up to lr per step (2·lr·steps bound), but at most 1e-3 of the
+# elements may differ by more than 1e-6, and the update (final − initial)
+# agrees to 1e-2 in relative L2.
+F32_LOSS_TOL = 1e-4
+F32_PARAM_MAX = 2 * ADAM_HP["lr"] * 3
+F32_PARAM_FRAC = 1e-3
+F32_UPDATE_REL = 1e-2
+
+
+def make_training_data(rs, n: int, cfg):
+    """`{"x": [ids, mask], "y": labels}` as `bench.py:75-77` builds it,
+    with real lengths drawn from 32-512 (the mask pads the rest)."""
+    ids, mask = make_request(rs, n, cfg)
+    return {"x": [ids.astype(np.int32), mask.astype(np.float32)],
+            "y": rs.integers(0, NUM_CLASSES, n).astype(np.int32)}
+
+
+def train_flops_per_step(model, cfg, batch: int) -> float:
+    """`bench.py:101-111`: 6 FLOPs per matmul parameter per token plus the
+    attention scores and context, 12·L·T²·D per sequence (fwd + bwd)."""
+    n_params = sum(p.numel() for p in model.parameters())
+    n_emb = (cfg["vocab"] + cfg["seq_len"] + 2) * cfg["hidden_size"]
+    tokens = batch * cfg["seq_len"]
+    return (6.0 * (n_params - n_emb) * tokens + 12.0 * cfg["n_block"]
+            * cfg["seq_len"] ** 2 * cfg["hidden_size"] * batch)
+
+
+def new_model(state, **kw):
+    model = BERTClassifier(NUM_CLASSES, use_flash=kw.pop("use_flash", True),
+                           device="cuda", **BERT_BASE, **kw)
+    model.load_state_dict(state)
+    return model
+
+
+def profile_fit(est, data, fit_kw, steps: int, step_ms: float):
+    """Device time per step by kernel over a fit of `steps` steps; the idle
+    share compares it with the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est.fit(data, **fit_kw)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.key, e.self_device_time_total / 1e3 / steps,
+                         e.count / steps))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"phase": "train_profile", "device_ms_per_step": device_ms,
+            "step_ms": step_ms,
+            "idle_share": (1.0 - device_ms / step_ms) if device_ms else None,
+            "top": [{"kernel": name[:96], "ms": ms, "share": ms / device_ms,
+                     "calls": calls} for name, ms, calls in rows[:16]]}
+
+
+def phase_training(card: str, seed: int):
+    cfg = BERT_BASE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.default_rng(seed + 50)
+    state = convert.params_from_jax(
+        random_classifier_tree(cfg, NUM_CLASSES, seed))
+    loss = objectives.get("sparse_categorical_crossentropy", from_logits=True)
+    hp = ADAM_HP
+
+    def fused():
+        return optimizers.fused_adam(learning_rate=hp["lr"], b1=hp["b1"],
+                                     b2=hp["b2"], eps=hp["eps"],
+                                     weight_decay=hp["weight_decay"])
+
+    model = new_model(state)
+    n_leaves = len(list(model.parameters()))
+    flops_step = train_flops_per_step(model, cfg, TRAIN_BATCH)
+    est = Estimator.from_keras(model, optimizer=fused(), loss=loss)
+    fit_kw = dict(epochs=1, batch_size=TRAIN_BATCH, mixed_precision=True,
+                  fused_optimizer=True)
+    data = make_training_data(rs, TRAIN_BATCH * TRAIN_STEPS, cfg)
+    t0 = time.perf_counter()
+    est.fit(data, **fit_kw)                  # warm: build, cuBLAS set-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    t1 = time.perf_counter()
+    hist = est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = dt / TRAIN_STEPS * 1e3
+    tokens = TRAIN_BATCH * cfg["seq_len"] * TRAIN_STEPS
+    expected = {fa.KERNEL_NAME: cfg["n_block"],
+                fa.BWD_DKV_NAME: cfg["n_block"],
+                fa.BWD_DQ_NAME: cfg["n_block"],
+                dr.KERNEL_NAME: 2 * (2 * cfg["n_block"] + 2),
+                fad.KERNEL_NAME: n_leaves}
+    per_step = {k: counts.get(k, 0) / TRAIN_STEPS for k in expected}
+    emit({"phase": "train", "seq_len": cfg["seq_len"],
+          "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "warm_fit_s": warm_s,
+          "step_ms": step_ms, "tokens_per_s": tokens / dt,
+          "flops_per_step": flops_step,
+          "mfu": flops_step * TRAIN_STEPS / dt / PEAK_BF16,
+          "max_memory_allocated_gb": peak / 1e9, "loss": hist["loss"],
+          "launches": counts, "launches_per_step": per_step,
+          "expected_per_step": expected, "leaves": n_leaves, "card": card})
+    if per_step != {k: float(v) for k, v in expected.items()}:
+        raise SystemExit(f"chip_smoke: launches per step {per_step}, "
+                         f"expected {expected}")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise SystemExit("chip_smoke: non-finite training loss")
+    emit(dict(profile_fit(est, make_training_data(rs, 2 * TRAIN_BATCH, cfg),
+                          fit_kw, 2, step_ms), card=card))
+    del est, model
+    torch.cuda.empty_cache()
+
+    # -- f32, dropout 0: the kernel path against the plain path ------------
+    no_drop = dict(hidden_drop=0.0, attn_drop=0.0, dropout=0.0)
+    batch = make_training_data(rs, TRAIN_BATCH, cfg)
+    plain_adamw = optimizers.adamw(hp["lr"], b1=hp["b1"], b2=hp["b2"],
+                                   eps=hp["eps"],
+                                   weight_decay=hp["weight_decay"])
+    runs = {}
+    for name, use_flash, opt in (("kernel", True, fused()),
+                                 ("plain", False, plain_adamw)):
+        m = new_model(state, use_flash=use_flash, **no_drop)
+        LAUNCHES.reset()
+        h = Estimator.from_keras(m, optimizer=opt, loss=loss).fit(
+            batch, epochs=3, batch_size=TRAIN_BATCH, mixed_precision=False,
+            fused_optimizer=name == "kernel")
+        runs[name] = (h["loss"], {k: v.detach().clone()
+                                  for k, v in m.state_dict().items()},
+                      LAUNCHES.snapshot())
+        del m
+        torch.cuda.empty_cache()
+    (lk, pk, ck), (lp, pp, cp) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(a - b) for a, b in zip(lk, lp))
+    diffs = [(pk[k] - pp[k]).abs() for k in pk]
+    total = sum(d.numel() for d in diffs)
+    param_max = max(d.max().item() for d in diffs)
+    frac_over = sum(int((d > 1e-6).sum()) for d in diffs) / total
+    upd_num = math.sqrt(sum(float(((pk[k] - pp[k]).double() ** 2).sum())
+                            for k in pk))
+    upd_den = math.sqrt(sum(float(((pp[k].cpu() - state[k]).double() ** 2)
+                                  .sum()) for k in pp))
+    update_rel = upd_num / upd_den
+    f32_ok = (loss_err <= F32_LOSS_TOL and param_max <= F32_PARAM_MAX
+              and frac_over <= F32_PARAM_FRAC
+              and update_rel <= F32_UPDATE_REL
+              and ck.get(fa.BWD_DQ_NAME, 0) == 3 * cfg["n_block"]
+              and cp.get(fa.KERNEL_NAME, 0) == 0)
+    emit({"phase": "train_f32_kernel_vs_plain", "steps": 3,
+          "loss_kernel": lk, "loss_plain": lp, "loss_max_abs_err": loss_err,
+          "loss_tol": F32_LOSS_TOL, "param_max_abs_err": param_max,
+          "param_tol": F32_PARAM_MAX, "param_frac_over_1e-6": frac_over,
+          "param_frac_tol": F32_PARAM_FRAC, "update_rel_l2_err": update_rel,
+          "update_tol": F32_UPDATE_REL, "launches_kernel_path": ck,
+          "launches_plain_path": cp, "ok": f32_ok, "card": card})
+    del runs, pk, pp, diffs
+    torch.cuda.empty_cache()
+
+    # -- bf16, dropout 0.1: the loss falls on one repeated batch -----------
+    m = new_model(state)
+    h = Estimator.from_keras(m, optimizer=fused(), loss=loss).fit(
+        batch, epochs=20, batch_size=TRAIN_BATCH, mixed_precision=True,
+        fused_optimizer=True)
+    losses = h["loss"]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    bf16_ok = all(math.isfinite(x) for x in losses) and last5 < first5
+    emit({"phase": "train_bf16_loss_falls", "steps": 20, "losses": losses,
+          "first5_mean": first5, "last5_mean": last5, "ok": bf16_ok,
+          "card": card})
+    del m
+    torch.cuda.empty_cache()
+    if not (f32_ok and bf16_ok):
+        raise SystemExit("chip_smoke: training check failed")
+    return counts
+
+
+def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
+                   adrop):
+    """The `kernels` line: every kernel with its numbers at the main
+    path's shape and dtype and its verdict."""
+    main_fwd = attn[(MAIN_SHAPE, True, torch.float32)]
+    main_bwd = bwd[BWD_MAIN]
+    bwd_ok = all(r["ok"] for r in bwd.values())
+    drop_main = drop[torch.bfloat16]
+    adam_main = adam[torch.float32]
+    shape, dtype = BWD_MAIN[0], BWD_MAIN[2]
+    dkv_bound, dq_bound = main_bwd["dkv_bound"], main_bwd["dq_bound"]
+    entries = {
+        fa.KERNEL_NAME: dict(
+            launches=serve_counts.get(fa.KERNEL_NAME, 0),
+            launches_training=train_counts.get(fa.KERNEL_NAME, 0),
+            max_abs_err=main_fwd["max_abs_err_o"], ms=main_fwd["kernel_ms"],
+            plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],
+            bound_by=main_fwd["bound_by"],
+            library_ms=main_fwd["library_ms"], shape=main_fwd["shape"],
+            dtype=main_fwd["dtype"],
+            verdict="ok" if all(r["ok"] for r in attn.values()) and all(
+                r["ok"] for r in adrop) else "fail"),
+        fa.BWD_DKV_NAME: dict(
+            launches=train_counts.get(fa.BWD_DKV_NAME, 0),
+            max_abs_err=max(main_bwd["rel_err"]["dk"],
+                            main_bwd["rel_err"]["dv"]),
+            ms=main_bwd["dkv_ms"], plain_ms=main_bwd["plain_ms"],
+            bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+            library_ms=main_bwd["library_ms"], shape=list(shape),
+            dtype=str(dtype)[6:], verdict="ok" if bwd_ok else "fail"),
+        fa.BWD_DQ_NAME: dict(
+            launches=train_counts.get(fa.BWD_DQ_NAME, 0),
+            max_abs_err=main_bwd["rel_err"]["dq"], ms=main_bwd["dq_ms"],
+            plain_ms=main_bwd["plain_ms"], bound_ms=dq_bound[0],
+            bound_by=dq_bound[1], library_ms=main_bwd["library_ms"],
+            shape=list(shape), dtype=str(dtype)[6:],
+            verdict="ok" if bwd_ok else "fail"),
+        dr.KERNEL_NAME: dict(
+            launches=train_counts.get(dr.KERNEL_NAME, 0),
+            max_abs_err=drop_main["max_abs_err"], ms=drop_main["kernel_ms"],
+            wall_ms=drop_main["wall_ms"],
+            plain_ms=drop_main["plain_ms"], bound_ms=drop_main["bound_ms"],
+            bound_by="bytes", library_ms=drop_main["library_ms"],
+            shape=drop_main["shape"], dtype=drop_main["dtype"],
+            verdict="ok" if all(r["ok"] for r in drop.values()) else "fail"),
+        fad.KERNEL_NAME: dict(
+            launches=train_counts.get(fad.KERNEL_NAME, 0),
+            max_abs_err=adam_main["max_abs_err"],
+            ms=adam_main["kernel_ms_per_sweep"], wall_ms=adam_main["wall_ms"],
+            plain_ms=adam_main["plain_ms"], bound_ms=adam_main["bound_ms"],
+            bound_by=adam_main["bound_by"],
+            library_ms=adam_main["library_ms"],
+            shape=f"{adam_main['leaves']} BERT-base leaves (one sweep)",
+            dtype=adam_main["param_dtype"],
+            verdict="ok" if all(r["ok"] for r in adam.values()) else "fail"),
+    }
+    return entries
+
+
+def keep_scale_entry(seed: int):
+    """The mask-export test aid at the attention-dropout phase's main shape:
+    its time, the plain Philox's time and the bound of writing the f32
+    matrix once. It is on no main path (0 launches there)."""
+    shape = ATTN_DROP_SHAPES[0]
+    B, H, T, _ = shape
+    t = dr._byte_threshold(ATTN_DROP_RATE)
+    got = fa.keep_scale_matrix(shape, ATTN_DROP_RATE, seed, "cuda")
+    want = attention_keep_scale(B * H, T, seed, t, "cuda").view(B, H, T, T)
+    err = (got - want).abs().max().item()
+    ms = time_ms(lambda: fa.keep_scale_matrix(shape, ATTN_DROP_RATE, seed,
+                                              "cuda"), 10)
+    plain_ms = time_ms(lambda: attention_keep_scale(B * H, T, seed, t,
+                                                    "cuda"), 3)
+    bound_ms = B * H * T * T * 4 / MEM_BYTES_PER_S * 1e3
+    return dict(launches=0, on_main_path=False, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None, shape=list(shape), dtype="float32",
+                verdict="ok" if err == 0.0 else "fail")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -417,19 +1112,20 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     card = phase_device_and_build()
     attn = phase_kernels(card, args.seed)
-    counts = phase_serving(card, args.seed)
-    main_case = attn[(MAIN_SHAPE, True, torch.float32)]
-    kernels = []
-    for spec in KERNELS:
-        kernels.append(dict(
-            spec, launches=counts.get(spec["name"], 0),
-            max_abs_err=main_case["max_abs_err_o"], ms=main_case["kernel_ms"],
-            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
-            bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"],
-            shape=main_case["shape"], dtype=main_case["dtype"],
-            verdict="ok" if all(r["ok"] for r in attn.values()) else "fail",
-            card=card))
+    bwd = phase_backward(card, args.seed)
+    adrop = phase_attention_dropout(card, args.seed)
+    drop = phase_dropout(card, args.seed)
+    adam = phase_fused_adam(card, args.seed)
+    serve_counts = phase_serving(card, args.seed)
+    train_counts = phase_training(card, args.seed)
+    entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
+                             train_counts, adrop)
+    entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
+    kernels = [dict(spec, **entries[spec["name"]], card=card)
+               for spec in KERNELS]
+    bad = [k["name"] for k in kernels if k["verdict"] != "ok"]
+    if bad:
+        raise SystemExit(f"chip_smoke: kernels failed their checks: {bad}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -76,8 +76,8 @@ def test_layer_norm_matches_jax():
     ref = np.asarray(jl.call(p, jnp.asarray(x)))
     tl = LayerNormalization(64, device="cpu")
     tl.load_state_dict(_state(p))
-    np.testing.assert_allclose(tl.call(torch.from_numpy(x)).numpy(), ref,
-                               **LAYER_TOL)
+    np.testing.assert_allclose(tl.call(torch.from_numpy(x)).detach().numpy(),
+                               ref, **LAYER_TOL)
 
 
 def test_gelu_is_the_tanh_form():
@@ -101,7 +101,7 @@ def test_multi_head_self_attention_matches_jax(use_flash):
     tl = MultiHeadSelfAttention(64, 4, use_flash=use_flash, device="cpu")
     tl.load_state_dict(_state(p))
     out = tl.call([torch.from_numpy(x), torch.from_numpy(m)])
-    np.testing.assert_allclose(out.numpy(), ref, **LAYER_TOL)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **LAYER_TOL)
 
 
 @pytest.mark.parametrize("use_flash", [False, True])
@@ -116,7 +116,7 @@ def test_encoder_block_matches_jax(use_flash):
                                  device="cpu")
     tl.load_state_dict(_state(p))
     out = tl.call([torch.from_numpy(x), torch.from_numpy(m)])
-    np.testing.assert_allclose(out.numpy(), ref, **LAYER_TOL)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **LAYER_TOL)
 
 
 @pytest.mark.parametrize("stacked", [False, True])
@@ -335,10 +335,20 @@ def test_int8_trees_are_not_ported():
 
 
 def test_training_dropout_is_not_ported():
+    """Training dropout is ported now: as in the JAX package, training
+    without a seed (the JAX `rng`) drops nothing, and a seed drops the
+    same elements every time."""
     _, _, tm = _classifier_pair(False, seed=11)
     ids, _, mask = _tokens()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm.apply([ids, mask], training=True)
+    with torch.no_grad():
+        eval_out = tm.apply([ids, mask])
+        torch.testing.assert_close(tm.apply([ids, mask], training=True),
+                                   eval_out, rtol=0, atol=0)
+        dropped = tm.apply([ids, mask], training=True, seed=5)
+        torch.testing.assert_close(
+            tm.apply([ids, mask], training=True, seed=5), dropped,
+            rtol=0, atol=0)
+    assert (dropped - eval_out).abs().max() > 1e-4
 
 
 def test_unbuilt_model_is_refused():

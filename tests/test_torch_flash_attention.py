@@ -91,9 +91,20 @@ def test_lse_is_logsumexp_of_scores(mask_kind):
 
 
 def test_dropout_is_not_ported():
+    """Attention dropout is ported now (in the kernels on the card, the same
+    Philox bits in the plain version): it needs a seed, one seed gives one
+    mask, and the mask is the byte rule's keep-scale matrix."""
     q, k, v = (_t(a) for a in _qkv())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        fa.flash_attention(q, k, v, dropout_rate=0.1)
+    out = fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3)
+    torch.testing.assert_close(
+        out, fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3),
+        rtol=0, atol=0)
+    assert (out - fa.flash_attention(q, k, v)).abs().max() > 1e-3
+    keep = fa._keep_scale(q, 0.1, 3)
+    torch.testing.assert_close(out, fa._reference_attention(q, k, v,
+                                                            keep_scale=keep))
 
 
 @pytest.mark.parametrize("case, exc", [
@@ -250,10 +261,14 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 def test_port_calls_no_library_attention_and_no_torch_compile():
+    """No module of the port calls a library kernel for a function it
+    ports (attention, dropout, the optimizer) or compiles its plain
+    versions: those calls appear only in chip_smoke.py's yardsticks."""
     bad = [str(p.relative_to(REPO)) for p in _package_sources()
            if any(s in p.read_text() for s in (
                "scaled_dot_product_attention", "torch.compile",
-               "cudnn"))]
+               "cudnn", "F.dropout(", "functional.dropout(",
+               "nn.Dropout(", "torch.optim.", "autocast("))]
     assert bad == []
 
 
