@@ -1,5 +1,6 @@
-"""Carry BERT weights between the JAX package's parameter tree and the
-port's state dict.
+"""Carry weights and optimizer state between the JAX package's parameter
+trees and the port's state dicts: BERT's, and a functional `Model`'s
+(NeuralCF).
 
 The tree is what `analytics_zoo_tpu.models.bert.BERTClassifier.build`
 returns, as nested dicts of numpy arrays:
@@ -25,12 +26,22 @@ fine-tunes as it is. Optimizer state crosses too: a JAX Adam state (optax's
 build, or the JAX package's `FusedAdamState`) maps onto the port's
 `ops.optimizers.FusedAdamState` and back, its moment trees mapped like the
 parameters.
+
+A functional `Model`'s tree is `{layer name: {leaf: array}}` (`{}` for a
+layer without parameters); the port's state dict is keyed
+`"<layer name>.<leaf>"`. Layers are matched by their position in the
+graph order (`Model.ordered_layers` here, `Model._ordered_layers()` there),
+not by name: given names (`ncf_mlp_user`, ...) agree, but auto-generated
+ones (`dense_3`) count per process and differ between the two models. The
+lazy-embedding optimizer state (`learn/lazy_embedding.init_state`: the
+rest optimizer's Adam state, per-table `(mu, nu)` and the step count)
+crosses the same way.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -81,6 +92,12 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array (bfloat16 as float32: numpy has none)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX `BERTClassifier` tree (stacked or not) → the port's state dict
     (CPU tensors in the tree's dtypes; `load_state_dict` copies them onto
@@ -106,10 +123,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        value = value.detach().cpu()
-        if value.dtype == torch.bfloat16:    # numpy has no bfloat16
-            value = value.float()
-        node[parts[-1]] = value.numpy()
+        node[parts[-1]] = _to_numpy(value)
     if stacked:
         for name, sub in tree.items():
             if isinstance(sub, dict):
@@ -151,3 +165,94 @@ def opt_state_to_jax(state: FusedAdamState,
     return FusedAdamState(np.int32(state.count),
                           params_to_jax(state.mu, stacked),
                           params_to_jax(state.nu, stacked))
+
+
+# ---------------------------------------------------------------------------
+# functional Model (NeuralCF)
+# ---------------------------------------------------------------------------
+def _port_names(model, jax_layer_names: Sequence[str]) -> Dict[str, str]:
+    """JAX layer name → port layer name, by position in the graph order."""
+    layers = model.ordered_layers()
+    if len(layers) != len(jax_layer_names):
+        raise ValueError(f"the JAX model has {len(jax_layer_names)} layers, "
+                         f"the port's {len(layers)}")
+    return {j: l.name for j, l in zip(jax_layer_names, layers)}
+
+
+def model_params_from_jax(tree: Mapping, jax_layer_names: Sequence[str],
+                          model) -> Dict[str, torch.Tensor]:
+    """A JAX functional `Model`'s parameter tree → the port `Model`'s state
+    dict (CPU tensors; `load_state_dict` copies them onto the model's
+    device). `jax_layer_names` lists the JAX model's layers in graph order
+    (`[l.name for l in jax_model._ordered_layers()]`). None leaves (the
+    tables of a lazy-embedding rest state) are skipped."""
+    names = _port_names(model, jax_layer_names)
+    out: Dict[str, torch.Tensor] = {}
+    for jname, sub in tree.items():
+        if jname not in names:
+            raise ValueError(f"layer {jname!r} is not in the JAX layer list")
+        for leaf, value in sub.items():
+            if value is not None:
+                out[f"{names[jname]}.{leaf}"] = _to_tensor(value)
+    return out
+
+
+def model_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                        jax_layer_names: Sequence[str], model) -> Dict:
+    """Inverse of `model_params_from_jax`: a port state dict → the JAX tree
+    under the JAX layer names, every layer present (`{}` when it has no
+    parameters), in graph order."""
+    to_jax = {p: j for j, p in _port_names(model, jax_layer_names).items()}
+    tree: Dict = {j: {} for j in jax_layer_names}
+    for key, value in state_dict.items():
+        layer, leaf = key.split(".", 1)
+        tree[to_jax[layer]][leaf] = _to_numpy(value)
+    return tree
+
+
+def lazy_state_from_jax(state: Mapping, jax_layer_names: Sequence[str],
+                        model, device=None) -> Dict:
+    """The JAX lazy-embedding optimizer state (`{"rest": optax or fused
+    Adam state, "tables": {"layer/leaf": (mu, nu)}, "t": int32}`) → the
+    port's (`{"rest": FusedAdamState, "tables": {...}, "t": int}`), tensors
+    on `device`."""
+    names = _port_names(model, jax_layer_names)
+    adam = _adam_state(state["rest"])
+
+    def moments(tree):
+        return {k: v.to(device) for k, v in
+                model_params_from_jax(tree, jax_layer_names, model).items()}
+
+    tables = {}
+    for key, (mu, nu) in state["tables"].items():
+        layer, leaf = key.split("/", 1)
+        tables[f"{names[layer]}/{leaf}"] = (_to_tensor(mu).to(device),
+                                            _to_tensor(nu).to(device))
+    return {"rest": FusedAdamState(int(np.asarray(adam.count)),
+                                   moments(adam.mu), moments(adam.nu)),
+            "tables": tables, "t": int(np.asarray(state["t"]))}
+
+
+def lazy_state_to_jax(state: Mapping, jax_layer_names: Sequence[str],
+                      model) -> Dict:
+    """Inverse of `lazy_state_from_jax`. The rest comes back as
+    `(count, mu, nu)` with None at the table leaves, as the JAX package's
+    `split_rest` leaves them; wrap it as the JAX side needs
+    (`optax.ScaleByAdamState(*t)` in optax.adam's chain, or
+    `FusedAdamState(*t)`)."""
+    to_jax = {p: j for j, p in _port_names(model, jax_layer_names).items()}
+    table_leaves = [key.split("/", 1) for key in state["tables"]]
+
+    def tree(moments):
+        t = model_params_to_jax(moments, jax_layer_names, model)
+        for layer, leaf in table_leaves:
+            t[to_jax[layer]][leaf] = None
+        return t
+
+    rest = state["rest"]
+    return {"rest": FusedAdamState(np.int32(rest.count), tree(rest.mu),
+                                   tree(rest.nu)),
+            "tables": {f"{to_jax[layer]}/{leaf}": tuple(
+                _to_numpy(m) for m in state["tables"][f"{layer}/{leaf}"])
+                for layer, leaf in table_leaves},
+            "t": np.int32(state["t"])}

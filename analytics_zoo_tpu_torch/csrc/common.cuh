@@ -97,4 +97,28 @@ __device__ __forceinline__ float4 scale4(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
 }
 
+// The Adam / AdamW update of one element, in place, with the bias
+// correction folded into (a, b) on the host (`_fold_scalars` of
+// analytics_zoo_tpu/pallas/fused_adam.py, L70):
+//   m <- b1 * m + (1 - b1) * g
+//   v <- b2 * v + (1 - b2) * g * g
+//   p <- p - a * m / (sqrt(v) + b) - lrwd * p
+// Every operation is an IEEE round-to-nearest intrinsic in the order
+// `_adam_math` (L83) writes it, with no fused multiply-adds, so a kernel
+// built on it agrees with the plain PyTorch version bit for bit. The fused
+// Adam and the row-sparse (segment) Adam kernels both call it.
+struct AdamScalars {
+  float a, b, lrwd, b1, b2, one_minus_b1, one_minus_b2;
+};
+
+__device__ __forceinline__ void adam_update(float& p, float& m, float& v,
+                                            float g, const AdamScalars& s) {
+  m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.one_minus_b1, g));
+  v = __fadd_rn(__fmul_rn(s.b2, v),
+                __fmul_rn(s.one_minus_b2, __fmul_rn(g, g)));
+  const float step = __fdiv_rn(__fmul_rn(s.a, m), __fadd_rn(__fsqrt_rn(v),
+                                                            s.b));
+  p = __fsub_rn(__fsub_rn(p, step), __fmul_rn(s.lrwd, p));
+}
+
 }  // namespace azt

@@ -14,7 +14,8 @@
 // after the increment. p and g are f32 or bf16 (each read as f32, p written
 // back rounded to its dtype); m and v are f32. Every operation is an IEEE
 // round-to-nearest intrinsic in the order `_adam_math` writes it, with no
-// fused multiply-adds, so the kernel agrees with the plain PyTorch version
+// fused multiply-adds (`azt::adam_update` in common.cuh, shared with the
+// segment-Adam kernel), so the kernel agrees with the plain PyTorch version
 // (`kernels/fused_adam.py`, one rounding per operation) bit for bit.
 //
 // What bounds it on an H100: per element it reads g, p, m, v and writes p,
@@ -41,37 +42,30 @@ template <typename P, typename G>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(P* __restrict__ p, float* __restrict__ m,
                   float* __restrict__ v, const G* __restrict__ g, long long n,
-                  float a, float b, float lrwd, float b1, float b2,
-                  float one_minus_b1, float one_minus_b2) {
+                  azt::AdamScalars s) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < n; i += stride) {
-    const float gi = azt::to_float(g[i]);
-    const float pi = azt::to_float(p[i]);
-    const float mi = __fadd_rn(__fmul_rn(b1, m[i]),
-                               __fmul_rn(one_minus_b1, gi));
-    const float vi = __fadd_rn(__fmul_rn(b2, v[i]),
-                               __fmul_rn(one_minus_b2, __fmul_rn(gi, gi)));
-    const float step = __fdiv_rn(__fmul_rn(a, mi),
-                                 __fadd_rn(__fsqrt_rn(vi), b));
-    const float pn = __fsub_rn(__fsub_rn(pi, step), __fmul_rn(lrwd, pi));
+    float pi = azt::to_float(p[i]);
+    float mi = m[i];
+    float vi = v[i];
+    azt::adam_update(pi, mi, vi, azt::to_float(g[i]), s);
     m[i] = mi;
     v[i] = vi;
-    azt::from_float(p + i, pn);
+    azt::from_float(p + i, pi);
   }
 }
 
 template <typename P, typename G>
-void launch(void* p, void* m, void* v, const void* g, long long n, float a,
-            float b, float lrwd, float b1, float b2, float omb1, float omb2,
-            cudaStream_t stream) {
+void launch(void* p, void* m, void* v, const void* g, long long n,
+            const azt::AdamScalars& s, cudaStream_t stream) {
   long long blocks = (n + kThreads - 1) / kThreads;
   blocks = blocks < 132 * 8 ? blocks : 132 * 8;  // 8 blocks per SM
   fused_adam_kernel<P, G><<<static_cast<unsigned>(blocks), kThreads, 0,
                             stream>>>(
       static_cast<P*>(p), static_cast<float*>(m), static_cast<float*>(v),
-      static_cast<const G*>(g), n, a, b, lrwd, b1, b2, omb1, omb2);
+      static_cast<const G*>(g), n, s);
 }
 
 }  // namespace
@@ -89,19 +83,16 @@ int azt_fused_adam(void* p, void* m, void* v, const void* g, long long n,
   if (n <= 0 || p_dtype < 0 || p_dtype > 1 || g_dtype < 0 || g_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float o1 = one_minus_b1, o2 = one_minus_b2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const azt::AdamScalars s{a, b, lrwd, b1, b2, one_minus_b1, one_minus_b2};
   if (p_dtype == 0 && g_dtype == 0) {
-    launch<float, float>(p, m, v, g, n, a, b, lrwd, b1, b2, o1, o2, s);
+    launch<float, float>(p, m, v, g, n, s, st);
   } else if (p_dtype == 0) {
-    launch<float, __nv_bfloat16>(p, m, v, g, n, a, b, lrwd, b1, b2, o1, o2,
-                                 s);
+    launch<float, __nv_bfloat16>(p, m, v, g, n, s, st);
   } else if (g_dtype == 0) {
-    launch<__nv_bfloat16, float>(p, m, v, g, n, a, b, lrwd, b1, b2, o1, o2,
-                                 s);
+    launch<__nv_bfloat16, float>(p, m, v, g, n, s, st);
   } else {
-    launch<__nv_bfloat16, __nv_bfloat16>(p, m, v, g, n, a, b, lrwd, b1, b2,
-                                         o1, o2, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(p, m, v, g, n, s, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

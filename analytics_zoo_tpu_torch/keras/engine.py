@@ -1,40 +1,52 @@
-"""Keras-style model engine: the `Layer` and `KerasNet` base classes.
+"""Keras-style model engine: the `Layer` and `KerasNet` base classes, the
+symbolic graph (`Node`, `Input`) and the functional `Model`.
 
-Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49), `KerasNet`
-(L151) with `compile` (L183, the single-loss form) and `fit` (L246), and
-`ensure_built` (L234). In the JAX package a layer is a pure
-function plus a parameter pytree (`build(rng, shape) -> params`,
-`call(params, x)`); here a layer is an `nn.Module` that owns its
+Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with its
+symbolic `__call__` (L82), `Node` (L110), `Input` (L128), `_topo_sort`
+(L134), `KerasNet` (L151) with `compile` (L183, the single-loss form), `fit`
+(L246), `evaluate` (L255), `predict` (L262) and `ensure_built` (L234), and
+`Model` (L513, `build` L548, `apply_and_state` L572). In the JAX package a
+layer is a pure function plus a parameter pytree (`build(rng, shape) ->
+params`, `call(params, x)`); here a layer is an `nn.Module` that owns its
 parameters, so the parameter argument goes away:
 
 - `Layer.call(x, *, training=False, ...)` is the forward of a layer;
+  calling a layer on a `Node` (or a list of them) builds the graph instead,
+  as in the JAX package, and anything else runs the forward
+  (`nn.Module.__call__` is the forward in PyTorch, so `__call__` tells the
+  two apart by the argument);
 - `KerasNet.apply(inputs, *, training=False, seed=None)` is the forward
   of a model (it shadows `nn.Module.apply`, whose init-by-callback use the
   port does not need: `build` initialises parameters); `seed`, the JAX
   `rng`, is the integer a training step's dropout sites derive their
   seeds from;
-- parameters are created at construction, with the sizes the layer's
-  config gives, on the layer's `device` and `dtype`, and hold no values
-  until `build(generator)` fills them (the JAX init families: Glorot
-  uniform kernels, zero biases, N(0, 0.02) embeddings) or a state dict is
-  loaded (`convert.params_from_jax` carries JAX weights across).
+- parameters are created with the sizes the layer's config gives, at
+  construction, or, for a layer whose sizes depend on its input's width
+  (`Dense`), when it is first called on a node; they are created on the
+  layer's `device` and `dtype`, and hold no values until `build(generator)`
+  fills them (the JAX init families: Glorot uniform kernels, zero biases,
+  N(0, 0.02) or U[0, 0.05) embeddings) or a state dict is loaded
+  (`convert` carries JAX weights across);
+- `Model` registers its layers as submodules under their names, in graph
+  order, so its state-dict keys are `"<layer name>.<leaf>"`.
 
-Parameters are trainable (`requires_grad`); serving runs under
-`torch.inference_mode`, so it builds no autograd graph. `evaluate` and
-`predict` (which need `ops/metrics.py`), the symbolic graph (`Node`,
-`Input`, `Sequential`, `Model`) and weight persistence wait for later
-slices of the port (ROADMAP.md queue 1).
+Parameters are trainable (`requires_grad`); serving, `evaluate` and
+`predict` run under `torch.inference_mode`, so they build no autograd
+graph. `Sequential`, multi-output losses and weight persistence wait for
+later slices of the port (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
+
+Shape = Tuple[Optional[int], ...]
 
 _name_counters: Dict[str, int] = collections.defaultdict(int)
 
@@ -52,13 +64,22 @@ def new_parameter(shape, device: DeviceLike, dtype: torch.dtype
                                     dtype=dtype))
 
 
+def _is_symbolic(inputs) -> bool:
+    if isinstance(inputs, (list, tuple)):
+        return bool(inputs) and all(isinstance(i, Node) for i in inputs)
+    return isinstance(inputs, Node)
+
+
 class Layer(nn.Module):
-    """Base layer. Subclasses create their parameters in `__init__`,
-    fill them in `build`, and implement `call`."""
+    """Base layer. Subclasses create their parameters in `__init__` or, when
+    their sizes depend on the input, in `create_parameters`; fill them in
+    `build`; and implement `call` (and `compute_output_shape` when the
+    layer changes the shape)."""
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
         self.name = name or _auto_name(type(self).__name__)
+        self._params_created = False
 
     # -- subclass API ------------------------------------------------------
     def build(self, generator: torch.Generator) -> "Layer":
@@ -71,14 +92,81 @@ class Layer(nn.Module):
                     sub.build(generator)
         return self
 
+    def create_parameters(self, input_shape) -> None:
+        """Create the parameters whose sizes come from the input's shape
+        (called once, at the layer's first call on a node)."""
+
     def call(self, x, *, training: bool = False):
         raise NotImplementedError
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
 
     def forward(self, *args, **kwargs):
         return self.call(*args, **kwargs)
 
+    # -- graph building ----------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """On a `Node` or a list of nodes: a symbolic call that yields the
+        output node. On anything else: the forward."""
+        if args and _is_symbolic(args[0]):
+            if len(args) > 1 or kwargs:
+                raise TypeError(f"{self.name}: a symbolic call takes the "
+                                "input node(s) only")
+            return self._call_symbolic(args[0])
+        return super().__call__(*args, **kwargs)
+
+    def _call_symbolic(self, inputs) -> "Node":
+        nodes = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        in_shapes = [n.shape for n in nodes]
+        shape_in = in_shapes if len(in_shapes) > 1 else in_shapes[0]
+        if not self._params_created:
+            self.create_parameters(shape_in)
+            self._params_created = True
+        return Node(layer=self, inputs=nodes,
+                    shape=self.compute_output_shape(shape_in))
+
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name})"
+
+
+class Node:
+    """A symbolic tensor in the layer graph: the layer that made it, its
+    input nodes and its shape (batch dimension None)."""
+
+    def __init__(self, layer: Optional[Layer], inputs: List["Node"],
+                 shape: Shape):
+        self.layer = layer
+        self.inputs = inputs
+        self.shape = shape
+
+    def __repr__(self):
+        lname = self.layer.name if self.layer else "input"
+        return f"Node({lname}, shape={self.shape})"
+
+
+def Input(shape: Shape, name: Optional[str] = None) -> Node:
+    """Entry node of a functional graph; `shape` excludes the batch
+    dimension (the Keras contract)."""
+    return Node(layer=None, inputs=[], shape=(None,) + tuple(shape))
+
+
+def _topo_sort(outputs: Sequence[Node]) -> List[Node]:
+    order: List[Node] = []
+    seen: set = set()
+
+    def visit(n: Node):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        for i in n.inputs:
+            visit(i)
+        order.append(n)
+
+    for out in outputs:
+        visit(out)
+    return order
 
 
 class KerasNet(nn.Module):
@@ -109,24 +197,23 @@ class KerasNet(nn.Module):
     # -- Keras surface -----------------------------------------------------
     def compile(self, optimizer, loss, metrics: Optional[Sequence] = None):
         """Resolve compile strings through the registries
-        (`ops/optimizers.py`, `ops/objectives.py`). The compile string is
+        (`ops/optimizers.py`, `ops/objectives.py`, `ops/metrics.py`;
+        `"accuracy"` resolves by the loss string). The compile string is
         remembered (`_optimizer_spec`) so `fit(fused_optimizer=True)` can
-        find its fused twin. A list of losses (multi-output) and metrics
-        are not ported yet."""
+        find its fused twin and lazy embeddings their Adam defaults. A list
+        of losses (multi-output) is not ported yet."""
+        from analytics_zoo_tpu_torch.ops import metrics as zmetrics
         from analytics_zoo_tpu_torch.ops import objectives, optimizers
         if isinstance(loss, (list, tuple)):
             raise NotImplementedError(
                 "compile() with one loss per output is not ported yet "
                 f"({optimizers.NOT_PORTED_QUEUE})")
-        if metrics:
-            raise NotImplementedError(
-                "compile(metrics=...) is not ported yet: metrics come with "
-                f"evaluate/predict ({optimizers.NOT_PORTED_QUEUE})")
         self._optimizer_spec = optimizer if isinstance(optimizer, str) \
             else None
         self.loss = objectives.get(loss)
         self.optimizer = optimizers.get(optimizer)
-        self.metrics = []
+        self.metrics = zmetrics.resolve(
+            metrics, loss if isinstance(loss, str) else None)
 
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
             validation_data=None, distributed: bool = True, **kwargs):
@@ -136,6 +223,20 @@ class KerasNet(nn.Module):
         return fit_keras(self, x, y, batch_size=batch_size, epochs=nb_epoch,
                          validation_data=validation_data,
                          distributed=distributed, **kwargs)
+
+    def evaluate(self, x, y=None, batch_per_thread: int = 32, **kwargs):
+        """The compiled metrics (or the loss) over `(x, y)`, as
+        `{name: value}` (`learn/trainer.evaluate_keras`)."""
+        from analytics_zoo_tpu_torch.learn.trainer import evaluate_keras
+        return evaluate_keras(self, x, y, batch_per_thread=batch_per_thread,
+                              **kwargs)
+
+    def predict(self, x, batch_per_thread: int = 32, **kwargs):
+        """The model's outputs on `x` as numpy arrays
+        (`learn/trainer.predict_keras`)."""
+        from analytics_zoo_tpu_torch.learn.trainer import predict_keras
+        return predict_keras(self, x, batch_per_thread=batch_per_thread,
+                             **kwargs)
 
     # -- parameters ----------------------------------------------------------
     @property
@@ -161,3 +262,66 @@ class KerasNet(nn.Module):
                                          assign=assign)
         self._built = True
         return result
+
+
+class Model(KerasNet):
+    """Functional graph model (`Topology.scala:631`): built from `Input`
+    nodes and symbolic layer calls. Its layers are its submodules, under
+    their names, in graph order."""
+
+    def __init__(self, inputs: Union[Node, Sequence[Node]],
+                 outputs: Union[Node, Sequence[Node]],
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        self.outputs = list(outputs) if isinstance(outputs, (list, tuple)) \
+            else [outputs]
+        self._order = _topo_sort(self.outputs)
+        # one parameter set per layer object (weight sharing); two distinct
+        # layers with one name is an error, as in Keras
+        self._layers: List[Layer] = []
+        by_name: Dict[str, Layer] = {}
+        for node in self._order:
+            layer = node.layer
+            if layer is None or any(layer is l for l in self._layers):
+                continue
+            dup = by_name.get(layer.name)
+            if dup is not None:
+                raise ValueError(
+                    f"Duplicate layer name {layer.name!r} for two distinct "
+                    "layers in one graph")
+            by_name[layer.name] = layer
+            self._layers.append(layer)
+            self.add_module(layer.name, layer)
+
+    def build(self, generator: torch.Generator) -> None:
+        for layer in self._layers:
+            layer.build(generator)
+
+    def apply(self, inputs, *, training: bool = False,
+              seed: Optional[int] = None):
+        xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        if len(xs) != len(self.inputs):
+            raise ValueError(f"Model {self.name} expects {len(self.inputs)} "
+                             f"inputs, got {len(xs)}")
+        values: Dict[int, Any] = {id(n): x for n, x in zip(self.inputs, xs)}
+        for node in self._order:
+            if id(node) in values:
+                continue
+            if node.layer is None:
+                raise ValueError("Disconnected input node in graph")
+            args = [values[id(i)] for i in node.inputs]
+            arg = args if len(args) > 1 else (args[0] if args else None)
+            values[id(node)] = node.layer(arg, training=training)
+        outs = [values[id(o)] for o in self.outputs]
+        return outs if len(outs) > 1 else outs[0]
+
+    def compute_output_shape(self, input_shape):
+        outs = [o.shape for o in self.outputs]
+        return outs if len(outs) > 1 else outs[0]
+
+    def ordered_layers(self) -> List[Layer]:
+        """The layers in graph order: the order `convert` maps weights by
+        (auto-generated names differ between processes)."""
+        return list(self._layers)

@@ -3,7 +3,10 @@
 Port of the single-device path of `analytics_zoo_tpu/learn/trainer.py`:
 `_tree_len` / `_tree_take` / `_num_batches` (L143-155), `iter_batches`
 (L158), `_cast_tree` (L647), `_make_one_step` (L737, without sharding) as
-`build_train_step` (L805), and `fit_keras` (L996).
+`build_train_step` (L805), `_pick_one_step` (L968), `build_eval_step`
+(L985), `fit_keras` (L996) with its lazy-embedding branch (L1327-1330,
+L1356-1369, L1385-1388), `evaluate_keras` (L1906) and `predict_keras`
+(L1974).
 
 - Batching: `iter_batches` with the same `np.random.RandomState(seed +
   epoch)` shuffle and the same dropped remainder, so a port fit and a JAX
@@ -22,6 +25,15 @@ Port of the single-device path of `analytics_zoo_tpu/learn/trainer.py`:
   (`ops.optimizers.as_fused`), or keeps the plain one with a warning when
   it has none. There is no availability probe: a kernel that fails to
   build or launch raises.
+- `lazy_embeddings=True` trains the tables the model declares
+  (`lazy_embedding_specs`) row-sparse: with `fused_optimizer=True` through
+  the segment kernels (`kernels/segment_update.make_fused_one_step`, which
+  keeps them even when the rest has no fused twin), else through the plain
+  row Adam of `learn/lazy_embedding.make_lazy_one_step`.
+- `evaluate` and `predict` run the forward under `torch.inference_mode`
+  in batches of `batch_per_thread` (one device), the last batch padded to
+  the full size by repeating its last row and the padding's outputs
+  dropped, as the JAX package does.
 - Seeds: one integer per step from a `torch.Generator` seeded with `seed`,
   handed to the model's dropout sites.
 - History: `history["loss"]` holds one mean per epoch; the step losses
@@ -38,7 +50,7 @@ NotImplementedError when given a value other than their default.
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,12 +64,11 @@ log = logging.getLogger("analytics_zoo_tpu_torch.learn")
 # Arguments of the JAX `fit_keras` that the port does not run yet, with
 # their defaults: a value other than the default raises.
 _NOT_PORTED_ARGS = {
-    "validation_data": None,        # evaluate with ops/metrics.py
+    "validation_data": None,        # per-epoch validation
     "checkpoint_trigger": None,     # checkpoints and auto-resume
     "end_trigger": None,
     "batch_iter_factory": None,     # streaming datasets
     "prefetch_depth": None,         # the background input pipeline
-    "lazy_embeddings": False,       # row-sparse embedding updates (NCF)
     "sharding_rules": None,         # distributed training
     "flops_per_step": None,         # training telemetry
     "metrics_report_s": None,
@@ -161,20 +172,43 @@ def build_train_step(model, loss_fn: Callable, optimizer,
     return one_step
 
 
-def _resolve_fused(model, optimizer, fused_optimizer: Optional[bool]):
+def _resolve_fused(model, optimizer, fused_optimizer: Optional[bool],
+                   lazy_specs=None):
     """The optimizer a fit steps with: the fused twin when asked for and
-    one exists (JAX L1343-1369, minus the availability probe)."""
+    one exists (JAX L1343-1369, minus the availability probe). Without a
+    twin, a fit with lazy tables still takes the segment kernels for the
+    tables (`_pick_one_step`); the rest keeps the plain optimizer."""
     if not fused_optimizer:
         return optimizer
     spec = getattr(model, "_optimizer_spec", None)
     twin = as_fused(optimizer, spec)
-    if twin is None:
+    if twin is not None:
+        return twin
+    if lazy_specs:
+        log.warning("fused_optimizer: compiled optimizer %r has no exact "
+                    "fused twin; embedding tables take the fused segment "
+                    "path, the rest stays on the plain optimizer", spec)
+    else:
         log.warning("fused_optimizer requested but the compiled optimizer "
                     "(%r) has no exact fused twin (only default-"
                     "hyperparameter adam/adamw specs map); keeping the "
                     "plain path", spec)
-        return optimizer
-    return twin
+    return optimizer
+
+
+def _pick_one_step(model, loss_fn, optimizer, mixed_precision: bool,
+                   lazy_specs, fused: bool) -> Callable:
+    if lazy_specs:
+        if fused:
+            from analytics_zoo_tpu_torch.kernels.segment_update import \
+                make_fused_one_step
+            return make_fused_one_step(model, loss_fn, optimizer, lazy_specs,
+                                       mixed_precision)
+        from analytics_zoo_tpu_torch.learn.lazy_embedding import \
+            make_lazy_one_step
+        return make_lazy_one_step(model, loss_fn, optimizer, lazy_specs,
+                                  mixed_precision)
+    return build_train_step(model, loss_fn, optimizer, mixed_precision)
 
 
 def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
@@ -213,7 +247,6 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                  end_trigger=end_trigger,
                  batch_iter_factory=batch_iter_factory,
                  prefetch_depth=prefetch_depth,
-                 lazy_embeddings=lazy_embeddings,
                  sharding_rules=sharding_rules,
                  flops_per_step=flops_per_step,
                  metrics_report_s=metrics_report_s,
@@ -246,12 +279,21 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         model.ensure_built(seed=seed)
     if model.optimizer is None:
         raise RuntimeError("Model must be compiled before fit")
-    optimizer = _resolve_fused(model, model.optimizer, fused_optimizer)
+    lazy_specs = None
+    if lazy_embeddings:
+        from analytics_zoo_tpu_torch.learn.lazy_embedding import resolve_specs
+        lazy_specs = resolve_specs(model)
+    optimizer = _resolve_fused(model, model.optimizer, fused_optimizer,
+                               lazy_specs)
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
-    opt_state = optimizer.init(params)
-    one_step = build_train_step(model, model.loss, optimizer,
-                                mixed_precision)
+    if lazy_specs:
+        from analytics_zoo_tpu_torch.learn.lazy_embedding import init_state
+        opt_state = init_state(params, lazy_specs, optimizer)
+    else:
+        opt_state = optimizer.init(params)
+    one_step = _pick_one_step(model, model.loss, optimizer, mixed_precision,
+                              lazy_specs, bool(fused_optimizer))
     gen = torch.Generator().manual_seed(seed)
 
     history: Dict[str, List[float]] = {"loss": []}
@@ -270,3 +312,80 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         history["loss"].append(mean_loss)
         log.info("Epoch %d/%d  loss=%.4f", epoch + 1, epochs, mean_loss)
     return history
+
+
+# ---------------------------------------------------------------------------
+# evaluate / predict
+# ---------------------------------------------------------------------------
+def _model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def build_eval_step(model, metrics) -> Callable:
+    """`eval_step(states, xb, yb, real) -> states`: one forward and every
+    metric's update on the first `real` rows, without an autograd
+    graph."""
+    def eval_step(states, xb, yb, real: int):
+        with torch.inference_mode():
+            pred = tree_map(lambda a: a[:real], model(xb, training=False))
+            return [m.update(s, yb, pred) for m, s in zip(metrics, states)]
+
+    return eval_step
+
+
+def _forward_numpy(model, xb) -> Any:
+    with torch.inference_mode():
+        pred = model(xb, training=False)
+    return tree_map(lambda a: a.float().cpu().numpy() if a.dtype in (
+        torch.bfloat16, torch.float16) else a.cpu().numpy(), pred)
+
+
+def evaluate_keras(model, x, y=None, batch_per_thread: int = 32,
+                   metrics=None) -> Dict[str, float]:
+    """The compiled metrics (or the compiled loss, when there are none)
+    over `(x, y)`, on the device the parameters live on. Whole batches
+    first; then the tail, padded to a whole batch and sliced to its real
+    rows before the metrics see it."""
+    model.ensure_built()
+    ms = metrics if metrics is not None else model.metrics
+    if not ms:
+        from analytics_zoo_tpu_torch.ops.metrics import Loss
+        ms = [Loss(model.loss)] if model.loss else []
+    if not ms:
+        raise ValueError("No metrics to evaluate; compile with metrics=[...]")
+    device = _model_device(model)
+    batch = batch_per_thread
+    eval_step = build_eval_step(model, ms)
+    states = [m.init() for m in ms]
+    for xb, yb, real in iter_batches(x, y, batch, drop_remainder=False,
+                                     pad_to_batch=False):
+        states = eval_step(states, _to_device(xb, device),
+                           _to_device(yb, device) if yb is not None
+                           else None, real)
+    n = _tree_len(x)
+    tail = n % batch
+    if tail:
+        sel = np.concatenate([np.arange(n - tail, n),
+                              np.repeat([n - 1], batch - tail)])
+        yb = _to_device(_tree_take(y, sel[:tail]), device) \
+            if y is not None else None
+        states = eval_step(states, _to_device(_tree_take(x, sel), device),
+                           yb, tail)
+    return {m.name: float(m.compute(s)) for m, s in zip(ms, states)}
+
+
+def predict_keras(model, x, batch_per_thread: int = 32):
+    """The model's outputs on `x` as numpy arrays (float32 for a bf16
+    model), in batches of `batch_per_thread`, the last padded to a whole
+    batch and sliced to its real rows."""
+    model.ensure_built()
+    device = _model_device(model)
+    outs: List[Any] = []
+    for xb, _, real in iter_batches(x, None, batch_per_thread,
+                                    drop_remainder=False, pad_to_batch=True):
+        pred = _forward_numpy(model, _to_device(xb, device))
+        outs.append(tree_map(lambda a: a[:real], pred))
+    if isinstance(outs[0], (list, tuple)):
+        return type(outs[0])(np.concatenate([o[i] for o in outs])
+                             for i in range(len(outs[0])))
+    return np.concatenate(outs)

@@ -30,15 +30,14 @@ class _BERTTask(KerasNet):
 
     def default_compile(self, lr: float = 5e-5, total_steps: int = -1,
                         loss: str = "sparse_categorical_crossentropy",
-                        metrics=None):
+                        metrics=("accuracy",)):
         """The reference's fine-tuning defaults: AdamWeightDecay with a
-        10% linear warmup, logits crossentropy. (The JAX default metrics,
-        `("accuracy",)`, wait for `ops/metrics.py`; ROADMAP.md queue 1.)"""
+        10% linear warmup, logits crossentropy, accuracy."""
         from analytics_zoo_tpu_torch.ops.objectives import get as get_loss
         from analytics_zoo_tpu_torch.ops.optimizers import adam_weight_decay
         self.compile(adam_weight_decay(lr, warmup_portion=0.1,
                                        total_steps=total_steps),
-                     get_loss(loss, from_logits=True), metrics)
+                     get_loss(loss, from_logits=True), list(metrics))
         return self
 
 

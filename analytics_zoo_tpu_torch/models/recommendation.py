@@ -1,0 +1,148 @@
+"""Recommendation models: NeuralCF and the ranking helpers.
+
+Port of `analytics_zoo_tpu/models/recommendation.py`: `UserItemFeature`
+(L29), `Recommender` (L37) with `predict_user_item_pair`,
+`recommend_for_user` and `recommend_for_item`, and `NeuralCF` (L68) with
+its `lazy_embedding_specs` (L117-140). The architecture is the
+reference's (`NeuralCF.scala:60-97`): MLP user and item embeddings
+concatenated into a Dense relu stack, and a GMF branch (the product of the
+MF embeddings) concatenated before the softmax. Ids are 1-based, so the
+tables have count + 1 rows. `WideAndDeep` and `SessionRecommender` wait
+(ROADMAP.md queue 1).
+
+`device` says where the parameters are created (None is `cuda`; the CPU
+only when asked, as everywhere in the port).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from analytics_zoo_tpu_torch.common.device import DeviceLike
+from analytics_zoo_tpu_torch.keras import layers as L
+from analytics_zoo_tpu_torch.keras.engine import Input, Model
+from analytics_zoo_tpu_torch.learn.lazy_embedding import LazyEmbeddingSpec
+from analytics_zoo_tpu_torch.models.common import ZooModel
+
+
+class UserItemFeature:
+    """(user_id, item_id, label) record used by the recommender helpers
+    (`pyzoo/zoo/models/recommendation/utils.py`)."""
+
+    def __init__(self, user_id: int, item_id: int, label: int = 0):
+        self.user_id, self.item_id, self.label = user_id, item_id, label
+
+
+class Recommender(ZooModel):
+    """Shared ranking helpers (`Recommender` in
+    `pyzoo/zoo/models/recommendation/__init__.py`)."""
+
+    def predict_user_item_pair(self, features: Sequence[UserItemFeature],
+                               batch_per_thread: int = 32) -> np.ndarray:
+        x = np.array([[f.user_id, f.item_id] for f in features], np.int32)
+        return self.predict(x, batch_per_thread=batch_per_thread)
+
+    def recommend_for_user(self, features: Sequence[UserItemFeature],
+                           max_items: int = 5, batch_per_thread: int = 32):
+        """Top-N (item, score) per user from candidate pairs; the score is
+        the last class's probability."""
+        probs = self.predict_user_item_pair(features, batch_per_thread)
+        score = probs[:, -1] if probs.ndim > 1 else probs
+        by_user = {}
+        for f, s in zip(features, score):
+            by_user.setdefault(f.user_id, []).append((f.item_id, float(s)))
+        return {u: sorted(items, key=lambda t: -t[1])[:max_items]
+                for u, items in by_user.items()}
+
+    def recommend_for_item(self, features: Sequence[UserItemFeature],
+                           max_users: int = 5, batch_per_thread: int = 32):
+        probs = self.predict_user_item_pair(features, batch_per_thread)
+        score = probs[:, -1] if probs.ndim > 1 else probs
+        by_item = {}
+        for f, s in zip(features, score):
+            by_item.setdefault(f.item_id, []).append((f.user_id, float(s)))
+        return {i: sorted(users, key=lambda t: -t[1])[:max_users]
+                for i, users in by_item.items()}
+
+
+def _ids_fn(col: int):
+    return lambda xb: xb[..., col].to(torch.int32)
+
+
+def _set_ids_fn(col: int):
+    """The write twin of `_ids_fn`, for the fused sparse backward: a copy of
+    the batch whose id column reads positions 0..B into the pre-gathered
+    rows (B < 2^24, exact even in a float input)."""
+    def set_ids(xb, ids):
+        out = xb.clone()
+        out[..., col] = ids.to(xb.dtype)
+        return out
+    return set_ids
+
+
+class NeuralCF(Recommender):
+    """Neural Collaborative Filtering (`NeuralCF.scala:60`). Input: [B, 2]
+    of (user id, item id)."""
+
+    def __init__(self, user_count: int, item_count: int, class_num: int,
+                 user_embed: int = 20, item_embed: int = 20,
+                 hidden_layers: Sequence[int] = (40, 20, 10),
+                 include_mf: bool = True, mf_embed: int = 20,
+                 device: DeviceLike = None):
+        super().__init__()
+        self._config = dict(user_count=user_count, item_count=item_count,
+                            class_num=class_num, user_embed=user_embed,
+                            item_embed=item_embed,
+                            hidden_layers=list(hidden_layers),
+                            include_mf=include_mf, mf_embed=mf_embed)
+        self.user_count, self.item_count = user_count, item_count
+        self.class_num = class_num
+        self.user_embed, self.item_embed = user_embed, item_embed
+        self.hidden_layers = list(hidden_layers)
+        self.include_mf, self.mf_embed = include_mf, mf_embed
+        self.device = device
+        self.model = self.build_model()
+
+    def build_model(self) -> Model:
+        dev = self.device
+        inp = Input(shape=(2,))
+        user = L.Select(1, 0)(inp)
+        item = L.Select(1, 1)(inp)
+        mlp_user = L.Flatten()(
+            L.Embedding(self.user_count + 1, self.user_embed, init="uniform",
+                        device=dev, name="ncf_mlp_user")(user))
+        mlp_item = L.Flatten()(
+            L.Embedding(self.item_count + 1, self.item_embed, init="uniform",
+                        device=dev, name="ncf_mlp_item")(item))
+        x = L.merge([mlp_user, mlp_item], mode="concat")
+        for units in self.hidden_layers:
+            x = L.Dense(units, activation="relu", device=dev)(x)
+        table_names = ["ncf_mlp_user", "ncf_mlp_item"]
+        if self.include_mf:
+            if self.mf_embed <= 0:
+                raise ValueError("include_mf needs mf_embed > 0")
+            mf_user = L.Flatten()(
+                L.Embedding(self.user_count + 1, self.mf_embed,
+                            init="uniform", device=dev,
+                            name="ncf_mf_user")(user))
+            mf_item = L.Flatten()(
+                L.Embedding(self.item_count + 1, self.mf_embed,
+                            init="uniform", device=dev,
+                            name="ncf_mf_item")(item))
+            gmf = L.merge([mf_user, mf_item], mode="mul")
+            x = L.merge([x, gmf], mode="concat")
+            table_names += ["ncf_mf_user", "ncf_mf_item"]
+        out = L.Dense(self.class_num, activation="softmax", device=dev)(x)
+        model = Model(inp, out)
+        # the tables for the row-sparse optimizer path
+        # (`learn/lazy_embedding.py`; Estimator.fit(lazy_embeddings=True))
+        col = {"ncf_mlp_user": 0, "ncf_mlp_item": 1,
+               "ncf_mf_user": 0, "ncf_mf_item": 1}
+        model.lazy_embedding_specs = [
+            LazyEmbeddingSpec((n, "embeddings"), _ids_fn(col[n]),
+                              set_ids_fn=_set_ids_fn(col[n]))
+            for n in table_names]
+        return model

@@ -2,7 +2,8 @@
 """Drive the PyTorch / CUDA port (`analytics_zoo_tpu_torch`) on one NVIDIA
 GPU: build its kernels, hold each against its plain PyTorch version, serve
 a full-width BERT-base classifier through the port's `InferenceModel`,
-train it through `Estimator.fit`, and print what it measured.
+train it through `Estimator.fit`, train, evaluate and rank with NeuralCF at
+MovieLens-20M scale, and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -38,8 +39,23 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    step time, tokens/s, MFU, peak memory, launches per step of every
    kernel, a profiled fit; f32 kernel path against the plain path (dropout
    0, 3 steps); the bf16 loss falling over 20 steps on one batch;
-9. a `kernels` line listing every kernel of the port;
-10. the last line, `{"ok": true, "device": {...}}`.
+9. the segment-Adam kernels (row-sparse Adam and its segment sum) on
+   tables shaped like NeuralCF's at MovieLens-20M scale ([138001, 64] and
+   [27001, 64], f32 and one bf16 case), 3 steps of 8192 ids under three id
+   mixes: bit-exact against the plain version, untouched rows unchanged,
+   the segment sum the same on two calls and close to the CPU's; times
+   beside the bound and `torch.optim.SparseAdam`;
+10. NeuralCF (138k users, 27k items, embeddings 64, MLP 128/64/32, 2
+   classes) through `Estimator.from_keras(..., optimizer="adam").fit(...,
+   batch_size=8192, lazy_embeddings=True, fused_optimizer=True)` over
+   524,288 samples: step time, samples/s, peak memory, launches per step
+   (4 segment_adam, 4 segment_sum, 8 fused_adam), a profiled fit; the dense
+   leg (`lazy_embeddings=False`, 12 fused_adam a step); the kernel path
+   against the plain path (3 steps); the loss falling on a learnable
+   rule; `evaluate(metrics=["accuracy"])` on held-out pairs and
+   `recommend_for_user` against a top-k of `predict`;
+11. a `kernels` line listing every kernel of the port;
+12. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -48,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import os
@@ -66,10 +83,14 @@ from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import dropout as dr  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import fused_adam as fad  # noqa: E402
+from analytics_zoo_tpu_torch.kernels import \
+    segment_update as seg  # noqa: E402
 from analytics_zoo_tpu_torch.kernels.philox import \
     attention_keep_scale  # noqa: E402
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
 from analytics_zoo_tpu_torch.models.bert import BERTClassifier  # noqa: E402
+from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: E402
+    NeuralCF, UserItemFeature)
 from analytics_zoo_tpu_torch.ops import objectives, optimizers  # noqa: E402
 from analytics_zoo_tpu_torch.serving.inference_model import \
     InferenceModel  # noqa: E402
@@ -80,7 +101,7 @@ from analytics_zoo_tpu_torch.serving.inference_model import \
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 MEM_BYTES_PER_S = 3.35e12
 
-SOURCES = [fa.SOURCE, fa.BWD_SOURCE, dr.SOURCE, fad.SOURCE]
+SOURCES = [fa.SOURCE, fa.BWD_SOURCE, dr.SOURCE, fad.SOURCE, seg.SOURCE]
 CSRC = "analytics_zoo_tpu_torch/csrc/"
 KERNELS = [
     {"name": fa.KERNEL_NAME, "route": "cuda", "source": CSRC + fa.SOURCE,
@@ -94,6 +115,14 @@ KERNELS = [
      "replaces": "analytics_zoo_tpu/pallas/dropout.py:110"},
     {"name": fad.KERNEL_NAME, "route": "cuda", "source": CSRC + fad.SOURCE,
      "replaces": "analytics_zoo_tpu/pallas/fused_adam.py:93"},
+    {"name": seg.KERNEL_NAME, "route": "cuda", "source": CSRC + seg.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/segment_update.py:77"},
+    # the segment sum of `segment_compact`, XLA's scatter-add in the JAX
+    # package (no Pallas kernel there); written by hand here so that the
+    # sum is the same on every call
+    {"name": seg.SUM_NAME, "route": "cuda", "source": CSRC + seg.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/segment_update.py:69",
+     "helper": True},
     # a test aid, on no main path: exports the keep mask the three flash
     # kernels draw (the byte rule of `_keep_scale`) for the checks
     {"name": fa.KEEP_SCALE_NAME, "route": "cuda",
@@ -894,6 +923,7 @@ def profile_fit(est, data, fit_kw, steps: int, step_ms: float):
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     return {"phase": "train_profile", "device_ms_per_step": device_ms,
+            "device_ops_per_step": sum(r[2] for r in rows),
             "step_ms": step_ms,
             "idle_share": (1.0 - device_ms / step_ms) if device_ms else None,
             "top": [{"kernel": name[:96], "ms": ms, "share": ms / device_ms,
@@ -1025,8 +1055,415 @@ def phase_training(card: str, seed: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# segment Adam
+# ---------------------------------------------------------------------------
+SEG_BATCH = 8192
+SEG_DIM = 64
+SEG_HP = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)    # "adam"'s defaults
+# (name, table rows, ids drawn from, table dtype): NeuralCF's user table
+# with uniform ids (~3% duplicates in a batch), its item table (~14%), the
+# user table with every id from 512 values, and the user table in bf16.
+SEG_CASES = [("uniform_users", 138_001, 138_000, torch.float32),
+             ("uniform_items", 27_001, 27_000, torch.float32),
+             ("heavy_duplicates", 138_001, 512, torch.float32),
+             ("uniform_users_bf16", 138_001, 138_000, torch.bfloat16)]
+SEG_MAIN = "uniform_users"
+# segment sum on the card against the CPU's plain version: the same adds in
+# the same order, so equal in practice; 1e-6 of the largest sum allows for
+# a different rounding of the CPU's vectorised add.
+SEG_SUM_TOL = 1e-6
+
+
+def segment_bound(n_slots: int, n_valid: int, dim: int, dtype):
+    """(ms, "bytes" | "operations") of one row-Adam launch over this batch:
+    the valid flags of every slot, and the uid, gradient row and p, m, v of
+    each valid slot read once and p, m, v written once; ~12 flops an
+    element."""
+    flops, row_bytes = seg.segment_adam_cost(n_valid, dim, dtype)
+    nbytes = 4.0 * n_slots + 4.0 * n_valid + row_bytes
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def segment_sum_bound(n: int, dim: int):
+    """The segment sum: n gradient rows and the sorted ids, order and slots
+    read once, the [n, dim] slots written once; one add an element."""
+    nbytes = 8.0 * n * dim + 12.0 * n
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = n * dim / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def sparse_adam_ms(table, batches, reps: int) -> float:
+    """`torch.optim.SparseAdam` stepping the same rows with a coalesced
+    sparse gradient, by profiler device time: a yardstick of time only (it
+    adds eps without the √(1-β2^t) factor the port's Adam folds in)."""
+    param = torch.nn.Parameter(table.detach().float().clone())
+    grads = [torch.sparse_coo_tensor(u[v.bool()].long()[None], g[v.bool()],
+                                     param.shape).coalesce()
+             for u, v, g in batches]
+    opt = torch.optim.SparseAdam([param], lr=SEG_HP["lr"],
+                                 betas=(SEG_HP["b1"], SEG_HP["b2"]),
+                                 eps=SEG_HP["eps"])
+    it = itertools.cycle(grads)
+
+    def step():
+        param.grad = next(it)
+        opt.step()
+    ms = device_ms(step, reps)
+    del opt, param, grads
+    return ms
+
+
+def cycling(fn, batches):
+    """A call of `fn` on the next of `batches` each time: the timed
+    launches touch other rows than the last ones (16 batches touch ~100 MB
+    of rows, twice the L2 cache), as a training step finds them."""
+    it = itertools.cycle(batches)
+    return lambda: fn(*next(it))
+
+
+def phase_segment_adam(card: str, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 70)
+    rs = np.random.default_rng(seed + 71)
+    hp = SEG_HP
+    B, dim = SEG_BATCH, SEG_DIM
+    results = {}
+    for name, rows, id_range, dtype in SEG_CASES:
+        table = (torch.randn((rows, dim), device="cuda", generator=gen)
+                 * 0.05).to(dtype)
+        mu = torch.randn((rows, dim), device="cuda", generator=gen) * 1e-3
+        nu = (torch.randn((rows, dim), device="cuda", generator=gen)
+              * 1e-3) ** 2
+        plain = [t.clone() for t in (table, mu, nu)]
+        untouched_same = deterministic = ids_exact = True
+        max_abs_err, sum_err, dup_frac = 0.0, 0.0, []
+        before = LAUNCHES.snapshot()
+        for count in (1, 2, 3):
+            ids = torch.from_numpy(rs.integers(1, id_range + 1, B)).cuda()
+            d_rows = torch.randn((B, dim), device="cuda", generator=gen) * 1e-2
+            start = [t.clone() for t in (table, mu, nu)]
+            uids, valid, g_slots = seg.segment_compact(ids, d_rows)
+            again = seg.segment_compact(ids, d_rows)
+            deterministic &= all(torch.equal(a, b) for a, b in
+                                 zip((uids, valid, g_slots), again))
+            cu, cv, cg = seg.segment_compact(ids.cpu(), d_rows.cpu())
+            ids_exact &= (torch.equal(uids.cpu(), cu)
+                          and torch.equal(valid.cpu(), cv))
+            sum_err = max(sum_err, (g_slots.cpu() - cg).abs().max().item()
+                          / cg.abs().max().item())
+            scal = fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"],
+                                     hp["eps"], 0.0)
+            seg.kernel_apply(table, mu, nu, uids, valid, g_slots, scal,
+                             b1=hp["b1"], b2=hp["b2"])
+            seg._reference_kernel_apply(*plain, uids, valid, g_slots, scal,
+                                        hp["b1"], hp["b2"])
+            torch.cuda.synchronize()
+            max_abs_err = max([max_abs_err] + [
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip((table, mu, nu), plain)])
+            touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
+            touched[uids[valid.bool()].long()] = True
+            untouched_same &= all(torch.equal(a[~touched], b[~touched])
+                                  for a, b in zip((table, mu, nu), start))
+            changed = bool((table[touched] != start[0][touched]).any())
+            untouched_same &= changed
+            dup_frac.append(1.0 - int(valid.sum()) / B)
+            del start
+        launches = {k: v - before.get(k, 0)
+                    for k, v in LAUNCHES.snapshot().items()
+                    if v != before.get(k, 0)}
+        # timing: 16 fresh batches in turn, so the rows start cold in L2
+        batches = [seg.segment_compact(
+            torch.from_numpy(rs.integers(1, id_range + 1, B)).cuda(),
+            torch.randn((B, dim), device="cuda", generator=gen) * 1e-2)
+            for _ in range(16)]
+        n_valid = float(np.mean([int(v.sum()) for _, v, _ in batches]))
+
+        def kernel(u, v, g):
+            seg.kernel_apply(table, mu, nu, u, v, g, scal, b1=hp["b1"],
+                             b2=hp["b2"])
+
+        def plain_fn(u, v, g):
+            seg._reference_kernel_apply(table, mu, nu, u, v, g, scal,
+                                        hp["b1"], hp["b2"])
+        kernel_ms = device_ms(cycling(kernel, batches), 48)
+        wall_ms = time_ms(cycling(kernel, batches), 48)
+        plain_ms = device_ms(cycling(plain_fn, batches), 16)
+        library_ms = sparse_adam_ms(table, batches, 16)
+        bound_ms, bound_by = segment_bound(B, n_valid, dim, dtype)
+        sids, order, _, slot = seg.sort_ids(ids)
+        sum_ms = device_ms(lambda: seg.segment_sum(d_rows, sids, order,
+                                                   slot), 50)
+        sum_plain_ms = device_ms(lambda: seg._reference_segment_sum(
+            d_rows, order, slot), 50)
+        gathered = d_rows.index_select(0, order.long())
+        sum_library_ms = device_ms(lambda: torch.zeros_like(
+            d_rows).index_add_(0, slot, gathered), 50)
+        sum_bound = segment_sum_bound(B, dim)
+        ok = (max_abs_err == 0.0 and untouched_same and deterministic
+              and ids_exact
+              and sum_err <= SEG_SUM_TOL
+              and launches == {seg.KERNEL_NAME: 3, seg.SUM_NAME: 6})
+        row = {"phase": "segment_adam", "case": name, "table": [rows, dim],
+               "dtype": str(dtype)[6:], "batch": B, "id_range": id_range,
+               "steps": 3, "duplicate_fraction": dup_frac,
+               "n_valid_mean_timed": n_valid,
+               "max_abs_err_vs_plain": max_abs_err,
+               "untouched_rows_unchanged": untouched_same,
+               "segment_sum_deterministic": deterministic,
+               "uids_valid_equal_cpu": ids_exact,
+               "segment_sum_rel_err_vs_cpu": sum_err,
+               "segment_sum_tol": SEG_SUM_TOL, "launches": launches,
+               "ok": ok, "kernel_ms": kernel_ms, "wall_ms": wall_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "sum_kernel_ms": sum_ms, "sum_plain_ms": sum_plain_ms,
+               "sum_library_ms": sum_library_ms, "sum_bound_ms": sum_bound[0],
+               "sum_bound_by": sum_bound[1], "card": card}
+        emit(row)
+        results[name] = row
+        del table, mu, nu, plain, gathered, batches
+        torch.cuda.empty_cache()
+    if not all(r["ok"] for r in results.values()):
+        raise SystemExit("chip_smoke: segment Adam check failed")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# NeuralCF
+# ---------------------------------------------------------------------------
+# `bench_ncf.py:58-66` at MovieLens-20M scale; 64 steps of 8192 samples
+# (bench_ncf.py draws 4M samples; 524,288 keep the run short).
+NCF_CFG = dict(user_count=138_000, item_count=27_000, class_num=2,
+               user_embed=64, item_embed=64, mf_embed=64,
+               hidden_layers=(128, 64, 32))
+NCF_BATCH = 8192
+NCF_STEPS = 64
+NCF_LR = SEG_HP["lr"]
+# f32, 3 steps, the kernel path against the plain path
+# (`make_lazy_one_step`: dense gradients, `row_adam_update`, plain Adam):
+# the same forward, so losses agree to rounding (1e-5); the two Adams
+# round differently (folded scalars against bias-corrected moments) and
+# the segment sum adds in another order than the embedding backward, so a
+# parameter may move apart by up to lr a step where m/√v amplifies
+# rounding (2·lr·steps), but at most 1e-3 of the dense parameters and
+# touched rows beyond 1e-6.
+NCF_LOSS_TOL = 1e-5
+NCF_PARAM_MAX = 2 * NCF_LR * 3
+NCF_PARAM_FRAC = 1e-3
+
+
+def ncf_data(rs, n: int, users: int, items: int, rule: bool = False):
+    """(x, y): ids uniform in [1, users) and [1, items), labels in {0, 1}
+    as `bench_ncf.py:70-73` draws them; with `rule`, labels from
+    `examples/recommendation_ncf.py`'s (u·7 + i·3) % 5."""
+    x = np.stack([rs.integers(1, users, n), rs.integers(1, items, n)],
+                 axis=1).astype(np.int32)
+    if rule:
+        y = ((x[:, 0].astype(np.int64) * 7 + x[:, 1] * 3) % 5)
+    else:
+        y = rs.integers(0, 2, n)
+    return x, y.astype(np.int32)
+
+
+def new_ncf(state=None, **kw):
+    """A NeuralCF on the card; `state` (another instance's state dict) is
+    loaded by position, since auto-named layers (`dense_5`) differ between
+    instances."""
+    ncf = NeuralCF(**dict(NCF_CFG, **kw))
+    if state is not None:
+        keys = list(ncf.model.state_dict())
+        ncf.model.load_state_dict(dict(zip(keys, state.values())))
+    return ncf
+
+
+def timed_ncf_fit(est, data, fit_kw, steps: int):
+    """Warm fit, then a fit timed on the host clock ending in a
+    synchronize, with every launch count 0 just before and read just
+    after. Returns (history, step_ms, launch counts, peak bytes)."""
+    est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    hist = est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    return hist, dt / steps * 1e3, counts, torch.cuda.max_memory_allocated()
+
+
+def table_rows_touched(x: np.ndarray, spec_col: int, rows: int):
+    touched = torch.zeros(rows, dtype=torch.bool)
+    touched[torch.from_numpy(x[:, spec_col]).long()] = True
+    return touched
+
+
+def phase_ncf(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.default_rng(seed + 60)
+    users, items = NCF_CFG["user_count"], NCF_CFG["item_count"]
+    n = NCF_BATCH * NCF_STEPS
+    data = ncf_data(rs, n, users, items)
+    ncf = new_ncf()
+    ncf.model.ensure_built(seed=seed)
+    init = {k: v.detach().clone() for k, v in ncf.model.state_dict().items()}
+    n_dense = sum(1 for k in init if not k.endswith("embeddings"))
+    fit_kw = dict(epochs=1, batch_size=NCF_BATCH, steps_per_run=64,
+                  lazy_embeddings=True, fused_optimizer=True)
+    est = Estimator.from_keras(ncf.model, optimizer="adam",
+                               loss="sparse_categorical_crossentropy")
+    # -- the main path: every count is 0 just before, read just after -----
+    hist, step_ms, counts, peak = timed_ncf_fit(est, data, fit_kw,
+                                                NCF_STEPS)
+    # -------------------------------------------------------------------------
+    expected = {seg.KERNEL_NAME: 4, seg.SUM_NAME: 4, fad.KERNEL_NAME: n_dense}
+    per_step = {k: v / NCF_STEPS for k, v in counts.items()}
+    emit({"phase": "ncf_train", "leg": "lazy_fused", "config": NCF_CFG,
+          "batch": NCF_BATCH, "steps": NCF_STEPS, "samples": n,
+          "step_ms": step_ms,
+          "ncf_train_samples_per_sec_via_estimator_fit":
+              NCF_BATCH / step_ms * 1e3,
+          "max_memory_allocated_gb": peak / 1e9, "loss": hist["loss"],
+          "launches": counts, "launches_per_step": per_step,
+          "expected_per_step": expected, "card": card})
+    if per_step != {k: float(v) for k, v in expected.items()}:
+        raise SystemExit(f"chip_smoke: NCF launches per step {per_step}, "
+                         f"expected {expected}")
+    if not all(math.isfinite(v) for v in hist["loss"]):
+        raise SystemExit("chip_smoke: non-finite NCF loss")
+    prof_data = tuple(a[:8 * NCF_BATCH] for a in data)
+    emit(dict(profile_fit(est, prof_data, fit_kw, 8, step_ms),
+              leg="lazy_fused", card=card))
+    del est, ncf
+    torch.cuda.empty_cache()
+
+    # -- dense + fused: bench_ncf.py's A/B ---------------------------------
+    dense = new_ncf(init)
+    dense_kw = dict(fit_kw, lazy_embeddings=False)
+    est = Estimator.from_keras(dense.model, optimizer="adam",
+                               loss="sparse_categorical_crossentropy")
+    dhist, dstep_ms, dcounts, dpeak = timed_ncf_fit(est, data, dense_kw,
+                                                    NCF_STEPS)
+    dper_step = {k: v / NCF_STEPS for k, v in dcounts.items()}
+    emit({"phase": "ncf_train", "leg": "dense_fused", "batch": NCF_BATCH,
+          "steps": NCF_STEPS, "step_ms": dstep_ms,
+          "ncf_train_samples_per_sec_via_estimator_fit":
+              NCF_BATCH / dstep_ms * 1e3,
+          "max_memory_allocated_gb": dpeak / 1e9, "loss": dhist["loss"],
+          "launches_per_step": dper_step,
+          "lazy_speedup": dstep_ms / step_ms, "card": card})
+    if dper_step != {fad.KERNEL_NAME: float(len(init))}:
+        raise SystemExit(f"chip_smoke: dense NCF launches per step "
+                         f"{dper_step}, expected {len(init)} fused_adam")
+    emit(dict(profile_fit(est, prof_data, dense_kw, 8, dstep_ms),
+              leg="dense_fused", card=card))
+    del est, dense
+    torch.cuda.empty_cache()
+
+    # -- f32, 3 steps: the kernel path against the plain path --------------
+    batch = tuple(a[:NCF_BATCH] for a in data)
+    runs = {}
+    for name, fused in (("kernel", True), ("plain", False)):
+        m = new_ncf(init)
+        LAUNCHES.reset()
+        h = Estimator.from_keras(
+            m.model, optimizer="adam",
+            loss="sparse_categorical_crossentropy").fit(
+            batch, epochs=3, batch_size=NCF_BATCH, lazy_embeddings=True,
+            fused_optimizer=fused)
+        runs[name] = (h["loss"], {k: v.detach().cpu().clone() for k, v in
+                                  zip(init, m.model.state_dict().values())},
+                      LAUNCHES.snapshot())
+        del m
+    (lk, pk, ck), (lp, pp, cp) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(a - b) for a, b in zip(lk, lp))
+    touched = {"ncf_mlp_user": table_rows_touched(batch[0], 0, users + 1),
+               "ncf_mf_user": table_rows_touched(batch[0], 0, users + 1),
+               "ncf_mlp_item": table_rows_touched(batch[0], 1, items + 1),
+               "ncf_mf_item": table_rows_touched(batch[0], 1, items + 1)}
+    diffs, untouched_same = [], True
+    for k in pk:
+        start = init[k].cpu()
+        layer = k.split(".")[0]
+        if layer in touched:
+            t = touched[layer]
+            diffs.append((pk[k][t] - pp[k][t]).abs())
+            untouched_same &= (torch.equal(pk[k][~t], start[~t])
+                               and torch.equal(pp[k][~t], start[~t]))
+        else:
+            diffs.append((pk[k] - pp[k]).abs())
+    total = sum(d.numel() for d in diffs)
+    param_max = max(d.max().item() for d in diffs)
+    frac_over = sum(int((d > 1e-6).sum()) for d in diffs) / total
+    kp_ok = (loss_err <= NCF_LOSS_TOL and param_max <= NCF_PARAM_MAX
+             and frac_over <= NCF_PARAM_FRAC and untouched_same
+             and ck.get(seg.KERNEL_NAME, 0) == 12
+             and cp.get(seg.KERNEL_NAME, 0) == 0)
+    emit({"phase": "ncf_kernel_vs_plain", "steps": 3, "loss_kernel": lk,
+          "loss_plain": lp, "loss_max_abs_err": loss_err,
+          "loss_tol": NCF_LOSS_TOL, "param_max_abs_err": param_max,
+          "param_tol": NCF_PARAM_MAX, "param_frac_over_1e-6": frac_over,
+          "param_frac_tol": NCF_PARAM_FRAC,
+          "untouched_rows_equal_initial": untouched_same,
+          "launches_kernel_path": ck, "launches_plain_path": cp,
+          "ok": kp_ok, "card": card})
+    del runs, pk, pp, diffs
+
+    # -- learning, evaluation and ranking ----------------------------------
+    rule = new_ncf(class_num=5)
+    rule.compile("adam", "sparse_categorical_crossentropy", ["accuracy"])
+    x_tr, y_tr = ncf_data(rs, 8 * NCF_BATCH, users, items, rule=True)
+    h = rule.fit(x_tr, y_tr, batch_size=NCF_BATCH, nb_epoch=3,
+                 lazy_embeddings=True, fused_optimizer=True)
+    falls = all(math.isfinite(v) for v in h["loss"]) \
+        and h["loss"][-1] < h["loss"][0]
+    x_ev, y_ev = ncf_data(rs, 65_536, users, items, rule=True)
+    t0 = time.perf_counter()
+    metrics = rule.evaluate(x_ev, y_ev, batch_per_thread=NCF_BATCH)
+    eval_s = time.perf_counter() - t0
+    probs = rule.predict(x_ev, batch_per_thread=NCF_BATCH)
+    acc_np = float(np.mean(np.argmax(probs, -1) == y_ev))
+    acc = metrics["sparse_categorical_accuracy"]
+    eval_ok = (probs.shape == (65_536, 5) and bool(np.isfinite(probs).all())
+               and abs(acc - acc_np) <= 1.0 / 65_536)
+    rank_users = [int(u) for u in x_ev[:3, 0]]
+    cands = [UserItemFeature(u, i) for u in rank_users
+             for i in range(1, items + 1)]
+    t0 = time.perf_counter()
+    recs = rule.recommend_for_user(cands, max_items=5,
+                                   batch_per_thread=NCF_BATCH)
+    rank_s = time.perf_counter() - t0
+    scores = rule.predict(np.array([[f.user_id, f.item_id] for f in cands],
+                                   np.int32),
+                          batch_per_thread=NCF_BATCH)[:, -1]
+    rank_ok = True
+    for k, u in enumerate(rank_users):
+        top = torch.topk(torch.from_numpy(
+            scores[k * items:(k + 1) * items]), 5)
+        want = [(int(i) + 1, float(v)) for v, i in zip(top.values,
+                                                       top.indices)]
+        rank_ok &= [s for _, s in recs[u]] == [s for _, s in want] and \
+            [i for i, _ in recs[u]] == [i for i, _ in want]
+    emit({"phase": "ncf_learn_eval_rank", "class_num": 5,
+          "losses": h["loss"], "loss_falls": falls, "evaluate": metrics,
+          "accuracy_from_predict": acc_np, "evaluate_s": eval_s,
+          "eval_ok": eval_ok, "rank_users": rank_users,
+          "candidates": len(cands), "recommend_s": rank_s,
+          "top5": {str(u): recs[u] for u in rank_users},
+          "rank_matches_topk": rank_ok, "card": card})
+    del rule
+    torch.cuda.empty_cache()
+    if not (kp_ok and falls and eval_ok and rank_ok):
+        raise SystemExit("chip_smoke: NCF check failed")
+    return counts
+
+
 def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
-                   adrop):
+                   adrop, segs, ncf_counts):
     """The `kernels` line: every kernel with its numbers at the main
     path's shape and dtype and its verdict."""
     main_fwd = attn[(MAIN_SHAPE, True, torch.float32)]
@@ -1079,8 +1516,26 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             library_ms=adam_main["library_ms"],
             shape=f"{adam_main['leaves']} BERT-base leaves (one sweep)",
             dtype=adam_main["param_dtype"],
+            launches_ncf=ncf_counts.get(fad.KERNEL_NAME, 0),
             verdict="ok" if all(r["ok"] for r in adam.values()) else "fail"),
     }
+    seg_main = segs[SEG_MAIN]
+    seg_ok = "ok" if all(r["ok"] for r in segs.values()) else "fail"
+    common = dict(shape=[SEG_BATCH] + seg_main["table"],
+                  dtype=seg_main["dtype"], verdict=seg_ok)
+    entries[seg.KERNEL_NAME] = dict(
+        launches=ncf_counts.get(seg.KERNEL_NAME, 0),
+        max_abs_err=max(r["max_abs_err_vs_plain"] for r in segs.values()),
+        ms=seg_main["kernel_ms"], wall_ms=seg_main["wall_ms"],
+        plain_ms=seg_main["plain_ms"], bound_ms=seg_main["bound_ms"],
+        bound_by=seg_main["bound_by"], library_ms=seg_main["library_ms"],
+        **common)
+    entries[seg.SUM_NAME] = dict(
+        launches=ncf_counts.get(seg.SUM_NAME, 0),
+        max_abs_err=seg_main["segment_sum_rel_err_vs_cpu"],
+        ms=seg_main["sum_kernel_ms"], plain_ms=seg_main["sum_plain_ms"],
+        bound_ms=seg_main["sum_bound_ms"], bound_by=seg_main["sum_bound_by"],
+        library_ms=seg_main["sum_library_ms"], **common)
     return entries
 
 
@@ -1118,8 +1573,10 @@ def main(argv=None) -> int:
     adam = phase_fused_adam(card, args.seed)
     serve_counts = phase_serving(card, args.seed)
     train_counts = phase_training(card, args.seed)
+    segs = phase_segment_adam(card, args.seed)
+    ncf_counts = phase_ncf(card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
-                             train_counts, adrop)
+                             train_counts, adrop, segs, ncf_counts)
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]

@@ -326,7 +326,7 @@ def test_optimizer_state_round_trips(kind):
 
 @pytest.mark.parametrize("kwargs", [
     {"validation_data": ([1], [1])}, {"checkpoint_trigger": object()},
-    {"sharding_rules": True}, {"lazy_embeddings": True},
+    {"sharding_rules": True}, {"prefetch_depth": 2},
     {"device_cache": True}, {"auto_resume": True}, {"step_retries": 2},
     {"profile_steps": (0, 1)}, {"flops_per_step": 1.0},
 ])
@@ -344,9 +344,9 @@ def test_estimator_guards(monkeypatch):
     tm = _port_model(_jax_model().params, **NO_DROP)
     with pytest.raises(NotImplementedError, match="checkpoints"):
         Estimator(tm, model_dir="/nowhere")
-    with pytest.raises(NotImplementedError, match="metrics"):
+    with pytest.raises(ValueError, match="Unsupported metric"):
         Estimator.from_keras(tm, optimizer="adam", loss=tloss,
-                             metrics=["accuracy"])
+                             metrics=["no_such_metric"])
     est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
                                device="cpu")
     with pytest.raises(ValueError, match="batch"):
