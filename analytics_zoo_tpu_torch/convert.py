@@ -256,3 +256,38 @@ def lazy_state_to_jax(state: Mapping, jax_layer_names: Sequence[str],
                 _to_numpy(m) for m in state["tables"][f"{layer}/{leaf}"])
                 for layer, leaf in table_leaves},
             "t": np.int32(state["t"])}
+
+
+# ---------------------------------------------------------------------------
+# generative decoder (`models/generative.TinyDecoder`)
+# ---------------------------------------------------------------------------
+def generative_params_from_jax(tree: Mapping, device=None) -> Dict[str, Any]:
+    """A `TinyDecoder` parameter tree of numpy (or jax) arrays → the same
+    tree of tensors on `device` (`None` is `cuda`): ``embed``, ``pos``,
+    ``layers`` (a list of per-layer dicts), ``lnf_g``, ``lnf_b``,
+    ``head``. Dense weights keep the JAX layout ``[in, out]``."""
+    from analytics_zoo_tpu_torch.common.device import resolve_device
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a).to(dev), dict(tree))
+
+
+def generative_params_to_jax(params: Mapping) -> Dict[str, Any]:
+    """The inverse: a tree of tensors → the same tree of numpy arrays."""
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+    return tree_map(_to_numpy, dict(params))
+
+
+def kv_from_jax(kv: Sequence[Mapping], device=None) -> list:
+    """A KV pool (contiguous or block pool), per layer ``{"k", "v"}``
+    arrays → the same list of tensors on `device` (`None` is `cuda`)."""
+    from analytics_zoo_tpu_torch.common.device import resolve_device
+    dev = resolve_device(device)
+    return [{name: _to_tensor(layer[name]).to(dev) for name in ("k", "v")}
+            for layer in kv]
+
+
+def kv_to_jax(kv: Sequence[Mapping]) -> list:
+    """A KV pool of tensors → per layer ``{"k", "v"}`` numpy arrays."""
+    return [{name: _to_numpy(layer[name]) for name in ("k", "v")}
+            for layer in kv]

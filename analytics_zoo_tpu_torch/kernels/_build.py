@@ -40,6 +40,7 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_compiles = 0        # nvcc runs that produced a library, in this process
 
 
 class KernelBuildError(RuntimeError):
@@ -90,6 +91,7 @@ def build(sources: Sequence[str]) -> Dict[str, float]:
     """Compile every source not yet built, one nvcc per source, all started
     together. Returns the seconds each build took (0.0 if it was cached).
     Raises KernelBuildError with nvcc's output if any build fails."""
+    global _compiles
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {s: library_path(s) for s in sources}
     todo = {s: p for s, p in todo.items() if not p.exists()}
@@ -116,9 +118,18 @@ def build(sources: Sequence[str]) -> Dict[str, float]:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+        _compiles += 1
     if failures:
         raise KernelBuildError("CUDA build failed:\n" + "\n".join(failures))
     return seconds
+
+
+def build_events() -> Dict[str, int]:
+    """How many sources this process compiled with nvcc and how many
+    libraries it has loaded: a serving run reads these before and after
+    its request path to show that no kernel was built there."""
+    with _lock:
+        return {"compiles": _compiles, "loaded": len(_libs)}
 
 
 def build_log(source: str) -> str:

@@ -4,7 +4,10 @@ Port of `analytics_zoo_tpu/serving/inference_model.py`: `_next_bucket`
 (L64), `PendingPrediction` (L71), `_JoinedPending` (L276), the buckets and
 the admission semaphore of `InferenceModel.__init__` (L305-395),
 `load_keras` (L398), `load_fn` (L495), `predict` (L1135), `predict_async`
-(L1140) and `warmup` (L1231).
+(L1140) and `warmup` (L1231); and the generative decode half (L1353-1671):
+`load_generative`, `warmup_generative`, `warmup_generative_paged`,
+`generative_prefill`, `generative_step`, `generative_prefill_paged`,
+`generative_step_paged` and `account_generative`.
 
 - A batch is padded to a power-of-two bucket by repeating its last row on
   the device, and a batch above `max_batch` is split into chunks that are
@@ -18,13 +21,22 @@ the admission semaphore of `InferenceModel.__init__` (L305-395),
   request path. (The JAX package warms to compile one XLA program per
   bucket; PyTorch runs eagerly, so there is nothing to compile per shape.)
 
+Generative mode runs two program families: a prefill per prompt bucket
+(and, paged, per (chunk bucket, context bucket)) and a decode step per kv
+bucket. The JAX package compiles one executable per program at warmup so
+that the request path compiles nothing. PyTorch runs eagerly; the port's
+warmup runs every program once, so the decode-attention kernel library is
+built and loaded and cuBLAS is set up before any request: the request path
+builds no kernel (`kernels._build.build_events` shows it).
+
 Not ported yet: replicas and the router, sharded placement, the persistent
-compile cache, roofline accounting, fault points, hot swap and the
-generative mode.
+compile cache, roofline accounting (`account_generative` is a no-op), fault
+points of the forward path and hot swap.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -147,6 +159,10 @@ class InferenceModel:
         self.warmup_report: Dict[str, float] = {}
         self.warmed_buckets: set = set()
         self.serving_dtype: str = "float32"
+        self._gen_prefill_fn: Optional[Callable] = None
+        self._gen_step_fn: Optional[Callable] = None
+        self._gen_paged_prefill_fn: Optional[Callable] = None
+        self._gen_paged_step_fn: Optional[Callable] = None
 
     # -- loaders ---------------------------------------------------------
     def load_keras(self, model, params=None,
@@ -166,10 +182,11 @@ class InferenceModel:
         return self.load_fn(lambda m, x: m.apply(x, training=False), model)
 
     @staticmethod
-    def _infer_serving_dtype(module: nn.Module) -> str:
-        """What precision this model serves in, from its weights: any int8
-        tensor → "int8", else bf16 → "bfloat16", else "float32"."""
-        dtypes = {t.dtype for t in module.state_dict().values()}
+    def _infer_serving_dtype(weights) -> str:
+        """What precision this model serves in, from its weights (tensors):
+        any int8 tensor → "int8", else bf16 → "bfloat16", else
+        "float32"."""
+        dtypes = {t.dtype for t in weights}
         if torch.int8 in dtypes:
             return "int8"
         if torch.bfloat16 in dtypes:
@@ -180,7 +197,8 @@ class InferenceModel:
         """Forward `fn(params, x)`; `params` is the module holding the
         weights (moved to the device in place, put in eval mode)."""
         self._fn = fn
-        self.serving_dtype = self._infer_serving_dtype(params)
+        self.serving_dtype = self._infer_serving_dtype(
+            params.state_dict().values())
         self._params = params.to(self.device).eval()
         self.warmup_report = {}
         self.warmed_buckets = set()
@@ -269,3 +287,162 @@ class InferenceModel:
             self.warmup_report[rkey] = round(time.perf_counter() - t0, 4)
             self.warmed_buckets.add(b)
         return self
+
+    # -- generative decode mode ------------------------------------------
+    #
+    # Autoregressive serving replaces the single forward program with two
+    # program families: a PREFILL per prompt bucket (run the padded prompt,
+    # park its KV into one pool slot, emit the first token's logits) and a
+    # DECODE STEP per kv bucket (one token for every slot at once, windowed
+    # to the step's serving bucket). See models/generative.py for the
+    # calling contract. Every call runs under `torch.inference_mode` with
+    # the model's device current, entered here because the engine calls
+    # from its own thread and both are thread-local.
+
+    def load_generative(self, prefill_fn: Callable, step_fn: Callable,
+                        params, paged_prefill_fn: Optional[Callable] = None,
+                        paged_step_fn: Optional[Callable] = None,
+                        ) -> "InferenceModel":
+        """Load the decode-mode program pair (and the paged pair). `params`
+        is the model's tree (numpy or tensor leaves), moved onto this
+        model's device. Single device: the KV pool is one device buffer
+        the programs update in place."""
+        self._fn = None
+        self._gen_prefill_fn = prefill_fn
+        self._gen_step_fn = step_fn
+        self._gen_paged_prefill_fn = paged_prefill_fn
+        self._gen_paged_step_fn = paged_step_fn
+        self._params = tree_map(
+            lambda a: _as_host_tensor(a).to(self.device), params)
+        self.serving_dtype = self._infer_serving_dtype(
+            tree_leaves(self._params))
+        self.warmup_report = {}
+        self.warmed_buckets = set()
+        return self
+
+    def _gen_context(self):
+        """inference mode, with this model's CUDA device current."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.inference_mode())
+        if self.device.type == "cuda":
+            stack.enter_context(torch.cuda.device(self.device))
+        return stack
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup_generative(self, init_kv: Callable, slots: int,
+                          max_kv_len: int, prompt_buckets: List[int],
+                          kv_buckets: List[int]) -> "InferenceModel":
+        """Run the whole decode program ladder once: one prefill per
+        prompt bucket, one step per kv bucket, on a warmup-only KV pool
+        (the engine allocates its own with identical shapes). Per-program
+        seconds land in `warmup_report` (`gen-prefill:p{P}`,
+        `gen-step:kv{B}`)."""
+        if self._gen_prefill_fn is None:
+            raise RuntimeError("load_generative() first")
+        prefill, step = self._gen_prefill_fn, self._gen_step_fn
+        kv = init_kv(int(slots), int(max_kv_len))
+        for P in sorted({int(p) for p in prompt_buckets}):
+            t0 = time.perf_counter()
+            with self._gen_context():
+                prefill(self._params, kv, np.zeros(P, np.int32), 1, 0)
+            self._sync()
+            self.warmup_report[f"gen-prefill:p{P}"] = round(
+                time.perf_counter() - t0, 4)
+        for b in sorted({int(b) for b in kv_buckets}):
+            if b > max_kv_len:
+                raise ValueError(f"kv bucket {b} exceeds max_kv_len "
+                                 f"{max_kv_len}")
+            zeros = np.zeros(int(slots), np.int32)
+            t0 = time.perf_counter()
+            with self._gen_context():
+                step(self._params, kv, zeros, zeros, kv_bucket=b)
+            self._sync()
+            self.warmup_report[f"gen-step:kv{b}"] = round(
+                time.perf_counter() - t0, 4)
+        return self
+
+    def warmup_generative_paged(self, init_kv_blocks: Callable,
+                                num_blocks: int, block_len: int,
+                                lanes: int, table_len: int,
+                                chunk_buckets: List[int],
+                                kv_buckets: List[int]) -> "InferenceModel":
+        """Run the paged ladder once: one chunked prefill per (chunk bucket
+        × context bucket) — the context window is 0 on a fresh first chunk
+        and a kv bucket otherwise — and one paged step per kv bucket, on a
+        warmup-only block pool with all-zero (scratch) tables."""
+        if self._gen_paged_prefill_fn is None:
+            raise RuntimeError("load_generative(..., paged_prefill_fn=, "
+                               "paged_step_fn=) first")
+        prefill, step = self._gen_paged_prefill_fn, self._gen_paged_step_fn
+        kv = init_kv_blocks(int(num_blocks), int(block_len))
+        ctx_buckets = [0] + sorted({int(b) for b in kv_buckets})
+        table = np.zeros(int(table_len), np.int32)
+        for Cb in sorted({int(c) for c in chunk_buckets}):
+            for kvb in ctx_buckets:
+                t0 = time.perf_counter()
+                with self._gen_context():
+                    prefill(self._params, kv, np.zeros(Cb, np.int32), table,
+                            0, 1, kv_bucket=kvb)
+                self._sync()
+                self.warmup_report[f"gen-paged-prefill:c{Cb}:kv{kvb}"] = \
+                    round(time.perf_counter() - t0, 4)
+        for b in sorted({int(b) for b in kv_buckets}):
+            if b % int(block_len):
+                raise ValueError(f"kv bucket {b} not a multiple of "
+                                 f"block_len {block_len}")
+            zeros = np.zeros(int(lanes), np.int32)
+            t0 = time.perf_counter()
+            with self._gen_context():
+                step(self._params, kv, zeros, zeros,
+                     np.zeros((int(lanes), int(table_len)), np.int32),
+                     kv_bucket=b)
+            self._sync()
+            self.warmup_report[f"gen-paged-step:kv{b}"] = round(
+                time.perf_counter() - t0, 4)
+        return self
+
+    @staticmethod
+    def _ids(a) -> np.ndarray:
+        """Ids, positions and tables as the programs take them: int32
+        arrays (the model moves them onto its device)."""
+        return np.ascontiguousarray(a, np.int32)
+
+    def generative_prefill(self, kv, tokens, length, slot):
+        """One prompt (padded to a prompt bucket) through the prefill
+        program. Returns (kv, logits[vocab]) on the device."""
+        with self._gen_context():
+            return self._gen_prefill_fn(self._params, kv, self._ids(tokens),
+                                        int(length), int(slot))
+
+    def generative_step(self, kv, tokens, positions, kv_bucket: int):
+        """One decode step for every slot under the serving bucket.
+        Returns (kv, logits[slots, vocab]) on the device."""
+        with self._gen_context():
+            return self._gen_step_fn(self._params, kv, self._ids(tokens),
+                                     self._ids(positions),
+                                     kv_bucket=int(kv_bucket))
+
+    def generative_prefill_paged(self, kv, tokens, table, pre_len,
+                                 chunk_len, kv_bucket: int):
+        """One prompt chunk through the paged prefill for its (chunk
+        bucket, context bucket). Returns (kv, logits[vocab])."""
+        with self._gen_context():
+            return self._gen_paged_prefill_fn(
+                self._params, kv, self._ids(tokens), self._ids(table),
+                int(pre_len), int(chunk_len), kv_bucket=int(kv_bucket))
+
+    def generative_step_paged(self, kv, tokens, positions, tables,
+                              kv_bucket: int):
+        """One decode step for every lane through the block tables.
+        Returns (kv, logits[lanes, vocab])."""
+        with self._gen_context():
+            return self._gen_paged_step_fn(
+                self._params, kv, self._ids(tokens), self._ids(positions),
+                self._ids(tables), kv_bucket=int(kv_bucket))
+
+    def account_generative(self, kind: str, bucket, secs: float):
+        """Roofline accounting of one generative call: a no-op until the
+        roofline accountant is ported (ROADMAP.md queue 1, item 3)."""

@@ -3,7 +3,8 @@
 GPU: build its kernels, hold each against its plain PyTorch version, serve
 a full-width BERT-base classifier through the port's `InferenceModel`,
 train it through `Estimator.fit`, train, evaluate and rank with NeuralCF at
-MovieLens-20M scale, and print what it measured.
+MovieLens-20M scale, serve generative decoding at GPT-2 small's widths
+through `DecodeServing`, and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -54,8 +55,27 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    against the plain path (3 steps); the loss falling on a learnable
    rule; `evaluate(metrics=["accuracy"])` on held-out pairs and
    `recommend_for_user` against a top-k of `predict`;
-11. a `kernels` line listing every kernel of the port;
-12. the last line, `{"ok": true, "device": {...}}`.
+11. the decode-attention kernels, contiguous and paged, at 32 slots, 12
+   heads, head dim 64, a 1024-position pool and blocks of 16, kv buckets
+   128 and 1024, ragged lengths, f32 and bf16: each against its plain
+   version, the paged kernel on shuffled blocks bitwise equal to the
+   contiguous one; device times beside the bound, the plain versions and
+   SDPA with a length mask;
+12. generative serving: `TinyDecoder` at GPT-2 small's widths (vocab
+   50257, 12 layers, 12 heads, head dim 64, 1024 positions, MLP x4) with
+   random weights from the seed, through `load_generative`, both warmups
+   and `DecodeServing` over a `MemoryBroker` (32 slots, kv buckets
+   128-1024, prompt buckets 64-512), contiguous, then paged (blocks of 16,
+   prefill chunks of 256, prefix cache): 64 requests, half of them
+   sharing a 256-token prefix, Poisson arrivals 2 ms apart, every stream
+   read back; tokens/s, TTFT and ITL p50/p99, slot utilization, peak
+   memory; exactly 12 decode-attention launches a decode step and no
+   kernel built after warmup; the paged streams against the contiguous
+   ones; a profiled decode step and prefill (device time by kernel, idle
+   share); teacher-forced logits against the port's CPU run and against
+   the plain path;
+13. a `kernels` line listing every kernel of the port;
+14. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -84,16 +104,28 @@ from analytics_zoo_tpu_torch.kernels import dropout as dr  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import fused_adam as fad  # noqa: E402
 from analytics_zoo_tpu_torch.kernels import \
+    decode_attention as da  # noqa: E402
+from analytics_zoo_tpu_torch.kernels import \
     segment_update as seg  # noqa: E402
 from analytics_zoo_tpu_torch.kernels.philox import \
     attention_keep_scale  # noqa: E402
+from analytics_zoo_tpu_torch.common.tree import tree_leaves  # noqa: E402
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
 from analytics_zoo_tpu_torch.models.bert import BERTClassifier  # noqa: E402
+from analytics_zoo_tpu_torch.models.generative import \
+    TinyDecoder  # noqa: E402
 from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: E402
     NeuralCF, UserItemFeature)
+from analytics_zoo_tpu_torch.observability.registry import \
+    MetricsRegistry  # noqa: E402
 from analytics_zoo_tpu_torch.ops import objectives, optimizers  # noqa: E402
-from analytics_zoo_tpu_torch.serving.inference_model import \
-    InferenceModel  # noqa: E402
+from analytics_zoo_tpu_torch.serving.broker import MemoryBroker  # noqa: E402
+from analytics_zoo_tpu_torch.serving.client import (  # noqa: E402
+    InputQueue, OutputQueue)
+from analytics_zoo_tpu_torch.serving.decode import \
+    DecodeServing  # noqa: E402
+from analytics_zoo_tpu_torch.serving.inference_model import (  # noqa: E402
+    InferenceModel, _next_bucket)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the least time the
 # card could take is max(FLOP / peak of the dtype, bytes / memory rate). An
@@ -101,7 +133,8 @@ from analytics_zoo_tpu_torch.serving.inference_model import \
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 MEM_BYTES_PER_S = 3.35e12
 
-SOURCES = [fa.SOURCE, fa.BWD_SOURCE, dr.SOURCE, fad.SOURCE, seg.SOURCE]
+SOURCES = [fa.SOURCE, fa.BWD_SOURCE, dr.SOURCE, fad.SOURCE, seg.SOURCE,
+           da.SOURCE]
 CSRC = "analytics_zoo_tpu_torch/csrc/"
 KERNELS = [
     {"name": fa.KERNEL_NAME, "route": "cuda", "source": CSRC + fa.SOURCE,
@@ -123,6 +156,10 @@ KERNELS = [
     {"name": seg.SUM_NAME, "route": "cuda", "source": CSRC + seg.SOURCE,
      "replaces": "analytics_zoo_tpu/pallas/segment_update.py:69",
      "helper": True},
+    {"name": da.KERNEL_NAME, "route": "cuda", "source": CSRC + da.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/decode_attention.py:113"},
+    {"name": da.PAGED_NAME, "route": "cuda", "source": CSRC + da.SOURCE,
+     "replaces": "analytics_zoo_tpu/pallas/decode_attention.py:225"},
     # a test aid, on no main path: exports the keep mask the three flash
     # kernels draw (the byte rule of `_keep_scale`) for the checks
     {"name": fa.KEEP_SCALE_NAME, "route": "cuda",
@@ -187,8 +224,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time per call: the time of every CUDA kernel and copy
+def device_ms(fn, reps: int):
+    """(ms, "profiler" | "graph"): the mean device time per call and how
+    it was taken. "profiler": the time of every CUDA kernel and copy
     `torch.profiler` records over `reps` calls (after three warm ones),
     summed. For calls whose kernels are shorter than their host-side
     launch, CUDA events around a run of calls measure the host's launch
@@ -198,14 +236,53 @@ def device_ms(fn, reps: int) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # Now and then a profiling window records no device activity at all,
+    # and the next ones may not either (seen on the card for a run of
+    # windows); such a call is timed as a CUDA graph instead.
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps, "profiler"
+    return graph_ms(fn, reps), "graph"
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device ms per call: `reps` calls captured in one CUDA graph
+    (after three warm calls), the graph replayed `replays` times between
+    two CUDA events. No host work sits between the calls, so this times
+    the device where a call's host side is longer than its kernels; the
+    launch gaps inside the graph (about a microsecond a kernel) are
+    counted. The calls must not synchronise with the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm on the capturing stream
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / reps
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def attention_bound(shape, dtype):
@@ -733,11 +810,13 @@ def phase_dropout(card: str, seed: int):
               and rate0 and rate1)
         # device time: one launch of this kernel is shorter than the
         # host's side of it (CUDA events over 50 calls are kept as wall_ms)
-        kernel_ms = device_ms(lambda: dr.dropout_apply(x, rate, s1), 50)
+        kernel_ms, kernel_by = device_ms(
+            lambda: dr.dropout_apply(x, rate, s1), 50)
         wall_ms = time_ms(lambda: dr.dropout_apply(x, rate, s1), 50)
-        plain_ms = device_ms(lambda: dr._reference_dropout(
+        plain_ms, plain_by = device_ms(lambda: dr._reference_dropout(
             x, rate, dr.dropout_keep(x.shape, s1, rate, "cuda")), 5)
-        library_ms = device_ms(lambda: F.dropout(x, rate, training=True), 50)
+        library_ms, library_by = device_ms(
+            lambda: F.dropout(x, rate, training=True), 50)
         item = torch.finfo(dtype).bits // 8
         bound_ms = 2.0 * x.numel() * item / MEM_BYTES_PER_S * 1e3
         row = {"phase": "dropout", "shape": list(DROPOUT_SHAPE),
@@ -750,6 +829,8 @@ def phase_dropout(card: str, seed: int):
                "rate1_zeros": rate1, "ok": ok, "kernel_ms": kernel_ms,
                "wall_ms": wall_ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
+               "timed_by": {"kernel_ms": kernel_by, "plain_ms": plain_by,
+                            "library_ms": library_by},
                "bound_ms": bound_ms, "bound_by": "bytes", "card": card}
         emit(row)
         results[dtype] = row
@@ -826,16 +907,16 @@ def phase_fused_adam(card: str, seed: int):
                 nu[i].copy_(vn)
         # device time of the 153 launches of a sweep; the host needs
         # longer to issue them (one ctypes call per leaf), kept as wall_ms
-        kernel_ms = device_ms(sweep, 10)
+        kernel_ms, kernel_by = device_ms(sweep, 10)
         wall_ms = time_ms(sweep, 10)
-        plain_ms = device_ms(plain_sweep, 3)
+        plain_ms, plain_by = device_ms(plain_sweep, 3)
         leaves = [params[i].detach().clone() for i in params]
         for t, i in zip(leaves, params):
             t.grad = grads[i]
         opt = torch.optim.AdamW(leaves, lr=hp["lr"],
                                 betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
                                 weight_decay=hp["weight_decay"], fused=True)
-        library_ms = device_ms(opt.step, 10)
+        library_ms, library_by = device_ms(opt.step, 10)
         del opt, leaves
         flops, nbytes = fad.update_cost(params)
         t_mem = nbytes / MEM_BYTES_PER_S * 1e3
@@ -848,6 +929,8 @@ def phase_fused_adam(card: str, seed: int):
                "kernel_ms_per_sweep": kernel_ms, "wall_ms": wall_ms,
                "plain_ms": plain_ms,
                "library_ms": library_ms,
+               "timed_by": {"kernel_ms_per_sweep": kernel_by,
+                            "plain_ms": plain_by, "library_ms": library_by},
                "bound_ms": max(t_mem, t_ops),
                "bound_by": "bytes" if t_mem >= t_ops else "operations",
                "bytes": nbytes, "card": card}
@@ -1096,9 +1179,9 @@ def segment_sum_bound(n: int, dim: int):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-def sparse_adam_ms(table, batches, reps: int) -> float:
+def sparse_adam_ms(table, batches, reps: int):
     """`torch.optim.SparseAdam` stepping the same rows with a coalesced
-    sparse gradient, by profiler device time: a yardstick of time only (it
+    sparse gradient, as `device_ms` times it: a yardstick of time only (it
     adds eps without the √(1-β2^t) factor the port's Adam folds in)."""
     param = torch.nn.Parameter(table.detach().float().clone())
     grads = [torch.sparse_coo_tensor(u[v.bool()].long()[None], g[v.bool()],
@@ -1112,9 +1195,9 @@ def sparse_adam_ms(table, batches, reps: int) -> float:
     def step():
         param.grad = next(it)
         opt.step()
-    ms = device_ms(step, reps)
+    timed = device_ms(step, reps)
     del opt, param, grads
-    return ms
+    return timed
 
 
 def cycling(fn, batches):
@@ -1189,18 +1272,18 @@ def phase_segment_adam(card: str, seed: int):
         def plain_fn(u, v, g):
             seg._reference_kernel_apply(table, mu, nu, u, v, g, scal,
                                         hp["b1"], hp["b2"])
-        kernel_ms = device_ms(cycling(kernel, batches), 48)
+        kernel_ms, kernel_by = device_ms(cycling(kernel, batches), 48)
         wall_ms = time_ms(cycling(kernel, batches), 48)
-        plain_ms = device_ms(cycling(plain_fn, batches), 16)
-        library_ms = sparse_adam_ms(table, batches, 16)
+        plain_ms, plain_by = device_ms(cycling(plain_fn, batches), 16)
+        library_ms, library_by = sparse_adam_ms(table, batches, 16)
         bound_ms, bound_by = segment_bound(B, n_valid, dim, dtype)
         sids, order, _, slot = seg.sort_ids(ids)
-        sum_ms = device_ms(lambda: seg.segment_sum(d_rows, sids, order,
-                                                   slot), 50)
-        sum_plain_ms = device_ms(lambda: seg._reference_segment_sum(
-            d_rows, order, slot), 50)
+        sum_ms, sum_by = device_ms(lambda: seg.segment_sum(
+            d_rows, sids, order, slot), 50)
+        sum_plain_ms, sum_plain_by = device_ms(
+            lambda: seg._reference_segment_sum(d_rows, order, slot), 50)
         gathered = d_rows.index_select(0, order.long())
-        sum_library_ms = device_ms(lambda: torch.zeros_like(
+        sum_library_ms, sum_library_by = device_ms(lambda: torch.zeros_like(
             d_rows).index_add_(0, slot, gathered), 50)
         sum_bound = segment_sum_bound(B, dim)
         ok = (max_abs_err == 0.0 and untouched_same and deterministic
@@ -1222,7 +1305,12 @@ def phase_segment_adam(card: str, seed: int):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "sum_kernel_ms": sum_ms, "sum_plain_ms": sum_plain_ms,
                "sum_library_ms": sum_library_ms, "sum_bound_ms": sum_bound[0],
-               "sum_bound_by": sum_bound[1], "card": card}
+               "sum_bound_by": sum_bound[1],
+               "timed_by": {"kernel_ms": kernel_by, "plain_ms": plain_by,
+                            "library_ms": library_by, "sum_kernel_ms": sum_by,
+                            "sum_plain_ms": sum_plain_by,
+                            "sum_library_ms": sum_library_by},
+               "card": card}
         emit(row)
         results[name] = row
         del table, mu, nu, plain, gathered, batches
@@ -1462,6 +1550,654 @@ def phase_ncf(card: str, seed: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# decode attention kernels (contiguous and paged)
+# ---------------------------------------------------------------------------
+# GPT-2 small's attention at the serving engine's pool: 32 slots, 12 heads,
+# head dim 64, a 1024-position pool, blocks of 16; the smallest and the
+# largest kv bucket of the engine's ladder, ragged lengths in [1, bucket].
+DEC_SLOTS, DEC_HEADS, DEC_LEN, DEC_DIM = 32, 12, 1024, 64
+DEC_BUCKETS = (128, 1024)
+DEC_BLOCK = 16
+DEC_MAIN = (1024, torch.float32)
+# Kernel vs plain version, max abs error. f32: both sum in f32 in other
+# orders (the kernel online, in 64 groups of keys merged at the end; the
+# plain version through cuBLAS and a softmax) — rounding only, on outputs
+# of magnitude <= ~3. bf16: the plain version forms the scores in bf16
+# (2^-9 relative on scores of magnitude ~5) where the kernel keeps them in
+# f32, and both store O in bf16.
+DEC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Timing cycles through pool sets that share one draw of lengths (so the
+# bound is of the timed work) and whose live K and V together take at least
+# twice the H100's 50 MB L2, so the reads come from device memory; at
+# least DEC_MIN_POOLS sets.
+DEC_L2_BYTES = 50 * 2 ** 20
+DEC_MIN_POOLS = 3
+
+
+def decode_bound(lengths, kv_bucket: int, heads: int, dim: int, dtype,
+                 block_len=None):
+    """(ms, "bytes" | "operations") of one decode-attention launch over
+    these lengths: each live key and value row read once (positions past
+    min(length, kv_bucket) are not needed), q and lengths read and O
+    written once, and, paged, the live block-table entries; QKᵀ and PV,
+    2·D flops a position each per head."""
+    item = torch.finfo(dtype).bits // 8
+    live = lengths.clamp(max=kv_bucket).long()
+    n = int(live.sum())
+    S = lengths.shape[0]
+    nbytes = 2.0 * n * heads * dim * item + 2.0 * S * heads * dim * item \
+        + 4.0 * S
+    if block_len is not None:
+        nbytes += 4.0 * int(((live + block_len - 1) // block_len).sum())
+    flops = 4.0 * n * heads * dim
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def scatter_blocks(pool, perm, block_len: int):
+    """The contiguous pool's bytes re-homed into a block pool at the
+    shuffled block ids `perm` ([S, L // block_len], all >= 1; block 0 is
+    the scratch block): the same logical values at other addresses."""
+    S, H, L, D = pool.shape
+    n_kb = L // block_len
+    blocks = torch.zeros((S * n_kb + 1, H, block_len, D), dtype=pool.dtype,
+                         device=pool.device)
+    blocks[perm.reshape(-1).long()] = pool.view(
+        S, H, n_kb, block_len, D).permute(0, 2, 1, 3, 4).reshape(
+            S * n_kb, H, block_len, D)
+    return blocks
+
+
+def decode_lengths(gen, kv_bucket: int):
+    """Ragged lengths in [1, kv_bucket], one per slot."""
+    return torch.randint(1, kv_bucket + 1, (DEC_SLOTS,), device="cuda",
+                         generator=gen, dtype=torch.int32)
+
+
+def decode_pool_sets(lengths, kv_bucket: int, dtype) -> int:
+    """How many pool sets the timing cycles through (DEC_L2_BYTES)."""
+    item = torch.finfo(dtype).bits // 8
+    live = int(lengths.clamp(max=kv_bucket).sum())
+    per_set = 2 * live * DEC_HEADS * DEC_DIM * item
+    return max(DEC_MIN_POOLS, -(-2 * DEC_L2_BYTES // per_set))
+
+
+def decode_case_inputs(gen, lengths, dtype):
+    """One pool set: q, the contiguous pools, their block-pool copies and
+    tables, and `lengths`."""
+    S, H, L, D = DEC_SLOTS, DEC_HEADS, DEC_LEN, DEC_DIM
+    q = torch.randn((S, H, D), device="cuda", generator=gen).to(dtype)
+    k = torch.randn((S, H, L, D), device="cuda", generator=gen).to(dtype)
+    v = torch.randn((S, H, L, D), device="cuda", generator=gen).to(dtype)
+    n_kb = L // DEC_BLOCK
+    perm = (torch.randperm(S * n_kb, device="cuda", generator=gen) + 1
+            ).to(torch.int32).view(S, n_kb)
+    return (q, k, v, lengths, scatter_blocks(k, perm, DEC_BLOCK),
+            scatter_blocks(v, perm, DEC_BLOCK), perm)
+
+
+def sdpa_decode(q, k, v, lengths, kv_bucket: int):
+    """The library yardstick the port never calls: SDPA with a one-row
+    query and a boolean length mask over the first kv_bucket positions."""
+    keep = (torch.arange(kv_bucket, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k[:, :, :kv_bucket], v[:, :, :kv_bucket],
+        attn_mask=keep)[:, :, 0]
+
+
+def phase_decode_kernels(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 80)
+    results = {}
+    failed = []
+    for kv_bucket in DEC_BUCKETS:
+        for dtype in (torch.float32, torch.bfloat16):
+            lengths = decode_lengths(gen, kv_bucket)
+            sets = [decode_case_inputs(gen, lengths, dtype) for _ in range(
+                decode_pool_sets(lengths, kv_bucket, dtype))]
+            q, k, v, lengths, kp, vp, tables = sets[0]
+            before = LAUNCHES.snapshot()
+            out = da.decode_attention(q, k, v, lengths, kv_bucket)
+            out_p = da.paged_decode_attention(q, kp, vp, tables, lengths,
+                                              kv_bucket)
+            torch.cuda.synchronize()
+            after = LAUNCHES.snapshot()
+            ref = da._reference_decode_attention(q, k, v, lengths, kv_bucket)
+            ref_p = da._reference_paged_decode_attention(
+                q, kp, vp, tables, lengths, kv_bucket)
+            lib = sdpa_decode(q, k, v, lengths, kv_bucket)
+            err = (out.float() - ref.float()).abs().max().item()
+            err_p = (out_p.float() - ref_p.float()).abs().max().item()
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            bitwise = bool(torch.equal(out, out_p))
+            plain_bitwise = bool(torch.equal(ref, ref_p))
+            launched = {name: after.get(name, 0) - before.get(name, 0)
+                        for name in (da.KERNEL_NAME, da.PAGED_NAME)}
+            tol = DEC_TOL[dtype]
+            ok = (err <= tol and err_p <= tol and bitwise and plain_bitwise
+                  and bool(torch.isfinite(out).all())
+                  and launched == {da.KERNEL_NAME: 1, da.PAGED_NAME: 1})
+            # device time of calls replayed from a CUDA graph (a launch's
+            # host side is longer than the kernel, so CUDA events around
+            # a run of launches time the host: given beside as "wall"),
+            # each call on the next pool set so the reads come from
+            # device memory; every set has the same lengths, so the bound
+            # below is the timed work's
+            calls = {
+                "kernel": lambda q, k, v, n, *_: da.decode_attention(
+                    q, k, v, n, kv_bucket),
+                "paged_kernel": lambda q, _k, _v, n, kp, vp, t:
+                    da.paged_decode_attention(q, kp, vp, t, n, kv_bucket),
+                "plain": lambda q, k, v, n, *_:
+                    da._reference_decode_attention(q, k, v, n, kv_bucket),
+                "paged_plain": lambda q, _k, _v, n, kp, vp, t:
+                    da._reference_paged_decode_attention(
+                        q, kp, vp, t, n, kv_bucket),
+                "library": lambda q, k, v, n, *_: sdpa_decode(
+                    q, k, v, n, kv_bucket),
+                "paged_library": lambda q, _k, _v, n, kp, vp, t:
+                    sdpa_decode(q, da.gather_kv_window(kp, t, kv_bucket),
+                                da.gather_kv_window(vp, t, kv_bucket), n,
+                                kv_bucket)}
+            reps = max(12, len(sets))      # every set once a replay
+            times = {f"{name}_ms": graph_ms(cycling(fn, sets), reps)
+                     for name, fn in calls.items()}
+            for name in ("kernel", "paged_kernel"):
+                times[f"{name}_wall_ms"] = time_ms(
+                    cycling(calls[name], sets), max(20, len(sets)))
+            bound = decode_bound(lengths, kv_bucket, DEC_HEADS, DEC_DIM,
+                                 dtype)
+            paged_bound = decode_bound(lengths, kv_bucket, DEC_HEADS,
+                                       DEC_DIM, dtype, DEC_BLOCK)
+            row = {"phase": "decode_kernel", "kv_bucket": kv_bucket,
+                   "dtype": str(dtype)[6:],
+                   "shape": [DEC_SLOTS, DEC_HEADS, DEC_LEN, DEC_DIM],
+                   "block_len": DEC_BLOCK, "pool_sets": len(sets),
+                   "live_positions": int(lengths.clamp(
+                       max=kv_bucket).sum()),
+                   "max_abs_err": err, "max_abs_err_paged": err_p,
+                   "tol": tol, "paged_bitwise_contiguous": bitwise,
+                   "plain_paged_bitwise_contiguous": plain_bitwise,
+                   "library_err_vs_plain": lib_err, "launches": launched,
+                   "ok": ok, **times, "bound_ms": bound[0],
+                   "bound_by": bound[1],
+                   "paged_bound_ms": paged_bound[0],
+                   "paged_bound_by": paged_bound[1], "card": card}
+            emit(row)
+            results[(kv_bucket, dtype)] = row
+            if not ok:
+                failed.append(row)
+            del sets, q, k, v, kp, vp
+    # a bucket the JAX wrapper's 128-key tiling does not divide (its exact
+    # path there): on the card both kernels launch at it, as at any bucket
+    lengths = decode_lengths(gen, 192)
+    q, k, v, lengths, kp, vp, tables = decode_case_inputs(
+        gen, lengths, torch.float32)
+    before = LAUNCHES.snapshot()
+    out = da.decode_attention(q, k, v, lengths, 192)
+    out_p = da.paged_decode_attention(q, kp, vp, tables, lengths, 192)
+    torch.cuda.synchronize()
+    after = LAUNCHES.snapshot()
+    launched = {name: after.get(name, 0) - before.get(name, 0)
+                for name in (da.KERNEL_NAME, da.PAGED_NAME)}
+    err = (out - da._reference_decode_attention(
+        q, k, v, lengths, 192)).abs().max().item()
+    row = {"phase": "decode_kernel_192", "kv_bucket": 192,
+           "launches": launched, "max_abs_err": err,
+           "tol": DEC_TOL[torch.float32],
+           "paged_bitwise_contiguous": bool(torch.equal(out, out_p))}
+    row["ok"] = (err <= row["tol"] and row["paged_bitwise_contiguous"]
+                 and launched == {da.KERNEL_NAME: 1, da.PAGED_NAME: 1})
+    emit(row)
+    if not row["ok"]:
+        failed.append(row)
+    del q, k, v, kp, vp
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: {len(failed)} decode-attention "
+                         "case(s) failed")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# generative decode serving
+# ---------------------------------------------------------------------------
+# GPT-2 small's published widths (Radford et al. 2019; the `gpt2` config:
+# n_embd 768, n_layer 12, n_head 12, n_positions 1024, vocab 50257) on the
+# repo's generative model, f32 as the JAX package serves it, random weights
+# from the seed.
+GEN_CFG = dict(vocab=50257, n_layers=12, n_heads=12, head_dim=64,
+               max_len=1024, mlp_mult=4)
+GEN_ENGINE = dict(slots=32, max_kv_len=1024,
+                  kv_buckets=[128, 256, 512, 1024],
+                  prompt_buckets=[64, 128, 256, 512])
+GEN_PAGED = dict(block_len=16, prefill_chunk=256)    # kv_blocks: default
+GEN_REQUESTS = 64
+GEN_MAX_NEW_CAP = 128
+GEN_SHARED_PREFIX = 256
+GEN_TEACHER_STEPS = 32
+# Teacher-forced logits over one prompt and 32 steps, f32, TF32 off. The
+# kernel path against the plain path on the card: the two differ only in
+# the attention's summation order — 1e-4. Each card path, and the port's
+# CPU run of the same weights, against the model's math in f64 on the host
+# (`f64_teacher_logits`): every f32 run sums its matmuls and reductions in
+# its own order (cuBLAS's or the CPU's) through 12 blocks of width 768, on
+# logits of magnitude ~40 (random weights of scale 0.08, not GPT-2's
+# 0.02). A card path passes when it is no further from f64 than
+# GEN_F64_FACTOR times the CPU's f32 run is: the card rounds as an f32 run
+# does. A wrong model path (a key masked wrongly, a position off by one)
+# moves logits by O(1), four orders above.
+GEN_KERNEL_TOL = 1e-4
+GEN_F64_FACTOR = 2.0
+# A paged stream may differ from the contiguous one only where chunked
+# prefill or prefix adoption changed a summation order and the contiguous
+# logits' top two were closer than this.
+GEN_TIE_GAP = 1e-4
+
+
+def gen_traffic(rs, vocab: int):
+    """The request mix: prompt lengths uniform in 16-400 with uniform ids;
+    half of the prompts one shared 256-token prefix (16 blocks) and a tail
+    of 16-144 tokens; `max_new` from bench_serving.py's bimodal mix with
+    the cap at 128 (every 8th request at the cap); Poisson arrivals at a
+    2 ms mean gap."""
+    n = GEN_REQUESTS
+    prefix = rs.integers(0, vocab, GEN_SHARED_PREFIX).astype(np.int32)
+    prompts = []
+    for i in range(n):
+        if i % 2:
+            tail = rs.integers(0, vocab, int(rs.integers(16, 145)))
+            prompts.append(np.concatenate([prefix, tail]).astype(np.int32))
+        else:
+            prompts.append(rs.integers(0, vocab, int(rs.integers(16, 401))
+                                       ).astype(np.int32))
+    max_new = np.minimum(1 + rs.geometric(0.25, n),
+                         GEN_MAX_NEW_CAP).astype(int)
+    max_new[::8] = GEN_MAX_NEW_CAP
+    arrivals = np.cumsum(rs.exponential(0.002, n))
+    return prompts, max_new, arrivals
+
+
+def bucket_ms(registry, phase: str):
+    """The engine's own call times by bucket (its `serving_bucket_ms`
+    histogram; phase "decode_step" by kv bucket, "prefill" by prompt or
+    chunk bucket): count, mean, p50, on the host's clock."""
+    out = {}
+    fam = registry.snapshot().get("serving_bucket_ms", {})
+    for s in fam.get("series", []):
+        lab = s.get("labels", {})
+        if lab.get("phase") == phase and s["count"]:
+            out[lab["bucket"]] = {"steps": s["count"],
+                                  "mean_ms": s["sum"] / s["count"],
+                                  "p50_ms": s["p50"]}
+    return out
+
+
+def serve_generative(im, dec, paged: bool, traffic, card: str):
+    """One engine over a MemoryBroker: the traffic enqueued at its arrival
+    times from this thread while the engine steps in its own, every stream
+    read back. Launch counts are reset just before and read just after."""
+    prompts, max_new, arrivals = traffic
+    kw = dict(GEN_ENGINE, max_new_default=GEN_MAX_NEW_CAP,
+              registry=MetricsRegistry())
+    if paged:
+        kw.update(GEN_PAGED, paged=True, init_kv_blocks=dec.init_kv_blocks)
+    broker = MemoryBroker()
+    srv = DecodeServing(im, dec.init_kv, broker=broker, **kw)
+    inq, outq = InputQueue(broker), OutputQueue(broker)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    builds = _build.build_events()
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    srv.start()
+    t0 = time.perf_counter()
+    uris = []
+    for i, prompt in enumerate(prompts):
+        dt = t0 + arrivals[i] - time.perf_counter()
+        if dt > 0:
+            time.sleep(dt)
+        uris.append(inq.enqueue(t=prompt, max_new=int(max_new[i]),
+                                stream=1))
+    while srv.stats["finished"] < len(prompts):
+        if not srv.is_alive() or time.perf_counter() - t0 > 600:
+            raise SystemExit(f"chip_smoke: decode engine stopped "
+                             f"({srv.stats})")
+        time.sleep(0.001)
+    wall = time.perf_counter() - t0
+    srv.stop()
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    builds_after = _build.build_events()
+    streams, ttft, itl = {}, [], []
+    for uri, prompt in zip(uris, prompts):
+        events = list(outq.stream_tokens(uri, timeout_s=30))
+        ms = [e["ms"] for e in events if "i" in e]
+        final = events[-1]
+        if not final.get("done") or final.get("error"):
+            raise SystemExit(f"chip_smoke: request {uri} failed: {final}")
+        streams[uri] = [int(t) for t in np.asarray(final["tokens"])]
+        ttft.append(ms[0])
+        itl += list(np.diff(ms))
+    steps = srv.stats["steps"]
+    kernel = da.PAGED_NAME if paged else da.KERNEL_NAME
+    other = da.KERNEL_NAME if paged else da.PAGED_NAME
+    tokens = sum(len(s) for s in streams.values())
+    row = {"phase": "generative_serving", "mode": "paged" if paged
+           else "contiguous", "config": GEN_CFG, "engine": GEN_ENGINE,
+           "paged": GEN_PAGED if paged else None,
+           "requests": len(prompts), "tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99)),
+           "itl_p50_ms": float(np.percentile(itl, 50)),
+           "itl_p99_ms": float(np.percentile(itl, 99)),
+           "slot_utilization": srv.utilization(), "steps": steps,
+           "step_ms_by_bucket": bucket_ms(srv.registry, "decode_step"),
+           "prefill_ms_by_bucket": bucket_ms(srv.registry, "prefill"),
+           "stats": srv.stats, "launches": counts,
+           "launches_per_step": counts.get(kernel, 0) / max(steps, 1),
+           "builds_before": builds, "builds_after": builds_after,
+           "max_memory_allocated_gb": peak / 1e9, "card": card}
+    emit(row)
+    if (counts.get(kernel, 0) != GEN_CFG["n_layers"] * steps
+            or counts.get(other, 0) or not steps):
+        raise SystemExit(f"chip_smoke: {counts} launches over {steps} "
+                         f"steps, expected {GEN_CFG['n_layers']} {kernel} "
+                         "a step and nothing else")
+    if builds_after != builds:
+        raise SystemExit(f"chip_smoke: kernels built on the request path: "
+                         f"{builds} -> {builds_after}")
+    if srv.stats["finished"] != len(prompts) or srv.stats["failed"]:
+        raise SystemExit(f"chip_smoke: engine stats {srv.stats}")
+    for uri, n in zip(uris, max_new):
+        if len(streams[uri]) != int(n) or not all(
+                0 <= t < GEN_CFG["vocab"] for t in streams[uri]):
+            raise SystemExit(f"chip_smoke: stream {uri} has "
+                             f"{len(streams[uri])} tokens, expected {n}")
+    return [streams[u] for u in uris], row
+
+
+def top2_gap(im, dec, context) -> float:
+    """The gap between the two largest next-token logits after `context`,
+    from the contiguous prefill program on a one-slot pool."""
+    P = dec.max_len
+    padded = np.zeros(P, np.int32)
+    padded[:len(context)] = context
+    _, logits = im.generative_prefill(dec.init_kv(1, P), padded,
+                                      len(context), 0)
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def f64_teacher_logits(tree, prompt, forced) -> np.ndarray:
+    """The teacher-forced logits rows of `teacher_forced_logits` (the
+    prefill's last row and one row a step), from `TinyDecoder`'s math (pre-
+    LN blocks, learned positions, tanh GELU, untied head, eps 1e-5) in f64
+    on the host: one causal pass over prompt + forced, independent of the
+    port's programs."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float64))
+
+    def ln(x, g, b):
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        return (x - mu) / torch.sqrt(var + 1e-5) * t(g) + t(b)
+
+    H, D = GEN_CFG["n_heads"], GEN_CFG["head_dim"]
+    ids = torch.as_tensor(np.concatenate([prompt, forced]).astype(np.int64))
+    n = ids.shape[0]
+    x = t(tree["embed"])[ids] + t(tree["pos"])[:n]
+    causal = torch.ones((n, n), dtype=torch.bool).tril()
+    for lp in tree["layers"]:
+        h = ln(x, lp["ln1_g"], lp["ln1_b"])
+        q, k, v = ((h @ t(lp[w])).view(n, H, D).transpose(0, 1)
+                   for w in ("wq", "wk", "wv"))
+        scores = (q @ k.transpose(1, 2) / math.sqrt(D)).masked_fill(
+            ~causal, -math.inf)
+        att = torch.softmax(scores, dim=-1) @ v
+        x = x + att.transpose(0, 1).reshape(n, H * D) @ t(lp["wo"])
+        u = ln(x, lp["ln2_g"], lp["ln2_b"]) @ t(lp["w1"]) + t(lp["b1"])
+        gelu = 0.5 * u * (1.0 + torch.tanh(
+            math.sqrt(2.0 / math.pi) * (u + 0.044715 * u ** 3)))
+        x = x + gelu @ t(lp["w2"]) + t(lp["b2"])
+    x = ln(x[len(prompt) - 1:], tree["lnf_g"], tree["lnf_b"])
+    return (x @ t(tree["head"])).numpy()
+
+
+def teacher_forced_logits(im, dec, prompt, forced):
+    """Prefill `prompt` into a one-slot pool, then one decode step per
+    forced token; every logits row, on the host."""
+    P = _next_bucket(len(prompt), GEN_ENGINE["prompt_buckets"])
+    padded = np.zeros(P, np.int32)
+    padded[:len(prompt)] = prompt
+    kv = dec.init_kv(1, GEN_ENGINE["max_kv_len"])
+    kv, logits = im.generative_prefill(kv, padded, len(prompt), 0)
+    rows = [logits.float().cpu().numpy()]
+    for i, tok in enumerate(forced):
+        pos = len(prompt) + i
+        bucket = _next_bucket(pos + 1, GEN_ENGINE["kv_buckets"])
+        kv, logits = im.generative_step(kv, np.asarray([tok], np.int32),
+                                        np.asarray([pos], np.int32), bucket)
+        rows.append(logits[0].float().cpu().numpy())
+    return np.stack(rows)
+
+
+def phase_generative(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    dec = TinyDecoder(**GEN_CFG, device="cuda")
+    tree = dec.init_params(seed)
+    emit({"phase": "generative_weights", "seconds": time.perf_counter() - t0,
+          "parameters": sum(a.size for a in tree_leaves(tree))})
+    im = InferenceModel().load_generative(
+        dec.prefill_fn, dec.step_fn, tree,
+        paged_prefill_fn=dec.paged_prefill_fn,
+        paged_step_fn=dec.paged_step_fn)
+    e = GEN_ENGINE
+    table_len = e["max_kv_len"] // GEN_PAGED["block_len"]
+    chunk_buckets = [b for b in e["prompt_buckets"]
+                     if b <= GEN_PAGED["prefill_chunk"]]
+    t1 = time.perf_counter()
+    im.warmup_generative(dec.init_kv, slots=e["slots"],
+                         max_kv_len=e["max_kv_len"],
+                         prompt_buckets=e["prompt_buckets"],
+                         kv_buckets=e["kv_buckets"])
+    t2 = time.perf_counter()
+    im.warmup_generative_paged(
+        dec.init_kv_blocks, num_blocks=e["slots"] * table_len + 1,
+        block_len=GEN_PAGED["block_len"], lanes=e["slots"],
+        table_len=table_len, chunk_buckets=chunk_buckets,
+        kv_buckets=e["kv_buckets"])
+    t3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    emit({"phase": "generative_warmup", "contiguous_s": t2 - t1,
+          "paged_s": t3 - t2, "programs": im.warmup_report,
+          "builds": _build.build_events()})
+
+    rs = np.random.default_rng(seed + 90)
+    traffic = gen_traffic(rs, GEN_CFG["vocab"])
+    contiguous, c_row = serve_generative(im, dec, False, traffic, card)
+    paged, p_row = serve_generative(im, dec, True, traffic, card)
+    if p_row["stats"]["prefix_hit_tokens"] <= 0 or \
+            p_row["stats"]["prefill_chunks"] <= p_row["stats"]["prefills"]:
+        raise SystemExit("chip_smoke: the paged run took no prefix hit or "
+                         "no chunked prefill")
+
+    # paged streams against contiguous streams
+    prompts = traffic[0]
+    diffs = []
+    for i, (a, b) in enumerate(zip(contiguous, paged)):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = top2_gap(im, dec, np.concatenate(
+            [prompts[i], np.asarray(a[:j], np.int32)]))
+        diffs.append({"request": i, "first_diff": j, "top2_gap": gap})
+    emit({"phase": "generative_parity", "requests": len(prompts),
+          "equal_streams": len(prompts) - len(diffs), "differ": diffs,
+          "tie_gap_tol": GEN_TIE_GAP})
+    if any(d["top2_gap"] >= GEN_TIE_GAP for d in diffs):
+        raise SystemExit("chip_smoke: paged streams differ from contiguous "
+                         "beyond a near-tie")
+
+    profiles = {m: profile_decode_step(im, dec, m == "paged", card)
+                for m in ("contiguous", "paged")}
+
+    # teacher-forced logits: both card paths and the port's CPU run against
+    # f64, and the kernel path against the plain path on the card
+    prompt = prompts[0][:100]
+    forced = contiguous[1][:GEN_TEACHER_STEPS]
+    forced = (forced + [7] * GEN_TEACHER_STEPS)[:GEN_TEACHER_STEPS]
+    before = LAUNCHES.get(da.KERNEL_NAME)
+    card_rows = teacher_forced_logits(im, dec, prompt, forced)
+    tf_launches = LAUNCHES.get(da.KERNEL_NAME) - before
+    plain_dec = TinyDecoder(**GEN_CFG, use_pallas=False, device="cuda")
+    plain_im = InferenceModel().load_generative(
+        plain_dec.prefill_fn, plain_dec.step_fn, im._params)
+    plain_rows = teacher_forced_logits(plain_im, plain_dec, prompt, forced)
+    del plain_im
+    t4 = time.perf_counter()
+    cpu_dec = TinyDecoder(**GEN_CFG, device="cpu")
+    cpu_im = InferenceModel(device="cpu").load_generative(
+        cpu_dec.prefill_fn, cpu_dec.step_fn, tree)
+    cpu_rows = teacher_forced_logits(cpu_im, cpu_dec, prompt, forced)
+    del cpu_im
+    cpu_s = time.perf_counter() - t4
+    exact = f64_teacher_logits(tree, prompt, np.asarray(forced, np.int64))
+    per_row = {"kernel_vs_f64": np.abs(card_rows - exact).max(axis=1),
+               "plain_vs_f64": np.abs(plain_rows - exact).max(axis=1),
+               "cpu_vs_f64": np.abs(cpu_rows - exact).max(axis=1),
+               "kernel_vs_cpu": np.abs(card_rows - cpu_rows).max(axis=1)}
+    errs = {k: float(v.max()) for k, v in per_row.items()}
+    errs["kernel_vs_plain"] = float(np.abs(card_rows - plain_rows).max())
+    f64_tol = GEN_F64_FACTOR * errs["cpu_vs_f64"]
+    tols = {"kernel_vs_f64": f64_tol, "plain_vs_f64": f64_tol,
+            "kernel_vs_plain": GEN_KERNEL_TOL}
+    ok = (all(errs[k] <= tols[k] for k in tols)
+          and bool(np.isfinite(card_rows).all())
+          and card_rows.shape == (GEN_TEACHER_STEPS + 1, GEN_CFG["vocab"])
+          and tf_launches == GEN_CFG["n_layers"] * GEN_TEACHER_STEPS)
+    emit({"phase": "generative_check", "prompt_len": len(prompt),
+          "steps": GEN_TEACHER_STEPS, "max_abs_err": errs,
+          "tol": tols, "f64_factor": GEN_F64_FACTOR,
+          "per_row": {k: [float(x) for x in v] for k, v in per_row.items()},
+          "logit_abs_max": float(np.abs(exact).max()),
+          "kernel_launches": tf_launches, "cpu_seconds": cpu_s,
+          "f64_seconds": time.perf_counter() - t4 - cpu_s, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: generative logits check failed")
+    return {"contiguous": c_row, "paged": p_row, "profile": profiles}
+
+
+def host_and_device_ms(fn, reps: int):
+    """`fn`'s mean time on the host's clock (unprofiled, after three warm
+    calls, each call ending in a copy to the host), then its device time
+    by kernel under torch.profiler: (host ms, device ms, top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for _ in range(3):      # a window that recorded nothing is run again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(ev.key, ev.self_device_time_total / 1e3 / reps,
+                 ev.count / reps) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        if rows:
+            break
+    rows.sort(key=lambda r: -r[1])
+    dev = sum(r[1] for r in rows)
+    top = [{"kernel": name[:96], "ms": ms, "share": ms / dev, "calls": calls}
+           for name, ms, calls in rows[:10]]
+    return host, dev or None, top
+
+
+def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
+    """A steady decode step with every slot live at half the pool (512
+    positions, kv bucket 512), the argmax copied to the host as the engine
+    does; and one prefill (contiguous: a 512-token prompt; paged: a
+    256-token chunk after a 256-token context). Idle share = 1 - device ms
+    / host ms."""
+    e = GEN_ENGINE
+    S, bl = e["slots"], GEN_PAGED["block_len"]
+    table_len = e["max_kv_len"] // bl
+    bucket = e["max_kv_len"] // 2
+    tokens = np.arange(S, dtype=np.int32) % GEN_CFG["vocab"]
+    pos = np.full(S, bucket - 1, np.int32)
+    if paged:
+        kv = dec.init_kv_blocks(S * table_len + 1, bl)
+        tables = (1 + np.arange(S * table_len, dtype=np.int32)).reshape(
+            S, table_len)
+        chunk = tokens[:1].repeat(bucket // 2)
+
+        def step():
+            _, logits = im.generative_step_paged(kv, tokens, pos, tables,
+                                                 bucket)
+            return logits.argmax(dim=-1).cpu()
+
+        def prefill():
+            _, logits = im.generative_prefill_paged(
+                kv, chunk, tables[0], bucket // 2, bucket // 2, bucket // 2)
+            return int(torch.argmax(logits))
+    else:
+        kv = dec.init_kv(S, e["max_kv_len"])
+        prompt = tokens[:1].repeat(bucket)
+
+        def step():
+            _, logits = im.generative_step(kv, tokens, pos, bucket)
+            return logits.argmax(dim=-1).cpu()
+
+        def prefill():
+            _, logits = im.generative_prefill(kv, prompt, bucket, 0)
+            return int(torch.argmax(logits))
+    step_ms, dev_ms, top = host_and_device_ms(step, reps)
+    pre_ms, pre_dev_ms, pre_top = host_and_device_ms(prefill, reps)
+    row = {"phase": "generative_profile",
+           "mode": "paged" if paged else "contiguous", "kv_bucket": bucket,
+           "live_positions": bucket, "slots": S, "step_ms": step_ms,
+           "device_ms_per_step": dev_ms,
+           "idle_share": 1.0 - dev_ms / step_ms if dev_ms else None,
+           "top": top, "prefill_ms": pre_ms,
+           "prefill_device_ms": pre_dev_ms,
+           "prefill_idle_share":
+               1.0 - pre_dev_ms / pre_ms if pre_dev_ms else None,
+           "prefill_top": pre_top[:5], "card": card}
+    emit(row)
+    del kv
+    torch.cuda.empty_cache()
+    return row
+
+
+# How an entry's `ms`, `plain_ms` and `library_ms` were taken: "events"
+# (`time_ms`), "graph" (`graph_ms`) or "profiler" (`device_ms`, which takes
+# "graph" when the profiler records nothing).
+BY_EVENTS = {"ms": "events", "plain_ms": "events", "library_ms": "events"}
+BY_GRAPH = {"ms": "graph", "plain_ms": "graph", "library_ms": "graph"}
+
+
+def timed_by(row, ms_key: str) -> dict:
+    """An entry's `timed_by` from a row timed by `device_ms`."""
+    t = row["timed_by"]
+    return {"ms": t[ms_key], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"]}
+
+
 def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
                    adrop, segs, ncf_counts):
     """The `kernels` line: every kernel with its numbers at the main
@@ -1480,8 +2216,8 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             max_abs_err=main_fwd["max_abs_err_o"], ms=main_fwd["kernel_ms"],
             plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],
             bound_by=main_fwd["bound_by"],
-            library_ms=main_fwd["library_ms"], shape=main_fwd["shape"],
-            dtype=main_fwd["dtype"],
+            library_ms=main_fwd["library_ms"], timed_by=BY_EVENTS,
+            shape=main_fwd["shape"], dtype=main_fwd["dtype"],
             verdict="ok" if all(r["ok"] for r in attn.values()) and all(
                 r["ok"] for r in adrop) else "fail"),
         fa.BWD_DKV_NAME: dict(
@@ -1490,14 +2226,15 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
                             main_bwd["rel_err"]["dv"]),
             ms=main_bwd["dkv_ms"], plain_ms=main_bwd["plain_ms"],
             bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-            library_ms=main_bwd["library_ms"], shape=list(shape),
-            dtype=str(dtype)[6:], verdict="ok" if bwd_ok else "fail"),
+            library_ms=main_bwd["library_ms"], timed_by=BY_EVENTS,
+            shape=list(shape), dtype=str(dtype)[6:],
+            verdict="ok" if bwd_ok else "fail"),
         fa.BWD_DQ_NAME: dict(
             launches=train_counts.get(fa.BWD_DQ_NAME, 0),
             max_abs_err=main_bwd["rel_err"]["dq"], ms=main_bwd["dq_ms"],
             plain_ms=main_bwd["plain_ms"], bound_ms=dq_bound[0],
             bound_by=dq_bound[1], library_ms=main_bwd["library_ms"],
-            shape=list(shape), dtype=str(dtype)[6:],
+            timed_by=BY_EVENTS, shape=list(shape), dtype=str(dtype)[6:],
             verdict="ok" if bwd_ok else "fail"),
         dr.KERNEL_NAME: dict(
             launches=train_counts.get(dr.KERNEL_NAME, 0),
@@ -1505,6 +2242,7 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             wall_ms=drop_main["wall_ms"],
             plain_ms=drop_main["plain_ms"], bound_ms=drop_main["bound_ms"],
             bound_by="bytes", library_ms=drop_main["library_ms"],
+            timed_by=timed_by(drop_main, "kernel_ms"),
             shape=drop_main["shape"], dtype=drop_main["dtype"],
             verdict="ok" if all(r["ok"] for r in drop.values()) else "fail"),
         fad.KERNEL_NAME: dict(
@@ -1514,6 +2252,7 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             plain_ms=adam_main["plain_ms"], bound_ms=adam_main["bound_ms"],
             bound_by=adam_main["bound_by"],
             library_ms=adam_main["library_ms"],
+            timed_by=timed_by(adam_main, "kernel_ms_per_sweep"),
             shape=f"{adam_main['leaves']} BERT-base leaves (one sweep)",
             dtype=adam_main["param_dtype"],
             launches_ncf=ncf_counts.get(fad.KERNEL_NAME, 0),
@@ -1529,14 +2268,49 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
         ms=seg_main["kernel_ms"], wall_ms=seg_main["wall_ms"],
         plain_ms=seg_main["plain_ms"], bound_ms=seg_main["bound_ms"],
         bound_by=seg_main["bound_by"], library_ms=seg_main["library_ms"],
-        **common)
+        timed_by=timed_by(seg_main, "kernel_ms"), **common)
     entries[seg.SUM_NAME] = dict(
         launches=ncf_counts.get(seg.SUM_NAME, 0),
         max_abs_err=seg_main["segment_sum_rel_err_vs_cpu"],
         ms=seg_main["sum_kernel_ms"], plain_ms=seg_main["sum_plain_ms"],
         bound_ms=seg_main["sum_bound_ms"], bound_by=seg_main["sum_bound_by"],
-        library_ms=seg_main["sum_library_ms"], **common)
+        library_ms=seg_main["sum_library_ms"],
+        timed_by={k: seg_main["timed_by"]["sum_" + v] for k, v in (
+            ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+            ("library_ms", "library_ms"))}, **common)
     return entries
+
+
+def decode_entries(decs, gen):
+    """The two decode-attention rows of the `kernels` line, at the long
+    context bucket in f32 (the serving dtype), launches from the serving
+    runs."""
+    main = decs[DEC_MAIN]
+    bf16 = decs[(DEC_MAIN[0], torch.bfloat16)]
+    ok = "ok" if all(r["ok"] for r in decs.values()) else "fail"
+    common = dict(shape=main["shape"], kv_bucket=main["kv_bucket"],
+                  dtype=main["dtype"], timed_by=BY_GRAPH, verdict=ok)
+    return {
+        da.KERNEL_NAME: dict(
+            launches=gen["contiguous"]["launches"].get(da.KERNEL_NAME, 0),
+            max_abs_err=main["max_abs_err"],
+            max_abs_err_bf16=bf16["max_abs_err"],
+            ms=main["kernel_ms"], wall_ms=main["kernel_wall_ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            **common),
+        da.PAGED_NAME: dict(
+            launches=gen["paged"]["launches"].get(da.PAGED_NAME, 0),
+            max_abs_err=main["max_abs_err_paged"],
+            max_abs_err_bf16=bf16["max_abs_err_paged"],
+            ms=main["paged_kernel_ms"], wall_ms=main["paged_kernel_wall_ms"],
+            plain_ms=main["paged_plain_ms"],
+            bound_ms=main["paged_bound_ms"],
+            bound_by=main["paged_bound_by"],
+            library_ms=main["paged_library_ms"],
+            bitwise_contiguous=all(r["paged_bitwise_contiguous"]
+                                   for r in decs.values()), **common),
+    }
 
 
 def keep_scale_entry(seed: int):
@@ -1556,7 +2330,9 @@ def keep_scale_entry(seed: int):
     bound_ms = B * H * T * T * 4 / MEM_BYTES_PER_S * 1e3
     return dict(launches=0, on_main_path=False, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=None, shape=list(shape), dtype="float32",
+                library_ms=None, timed_by=dict(BY_EVENTS, library_ms=None),
+                shape=list(shape),
+                dtype="float32",
                 verdict="ok" if err == 0.0 else "fail")
 
 
@@ -1575,8 +2351,11 @@ def main(argv=None) -> int:
     train_counts = phase_training(card, args.seed)
     segs = phase_segment_adam(card, args.seed)
     ncf_counts = phase_ncf(card, args.seed)
+    decs = phase_decode_kernels(card, args.seed)
+    gen = phase_generative(card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
+    entries.update(decode_entries(decs, gen))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]
