@@ -21,19 +21,45 @@
 //   dQ_i  = scale * sum_j dS_ij * k_j                        (L346-359)
 // keep_ij is the forward's keep scale, regenerated from the seed by the
 // same Philox byte rule (`philox.cuh`), so no mask is stored. Inputs are
-// f32 or bf16, every product and sum is f32, dQ, dK and dV are written in
-// the input dtype. The padding mask gets no gradient (zero in the TPU
-// version, L594-596).
+// f32 or bf16, every sum is f32, dQ, dK and dV are written in the input
+// dtype. The padding mask gets no gradient (zero in the TPU version,
+// L594-596). Each kernel owns its output rows and loops over the other
+// axis itself, so no partial sums cross blocks: deterministic, no atomics.
 //
 // What bounds them on an H100: the pair does 7 T x T x D products per head
-// (the fused TPU kernel 5), about 2*T FLOP per element moved, so they are
-// compute-shaped. This first version does them as f32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), like the forward; mma/wgmma tiles are later work.
+// (the fused TPU kernel 5; dkv 4, dq 3), about 2*T FLOP per element moved,
+// so they are bound by the products, then by the exponentials (one per
+// score in each kernel) and, with dropout, by Philox's integer work.
 //
-// What their design does about that. The TPU grid accumulates over a
-// sequential axis in VMEM scratch; on Hopper blocks run in no order, so each
-// kernel owns its output rows and loops over the other axis itself, and no
-// partial sums cross blocks:
+// bf16 (`flash_bwd_dkv_mma_kernel`, `flash_bwd_dq_mma_kernel`): the
+// products on the tensor cores, mma.sync m16n8k16 (bf16 in, f32
+// accumulate), operands by ldmatrix from padded shared memory, the walked
+// tiles staged by cp.async and double-buffered (`mma.cuh`). Blocks of 4
+// warps, 16 rows a warp, tiles of 64:
+//   - dkv: one block owns one (b*h, 64 keys) and walks the query tiles; Q,
+//     dO, lse and delta of 64 rows are double-buffered. It computes
+//     S^T = K.Q^T and dP^T = V.dO^T in the transposed orientation, so the
+//     accumulators of (P*keep)^T and dS^T are, rounded to bf16, the A
+//     operands of dV += (P*keep)^T.dO and dK += dS^T.Q, with Q and dO
+//     transposed by ldmatrix.trans: 4 products a tile. A warp's 16 keys
+//     are one 16-key chunk of the byte rule, so the tile's keep bytes are
+//     64 draws a warp, two a lane, traded by shuffle.
+//   - dq: one block owns one (b*h, 64 query rows) and walks the key tiles
+//     (K, V and the mask double-buffered): S = Q.K^T, dP = dO.V^T, then
+//     dS = P * (dP * keep - delta) in registers, then dQ += dS.K with K
+//     through ldmatrix.trans: 3 products. Dropout as in the forward.
+//   - Q, dO (dq) and K, V (dkv) are read from shared memory by ldmatrix
+//     one k-step at a time rather than held in registers: at D 64 the
+//     four accumulator sets already take 128 registers a thread.
+//   - ragged T and D: rows past T and columns past D are zero-filled in
+//     shared memory; keys past T get a -inf score (dq), query rows past T
+//     a +inf lse, so P = 0 (dkv); rows past T are never stored.
+//   Shared memory: 6 tiles of 64 x (D_pad + 8) bf16 plus the staged
+//   vectors: 55-56 KB at D_pad 64, above 48 KB by cudaFuncSetAttribute.
+//
+// f32 (`flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`, the first version,
+// kept as it was): f32 FMAs on the CUDA cores (67 TFLOP/s), since the
+// tensor cores would mean TF32:
 //   - dkv: one block owns one (b*h, tile of 128/TPR keys); a thread owns a
 //     32-wide slice of one key's k, v and its dK, dV accumulators in
 //     registers (TPR = 1, 2, 4 threads per key for D <= 32, 64, 128; one
@@ -47,8 +73,8 @@
 //     Philox call gives the 16 keep bytes, as in the forward.
 //   - ragged T: keys past T get a -inf bias (dq) or are never stored
 //     (dkv); query rows past T are never visited (dkv) or stored (dq).
-// Threads past the end still run the loops, on zeros, so every lane takes
-// part in the shuffles.
+//   Threads past the end still run the loops, on zeros, so every lane
+//   takes part in the shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +82,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -347,6 +374,313 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 dK/dV kernel on the tensor cores (see the note at the top).
+// DP: the head dim padded to 32, 64 or 128.
+template <int DP, bool kDrop>
+__global__ void __launch_bounds__(azt::mma::kThreads)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const float* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int heads, int seq,
+                         int dim, float scale, azt::AttnDropout drop) {
+  using namespace azt::mma;
+  constexpr int kElems = tile_elems<DP>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kElems;
+  bf16* qs = vs + kElems;       // two buffers
+  bf16* dos = qs + 2 * kElems;  // two buffers
+  float* ls = reinterpret_cast<float*>(dos + 2 * kElems);  // two rows of 64
+  float* dls = ls + 2 * kTile;                              // two rows of 64
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key0 = blockIdx.x * kTile;
+  const int key = key0 + warp * 16 + g;  // and key + 8
+  const size_t head = (size_t)bh * seq * dim;
+  const size_t vrow = (size_t)bh * seq;  // lse, delta
+  const bool vec = dim % 8 == 0;
+  const float scale_log2 = scale * kLog2e;
+  const int n_tiles = (seq + kTile - 1) / kTile;
+  float bias[2];  // the mask of the lane's two keys, log2 domain
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key + 8 * r;
+    bias[r] = (mask != nullptr && j < seq)
+                  ? mask[(size_t)b * seq + j] * kLog2e
+                  : 0.f;
+  }
+
+  auto stage_q = [&](int i) {
+    const int buf = i & 1;
+    stage_rows<DP>(qs + buf * kElems, q + head, i * kTile, seq, dim, vec,
+                   tid);
+    stage_rows<DP>(dos + buf * kElems, dout + head, i * kTile, seq, dim, vec,
+                   tid);
+    if (tid < kTile) {
+      stage_float(ls + buf * kTile, lse + vrow, i * kTile, seq, tid);
+    } else {
+      stage_float(dls + buf * kTile, delta + vrow, i * kTile, seq,
+                  tid - kTile);
+    }
+    cp_async_commit();
+  };
+
+  stage_rows<DP>(ks, k + head, key0, seq, dim, vec, tid);
+  stage_rows<DP>(vs, v + head, key0, seq, dim, vec, tid);
+  cp_async_commit();
+  stage_q(0);
+
+  float dk_acc[DP / 8][4] = {};
+  float dv_acc[DP / 8][4] = {};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n_tiles) {
+      stage_q(i + 1);  // overwrites the buffer tile i - 1 used
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = i * kTile;
+    const bf16* qt = qs + buf * kElems;
+    const bf16* dot = dos + buf * kElems;
+    const float* lt = ls + buf * kTile;
+    const float* dlt = dls + buf * kTile;
+
+    float s[8][4] = {};   // S^T: rows the warp's 16 keys, columns queries
+    float dp[8][4] = {};  // dP^T
+    gemm_nt<DP>(s, ks, warp * 16, qt, lane);
+    gemm_nt<DP>(dp, vs, warp * 16, dot, lane);
+
+    // Keep bits: the warp's 16 keys are chunk c16 of the byte rule. Lane L
+    // draws query rows q0 + L and q0 + L + 32 (16 keys each) and packs the
+    // two masks into one word; the lane that holds query column c reads
+    // word c % 32, half c / 32.
+    uint32_t mine = 0;
+    if (kDrop) {
+      const uint32_t c16 = (key0 + warp * 16) / 16;
+      mine = keep_mask16(azt::attn_keep_bits(drop.k0, drop.k1, bh, q0 + lane,
+                                             c16),
+                         drop.t) |
+             keep_mask16(azt::attn_keep_bits(drop.k0, drop.k1, bh,
+                                             q0 + lane + 32, c16),
+                         drop.t)
+                 << 16;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t bits = 0;
+        if (kDrop) {
+          bits = __shfl_sync(0xffffffffu, mine, nb * 8 + 2 * t + e);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int blk = nb + 4 * h;
+          const int c = blk * 8 + 2 * t + e;  // query column in the tile
+          // rows past T: P = 0 (their q and dO are zero-filled)
+          const float lse_c = q0 + c < seq ? lt[c] * kLog2e : INFINITY;
+          const float delta_c = dlt[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int el = 2 * r + e;
+            const float p =
+                exp2f(fmaf(s[blk][el], scale_log2, bias[r]) - lse_c);
+            float dpk = dp[blk][el];
+            float pk = p;
+            if (kDrop) {
+              const bool keep = (bits >> (16 * h + g + 8 * r)) & 1u;
+              dpk = keep ? dpk * drop.keep_scale : 0.f;
+              pk = keep ? p * drop.keep_scale : 0.f;
+            }
+            dp[blk][el] = p * (dpk - delta_c);  // dS^T
+            s[blk][el] = pk;                    // (P * keep)^T
+          }
+        }
+      }
+    }
+    gemm_wb<DP>(dv_acc, s, dot, lane);
+    gemm_wb<DP>(dk_acc, dp, qt, lane);
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key + 8 * r;
+    if (j >= seq) {
+      continue;
+    }
+    bf16* dkr = dk + head + (size_t)j * dim;
+    bf16* dvr = dv + head + (size_t)j * dim;
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      const float k0 = dk_acc[nb][2 * r] * scale;
+      const float k1 = dk_acc[nb][2 * r + 1] * scale;
+      const float v0 = dv_acc[nb][2 * r];
+      const float v1 = dv_acc[nb][2 * r + 1];
+      if (vec) {
+        if (c < dim) {
+          *reinterpret_cast<__nv_bfloat162*>(dkr + c) =
+              __floats2bfloat162_rn(k0, k1);
+          *reinterpret_cast<__nv_bfloat162*>(dvr + c) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      } else {
+        if (c < dim) {
+          dkr[c] = __float2bfloat16(k0);
+          dvr[c] = __float2bfloat16(v0);
+        }
+        if (c + 1 < dim) {
+          dkr[c + 1] = __float2bfloat16(k1);
+          dvr[c + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+// The bf16 dQ kernel on the tensor cores.
+template <int DP, bool kDrop>
+__global__ void __launch_bounds__(azt::mma::kThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const float* __restrict__ mask,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int heads, int seq,
+                        int dim, float scale, azt::AttnDropout drop) {
+  using namespace azt::mma;
+  constexpr int kElems = tile_elems<DP>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kElems;
+  bf16* ks = dos + kElems;     // two buffers
+  bf16* vs = ks + 2 * kElems;  // two buffers
+  float* ms = reinterpret_cast<float*>(vs + 2 * kElems);  // two rows of 64
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * kTile;
+  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const size_t head = (size_t)bh * seq * dim;
+  const bool vec = dim % 8 == 0;
+  const float* mrow = mask != nullptr ? mask + (size_t)b * seq : nullptr;
+  const float scale_log2 = scale * kLog2e;
+  const int n_tiles = (seq + kTile - 1) / kTile;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    lse_r[r] = i < seq ? lse[(size_t)bh * seq + i] * kLog2e : 0.f;
+    delta_r[r] = i < seq ? delta[(size_t)bh * seq + i] : 0.f;
+  }
+
+  auto stage_kv = [&](int j) {
+    const int buf = j & 1;
+    stage_rows<DP>(ks + buf * kElems, k + head, j * kTile, seq, dim, vec,
+                   tid);
+    stage_rows<DP>(vs + buf * kElems, v + head, j * kTile, seq, dim, vec,
+                   tid);
+    if (mrow != nullptr && tid < kTile) {
+      stage_float(ms + buf * kTile, mrow, j * kTile, seq, tid);
+    }
+    cp_async_commit();
+  };
+
+  stage_rows<DP>(qs, q + head, q0, seq, dim, vec, tid);
+  stage_rows<DP>(dos, dout + head, q0, seq, dim, vec, tid);
+  cp_async_commit();
+  stage_kv(0);
+
+  float dq_acc[DP / 8][4] = {};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      stage_kv(j + 1);  // overwrites the buffer tile j - 1 used
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int key0 = j * kTile;
+    const bf16* kt = ks + buf * kElems;
+    const float* mt = ms + buf * kTile;
+
+    float s[8][4] = {};
+    float dp[8][4] = {};
+    gemm_nt<DP>(s, qs, warp * 16, kt, lane);
+    gemm_nt<DP>(dp, dos, warp * 16, vs + buf * kElems, lane);
+    if (kDrop) {
+      keep_rows(dp, drop, bh, row, key0, lane);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nb * 8 + 2 * t + (e & 1);
+        float bias = -INFINITY;  // keys past T never count
+        if (key0 + c < seq) {
+          bias = mrow != nullptr ? mt[c] * kLog2e : 0.f;
+        }
+        const float p =
+            exp2f(fmaf(s[nb][e], scale_log2, bias) - lse_r[e >> 1]);
+        s[nb][e] = p * (dp[nb][e] - delta_r[e >> 1]);  // dS
+      }
+    }
+    gemm_wb<DP>(dq_acc, s, kt, lane);
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    if (i >= seq) {
+      continue;
+    }
+    bf16* dqr = dq + head + (size_t)i * dim;
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      const float x0 = dq_acc[nb][2 * r] * scale;
+      const float x1 = dq_acc[nb][2 * r + 1] * scale;
+      if (vec) {
+        if (c < dim) {
+          *reinterpret_cast<__nv_bfloat162*>(dqr + c) =
+              __floats2bfloat162_rn(x0, x1);
+        }
+      } else {
+        if (c < dim) {
+          dqr[c] = __float2bfloat16(x0);
+        }
+        if (c + 1 < dim) {
+          dqr[c + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
 __global__ void keep_scale_kernel(float* __restrict__ out, int bh_count,
                                   int seq, azt::AttnDropout drop) {
   const int n16 = (seq + kChunk - 1) / kChunk;
@@ -443,6 +777,84 @@ void dq_by_dim(const Args& a) {
   }
 }
 
+// Dynamic shared memory of the bf16 kernels: six tiles and the staged
+// vectors (dkv: lse and delta, two buffers each; dq: two mask rows).
+template <int DP>
+constexpr int dkv_mma_smem_bytes() {
+  return 6 * azt::mma::tile_elems<DP>() * 2 + 4 * azt::mma::kTile * 4;
+}
+
+template <int DP>
+constexpr int dq_mma_smem_bytes() {
+  return 6 * azt::mma::tile_elems<DP>() * 2 + 2 * azt::mma::kTile * 4;
+}
+
+template <int DP, bool kDrop>
+cudaError_t launch_dkv_mma(const Args& a) {
+  constexpr int kBytes = dkv_mma_smem_bytes<DP>();
+  auto kernel = flash_bwd_dkv_mma_kernel<DP, kDrop>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const dim3 grid((a.seq + azt::mma::kTile - 1) / azt::mma::kTile, a.bh);
+  using bf = __nv_bfloat16;
+  kernel<<<grid, azt::mma::kThreads, kBytes, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const float*>(a.mask),
+      static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf*>(a.dk),
+      static_cast<bf*>(a.dv), a.heads, a.seq, a.dim, a.scale, a.drop);
+  return cudaSuccess;
+}
+
+template <int DP, bool kDrop>
+cudaError_t launch_dq_mma(const Args& a) {
+  constexpr int kBytes = dq_mma_smem_bytes<DP>();
+  auto kernel = flash_bwd_dq_mma_kernel<DP, kDrop>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const dim3 grid((a.seq + azt::mma::kTile - 1) / azt::mma::kTile, a.bh);
+  using bf = __nv_bfloat16;
+  kernel<<<grid, azt::mma::kThreads, kBytes, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const float*>(a.mask),
+      static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf*>(a.dq), a.heads,
+      a.seq, a.dim, a.scale, a.drop);
+  return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t dkv_mma_by_drop(const Args& a) {
+  return a.drop.t != 0 ? launch_dkv_mma<DP, true>(a)
+                       : launch_dkv_mma<DP, false>(a);
+}
+
+template <int DP>
+cudaError_t dq_mma_by_drop(const Args& a) {
+  return a.drop.t != 0 ? launch_dq_mma<DP, true>(a)
+                       : launch_dq_mma<DP, false>(a);
+}
+
+cudaError_t dkv_mma_by_dim(const Args& a) {
+  if (a.dim <= 32) {
+    return dkv_mma_by_drop<32>(a);
+  }
+  return a.dim <= 64 ? dkv_mma_by_drop<64>(a) : dkv_mma_by_drop<128>(a);
+}
+
+cudaError_t dq_mma_by_dim(const Args& a) {
+  if (a.dim <= 32) {
+    return dq_mma_by_drop<32>(a);
+  }
+  return a.dim <= 64 ? dq_mma_by_drop<64>(a) : dq_mma_by_drop<128>(a);
+}
+
 bool valid(int bh, int heads, int seq, int dim, int dtype, int t) {
   return bh > 0 && bh <= 65535 && heads > 0 && bh % heads == 0 && seq > 0 &&
          dim > 0 && dim <= 128 && (dtype == 0 || dtype == 1) && t >= 0 &&
@@ -501,7 +913,10 @@ int azt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     dkv_by_dim<float>(a);
   } else {
-    dkv_by_dim<__nv_bfloat16>(a);
+    const cudaError_t err = dkv_mma_by_dim(a);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -522,7 +937,10 @@ int azt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     dq_by_dim<float>(a);
   } else {
-    dq_by_dim<__nv_bfloat16>(a);
+    const cudaError_t err = dq_mma_by_dim(a);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

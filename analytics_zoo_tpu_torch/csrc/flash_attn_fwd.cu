@@ -15,21 +15,51 @@
 // undropped p, so dropout applies to the normalised weights. The backward
 // kernels (`flash_attn_bwd.cu`) regenerate the same bits.
 // Inputs are f32 or bf16; every score, softmax statistic and accumulator is
-// f32. D may be any size up to 128 (rows whose length is not a multiple of 4
-// are read element by element); T need not be a multiple of the
-// tile: keys past T get a score of -inf inside the kernel (the TPU version
-// pads T with a -1e9 mask instead).
+// f32. D may be any size up to 128; T need not be a multiple of the tile:
+// keys past T get a score of -inf inside the kernel (the TPU version pads
+// T with a -1e9 mask instead). A row whose running max is still -inf (no
+// finite score yet) uses 0 as the exponent base, so exp(-inf - -inf)
+// never occurs.
 //
 // What bounds it on an H100: per head the work is 4*T^2*D FLOP against
 // 4*T*D elements moved, about T FLOP per element (512 at BERT's T = 512),
-// so it is compute-shaped, not a memory stream. This first version does its
-// FLOPs as f32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the tensor
-// cores; mma/wgmma tiles are later work. Dropout adds one Philox call (10
-// rounds) per 16 scores.
+// well above the card's ~295 bf16 FLOP per byte, so it is bound by the
+// products, then by the softmax's exponentials (one MUFU ex2 per score,
+// 16 per SM per clock) and, with dropout, by Philox's integer work (one
+// 10-round call per 16 scores, of the order of the product's work).
 //
-// What its design does about that. The TPU grid carries (acc, m, l) across a
-// sequential k-block grid axis in VMEM scratch; on Hopper blocks run in no
-// order, so one thread block owns one (b*h, q-tile) and loops over the
+// Two kernels, one per dtype:
+//
+// bf16 (`flash_fwd_mma_kernel`): the products on the tensor cores. One
+// block of 4 warps owns one (b*h, 64 query rows), each warp 16 rows, and
+// walks the keys 64 at a time:
+//   - Q's 16 x D fragments are read from shared memory once, by ldmatrix,
+//     and held in registers;
+//   - K and V tiles of 64 keys are staged by cp.async into padded shared
+//     memory, double-buffered: tile j+1's copy is in flight while tile j's
+//     products run; rows past T and columns past D are zero-filled (a NaN
+//     in a pad would survive a zero weight);
+//   - S = Q.K^T is 8 x D/16 mma.sync m16n8k16 (bf16 in, f32 accumulate),
+//     K's fragments by ldmatrix;
+//   - the online softmax runs on the accumulator fragments in the log2
+//     domain (log2 e folded into the scale, exp2f); a lane holds 16 scores
+//     of each of its two rows, and the row max is joined across the four
+//     lanes of a quad by two shuffles; l is kept per lane and joined once
+//     at the end;
+//   - P * keep is rounded to bf16 (as the TPU kernel does, L247-248) and
+//     is already the A fragment of O += P.V; V's fragments come
+//     transposed by ldmatrix.trans;
+//   - dropout: each (row, 16-key chunk) is drawn once per quad, two Philox
+//     calls a lane per tile, and the keep masks traded by shuffle
+//     (`mma.cuh` keep_rows);
+//   - the epilogue divides by l, stores O in bf16 and lse in f32.
+// Shared memory: (1 + 2 + 2) tiles of 64 x (D_pad + 8) bf16 and two mask
+// rows: 46.6 KB at D_pad 64, 87.6 KB at 128 (above 48 KB by
+// cudaFuncSetAttribute). D_pad is D rounded up to 32, 64 or 128.
+//
+// f32 (`flash_fwd_kernel`, the first version, kept as it was): f32 FMAs
+// on the CUDA cores (67 TFLOP/s); the tensor cores would mean TF32, which
+// changes the numbers. One block owns one (b*h, q-tile) and loops over the
 // k-tiles itself:
 //   - each K/V tile is read from device memory once per block, converted to
 //     f32 and staged in shared memory, then reused by all the block's query
@@ -40,13 +70,10 @@
 //     accumulator in registers;
 //   - shared-memory reads are 16-byte broadcasts (every lane reads the same
 //     key), one per four FMAs;
-//   - the softmax runs in the log2 domain (log2 e folded into the scale,
-//     exp2f), rescaling the accumulator once per chunk of 16 keys, and the
-//     division by l happens once at the end;
+//   - the softmax runs in the log2 domain, rescaling the accumulator once
+//     per chunk of 16 keys, and the division by l happens once at the end;
 //   - a chunk of 16 keys starts at a multiple of 16, so one Philox call
 //     gives the chunk's 16 keep bytes.
-// A row whose running max is still -inf (no finite score yet) uses 0 as the
-// exponent base, so exp(-inf - -inf) never occurs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +81,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -214,6 +242,214 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 kernel on the tensor cores (see the note at the top). DP: the
+// head dim padded to 32, 64 or 128.
+template <int DP, bool kDrop>
+__global__ void __launch_bounds__(azt::mma::kThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const float* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int heads, int seq, int dim, float scale,
+                     azt::AttnDropout drop) {
+  using namespace azt::mma;
+  constexpr int kElems = tile_elems<DP>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kElems;      // two buffers
+  bf16* vs = ks + 2 * kElems;  // two buffers
+  float* ms = reinterpret_cast<float*>(vs + 2 * kElems);  // two rows of 64
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * kTile;
+  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const size_t head = (size_t)bh * seq * dim;
+  const bool vec = dim % 8 == 0;
+  const float* mrow = mask != nullptr ? mask + (size_t)b * seq : nullptr;
+  const float scale_log2 = scale * kLog2e;
+  const int n_tiles = (seq + kTile - 1) / kTile;
+
+  auto stage_kv = [&](int j) {
+    const int buf = j & 1;
+    stage_rows<DP>(ks + buf * kElems, k + head, j * kTile, seq, dim, vec,
+                   tid);
+    stage_rows<DP>(vs + buf * kElems, v + head, j * kTile, seq, dim, vec,
+                   tid);
+    if (mrow != nullptr && tid < kTile) {
+      stage_float(ms + buf * kTile, mrow, j * kTile, seq, tid);
+    }
+    cp_async_commit();
+  };
+
+  stage_rows<DP>(qs, q + head, q0, seq, dim, vec, tid);
+  cp_async_commit();
+  stage_kv(0);
+  cp_async_wait<1>();  // Q has landed; tile 0 may still be in flight
+  __syncthreads();
+  uint32_t qf[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    load_a<DP>(qf[kk], qs, warp * 16, kk, lane);
+  }
+
+  float acc[DP / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};              // this lane's share of the sum
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      stage_kv(j + 1);  // overwrites the buffer tile j - 1 used
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int key0 = j * kTile;
+    const float* mt = ms + buf * kTile;
+
+    float s[8][4] = {};
+    gemm_nt<DP>(s, qf, ks + buf * kElems, lane);
+
+    // (q.k) * scale + mask, all times log2 e; keys past T never count
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nb * 8 + 2 * t + (e & 1);
+        float bias = -INFINITY;
+        if (key0 + c < seq) {
+          bias = mrow != nullptr ? mt[c] * kLog2e : 0.f;
+        }
+        s[nb][e] = fmaf(s[nb][e], scale_log2, bias);
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[nb][e]);
+      }
+    }
+    float base[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float m_new = fmaxf(m[r], tmax[r]);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - base[r]);
+      m[r] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = exp2f(s[nb][e] - base[e >> 1]);
+        psum[e >> 1] += s[nb][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = fmaf(l[r], alpha[r], psum[r]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[nb][e] *= alpha[e >> 1];
+      }
+    }
+    if (kDrop) {
+      // l took the undropped p; the PV product takes p * keep scale
+      keep_rows(s, drop, bh, row, key0, lane);
+    }
+    gemm_wb<DP>(acc, s, vs + buf * kElems, lane);
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    if (i >= seq) {
+      continue;
+    }
+    const float inv_l = 1.f / l[r];
+    bf16* orow = o + head + (size_t)i * dim;
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      const float x0 = acc[nb][2 * r] * inv_l;
+      const float x1 = acc[nb][2 * r + 1] * inv_l;
+      if (vec) {
+        if (c < dim) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(x0, x1);
+        }
+      } else {
+        if (c < dim) {
+          orow[c] = __float2bfloat16(x0);
+        }
+        if (c + 1 < dim) {
+          orow[c + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
+    if (t == 0) {
+      lse[(size_t)bh * seq + i] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+// Dynamic shared memory of the bf16 kernel: Q, two K and two V tiles, two
+// mask rows.
+template <int DP>
+constexpr int mma_smem_bytes() {
+  return 5 * azt::mma::tile_elems<DP>() * 2 + 2 * azt::mma::kTile * 4;
+}
+
+template <int DP, bool kDrop>
+cudaError_t launch_mma_drop(const void* q, const void* k, const void* v,
+                            const void* mask, void* o, void* lse, int bh,
+                            int heads, int seq, int dim, float scale,
+                            azt::AttnDropout drop, cudaStream_t stream) {
+  constexpr int kBytes = mma_smem_bytes<DP>();
+  auto kernel = flash_fwd_mma_kernel<DP, kDrop>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const dim3 grid((seq + azt::mma::kTile - 1) / azt::mma::kTile, bh);
+  kernel<<<grid, azt::mma::kThreads, kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, seq,
+      dim, scale, drop);
+  return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* mask, void* o, void* lse, int bh,
+                       int heads, int seq, int dim, float scale,
+                       azt::AttnDropout drop, cudaStream_t stream) {
+  if (drop.t != 0) {
+    return launch_mma_drop<DP, true>(q, k, v, mask, o, lse, bh, heads, seq,
+                                     dim, scale, drop, stream);
+  }
+  return launch_mma_drop<DP, false>(q, k, v, mask, o, lse, bh, heads, seq,
+                                    dim, scale, drop, stream);
+}
+
 template <typename T, int TPR>
 void launch(const void* q, const void* k, const void* v, const void* mask,
             void* o, void* lse, int bh, int heads, int seq, int dim,
@@ -258,6 +494,7 @@ int azt_flash_attn_fwd(const void* q, const void* k, const void* v,
                         static_cast<uint32_t>(seed >> 32),
                         static_cast<uint32_t>(keep_threshold), keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   if (dtype == 0) {
     if (dim <= 64) {
       launch<float, 1>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
@@ -266,14 +503,18 @@ int azt_flash_attn_fwd(const void* q, const void* k, const void* v,
       launch<float, 2>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
                        drop, s);
     }
+  } else if (dim <= 32) {
+    err = launch_mma<32>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
+                         drop, s);
+  } else if (dim <= 64) {
+    err = launch_mma<64>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
+                         drop, s);
   } else {
-    if (dim <= 64) {
-      launch<__nv_bfloat16, 1>(q, k, v, mask, o, lse, bh, heads, seq, dim,
-                               scale, drop, s);
-    } else {
-      launch<__nv_bfloat16, 2>(q, k, v, mask, o, lse, bh, heads, seq, dim,
-                               scale, drop, s);
-    }
+    err = launch_mma<128>(q, k, v, mask, o, lse, bh, heads, seq, dim, scale,
+                          drop, s);
+  }
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,10 @@ Port of `analytics_zoo_tpu/pallas/flash_attention.py`: `_reference_attention`
 L599-605), the forward kernel `_fwd_kernel` (L217), which becomes
 `csrc/flash_attn_fwd.cu`, and the backward `_flash_bwd` (L462) with its
 three kernels (`_dq_kernel` L323, `_dkv_kernel` L362, `_bwd_fused_kernel`
-L407), which become the two kernels of `csrc/flash_attn_bwd.cu`. Each
-source's note says what bounds it on an H100 and how its design answers
-that.
+L407), which become the two kernels of `csrc/flash_attn_bwd.cu`. bf16
+inputs run tensor-core kernels (`mma.sync`, `csrc/mma.cuh`), f32 inputs
+SIMT kernels on the CUDA cores. Each source's note says what bounds it
+on an H100 and how its design answers that.
 
 Attention dropout runs inside the kernels, as on the TPU: the keep rule is
 the byte rule of `_keep_scale` (L189; keep iff byte < t, scale 256/t) on

@@ -13,14 +13,19 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), the
    build of every kernel from `analytics_zoo_tpu_torch/csrc/`, all sources
-   at once, with each build's seconds;
+   at once, with each build's seconds, then each flash kernel's registers
+   and spills (ptxas) and its count of tensor-core (HMMA) instructions
+   (`cuobjdump -sass`): the bf16 kernels run on the tensor cores, the f32
+   ones on the CUDA cores;
 2. the flash-attention forward against its plain version on the card, one
    JSON line per case, with the error, its tolerance and the times of the
-   kernel, the plain version and the PyTorch library call of the same
+   kernel (also with attention dropout 0.1, and by CUDA graph at seq
+   512), the plain version and the PyTorch library call of the same
    function;
 3. the flash-attention backward kernels (dK/dV and dQ) against autograd of
    the plain version, f32 and bf16, with and without a padding mask, at the
-   training shape, the seq-2048 shape and odd shapes; times and bounds;
+   training shape, the seq-2048 shape and odd shapes; times (also with
+   attention dropout 0.1) and bounds;
 4. attention dropout at rate 0.1: the kernels' exported keep-scale matrix
    injected into the plain version, forward and gradients compared, keep
    fraction, seeds;
@@ -38,8 +43,9 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    `Estimator.from_keras(..., optimizer=fused_adam(...)).fit(...,
    mixed_precision=True, fused_optimizer=True)` at seq 512, batch 32:
    step time, tokens/s, MFU, peak memory, launches per step of every
-   kernel, a profiled fit; f32 kernel path against the plain path (dropout
-   0, 3 steps); the bf16 loss falling over 20 steps on one batch;
+   kernel, a profiled fit; the kernel path against the plain path (dropout
+   0, 3 steps) in f32 and in bf16; the bf16 loss falling over 20 steps on
+   one batch;
 9. the segment-Adam kernels (row-sparse Adam and its segment sum) on
    tables shaped like NeuralCF's at MovieLens-20M scale ([138001, 64] and
    [27001, 64], f32 and one bf16 case), 3 steps of 8192 ids under three id
@@ -88,6 +94,8 @@ import itertools
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -179,8 +187,10 @@ MAIN_SHAPE = ATTN_SHAPES[0]
 # order (the kernel scales then adds the mask and divides by l at the end;
 # the plain version divides by √D first) — rounding only. bf16: the plain
 # version rounds q·kᵀ and the softmax weights to bf16 before the PV
-# product, where the kernel keeps both in f32, and O is stored in bf16
-# (2^-9 relative). lse is f32 from the same products in both.
+# product, where the kernel keeps q·kᵀ in f32 (the tensor cores' bf16
+# products are exact in f32) and rounds P·keep to bf16 as the TPU kernel
+# does, and O is stored in bf16 (2^-9 relative). lse is f32 from the same
+# products in both.
 ATTN_TOL = {torch.float32: {"o": 2e-5, "lse": 1e-4},
             torch.bfloat16: {"o": 3e-2, "lse": 1e-4}}
 
@@ -322,7 +332,76 @@ def phase_device_and_build():
           "per_source_s": per_source, "ptxas": ptxas,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": card})
+    for src in (fa.SOURCE, fa.BWD_SOURCE):
+        emit({"phase": "flash_kernels", "source": src,
+              "ptxas": ptxas_report(src), "sass_hmma": hmma_counts(src)})
     return card
+
+
+_KERNEL_SYMBOL = re.compile(r"(flash_[fb]wd_\w*?kernel)I(\w*?)EEv")
+
+
+def kernel_label(symbol: str):
+    """`flash_fwd_mma_kernel<64,0>` for a mangled flash kernel symbol
+    (template arguments: f for float, else the int and bool values), None
+    for any other symbol."""
+    m = _KERNEL_SYMBOL.search(symbol)
+    if m is None:
+        return None
+    args = re.findall(r"^f|L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(a or 'f' for a in args)}>"
+
+
+def ptxas_report(source: str) -> dict:
+    """{flash kernel: registers, spill bytes, static shared memory} from
+    ptxas's report of the build of `source`."""
+    out, name = {}, None
+    for line in _build.build_log(source).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            if name is not None:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def hmma_counts(source: str):
+    """{kernel<template args>: tensor-core (HMMA) instructions} of each
+    flash kernel in the built library of `source`, from `cuobjdump
+    -sass`; "not available" without cuobjdump. A report: it decides
+    nothing."""
+    exe = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.access(exe, os.X_OK):
+        exe = shutil.which("cuobjdump")
+    if exe is None:
+        return "not available"
+    res = subprocess.run([exe, "-sass", str(_build.library_path(source))],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        return "not available"
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = kernel_label(line)
+            if name is not None:
+                counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +437,8 @@ def phase_kernels(card: str, seed: int):
                 reps = 20 if T >= 512 else 50
                 kernel_ms = time_ms(lambda: fa.flash_attention_fwd(
                     q, k, v, mask), reps)
+                kernel_ms_dropout = time_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, mask, ATTN_DROP_RATE, seed + 5), reps)
                 plain_ms = time_ms(lambda: fa._reference_attention(
                     q, k, v, mask), reps)
                 lib_mask = None if mask is None else mask.to(dtype)
@@ -365,16 +446,33 @@ def phase_kernels(card: str, seed: int):
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         q, k, v, attn_mask=lib_mask), reps)
                 bound_ms, bound_by = attention_bound(shape, dtype)
+                graph = {}
+                if T >= 512:
+                    # device time without the wrappers' host side, which
+                    # is longer than a bf16 kernel at these shapes
+                    graph = {
+                        "kernel_graph_ms": graph_ms(
+                            lambda: fa.flash_attention_fwd(q, k, v, mask),
+                            reps),
+                        "kernel_graph_ms_dropout": graph_ms(
+                            lambda: fa.flash_attention_fwd(
+                                q, k, v, mask, ATTN_DROP_RATE, seed + 5),
+                            reps),
+                        "library_graph_ms": graph_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, attn_mask=lib_mask), reps)}
                 row = {"phase": "kernel", "kernel": fa.KERNEL_NAME,
                        "shape": list(shape), "dtype": str(dtype)[6:],
                        "masked": masked, "max_abs_err_o": err_o,
                        "max_abs_err_lse": err_lse, "tol_o": tol["o"],
                        "tol_lse": tol["lse"], "ok": ok,
-                       "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                       "kernel_ms": kernel_ms,
+                       "kernel_ms_dropout": kernel_ms_dropout,
+                       "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by,
                        "launches": LAUNCHES.get(fa.KERNEL_NAME) - before,
-                       "card": card}
+                       **graph, "card": card}
                 emit(row)
                 results[(shape, masked, dtype)] = row
                 if not ok:
@@ -593,9 +691,10 @@ BWD_MAIN = (BWD_SHAPES[0], True, torch.bfloat16)
 # Gradients of the kernels against autograd of the plain version on the
 # same input values (upcast to f32), max abs error over max(1, max |ref|).
 # f32: both sum in f32 in other orders, rounding only (a short first call
-# measured <= 1.4e-6). bf16: the kernels store dQ, dK, dV in bf16 (2^-9
-# relative each) and form delta from the bf16-rounded O (first call
-# <= 3.8e-3). The f32 checks run with TF32 off.
+# measured <= 1.4e-6). bf16: the kernels round P·keep and dS to bf16
+# before their products (as the TPU kernels do), store dQ, dK, dV in bf16
+# (2^-9 relative each) and form delta from the bf16-rounded O (measured
+# <= 5.4e-3 on an H100). The f32 checks run with TF32 off.
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
@@ -678,6 +777,13 @@ def phase_backward(card: str, seed: int):
                     q, k, v, mask, do, lse, delta), reps)
                 dq_ms = time_ms(lambda: fa._launch_bwd_dq(
                     q, k, v, mask, do, lse, delta), reps)
+                drop = (ATTN_DROP_RATE, seed + 5)
+                kernel_ms_dropout = time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, mask, o, lse, do, *drop), reps)
+                dkv_ms_dropout = time_ms(lambda: fa._launch_bwd_dkv(
+                    q, k, v, mask, do, lse, delta, *drop), reps)
+                dq_ms_dropout = time_ms(lambda: fa._launch_bwd_dq(
+                    q, k, v, mask, do, lse, delta, *drop), reps)
                 plain_ms = time_ms(lambda: fa._reference_attention_bwd(
                     q, k, v, mask, o, lse, do), reps)
                 library_ms = library_bwd_ms(q, k, v, mask, do, reps)
@@ -686,7 +792,10 @@ def phase_backward(card: str, seed: int):
                        "dtype": str(dtype)[6:], "masked": masked,
                        "rel_err": errs, "tol": tol, "ok": ok,
                        "kernel_ms": kernel_ms, "dkv_ms": dkv_ms,
-                       "dq_ms": dq_ms, "plain_ms": plain_ms,
+                       "dq_ms": dq_ms,
+                       "kernel_ms_dropout": kernel_ms_dropout,
+                       "dkv_ms_dropout": dkv_ms_dropout,
+                       "dq_ms_dropout": dq_ms_dropout, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by,
                        "dkv_bound": bwd_bound(shape, dtype, 4, 2),
@@ -962,6 +1071,17 @@ F32_LOSS_TOL = 1e-4
 F32_PARAM_MAX = 2 * ADAM_HP["lr"] * 3
 F32_PARAM_FRAC = 1e-3
 F32_UPDATE_REL = 1e-2
+# bf16 (mixed precision), dropout 0, 3 steps: the kernel path (the
+# tensor-core flash kernels, fused Adam) against the plain path (plain
+# attention, plain AdamW). Both round every weight and activation to bf16
+# (2^-9 relative) and differ only in where attention rounds: the kernels
+# round P and dS after f32 softmax statistics, the plain path rounds the
+# scores and the weights. The serving check holds bf16 logits within
+# LOGIT_TOL (5e-2) of f32 on logits of scale ~0.3; the mean cross-entropy
+# over 2 classes moves by at most the mean change of the logit gap, and
+# rounding of independent sequences partly cancels in the batch mean —
+# 2e-2 absolute on each of the 3 losses.
+BF16_LOSS_TOL = 2e-2
 
 
 def make_training_data(rs, n: int, cfg):
@@ -1120,6 +1240,37 @@ def phase_training(card: str, seed: int):
     del runs, pk, pp, diffs
     torch.cuda.empty_cache()
 
+    # -- bf16, dropout 0: the kernel path against the plain path -----------
+    runs = {}
+    for name, use_flash, opt in (
+            ("kernel", True, fused()),
+            ("plain", False, optimizers.adamw(
+                hp["lr"], b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                weight_decay=hp["weight_decay"]))):
+        m = new_model(state, use_flash=use_flash, **no_drop)
+        LAUNCHES.reset()
+        h = Estimator.from_keras(m, optimizer=opt, loss=loss).fit(
+            batch, epochs=3, batch_size=TRAIN_BATCH, mixed_precision=True,
+            fused_optimizer=name == "kernel")
+        runs[name] = (h["loss"], LAUNCHES.snapshot())
+        del m
+        torch.cuda.empty_cache()
+    (bk, ck16), (bp, cp16) = runs["kernel"], runs["plain"]
+    bf16_err = max(abs(a - b) for a, b in zip(bk, bp))
+    want = {name: 3 * cfg["n_block"]
+            for name in (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME)}
+    bf16_path_ok = (bf16_err <= BF16_LOSS_TOL
+                    and all(math.isfinite(x) for x in bk + bp)
+                    and {n: ck16.get(n, 0) for n in want} == want
+                    and not any(cp16.get(n, 0) for n in want))
+    emit({"phase": "train_bf16_kernel_vs_plain", "steps": 3,
+          "loss_kernel": bk, "loss_plain": bp, "loss_max_abs_err": bf16_err,
+          "loss_tol": BF16_LOSS_TOL,
+          "kernel_vs_f32_plain": max(abs(a - b) for a, b in zip(bk, lp)),
+          "plain_vs_f32_plain": max(abs(a - b) for a, b in zip(bp, lp)),
+          "launches_kernel_path": ck16, "launches_plain_path": cp16,
+          "ok": bf16_path_ok, "card": card})
+
     # -- bf16, dropout 0.1: the loss falls on one repeated batch -----------
     m = new_model(state)
     h = Estimator.from_keras(m, optimizer=fused(), loss=loss).fit(
@@ -1133,7 +1284,7 @@ def phase_training(card: str, seed: int):
           "card": card})
     del m
     torch.cuda.empty_cache()
-    if not (f32_ok and bf16_ok):
+    if not (f32_ok and bf16_path_ok and bf16_ok):
         raise SystemExit("chip_smoke: training check failed")
     return counts
 
@@ -2203,6 +2354,7 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
     """The `kernels` line: every kernel with its numbers at the main
     path's shape and dtype and its verdict."""
     main_fwd = attn[(MAIN_SHAPE, True, torch.float32)]
+    fwd16 = attn[(MAIN_SHAPE, True, torch.bfloat16)]
     main_bwd = bwd[BWD_MAIN]
     bwd_ok = all(r["ok"] for r in bwd.values())
     drop_main = drop[torch.bfloat16]
@@ -2217,14 +2369,21 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],
             bound_by=main_fwd["bound_by"],
             library_ms=main_fwd["library_ms"], timed_by=BY_EVENTS,
+            ms_dropout=main_fwd["kernel_ms_dropout"],
             shape=main_fwd["shape"], dtype=main_fwd["dtype"],
+            bf16={key: fwd16[key] for key in (
+                "max_abs_err_o", "max_abs_err_lse", "kernel_ms",
+                "kernel_ms_dropout", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "kernel_graph_ms", "kernel_graph_ms_dropout",
+                "library_graph_ms")},
             verdict="ok" if all(r["ok"] for r in attn.values()) and all(
                 r["ok"] for r in adrop) else "fail"),
         fa.BWD_DKV_NAME: dict(
             launches=train_counts.get(fa.BWD_DKV_NAME, 0),
             max_abs_err=max(main_bwd["rel_err"]["dk"],
                             main_bwd["rel_err"]["dv"]),
-            ms=main_bwd["dkv_ms"], plain_ms=main_bwd["plain_ms"],
+            ms=main_bwd["dkv_ms"], ms_dropout=main_bwd["dkv_ms_dropout"],
+            plain_ms=main_bwd["plain_ms"],
             bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
             library_ms=main_bwd["library_ms"], timed_by=BY_EVENTS,
             shape=list(shape), dtype=str(dtype)[6:],
@@ -2232,6 +2391,7 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
         fa.BWD_DQ_NAME: dict(
             launches=train_counts.get(fa.BWD_DQ_NAME, 0),
             max_abs_err=main_bwd["rel_err"]["dq"], ms=main_bwd["dq_ms"],
+            ms_dropout=main_bwd["dq_ms_dropout"],
             plain_ms=main_bwd["plain_ms"], bound_ms=dq_bound[0],
             bound_by=dq_bound[1], library_ms=main_bwd["library_ms"],
             timed_by=BY_EVENTS, shape=list(shape), dtype=str(dtype)[6:],

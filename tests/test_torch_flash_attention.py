@@ -14,6 +14,7 @@ is marked `gpu` and skips without one.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -190,31 +191,77 @@ def test_library_path_is_keyed_on_the_source():
     assert (_build.CSRC_DIR / fa.SOURCE).is_file()
 
 
+# The tile edges of the CUDA kernels: T below, at and past one 64-row tile,
+# ragged and at BERT's 512; D padded to 32 (30 is read element by element),
+# 64 and 128.
+GPU_T = [45, 64, 65, 200, 512]
+GPU_D = [30, 32, 64, 128]
+
+
 class TestKernelOnGPU:
     """The CUDA kernel against its plain version, on the card."""
 
     @pytest.mark.gpu
-    @pytest.mark.parametrize("shape", [(2, 12, 200, 64), (2, 4, 256, 128),
-                                       (1, 2, 37, 32), (2, 3, 45, 30)])
+    @pytest.mark.parametrize("T", GPU_T)
+    @pytest.mark.parametrize("D", GPU_D)
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
     @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
                                             (torch.bfloat16, 3e-2)])
-    def test_kernel_matches_plain(self, shape, dtype, tol):
+    def test_kernel_matches_plain(self, T, D, rate, dtype, tol):
+        """O within `tol` of the plain version in f32 on the same input
+        values (bf16: P and O are rounded to bf16 in the kernel) with the
+        kernel's own keep mask injected; lse within 1e-4."""
         if not torch.cuda.is_available():
             pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU "
                         "mode)")
         torch.backends.cuda.matmul.allow_tf32 = False
-        B, H, T, D = shape
+        B, H = 2, 3
         q, k, v = (torch.from_numpy(a).cuda().to(dtype)
                    for a in _qkv(B, H, T, D))
         mask = torch.from_numpy(_mask("padding", B, T)).cuda()
+        seed = 77 if rate else None
         before = LAUNCHES.get(fa.KERNEL_NAME)
-        out, lse = fa.flash_attention_fwd(q, k, v, mask)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, rate, seed)
         torch.cuda.synchronize()
         assert LAUNCHES.get(fa.KERNEL_NAME) == before + 1
-        ref = fa._reference_attention(q, k, v, mask).float()
+        keep = (fa.keep_scale_matrix((B, H, T, D), rate, seed, "cuda")
+                if rate else None)
+        ref = fa._reference_attention(q.float(), k.float(), v.float(), mask,
+                                      keep)
+        assert bool(torch.isfinite(out).all())
         assert (out.float() - ref).abs().max().item() <= tol
         ref_lse = fa._reference_lse(q, k, mask)
         assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def test_bf16_kernels_use_tensor_cores_and_keep_the_philox_counter():
+    """The bf16 kernels of both sources are written for the tensor cores:
+    `mma.sync` fed by `ldmatrix` (and `.trans`), tiles staged by
+    `cp.async` (`csrc/mma.cuh`). Every dropout draw still goes through the
+    one counter of `philox.cuh`, (col/16, query row, b*h, 0) keyed on the
+    seed, so the forward, both backward kernels, the mask export and
+    `kernels/philox.py` draw the same bits."""
+    csrc = PORT / "csrc"
+    mma = (csrc / "mma.cuh").read_text()
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global", "cp.async.wait_group"):
+        assert needle in mma
+    sources = {name: (csrc / name).read_text()
+               for name in (fa.SOURCE, fa.BWD_SOURCE)}
+    for name, text in sources.items():
+        assert '#include "mma.cuh"' in text, name
+    assert "flash_fwd_mma_kernel" in sources[fa.SOURCE]
+    for kernel in ("flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+        assert kernel in sources[fa.BWD_SOURCE]
+    philox_h = (csrc / "philox.cuh").read_text()
+    assert "return philox4x32_10(col16, row, bh, 0u, k0, k1);" in philox_h
+    calls = [c for text in [mma, *sources.values()]
+             for c in re.findall(r"attn_keep_bits\(([^;]*?)\)", text)]
+    assert len(calls) == 8     # f32 fwd, dkv, dq; keep_rows 2; bf16 dkv 2; export
+    for args in calls:
+        assert re.match(r"\s*drop\.k0,\s*drop\.k1,\s*bh,", args), args
 
 
 # ---------------------------------------------------------------------------

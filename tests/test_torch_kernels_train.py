@@ -512,7 +512,7 @@ def test_objective_registry():
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """An edited header must rebuild every source that includes it."""
     assert _build.source_files(fa.BWD_SOURCE) == [
-        fa.BWD_SOURCE, "common.cuh", "philox.cuh"]
+        fa.BWD_SOURCE, "common.cuh", "mma.cuh", "philox.cuh"]
     assert _build.source_files(fad.SOURCE) == [fad.SOURCE, "common.cuh"]
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
@@ -525,6 +525,12 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert after[fad.SOURCE] == before[fad.SOURCE]
     assert all(after[s] != before[s]
                for s in (fa.SOURCE, fa.BWD_SOURCE, dr.SOURCE))
+    # mma.cuh, included by the two flash sources only
+    (csrc / "mma.cuh").write_text((csrc / "mma.cuh").read_text()
+                                  + "\n// edited\n")
+    again = {s: _build.library_path(s) for s in before}
+    assert all(again[s] != after[s] for s in (fa.SOURCE, fa.BWD_SOURCE))
+    assert all(again[s] == after[s] for s in (dr.SOURCE, fad.SOURCE))
 
 
 def test_headers_ship_as_package_data():
@@ -542,14 +548,18 @@ def _need_gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 12, 200, 64), (2, 4, 256, 128),
-                                   (2, 3, 45, 30)])
+@pytest.mark.parametrize("T", [45, 64, 65, 200, 512])
+@pytest.mark.parametrize("D", [30, 32, 64, 128])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_backward_kernels_match_plain_on_gpu(shape, dtype, tol, rate):
+def test_backward_kernels_match_plain_on_gpu(T, D, dtype, tol, rate):
+    """The tile edges of the kernels: T below, at and past one 64-row tile,
+    ragged and at BERT's 512; D padded to 32 (30 read element by element),
+    64 and 128."""
     _need_gpu()
-    B, H, T, D = shape
+    B, H = 2, 3
+    shape = (B, H, T, D)
     q, k, v, g = (torch.from_numpy(a).cuda().to(dtype)
                   for a in _qkv(B, H, T, D, n=4))
     mask = torch.from_numpy(_padding_mask(B, T)).cuda()
