@@ -20,8 +20,9 @@ Routing is static, as in the JAX package:
 - a CUDA tensor launches the kernel, for any `kv_bucket` in [1, L]; a
   build or launch failure raises, and nothing falls back to the plain
   version. (The JAX wrapper sends a bucket its 128-key tiling does not
-  divide to its exact path, L172-177; the CUDA kernel walks keys one at a
-  time and has no tiling to divide.)
+  divide to its exact path, L172-177; the CUDA kernel walks each slot's
+  live positions and masks its last tile by the live length, so no bucket
+  needs to divide.)
 
 Within the port, paged equals contiguous bit for bit on the same logical
 bytes: the plain versions gather the paged window and run the same
@@ -32,9 +33,15 @@ Layouts are the JAX package's: q is `[S, H, D]`; the contiguous pools are
 `[S, H, L, D]`; the block pools `[num_blocks, H, block_len, D]`; lengths
 and tables are int32 `[S]` and `[S, T]`. `lengths` must be >= 1 per slot
 (the engine passes dead slots length 1 and discards their rows); the
-kernels leave a slot below 1 undefined. The paged kernel holds a slot's
-`kv_bucket // block_len` table entries in shared memory; its C entry point
-refuses a launch whose table does not fit, and the wrapper raises.
+kernels leave a slot below 1 undefined.
+
+Where a bucket would give one block a long walk, a launch splits each
+(slot, head)'s live positions over a thread-block cluster of `n_split`
+blocks (`_split_plan`, a function of the bucket alone, never of
+`lengths`), and the cluster merges its blocks' softmax states in a fixed
+order inside the launch: one launch a call, the same bits on every call,
+and no host read of device data, so a CUDA graph can capture it. A plan
+whose cluster does not fit on the card raises.
 """
 
 from __future__ import annotations
@@ -52,6 +59,12 @@ SOURCE = "decode_attention.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 128
+# The split plan (csrc/decode_attention.cu): a block stages tiles of 64
+# positions, and a walk of more than 8 tiles a block sets the launch's
+# tail; a cluster holds at most 8 blocks (the portable cluster size).
+_TILE = 64
+_MAX_WALK = 8 * _TILE
+_MAX_SPLIT = 8
 
 
 def _attend_window(q, k, v, lengths, kv_bucket: int):
@@ -140,9 +153,31 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+def _split_plan(kv_bucket: int) -> int:
+    """The blocks of one (slot, head)'s cluster, `n_split`. On the card
+    the cluster splits the slot's live positions [0, n) evenly: block r
+    takes [r*c, min((r+1)*c, n)), with c the least multiple of 16 that is
+    at least n / n_split, so a block of 16 (the engine's block_len) never
+    straddles two blocks' spans.
+
+    A split adds a block's fixed cost and the cluster's merge, so it pays
+    only where one block would walk a long chain of tiles alone: on an
+    H100 at the serving engine's 32 slots x 12 heads (PERF.md, rows 8-9)
+    one block a (slot, head) was fastest up to kv 512 and two splits at
+    kv 1024. So: as many splits as keep each block's walk to 512
+    positions, at most 8. A function of the bucket alone: the lengths
+    stay on the device."""
+    return max(1, min(_MAX_SPLIT, -(-kv_bucket // _MAX_WALK)))
+
+
+def _vec(q) -> int:
+    """1 when a row of D elements is a whole number of 16-byte pieces."""
+    return int(q.shape[-1] * q.element_size() % 16 == 0)
+
+
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_PAGED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_PAGED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -153,13 +188,15 @@ def _launch(q, k_pool, v_pool, lengths, kv_bucket: int) -> torch.Tensor:
     _check_pools(q, k_pool, v_pool, (S, H, L, D))
     _check_index("lengths", lengths, (S,), q.device)
     fn = _build.bind(SOURCE, "azt_decode_attention", _ARGS)
+    n_split = _split_plan(kv_bucket)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 lengths.data_ptr(), out.data_ptr(), S, H, L, D, kv_bucket,
-                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], int(D % 4 == 0),
-                _stream(q))
-    _build.check_launch(SOURCE, rc, KERNEL_NAME)
+                n_split, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+                _vec(q), _stream(q))
+    _build.check_launch(SOURCE, rc,
+                        f"{KERNEL_NAME} (cluster of {n_split})")
     LAUNCHES.add(KERNEL_NAME)
     return out
 
@@ -176,14 +213,15 @@ def _launch_paged(q, k_pool, v_pool, tables, lengths,
     _check_index("lengths", lengths, (S,), q.device)
     _check_index("tables", tables, (S, tables.shape[-1]), q.device)
     fn = _build.bind(SOURCE, "azt_paged_decode_attention", _PAGED_ARGS)
+    n_split = _split_plan(kv_bucket)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, H,
-                block_len, D, tables.shape[-1], kv_bucket,
-                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], int(D % 4 == 0),
+                block_len, D, tables.shape[-1], kv_bucket, n_split,
+                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], _vec(q),
                 _stream(q))
-    _build.check_launch(SOURCE, rc, PAGED_NAME)
+    _build.check_launch(SOURCE, rc, f"{PAGED_NAME} (cluster of {n_split})")
     LAUNCHES.add(PAGED_NAME)
     return out
 

@@ -25,7 +25,8 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
 3. the flash-attention backward kernels (dK/dV and dQ) against autograd of
    the plain version, f32 and bf16, with and without a padding mask, at the
    training shape, the seq-2048 shape and odd shapes; times (also with
-   attention dropout 0.1) and bounds;
+   attention dropout 0.1, and the pair by CUDA graph) and bounds; SDPA's
+   backward by CUDA graph;
 4. attention dropout at rate 0.1: the kernels' exported keep-scale matrix
    injected into the plain version, forward and gradients compared, keep
    fraction, seeds;
@@ -63,10 +64,12 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    `recommend_for_user` against a top-k of `predict`;
 11. the decode-attention kernels, contiguous and paged, at 32 slots, 12
    heads, head dim 64, a 1024-position pool and blocks of 16, kv buckets
-   128 and 1024, ragged lengths, f32 and bf16: each against its plain
-   version, the paged kernel on shuffled blocks bitwise equal to the
-   contiguous one; device times beside the bound, the plain versions and
-   SDPA with a length mask;
+   128, 1024 and 512 (and 192, checks only), ragged lengths, f32 and bf16:
+   each against its plain version, the paged kernel on shuffled blocks
+   bitwise equal to the contiguous one, one launch each, a second launch
+   and a CUDA graph's replay bitwise equal to the first; the split plan,
+   ptxas's registers and spills, device times beside the bound (and its
+   share), the plain versions and SDPA with a length mask;
 12. generative serving: `TinyDecoder` at GPT-2 small's widths (vocab
    50257, 12 layers, 12 heads, head dim 64, 1024 positions, MLP x4) with
    random weights from the seed, through `load_generative`, both warmups
@@ -78,8 +81,9 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    memory; exactly 12 decode-attention launches a decode step and no
    kernel built after warmup; the paged streams against the contiguous
    ones; a profiled decode step and prefill (device time by kernel, idle
-   share); teacher-forced logits against the port's CPU run and against
-   the plain path;
+   share) and a summary of tokens/s, TTFT and ITL beside
+   `decode_attention`'s device ms in the profiled step; teacher-forced
+   logits against the port's CPU run and against the plain path;
 13. a `kernels` line listing every kernel of the port;
 14. the last line, `{"ok": true, "device": {...}}`.
 
@@ -339,12 +343,20 @@ def phase_device_and_build():
 
 
 _KERNEL_SYMBOL = re.compile(r"(flash_[fb]wd_\w*?kernel)I(\w*?)EEv")
+_DECODE_SYMBOL = re.compile(
+    r"decode_attention_kernelI(f|13__nv_bfloat16)Lb([01])E")
 
 
 def kernel_label(symbol: str):
     """`flash_fwd_mma_kernel<64,0>` for a mangled flash kernel symbol
-    (template arguments: f for float, else the int and bool values), None
-    for any other symbol."""
+    (template arguments: f for float, else the int and bool values),
+    `decode_attention_kernel<bf16,paged>` for a decode kernel, None for any
+    other symbol."""
+    m = _DECODE_SYMBOL.search(symbol)
+    if m is not None:
+        dtype = "f32" if m.group(1) == "f" else "bf16"
+        mode = "paged" if m.group(2) == "1" else "contiguous"
+        return f"decode_attention_kernel<{dtype},{mode}>"
     m = _KERNEL_SYMBOL.search(symbol)
     if m is None:
         return None
@@ -353,10 +365,15 @@ def kernel_label(symbol: str):
 
 
 def ptxas_report(source: str) -> dict:
-    """{flash kernel: registers, spill bytes, static shared memory} from
+    """{kernel: registers, spill bytes, static shared memory} from
     ptxas's report of the build of `source`."""
+    return ptxas_parse(_build.build_log(source))
+
+
+def ptxas_parse(log: str) -> dict:
+    """ptxas_report's table from the text of an nvcc -Xptxas=-v run."""
     out, name = {}, None
-    for line in _build.build_log(source).splitlines():
+    for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
@@ -727,15 +744,20 @@ def rel_err(got, want) -> float:
 
 
 def library_bwd_ms(q, k, v, mask, do, reps: int) -> float:
-    """SDPA forward+backward minus SDPA forward: a yardstick only."""
+    """SDPA forward+backward minus SDPA forward, a yardstick only, by CUDA
+    graph: autograd's backward has a long host side, so CUDA events around
+    a run of calls would time the host as much as the card; the graph
+    replays the same kernels with no host work between them, as the
+    forward's `library_graph_ms` does."""
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lib_mask = None if mask is None else mask.to(q.dtype)
 
     def fwd():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lib_mask)
-    fwd_ms = time_ms(fwd, reps)
-    both_ms = time_ms(lambda: torch.autograd.backward(fwd(), do), reps)
-    return both_ms - fwd_ms
+
+    def both():
+        return torch.autograd.grad(fwd(), (qs, ks, vs), do)
+    return graph_ms(both, reps) - graph_ms(fwd, reps)
 
 
 def random_attention_inputs(shape, dtype, masked: bool, gen):
@@ -787,6 +809,8 @@ def phase_backward(card: str, seed: int):
                 plain_ms = time_ms(lambda: fa._reference_attention_bwd(
                     q, k, v, mask, o, lse, do), reps)
                 library_ms = library_bwd_ms(q, k, v, mask, do, reps)
+                kernel_graph_ms = graph_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, mask, o, lse, do), reps)
                 bound_ms, bound_by = bwd_bound(shape, dtype, 5, 3)
                 row = {"phase": "backward", "shape": list(shape),
                        "dtype": str(dtype)[6:], "masked": masked,
@@ -796,6 +820,7 @@ def phase_backward(card: str, seed: int):
                        "kernel_ms_dropout": kernel_ms_dropout,
                        "dkv_ms_dropout": dkv_ms_dropout,
                        "dq_ms_dropout": dq_ms_dropout, "plain_ms": plain_ms,
+                       "kernel_graph_ms": kernel_graph_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by,
                        "dkv_bound": bwd_bound(shape, dtype, 4, 2),
@@ -1706,17 +1731,20 @@ def phase_ncf(card: str, seed: int):
 # ---------------------------------------------------------------------------
 # GPT-2 small's attention at the serving engine's pool: 32 slots, 12 heads,
 # head dim 64, a 1024-position pool, blocks of 16; the smallest and the
-# largest kv bucket of the engine's ladder, ragged lengths in [1, bucket].
+# largest kv bucket of the engine's ladder, then the median step's (PERF.md
+# §5), ragged lengths in [1, bucket]. 128 and 1024 come first so that their
+# draws from the seed are those the earlier kernel was timed on.
 DEC_SLOTS, DEC_HEADS, DEC_LEN, DEC_DIM = 32, 12, 1024, 64
-DEC_BUCKETS = (128, 1024)
+DEC_BUCKETS = (128, 1024, 512)
 DEC_BLOCK = 16
 DEC_MAIN = (1024, torch.float32)
 # Kernel vs plain version, max abs error. f32: both sum in f32 in other
-# orders (the kernel online, in 64 groups of keys merged at the end; the
-# plain version through cuBLAS and a softmax) — rounding only, on outputs
-# of magnitude <= ~3. bf16: the plain version forms the scores in bf16
-# (2^-9 relative on scores of magnitude ~5) where the kernel keeps them in
-# f32, and both store O in bf16.
+# orders (the kernel online over tiles of 64 keys in each of its cluster's
+# n_split spans, its lanes' and slices' partial sums added in a fixed order
+# and the spans merged in rank order; the plain version through cuBLAS and a
+# softmax) — rounding only, on outputs of magnitude <= ~3. bf16: the plain
+# version forms the scores in bf16 (2^-9 relative on scores of magnitude
+# ~5) where the kernel keeps them in f32, and both store O in bf16.
 DEC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # Timing cycles through pool sets that share one draw of lengths (so the
 # bound is of the timed work) and whose live K and V together take at least
@@ -1799,6 +1827,75 @@ def sdpa_decode(q, k, v, lengths, kv_bucket: int):
         attn_mask=keep)[:, :, 0]
 
 
+def graph_replay(fn):
+    """fn's output from one capture and replay of a CUDA graph (warmed on
+    the capturing stream first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return out
+
+
+def decode_checks(inputs, kv_bucket: int, dtype) -> dict:
+    """Both kernels on one pool set against the plain versions: the error,
+    paged bitwise equal to contiguous, one launch each, a second launch
+    bitwise equal to the first, and a CUDA graph's replay bitwise equal to
+    the eager call."""
+    q, k, v, lengths, kp, vp, tables = inputs
+
+    def contiguous():
+        return da.decode_attention(q, k, v, lengths, kv_bucket)
+
+    def paged():
+        return da.paged_decode_attention(q, kp, vp, tables, lengths,
+                                         kv_bucket)
+    before = LAUNCHES.snapshot()
+    out, out_p = contiguous(), paged()
+    torch.cuda.synchronize()
+    after = LAUNCHES.snapshot()
+    launched = {name: after.get(name, 0) - before.get(name, 0)
+                for name in (da.KERNEL_NAME, da.PAGED_NAME)}
+    ref = da._reference_decode_attention(q, k, v, lengths, kv_bucket)
+    ref_p = da._reference_paged_decode_attention(q, kp, vp, tables, lengths,
+                                                 kv_bucket)
+    err = (out.float() - ref.float()).abs().max().item()
+    err_p = (out_p.float() - ref_p.float()).abs().max().item()
+    twice = bool(torch.equal(contiguous(), out)
+                 and torch.equal(paged(), out_p))
+    graph = bool(torch.equal(graph_replay(contiguous), out)
+                 and torch.equal(graph_replay(paged), out_p))
+    n_split = da._split_plan(kv_bucket)
+    row = {"max_abs_err": err, "max_abs_err_paged": err_p,
+           "tol": DEC_TOL[dtype],
+           "paged_bitwise_contiguous": bool(torch.equal(out, out_p)),
+           "plain_paged_bitwise_contiguous": bool(torch.equal(ref, ref_p)),
+           "twice_bitwise": twice, "graph_bitwise_eager": graph,
+           "launches": launched, "n_split": n_split,
+           "cluster_size": n_split}
+    row["ok"] = (err <= row["tol"] and err_p <= row["tol"]
+                 and row["paged_bitwise_contiguous"]
+                 and row["plain_paged_bitwise_contiguous"] and twice
+                 and graph and bool(torch.isfinite(out).all())
+                 and launched == {da.KERNEL_NAME: 1, da.PAGED_NAME: 1})
+    return row, ref
+
+
+def decode_ptxas(dtype) -> dict:
+    """ptxas's registers and spills of the two instantiations of `dtype`."""
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    report = ptxas_report(da.SOURCE)
+    return {mode: report.get(f"decode_attention_kernel<{tag},{mode}>")
+            for mode in ("contiguous", "paged")}
+
+
 def phase_decode_kernels(card: str, seed: int):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 80)
@@ -1809,28 +1906,10 @@ def phase_decode_kernels(card: str, seed: int):
             lengths = decode_lengths(gen, kv_bucket)
             sets = [decode_case_inputs(gen, lengths, dtype) for _ in range(
                 decode_pool_sets(lengths, kv_bucket, dtype))]
-            q, k, v, lengths, kp, vp, tables = sets[0]
-            before = LAUNCHES.snapshot()
-            out = da.decode_attention(q, k, v, lengths, kv_bucket)
-            out_p = da.paged_decode_attention(q, kp, vp, tables, lengths,
-                                              kv_bucket)
-            torch.cuda.synchronize()
-            after = LAUNCHES.snapshot()
-            ref = da._reference_decode_attention(q, k, v, lengths, kv_bucket)
-            ref_p = da._reference_paged_decode_attention(
-                q, kp, vp, tables, lengths, kv_bucket)
+            checks, ref = decode_checks(sets[0], kv_bucket, dtype)
+            q, k, v, lengths = sets[0][:4]
             lib = sdpa_decode(q, k, v, lengths, kv_bucket)
-            err = (out.float() - ref.float()).abs().max().item()
-            err_p = (out_p.float() - ref_p.float()).abs().max().item()
             lib_err = (lib.float() - ref.float()).abs().max().item()
-            bitwise = bool(torch.equal(out, out_p))
-            plain_bitwise = bool(torch.equal(ref, ref_p))
-            launched = {name: after.get(name, 0) - before.get(name, 0)
-                        for name in (da.KERNEL_NAME, da.PAGED_NAME)}
-            tol = DEC_TOL[dtype]
-            ok = (err <= tol and err_p <= tol and bitwise and plain_bitwise
-                  and bool(torch.isfinite(out).all())
-                  and launched == {da.KERNEL_NAME: 1, da.PAGED_NAME: 1})
             # device time of calls replayed from a CUDA graph (a launch's
             # host side is longer than the kernel, so CUDA events around
             # a run of launches time the host: given beside as "wall"),
@@ -1869,43 +1948,31 @@ def phase_decode_kernels(card: str, seed: int):
                    "block_len": DEC_BLOCK, "pool_sets": len(sets),
                    "live_positions": int(lengths.clamp(
                        max=kv_bucket).sum()),
-                   "max_abs_err": err, "max_abs_err_paged": err_p,
-                   "tol": tol, "paged_bitwise_contiguous": bitwise,
-                   "plain_paged_bitwise_contiguous": plain_bitwise,
-                   "library_err_vs_plain": lib_err, "launches": launched,
-                   "ok": ok, **times, "bound_ms": bound[0],
-                   "bound_by": bound[1],
+                   **checks, "library_err_vs_plain": lib_err, **times,
+                   "bound_ms": bound[0], "bound_by": bound[1],
                    "paged_bound_ms": paged_bound[0],
-                   "paged_bound_by": paged_bound[1], "card": card}
+                   "paged_bound_by": paged_bound[1],
+                   "pct_of_bound": 100.0 * bound[0] / times["kernel_ms"],
+                   "paged_pct_of_bound":
+                       100.0 * paged_bound[0] / times["paged_kernel_ms"],
+                   "ptxas": decode_ptxas(dtype), "card": card}
             emit(row)
             results[(kv_bucket, dtype)] = row
-            if not ok:
+            if not row["ok"]:
                 failed.append(row)
-            del sets, q, k, v, kp, vp
+            del sets, q, k, v, lib, ref
     # a bucket the JAX wrapper's 128-key tiling does not divide (its exact
     # path there): on the card both kernels launch at it, as at any bucket
-    lengths = decode_lengths(gen, 192)
-    q, k, v, lengths, kp, vp, tables = decode_case_inputs(
-        gen, lengths, torch.float32)
-    before = LAUNCHES.snapshot()
-    out = da.decode_attention(q, k, v, lengths, 192)
-    out_p = da.paged_decode_attention(q, kp, vp, tables, lengths, 192)
-    torch.cuda.synchronize()
-    after = LAUNCHES.snapshot()
-    launched = {name: after.get(name, 0) - before.get(name, 0)
-                for name in (da.KERNEL_NAME, da.PAGED_NAME)}
-    err = (out - da._reference_decode_attention(
-        q, k, v, lengths, 192)).abs().max().item()
-    row = {"phase": "decode_kernel_192", "kv_bucket": 192,
-           "launches": launched, "max_abs_err": err,
-           "tol": DEC_TOL[torch.float32],
-           "paged_bitwise_contiguous": bool(torch.equal(out, out_p))}
-    row["ok"] = (err <= row["tol"] and row["paged_bitwise_contiguous"]
-                 and launched == {da.KERNEL_NAME: 1, da.PAGED_NAME: 1})
-    emit(row)
-    if not row["ok"]:
-        failed.append(row)
-    del q, k, v, kp, vp
+    for dtype in (torch.float32, torch.bfloat16):
+        lengths = decode_lengths(gen, 192)
+        checks, _ = decode_checks(decode_case_inputs(gen, lengths, dtype),
+                                  192, dtype)
+        row = {"phase": "decode_kernel_192", "kv_bucket": 192,
+               "dtype": str(dtype)[6:], **checks}
+        emit(row)
+        results[(192, dtype)] = row
+        if not row["ok"]:
+            failed.append(row)
     torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"chip_smoke: {len(failed)} decode-attention "
@@ -2199,6 +2266,19 @@ def phase_generative(card: str, seed: int):
 
     profiles = {m: profile_decode_step(im, dec, m == "paged", card)
                 for m in ("contiguous", "paged")}
+    emit({"phase": "generative_summary", "card": card, **{
+        mode: {"tokens_per_s": row["tokens_per_s"],
+               "ttft_p50_ms": row["ttft_p50_ms"],
+               "ttft_p99_ms": row["ttft_p99_ms"],
+               "itl_p50_ms": row["itl_p50_ms"],
+               "itl_p99_ms": row["itl_p99_ms"],
+               "profiled_step_kv_bucket": profiles[mode]["kv_bucket"],
+               "decode_attention_device_ms":
+                   profiles[mode]["decode_attention_device_ms"],
+               "device_ms_per_step": profiles[mode]["device_ms_per_step"],
+               "step_ms": profiles[mode]["step_ms"],
+               "idle_share": profiles[mode]["idle_share"]}
+        for mode, row in (("contiguous", c_row), ("paged", p_row))}})
 
     # teacher-forced logits: both card paths and the port's CPU run against
     # f64, and the kernel path against the plain path on the card
@@ -2275,7 +2355,7 @@ def host_and_device_ms(fn, reps: int):
     rows.sort(key=lambda r: -r[1])
     dev = sum(r[1] for r in rows)
     top = [{"kernel": name[:96], "ms": ms, "share": ms / dev, "calls": calls}
-           for name, ms, calls in rows[:10]]
+           for name, ms, calls in rows]
     return host, dev or None, top
 
 
@@ -2319,12 +2399,15 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
             return int(torch.argmax(logits))
     step_ms, dev_ms, top = host_and_device_ms(step, reps)
     pre_ms, pre_dev_ms, pre_top = host_and_device_ms(prefill, reps)
+    attn = [r for r in top if "decode_attention" in r["kernel"]]
     row = {"phase": "generative_profile",
            "mode": "paged" if paged else "contiguous", "kv_bucket": bucket,
            "live_positions": bucket, "slots": S, "step_ms": step_ms,
            "device_ms_per_step": dev_ms,
            "idle_share": 1.0 - dev_ms / step_ms if dev_ms else None,
-           "top": top, "prefill_ms": pre_ms,
+           "decode_attention_device_ms": sum(r["ms"] for r in attn),
+           "decode_attention_calls": sum(r["calls"] for r in attn),
+           "top": top[:10], "prefill_ms": pre_ms,
            "prefill_device_ms": pre_dev_ms,
            "prefill_idle_share":
                1.0 - pre_dev_ms / pre_ms if pre_dev_ms else None,
@@ -2340,6 +2423,9 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
 # "graph" when the profiler records nothing).
 BY_EVENTS = {"ms": "events", "plain_ms": "events", "library_ms": "events"}
 BY_GRAPH = {"ms": "graph", "plain_ms": "graph", "library_ms": "graph"}
+# the backward kernels: SDPA's backward (fwd+bwd minus fwd) by CUDA graph,
+# beside the pair's graph time (`pair_graph_ms`)
+BWD_TIMED_BY = dict(BY_EVENTS, library_ms="graph")
 
 
 def timed_by(row, ms_key: str) -> dict:
@@ -2385,7 +2471,8 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             ms=main_bwd["dkv_ms"], ms_dropout=main_bwd["dkv_ms_dropout"],
             plain_ms=main_bwd["plain_ms"],
             bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-            library_ms=main_bwd["library_ms"], timed_by=BY_EVENTS,
+            library_ms=main_bwd["library_ms"], timed_by=BWD_TIMED_BY,
+            pair_graph_ms=main_bwd["kernel_graph_ms"],
             shape=list(shape), dtype=str(dtype)[6:],
             verdict="ok" if bwd_ok else "fail"),
         fa.BWD_DQ_NAME: dict(
@@ -2394,7 +2481,8 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             ms_dropout=main_bwd["dq_ms_dropout"],
             plain_ms=main_bwd["plain_ms"], bound_ms=dq_bound[0],
             bound_by=dq_bound[1], library_ms=main_bwd["library_ms"],
-            timed_by=BY_EVENTS, shape=list(shape), dtype=str(dtype)[6:],
+            timed_by=BWD_TIMED_BY, pair_graph_ms=main_bwd["kernel_graph_ms"],
+            shape=list(shape), dtype=str(dtype)[6:],
             verdict="ok" if bwd_ok else "fail"),
         dr.KERNEL_NAME: dict(
             launches=train_counts.get(dr.KERNEL_NAME, 0),
@@ -2453,6 +2541,8 @@ def decode_entries(decs, gen):
     return {
         da.KERNEL_NAME: dict(
             launches=gen["contiguous"]["launches"].get(da.KERNEL_NAME, 0),
+            n_split=main["n_split"],
+            pct_of_bound=main["pct_of_bound"],
             max_abs_err=main["max_abs_err"],
             max_abs_err_bf16=bf16["max_abs_err"],
             ms=main["kernel_ms"], wall_ms=main["kernel_wall_ms"],
@@ -2461,6 +2551,8 @@ def decode_entries(decs, gen):
             **common),
         da.PAGED_NAME: dict(
             launches=gen["paged"]["launches"].get(da.PAGED_NAME, 0),
+            n_split=main["n_split"],
+            pct_of_bound=main["paged_pct_of_bound"],
             max_abs_err=main["max_abs_err_paged"],
             max_abs_err_bf16=bf16["max_abs_err_paged"],
             ms=main["paged_kernel_ms"], wall_ms=main["paged_kernel_wall_ms"],

@@ -10,11 +10,16 @@ bodies cannot run here in interpret mode (the installed jax refuses their
 Tolerances: the port's plain versions against the JAX exact paths at 1e-6
 absolute (the same f32 operations, summed by another library); the paged
 plain version against the contiguous one within the port, bitwise (both
-run `_attend_window` on identically laid-out windows). The CUDA kernels
-have no CPU mode: their checks are marked `gpu` and skip here.
+run `_attend_window` on identically laid-out windows). The split plan of
+the kernels and a plain model of their split and fixed-order combine
+(`_split_model`, here only) are checked on the CPU, the model against
+`_attend_window` at 1e-6 in f32 (the same softmax, its sums taken per
+span and merged). The CUDA kernels have no CPU mode: their checks are
+marked `gpu` and skip here.
 """
 
 import ast
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -29,6 +34,9 @@ from analytics_zoo_tpu_torch.kernels import decode_attention as da
 REPO = Path(__file__).resolve().parent.parent
 BL = 8          # block_len, as tests/test_paged_decode.py uses
 TOL = 1e-6
+# the generative engine's kv-bucket ladder, and a bucket 128 does not divide
+LADDER = (128, 256, 512, 1024)
+SPLITS = (1, 2, 4, 8)
 
 
 def _inputs(S=4, H=2, L=32, D=8, seed=0):
@@ -247,8 +255,194 @@ def test_new_modules_never_import_jax():
     assert bad == []
 
 
+def _spans(n: int, n_split: int):
+    """The kernel's split of a slot's live positions [0, n) over its
+    cluster (csrc/decode_attention.cu): block r takes [r*c, min((r+1)*c,
+    n)), with c the least multiple of 16 that is at least n / n_split."""
+    c = 16 * -(-n // (16 * n_split))
+    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(n_split)]
+
+
+def _split_model(q, k, v, lengths, kv_bucket: int, n_split: int):
+    """A plain model of the kernels' split: block r of a (slot, head)'s
+    cluster walks its span of the slot's live positions (`_spans`) in
+    tiles of 64 with an online softmax (scores in f32, weights rounded to
+    the pool's dtype before P·V), leaving (m, l, acc); the states merge in
+    rank order. Windows q [S, H, D], k/v [S, H, kv_bucket, D]."""
+    D = q.shape[-1]
+    rows = []
+    for s in range(q.shape[0]):
+        n = min(int(lengths[s]), kv_bucket)
+        states = []
+        for lo, hi in _spans(n, n_split):
+            m = torch.full(q.shape[1:2], -1e30)
+            l = torch.zeros(q.shape[1:2])
+            acc = torch.zeros(q.shape[1:])
+            for t0 in range(lo, hi, da._TILE):
+                pos = torch.arange(t0, min(t0 + da._TILE, hi))
+                sc = torch.einsum("hd,htd->ht", q[s].float(),
+                                  k[s][:, pos].float()) / math.sqrt(D)
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new[:, None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + torch.einsum(
+                    "ht,htd->hd", p.to(v.dtype).float(),
+                    v[s][:, pos].float())
+                m = m_new
+            states.append((m, l, acc))
+        big = torch.stack([st[0] for st in states]).amax(0)
+        total = torch.zeros(q.shape[1:2])
+        o = torch.zeros(q.shape[1:])
+        for m, l, acc in states:
+            w = torch.exp(m - big)
+            total = total + l * w
+            o = o + acc * w[:, None]
+        rows.append(o / total[:, None])
+    return torch.stack(rows).to(q.dtype)
+
+
+def _edge_lengths(kv_bucket: int, n_split: int):
+    """1 (every block but the first empty), n_split spans of 16 exactly,
+    one past them (spans of 32, the last block short or empty), and the
+    whole bucket."""
+    edge = 16 * n_split
+    return [1, min(edge, kv_bucket), min(edge + 1, kv_bucket), kv_bucket]
+
+
+@pytest.mark.parametrize("kv_bucket", LADDER + (192,))
+@pytest.mark.parametrize("n_split", SPLITS)
+def test_split_spans_cover_the_live_range(kv_bucket, n_split):
+    """For every live length, the cluster's spans cover [0, n) exactly, in
+    order, each starting at a multiple of 16 and none longer than the span
+    the C entry point sizes a block's tiles and table for (that of a slot
+    whose length is the whole bucket)."""
+    longest = 16 * -(-kv_bucket // (16 * n_split))
+    for n in range(1, kv_bucket + 1):
+        spans = _spans(n, n_split)
+        covered = [p for lo, hi in spans for p in range(lo, hi)]
+        assert covered == list(range(n))
+        assert all(lo % 16 == 0 and hi - lo <= longest for lo, hi in spans
+                   if lo < hi)
+
+
+def test_split_plan_keeps_a_walk_to_512_positions():
+    """One block a (slot, head) up to kv 512 and two at 1024 on the
+    engine's ladder; longer buckets split further, at most 8 ways."""
+    assert [da._split_plan(kv) for kv in LADDER + (192,)] == [1, 1, 1, 2, 1]
+    assert [da._split_plan(kv) for kv in (2048, 4096, 8192)] == [4, 8, 8]
+
+
+@pytest.mark.parametrize("kv_bucket", LADDER + (192,))
+@pytest.mark.parametrize("n_split", SPLITS)
+def test_split_model_matches_attend_window(kv_bucket, n_split):
+    """The kernel's split and its fixed-order combine at lengths on the
+    spans' edges (`_edge_lengths`) agree with the plain version."""
+    S, H, D = 4, 2, 8
+    q, k, v = _inputs(S=S, H=H, L=kv_bucket, D=D, seed=11)
+    n = _t(np.asarray(_edge_lengths(kv_bucket, n_split), np.int32))
+    want = da._attend_window(_t(q), _t(k), _t(v), n, kv_bucket)
+    got = _split_model(_t(q), _t(k), _t(v), n, kv_bucket, n_split)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=TOL)
+
+
+def _graph_replay(fn):
+    """fn's output from one capture and replay of a CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
 class TestKernelsOnGPU:
     """The CUDA kernels against their plain versions, on the card."""
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                            (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("D", [32, 64, 128, 30])
+    @pytest.mark.parametrize("kv_bucket", [128, 512, 1024, 192])
+    @pytest.mark.parametrize("n_split", [None, 2, 8])
+    def test_split_kernel_at_span_edges(self, dtype, tol, D, kv_bucket,
+                                        n_split, monkeypatch):
+        """Lengths on the spans' edges (`_edge_lengths`), 4 slots x 3
+        heads, at the wrapper's plan (None) and held to 2 and 8 splits: the
+        kernel matches the plain version, paged equals contiguous bit for
+        bit, two launches give the same bits, and a CUDA graph's replay
+        the eager bits."""
+        _need_gpu()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if n_split is None:
+            n_split = da._split_plan(kv_bucket)
+        else:
+            monkeypatch.setattr(da, "_split_plan", lambda _kv: n_split)
+        S, H = 4, 3
+        q, kc, vc = _inputs(S=S, H=H, L=kv_bucket, D=D, seed=12)
+        kp, vp, tables = _scattered(kc, vc, kv_bucket // BL)
+        n = _t(np.asarray(_edge_lengths(kv_bucket, n_split),
+                          np.int32)).cuda()
+        q, kc, vc, kp, vp = (_t(a).cuda().to(dtype)
+                             for a in (q, kc, vc, kp, vp))
+        tables = _t(tables).cuda()
+
+        def contiguous():
+            return da.decode_attention(q, kc, vc, n, kv_bucket)
+
+        def paged():
+            return da.paged_decode_attention(q, kp, vp, tables, n, kv_bucket)
+
+        out, pag = contiguous(), paged()
+        again = contiguous()
+        torch.cuda.synchronize()
+        ref = da._reference_decode_attention(q, kc, vc, n, kv_bucket)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        assert torch.equal(out, pag)
+        assert torch.equal(out, again)
+        assert torch.equal(_graph_replay(contiguous), out)
+        assert torch.equal(_graph_replay(paged), pag)
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                            (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("S, H", [(1, 1), (32, 12)])
+    def test_one_and_full_slot_head_grid(self, dtype, tol, S, H):
+        """S·H = 1 and the serving engine's 32 x 12 at kv 1024, ragged
+        lengths, blocks of 16 as the engine lays them out."""
+        _need_gpu()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        L, D, bl = 1024, 64, 16
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        q = torch.randn((S, H, D), device="cuda", generator=gen).to(dtype)
+        kc, vc = (torch.randn((S, H, L, D), device="cuda",
+                              generator=gen).to(dtype) for _ in range(2))
+        n = torch.randint(1, L + 1, (S,), device="cuda", generator=gen,
+                          dtype=torch.int32)
+        perm = (torch.randperm(S * (L // bl), device="cuda", generator=gen)
+                + 1).to(torch.int32).view(S, L // bl)
+        kp, vp = (torch.zeros((S * (L // bl) + 1, H, bl, D), device="cuda",
+                              dtype=dtype) for _ in range(2))
+        for pool, src in ((kp, kc), (vp, vc)):
+            pool[perm.reshape(-1).long()] = src.view(
+                S, H, L // bl, bl, D).permute(0, 2, 1, 3, 4).reshape(
+                    -1, H, bl, D)
+        out = da.decode_attention(q, kc, vc, n, L)
+        pag = da.paged_decode_attention(q, kp, vp, perm, n, L)
+        torch.cuda.synchronize()
+        ref = da._reference_decode_attention(q, kc, vc, n, L)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        assert torch.equal(out, pag)
 
     @pytest.mark.gpu
     @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
