@@ -1,6 +1,6 @@
 """Carry weights and optimizer state between the JAX package's parameter
 trees and the port's state dicts: BERT's, and a functional `Model`'s
-(NeuralCF).
+(NeuralCF, the image models).
 
 The tree is what `analytics_zoo_tpu.models.bert.BERTClassifier.build`
 returns, as nested dicts of numpy arrays:
@@ -36,6 +36,16 @@ ones (`dense_3`) count per process and differ between the two models. The
 lazy-embedding optimizer state (`learn/lazy_embedding.init_state`: the
 rest optimizer's Adam state, per-table `(mu, nu)` and the step count)
 crosses the same way.
+
+A convolution's kernel is HWIO in the JAX tree (`[*window, in / groups,
+out]`) and OIHW in the port (`[out, in / groups, *window]`): it is
+transposed each way, its Adam moments too. BatchNorm's moving statistics
+are leaves of the JAX tree and buffers of the port, under the same
+`"<layer>.<leaf>"` keys, so they cross unchanged with the weights. They
+have no optimizer state in the port (the optimizer steps parameters
+only): `model_opt_state_from_jax` drops their moment entries (zeros in
+the JAX state: a training forward gives them no gradient) and
+`model_opt_state_to_jax` puts zeros back.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.tree import tree_leaves
+from analytics_zoo_tpu_torch.keras.layers import _ConvND
 from analytics_zoo_tpu_torch.keras.transformer import (stack_block_params,
                                                        unstack_block_params)
 from analytics_zoo_tpu_torch.ops.optimizers import FusedAdamState
@@ -179,6 +190,22 @@ def _port_names(model, jax_layer_names: Sequence[str]) -> Dict[str, str]:
     return {j: l.name for j, l in zip(jax_layer_names, layers)}
 
 
+def _conv_layers(model) -> Dict[str, int]:
+    """Port name → spatial rank, for the convolutions of `model`."""
+    return {l.name: l.spatial_rank for l in model.ordered_layers()
+            if isinstance(l, _ConvND)}
+
+
+def _hwio_to_oihw(a: np.ndarray, rank: int) -> np.ndarray:
+    return np.ascontiguousarray(
+        np.transpose(a, (rank + 1, rank) + tuple(range(rank))))
+
+
+def _oihw_to_hwio(a: np.ndarray, rank: int) -> np.ndarray:
+    return np.ascontiguousarray(
+        np.transpose(a, tuple(range(2, rank + 2)) + (1, 0)))
+
+
 def model_params_from_jax(tree: Mapping, jax_layer_names: Sequence[str],
                           model) -> Dict[str, torch.Tensor]:
     """A JAX functional `Model`'s parameter tree → the port `Model`'s state
@@ -187,13 +214,18 @@ def model_params_from_jax(tree: Mapping, jax_layer_names: Sequence[str],
     (`[l.name for l in jax_model._ordered_layers()]`). None leaves (the
     tables of a lazy-embedding rest state) are skipped."""
     names = _port_names(model, jax_layer_names)
+    convs = _conv_layers(model)
     out: Dict[str, torch.Tensor] = {}
     for jname, sub in tree.items():
         if jname not in names:
             raise ValueError(f"layer {jname!r} is not in the JAX layer list")
+        pname = names[jname]
         for leaf, value in sub.items():
-            if value is not None:
-                out[f"{names[jname]}.{leaf}"] = _to_tensor(value)
+            if value is None:
+                continue
+            if leaf == "kernel" and pname in convs:
+                value = _hwio_to_oihw(np.asarray(value), convs[pname])
+            out[f"{pname}.{leaf}"] = _to_tensor(value)
     return out
 
 
@@ -203,11 +235,49 @@ def model_params_to_jax(state_dict: Mapping[str, torch.Tensor],
     under the JAX layer names, every layer present (`{}` when it has no
     parameters), in graph order."""
     to_jax = {p: j for j, p in _port_names(model, jax_layer_names).items()}
+    convs = _conv_layers(model)
     tree: Dict = {j: {} for j in jax_layer_names}
     for key, value in state_dict.items():
         layer, leaf = key.split(".", 1)
-        tree[to_jax[layer]][leaf] = _to_numpy(value)
+        value = _to_numpy(value)
+        if leaf == "kernel" and layer in convs:
+            value = _oihw_to_hwio(value, convs[layer])
+        tree[to_jax[layer]][leaf] = value
     return tree
+
+
+def model_opt_state_from_jax(state, jax_layer_names: Sequence[str], model,
+                             device=None) -> FusedAdamState:
+    """A functional `Model`'s JAX Adam state (optax's, an optax chain
+    holding one, or the JAX package's `FusedAdamState`) → the port's
+    `FusedAdamState`, moments keyed like the model's parameters, on
+    `device`. Moment entries of buffers (BatchNorm's moving statistics) are
+    dropped: the port's optimizer steps parameters only."""
+    adam = _adam_state(state)
+    params = dict(model.named_parameters())
+
+    def moments(tree):
+        return {k: v.to(device) for k, v in model_params_from_jax(
+            tree, jax_layer_names, model).items() if k in params}
+    return FusedAdamState(int(np.asarray(adam.count)), moments(adam.mu),
+                          moments(adam.nu))
+
+
+def model_opt_state_to_jax(state: FusedAdamState,
+                           jax_layer_names: Sequence[str],
+                           model) -> FusedAdamState:
+    """Inverse of `model_opt_state_from_jax`: (count as int32, mu, nu as
+    JAX trees), with float32 zeros for the buffers' entries, as the JAX
+    state holds them. Wrap it as the JAX side needs
+    (`optax.ScaleByAdamState(*t)`, `FusedAdamState(*t)`)."""
+    zeros = {k: torch.zeros(b.shape, dtype=torch.float32)
+             for k, b in model.named_buffers()}
+
+    def tree(moments):
+        return model_params_to_jax(dict(moments, **zeros), jax_layer_names,
+                                   model)
+    return FusedAdamState(np.int32(state.count), tree(state.mu),
+                          tree(state.nu))
 
 
 def lazy_state_from_jax(state: Mapping, jax_layer_names: Sequence[str],

@@ -1,14 +1,15 @@
 """Keras-style model engine: the `Layer` and `KerasNet` base classes, the
 symbolic graph (`Node`, `Input`) and the functional `Model`.
 
-Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with its
-symbolic `__call__` (L82), `Node` (L110), `Input` (L128), `_topo_sort`
-(L134), `KerasNet` (L151) with `compile` (L183, the single-loss form), `fit`
-(L246), `evaluate` (L255), `predict` (L262) and `ensure_built` (L234), and
-`Model` (L513, `build` L548, `apply_and_state` L572). In the JAX package a
-layer is a pure function plus a parameter pytree (`build(rng, shape) ->
-params`, `call(params, x)`); here a layer is an `nn.Module` that owns its
-parameters, so the parameter argument goes away:
+Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with
+`stateful` and `call_and_state` (L61-80) and its symbolic `__call__`
+(L82), `Node` (L110), `Input` (L128), `_topo_sort` (L134), `KerasNet`
+(L151) with `compile` (L183, the single-loss form), `fit` (L246),
+`evaluate` (L255), `predict` (L262) and `ensure_built` (L234), and `Model`
+(L513, `build` L548, `apply` and `apply_and_state` L566-612). In the JAX
+package a layer is a pure function plus a parameter pytree (`build(rng,
+shape) -> params`, `call(params, x)`); here a layer is an `nn.Module` that
+owns its parameters, so the parameter argument goes away:
 
 - `Layer.call(x, *, training=False, ...)` is the forward of a layer;
   calling a layer on a `Node` (or a list of them) builds the graph instead,
@@ -32,8 +33,29 @@ parameters, so the parameter argument goes away:
 
 Parameters are trainable (`requires_grad`); serving, `evaluate` and
 `predict` run under `torch.inference_mode`, so they build no autograd
-graph. `Sequential`, multi-output losses and weight persistence wait for
-later slices of the port (ROADMAP.md queue 1).
+graph.
+
+Non-gradient state (BatchNorm's moving statistics) follows PyTorch's
+idiom. It lives in registered buffers named after the JAX leaves
+(`moving_mean`, `moving_var`), so state-dict keys stay
+`"<layer>.<leaf>"` and `convert` carries them unchanged; the optimizer
+never sees them (`named_parameters` leaves them out). A stateful layer's
+`call_and_state` returns its output and the new values of its state in
+a training forward (none otherwise), and writes nothing;
+`Model.apply_and_state` collects them per layer, as in the JAX package;
+`Model.apply` (the forward that training, `evaluate` and serving run)
+then writes them into the buffers in place, under `torch.no_grad()`
+(`merge_state`, the JAX trainer's `_merge_state`, `learn/trainer.py:634`),
+as `F.batch_norm` updates its running statistics. The JAX trainer merges
+the updates after the optimizer step instead. The two orders give the same
+result: the update reads the statistics as they were before the step in
+both, and the optimizer never changes them in the JAX package either (their
+gradient is zero in a training forward, which normalises with the batch's
+statistics, and `_merge_state` overwrites whatever the step wrote).
+
+A nested `Model` used as a layer, `Sequential`, multi-output losses and
+`ZooModel` persistence wait for later slices of the port (ROADMAP.md
+queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -45,6 +67,7 @@ import torch
 from torch import nn
 
 from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.kernels.philox import site_seed
 
 Shape = Tuple[Optional[int], ...]
 
@@ -70,11 +93,31 @@ def _is_symbolic(inputs) -> bool:
     return isinstance(inputs, Node)
 
 
+State = Dict[str, Dict[str, torch.Tensor]]
+
+
+@torch.no_grad()
+def merge_state(module: nn.Module, updates: State) -> None:
+    """Write stateful-layer updates (`{layer name: {buffer: value}}`, a
+    name relative to `module`; `{"": {...}}` for `module` itself) into the
+    buffers in place, cast to the buffers' dtype: under mixed precision the
+    updates are computed from bf16 casts and the buffers stay float32."""
+    for name, leaves in updates.items():
+        layer = module.get_submodule(name)
+        for leaf, value in leaves.items():
+            getattr(layer, leaf).copy_(value)
+
+
 class Layer(nn.Module):
     """Base layer. Subclasses create their parameters in `__init__` or, when
     their sizes depend on the input, in `create_parameters`; fill them in
     `build`; and implement `call` (and `compute_output_shape` when the
-    layer changes the shape)."""
+    layer changes the shape). Layers that carry non-gradient state set
+    `stateful` and implement `call_and_state`."""
+
+    # True for layers carrying non-gradient state (BatchNorm's moving
+    # statistics, in buffers)
+    stateful = False
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
@@ -98,6 +141,14 @@ class Layer(nn.Module):
 
     def call(self, x, *, training: bool = False):
         raise NotImplementedError
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[int] = None):
+        """`(output, {buffer name: new value})`: what a functional `Model`
+        runs for each node. Writes nothing; a stateless layer returns no
+        updates. `seed` is for the layers that draw random bits
+        (`Dropout`); the others ignore it."""
+        return self.call(x, training=training), {}
 
     def compute_output_shape(self, input_shape):
         return input_shape
@@ -301,11 +352,26 @@ class Model(KerasNet):
 
     def apply(self, inputs, *, training: bool = False,
               seed: Optional[int] = None):
+        """The forward; in training, the stateful layers' buffers take
+        their updates (`merge_state`)."""
+        out, updates = self.apply_and_state(inputs, training=training,
+                                            seed=seed)
+        merge_state(self, updates)
+        return out
+
+    def apply_and_state(self, inputs, *, training: bool = False,
+                        seed: Optional[int] = None) -> Tuple[Any, State]:
+        """`(outputs, {layer name: {buffer: new value}})`, writing nothing.
+        Node i of the graph order (inputs excluded) gets the seed
+        `site_seed(seed, i)`, where the JAX package splits its key once a
+        node."""
         xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
         if len(xs) != len(self.inputs):
             raise ValueError(f"Model {self.name} expects {len(self.inputs)} "
                              f"inputs, got {len(xs)}")
         values: Dict[int, Any] = {id(n): x for n, x in zip(self.inputs, xs)}
+        updates: State = {}
+        site = 0
         for node in self._order:
             if id(node) in values:
                 continue
@@ -313,9 +379,15 @@ class Model(KerasNet):
                 raise ValueError("Disconnected input node in graph")
             args = [values[id(i)] for i in node.inputs]
             arg = args if len(args) > 1 else (args[0] if args else None)
-            values[id(node)] = node.layer(arg, training=training)
+            sub = None if seed is None else site_seed(seed, site)
+            site += 1
+            y, upd = node.layer.call_and_state(arg, training=training,
+                                               seed=sub)
+            values[id(node)] = y
+            if upd:
+                updates.setdefault(node.layer.name, {}).update(upd)
         outs = [values[id(o)] for o in self.outputs]
-        return outs if len(outs) > 1 else outs[0]
+        return (outs if len(outs) > 1 else outs[0]), updates
 
     def compute_output_shape(self, input_shape):
         outs = [o.shape for o in self.outputs]

@@ -1,28 +1,57 @@
 """Initializers, activations and the core layers.
 
-Port of the part of `analytics_zoo_tpu/keras/layers.py` that BERT and
-NeuralCF use: `get_init` (L44, with the "glorot_uniform", "uniform" and
-"zeros" families of L30-41), `get_activation` (L73), `Dense` (L96),
-`Activation` (L131), `Flatten` (L156), `Select` (L241), `Merge` (L275, all
-seven modes), `merge` (L329), `Embedding` (L338) and `LayerNormalization`
-(L456). Initializers match the JAX ones in distribution, not in bits (the
-two frameworks draw different numbers from one seed); `"uniform"` is
-`jax.nn.initializers.uniform(0.05)`, which draws from [0, 0.05), not
-±0.05. `"gelu"` is `jax.nn.gelu`'s default, the tanh approximation — not
-torch's erf form. `Dense` keeps its kernel as [in, out], the JAX layout.
+Port of the part of `analytics_zoo_tpu/keras/layers.py` that BERT,
+NeuralCF and the image models use: `get_init` (L44, with the
+"glorot_uniform", "uniform" and "zeros" families of L30-41),
+`get_activation` (L73), `Dense` (L96), `Activation` (L131), `Dropout`
+(L140), `Flatten` (L156), `Select` (L241), `Merge` (L275, all seven
+modes), `merge` (L329), `Embedding` (L338), `BatchNormalization` (L392),
+`LayerNormalization` (L456), and the convolutions and pools of L479-704:
+`_ConvND` with `Convolution1D/2D/3D` and their `Conv*D` aliases,
+`_PoolND` with `MaxPooling1D/2D` and `AveragePooling1D/2D`, and
+`_GlobalPool` with its four subclasses. Initializers match the JAX ones in
+distribution, not in bits (the two frameworks draw different numbers from
+one seed); `"uniform"` is `jax.nn.initializers.uniform(0.05)`, which
+draws from [0, 0.05), not ±0.05. `"gelu"` is `jax.nn.gelu`'s default, the
+tanh approximation — not torch's erf form. `Dense` keeps its kernel as
+[in, out], the JAX layout.
+
+Images stay channels-last (NHWC) at the API, as in the JAX package
+(`dim_ordering="th"` takes NCHW). Inside a convolution or a pool,
+`x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor is an NCHW view in
+PyTorch's `channels_last` memory format, which cuDNN takes without a copy;
+the output, channels_last too, is permuted back to an NHWC view. A
+convolution's kernel is stored `[out, in / groups, *window]` (PyTorch's
+OIHW, 2-D kernels in `channels_last` memory), where the JAX package keeps
+HWIO; `convert` transposes between the two. `"same"` padding is XLA's:
+per spatial axis `total = max((ceil(n / s) - 1)·s + k - n, 0)`, `total // 2`
+before and the rest after, so a stride-2 window on an even size pads
+(0, 1) and the 7×7/2 stem on 224 pads (2, 3). PyTorch's `padding=` is
+symmetric, so an uneven pair is padded explicitly first (zeros for a
+convolution and an average, −inf for a max). The computations are
+cuDNN's and PyTorch's: the JAX package runs them outside any Pallas kernel
+(`lax.conv_general_dilated`, `reduce_window`, `jnp`).
+
+`BatchNormalization` keeps the JAX numerics: normalisation by the batch's
+biased variance in training, `moving = momentum·moving + (1 −
+momentum)·batch statistic` with the biased variance too (PyTorch's own
+running variance is unbiased and its momentum weighs the new value), and
+epsilon 1e-3. The moving statistics are buffers (`keras/engine.py`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from analytics_zoo_tpu_torch.common.device import DeviceLike
-from analytics_zoo_tpu_torch.keras.engine import Layer, Node, new_parameter
+from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.keras.engine import (Layer, Node, merge_state,
+                                                  new_parameter)
+from analytics_zoo_tpu_torch.kernels.dropout import fused_dropout
 
 Init = Callable[[torch.Generator, tuple], torch.Tensor]
 
@@ -185,6 +214,28 @@ class Activation(Layer):
         return self.activation(x)
 
 
+class Dropout(Layer):
+    """`keras/layers/Dropout.scala`: inverted dropout, active only in
+    training, on the dropout kernel (`kernels/dropout.py`). The seed is the
+    one its `Model` hands this node."""
+
+    def __init__(self, p: float, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.rate = float(p)
+
+    def call(self, x, *, training: bool = False,
+             seed: Optional[int] = None):
+        if not training or self.rate <= 0.0:
+            return x
+        if seed is None:
+            raise ValueError(f"{self.name}: dropout in training needs a seed")
+        return fused_dropout(x, self.rate, seed=seed)
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[int] = None):
+        return self.call(x, training=training, seed=seed), {}
+
+
 class Flatten(Layer):
     def call(self, x, *, training: bool = False):
         return x.reshape(x.shape[0], -1)
@@ -300,3 +351,357 @@ class Embedding(Layer):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+class BatchNormalization(Layer):
+    """`keras/layers/BatchNormalization.scala` over `axis` (-1: the last,
+    channels-last; 1: channels-first). `gamma` and `beta` are parameters;
+    `moving_mean` and `moving_var` are buffers, updated by a training
+    forward (`call_and_state`, then `merge_state`) and read by inference.
+    Sizes come from the input at the first call on a node, or from
+    `input_shape` (batch excluded)."""
+
+    stateful = True
+
+    def __init__(self, epsilon: float = 1e-3, momentum: float = 0.99,
+                 axis: int = -1, input_shape: Optional[Sequence] = None,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.epsilon, self.momentum, self.axis = epsilon, momentum, axis
+        self._device, self._dtype = device, dtype
+        if input_shape is not None:
+            self.create_parameters((None,) + tuple(input_shape))
+            self._params_created = True
+
+    def create_parameters(self, input_shape):
+        dim = input_shape[self.axis]
+        self.gamma = new_parameter((dim,), self._device, self._dtype)
+        self.beta = new_parameter((dim,), self._device, self._dtype)
+        kw = dict(device=resolve_device(self._device), dtype=self._dtype)
+        self.register_buffer("moving_mean", torch.zeros(dim, **kw))
+        self.register_buffer("moving_var", torch.ones(dim, **kw))
+
+    def build(self, generator):
+        fill_(self.gamma, torch.ones(self.gamma.shape))
+        fill_(self.beta, torch.zeros(self.beta.shape))
+        fill_(self.moving_mean, torch.zeros(self.moving_mean.shape))
+        fill_(self.moving_var, torch.ones(self.moving_var.shape))
+        return self
+
+    def _norm_axis(self, ndim: int) -> int:
+        return self.axis % ndim
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[int] = None):
+        """`(y, {"moving_mean": ..., "moving_var": ...})` in training (the
+        updates in the parameters' dtype: bf16 under mixed precision, from
+        the bf16-cast statistics, as the JAX step computes them), `(y, {})`
+        otherwise."""
+        x = _match_param_dtype(x, self.gamma)
+        axis = self._norm_axis(x.dim())
+        xc = x.movedim(axis, 1)
+        if not training:
+            y = F.batch_norm(xc, self.moving_mean.to(x.dtype),
+                             self.moving_var.to(x.dtype), self.gamma,
+                             self.beta, training=False, eps=self.epsilon)
+            return y.movedim(1, axis), {}
+        # one pass gives the output and the batch's statistics: the mean
+        # and 1/√(var + ε), var biased (the running statistics PyTorch
+        # would keep are not asked for)
+        y, mean, invstd = torch.native_batch_norm(
+            xc, self.gamma, self.beta, None, None, True, 0.0, self.epsilon)
+        with torch.no_grad():
+            var = invstd.float().pow(-2) - self.epsilon
+            dt = self.gamma.dtype
+            # the JAX package's Python floats become weak-typed constants
+            # of the statistics' dtype: round them to it first
+            keep = float(torch.tensor(self.momentum, dtype=dt))
+            new = float(torch.tensor(1.0 - self.momentum, dtype=dt))
+            updates = {
+                "moving_mean": self.moving_mean.to(dt) * keep
+                + mean.to(dt) * new,
+                "moving_var": self.moving_var.to(dt) * keep
+                + var.to(dt) * new}
+        return y.movedim(1, axis), updates
+
+    def call(self, x, *, training: bool = False):
+        """The forward of the layer on its own: a training call writes its
+        updates into its buffers, as `F.batch_norm` does."""
+        y, updates = self.call_and_state(x, training=training)
+        merge_state(self, {"": updates} if updates else {})
+        return y
+
+
+# ---------------------------------------------------------------------------
+# Convolutions & pooling (channels-last at the API)
+# ---------------------------------------------------------------------------
+def _channels_first(x, dim_ordering: str, spatial_rank: int):
+    """The NC... view PyTorch's convolutions and pools take."""
+    return x if dim_ordering == "th" else x.movedim(spatial_rank + 1, 1)
+
+
+def _spatial_out(size, k: int, s: int, padding: str):
+    if size is None:
+        return None
+    if padding == "SAME":
+        return -(-size // s)
+    return (size - k) // s + 1
+
+
+def _same_pads(sizes, window, strides) -> List[Tuple[int, int]]:
+    """XLA's "SAME" padding, (before, after) per spatial axis."""
+    pads = []
+    for n, k, s in zip(sizes, window, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_arg(pads) -> List[int]:
+    """(before, after) pairs in axis order → `F.pad`'s last-axis-first
+    list."""
+    return [v for pair in reversed(pads) for v in pair]
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+class _ConvND(Layer):
+    """N-d convolution, channels-last at the API unless `dim_ordering` is
+    "th". The kernel, `[nb_filter, in / groups, *kernel_size]`, is created
+    at the first call on a node (or from `input_shape`)."""
+
+    spatial_rank = 2
+
+    def __init__(self, nb_filter: int, kernel_size: Sequence[int],
+                 activation=None, subsample: Optional[Sequence[int]] = None,
+                 border_mode: str = "valid", dim_ordering: str = "tf",
+                 use_bias: bool = True, init="glorot_uniform",
+                 groups: int = 1, input_shape: Optional[Sequence] = None,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.nb_filter = nb_filter
+        self.kernel_size = tuple(kernel_size)
+        self.activation = get_activation(activation)
+        self.strides = tuple(subsample or (1,) * self.spatial_rank)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(f"Unsupported border_mode: {border_mode}")
+        self.padding = border_mode.upper()
+        self.dim_ordering = dim_ordering
+        self.use_bias = use_bias
+        self.init = get_init(init)
+        self.groups = int(groups)
+        self._device, self._dtype = device, dtype
+        if input_shape is not None:
+            self.create_parameters((None,) + tuple(input_shape))
+            self._params_created = True
+
+    def create_parameters(self, input_shape):
+        in_ch = input_shape[1] if self.dim_ordering == "th" \
+            else input_shape[-1]
+        if in_ch % self.groups or self.nb_filter % self.groups:
+            raise ValueError(
+                f"groups={self.groups} must divide in_ch={in_ch} and "
+                f"nb_filter={self.nb_filter}")
+        self.kernel = new_parameter(
+            (self.nb_filter, in_ch // self.groups) + self.kernel_size,
+            self._device, self._dtype)
+        if self.spatial_rank == 2:
+            self.kernel.data = self.kernel.data.contiguous(
+                memory_format=torch.channels_last)
+        if self.use_bias:
+            self.bias = new_parameter((self.nb_filter,), self._device,
+                                      self._dtype)
+
+    def build(self, generator):
+        # drawn in the JAX layout (HWIO: fans from the window, in and out)
+        r = self.spatial_rank
+        hwio = self.init(generator, self.kernel_size + (
+            self.kernel.shape[1], self.nb_filter))
+        fill_(self.kernel, hwio.permute(r + 1, r, *range(r)))
+        if self.use_bias:
+            fill_(self.bias, torch.zeros(self.bias.shape))
+        return self
+
+    def call(self, x, *, training: bool = False):
+        if not x.is_floating_point():
+            # raw integer images are refused, not trained on as 0-255
+            raise TypeError(f"{self.name}: convolution input must be a "
+                            f"float tensor, got {x.dtype}")
+        x = _channels_first(_match_param_dtype(x, self.kernel),
+                            self.dim_ordering, self.spatial_rank)
+        padding: Any = 0
+        if self.padding == "SAME":
+            pads = _same_pads(x.shape[2:], self.kernel_size, self.strides)
+            if all(lo == hi for lo, hi in pads):
+                padding = tuple(lo for lo, _ in pads)
+            else:
+                x = F.pad(x, _pad_arg(pads))
+        y = _CONV[self.spatial_rank](
+            x, self.kernel, self.bias if self.use_bias else None,
+            stride=self.strides, padding=padding, groups=self.groups)
+        # the activation runs channels-last, as in the JAX package (softmax
+        # takes the last axis)
+        y = self.activation(y.movedim(1, -1))
+        return y.movedim(-1, 1) if self.dim_ordering == "th" else y
+
+    def compute_output_shape(self, input_shape):
+        th = self.dim_ordering == "th"
+        spatial = input_shape[2:] if th else input_shape[1:-1]
+        out = tuple(_spatial_out(d, k, s, self.padding) for d, k, s in
+                    zip(spatial, self.kernel_size, self.strides))
+        if th:
+            return (input_shape[0], self.nb_filter) + out
+        return (input_shape[0],) + out + (self.nb_filter,)
+
+
+class Convolution2D(_ConvND):
+    """`keras/layers/Convolution2D.scala`."""
+
+    def __init__(self, nb_filter, nb_row, nb_col, **kw):
+        super().__init__(nb_filter, (nb_row, nb_col), **kw)
+
+
+class Convolution1D(_ConvND):
+    spatial_rank = 1
+
+    def __init__(self, nb_filter, filter_length, **kw):
+        super().__init__(nb_filter, (filter_length,), **kw)
+
+
+class Convolution3D(_ConvND):
+    spatial_rank = 3
+
+    def __init__(self, nb_filter, kernel_dim1, kernel_dim2, kernel_dim3,
+                 **kw):
+        super().__init__(nb_filter, (kernel_dim1, kernel_dim2, kernel_dim3),
+                         **kw)
+
+
+# keras2-flavoured aliases (`keras2/layers/`)
+Conv1D = Convolution1D
+Conv2D = Convolution2D
+Conv3D = Convolution3D
+
+
+class _PoolND(Layer):
+    """Max or average pooling over 1 or 2 spatial axes. Under "same" the
+    max pads with −inf and the average divides each window's sum by its
+    count of real elements (the JAX package's two `reduce_window`s). A 1-d
+    pool runs as a 2-d one over a unit height."""
+
+    spatial_rank = 2
+    reducer = "max"
+
+    def __init__(self, pool_size=None, strides=None, border_mode="valid",
+                 dim_ordering="tf", name: Optional[str] = None):
+        super().__init__(name=name)
+        self.pool_size = tuple(pool_size or (2,) * self.spatial_rank)
+        self.strides = tuple(strides or self.pool_size)
+        self.padding = border_mode.upper()
+        self.dim_ordering = dim_ordering
+
+    def call(self, x, *, training: bool = False):
+        r = self.spatial_rank
+        xc = _channels_first(x, self.dim_ordering, r)
+        window, strides = self.pool_size, self.strides
+        if r == 1:
+            xc, window, strides = xc.unsqueeze(2), (1,) + window, \
+                (1,) + strides
+        pads = _same_pads(xc.shape[2:], window, strides) \
+            if self.padding == "SAME" else [(0, 0)] * 2
+        flat = _pad_arg(pads)
+        if self.reducer == "max":
+            if any(flat):
+                xc = F.pad(xc, flat, value=float("-inf"))
+            y = F.max_pool2d(xc, window, strides)
+        else:
+            ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                              device=xc.device)
+            sums = F.avg_pool2d(F.pad(xc, flat), window, strides,
+                                divisor_override=1)
+            counts = F.avg_pool2d(F.pad(ones, flat), window, strides,
+                                  divisor_override=1)
+            y = sums / counts
+        if r == 1:
+            y = y.squeeze(2)
+        return y if self.dim_ordering == "th" else y.movedim(1, r + 1)
+
+    def compute_output_shape(self, input_shape):
+        th = self.dim_ordering == "th"
+        spatial = input_shape[2:] if th else input_shape[1:-1]
+        out = tuple(_spatial_out(d, k, s, self.padding) for d, k, s in
+                    zip(spatial, self.pool_size, self.strides))
+        if th:
+            return tuple(input_shape[:2]) + out
+        return (input_shape[0],) + out + (input_shape[-1],)
+
+
+class MaxPooling2D(_PoolND):
+    pass
+
+
+class AveragePooling2D(_PoolND):
+    reducer = "avg"
+
+
+class MaxPooling1D(_PoolND):
+    spatial_rank = 1
+
+    def __init__(self, pool_length: int = 2, stride: Optional[int] = None,
+                 **kw):
+        super().__init__((pool_length,), (stride,) if stride else None,
+                         **kw)
+
+
+class AveragePooling1D(MaxPooling1D):
+    reducer = "avg"
+
+
+class _GlobalPool(Layer):
+    """Max or mean over the spatial axes; a bf16 mean sums in float32 and
+    rounds once, as `jnp.mean` does."""
+
+    spatial_axes: Tuple[int, ...] = (1, 2)
+    reducer = "max"
+
+    def __init__(self, dim_ordering="tf", name: Optional[str] = None):
+        super().__init__(name=name)
+        self.dim_ordering = dim_ordering
+
+    def call(self, x, *, training: bool = False):
+        axes = self.spatial_axes if self.dim_ordering == "tf" else \
+            tuple(a + 1 for a in self.spatial_axes)
+        if self.reducer == "max":
+            return x.amax(dim=axes)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return x.mean(dim=axes, dtype=acc).to(x.dtype)
+
+    def compute_output_shape(self, input_shape):
+        if self.dim_ordering == "tf":
+            return (input_shape[0], input_shape[-1])
+        return (input_shape[0], input_shape[1])
+
+
+class GlobalMaxPooling2D(_GlobalPool):
+    pass
+
+
+class GlobalAveragePooling2D(_GlobalPool):
+    reducer = "avg"
+
+
+class GlobalMaxPooling1D(_GlobalPool):
+    spatial_axes = (1,)
+
+
+class GlobalAveragePooling1D(_GlobalPool):
+    spatial_axes = (1,)
+    reducer = "avg"

@@ -11,7 +11,9 @@ the host, `(a, b, lr·wd)` with `a = lr·√c2/c1`, `b = eps·√c2`,
 `p ← p − a·m/(√v + b) − lr·wd·p` on the uncorrected new moments; moments
 are f32, params f32 or bf16. The update is in place: the params and
 moments tensors are written, never reallocated (the JAX kernel aliases
-them to its outputs).
+them to its outputs). A leaf is walked as one flat array, so a
+channels_last conv kernel runs as it lies, its moments and gradient in
+the same layout.
 
 Routing is static: CPU tensors take the plain version (`_adam_math`, one
 rounding per operation, which the kernel repeats operation for operation),
@@ -90,13 +92,32 @@ def _check_kernel_inputs(p, m, v, g) -> None:
         if t.dtype != torch.float32:
             raise TypeError(f"fused_adam kernel keeps {name} in float32, got "
                             f"{t.dtype}")
-    for name, t in (("p", p), ("m", m), ("v", v), ("g", g)):
+    if not _dense(p):
+        raise ValueError("fused_adam kernel needs p contiguous (or a "
+                         "channels_last 4-d tensor)")
+    for name, t in (("m", m), ("v", v), ("g", g)):
         if t.shape != p.shape or t.device != p.device:
             raise ValueError(f"fused_adam: {name} {tuple(t.shape)} on "
                              f"{t.device} must match p {tuple(p.shape)} on "
                              f"{p.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_adam kernel needs {name} contiguous")
+        if not _same_layout(t, p):
+            raise ValueError(f"fused_adam kernel needs {name} contiguous in "
+                             f"p's layout (strides {t.stride()} vs "
+                             f"{p.stride()})")
+
+
+def _same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal strides on every axis longer than 1 (the axes that place
+    elements): the two walk their elements in the same order."""
+    return all(sa == sb for sa, sb, n in zip(a.stride(), b.stride(), a.shape)
+               if n > 1)
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Contiguous in the default or the channels_last format: the kernel
+    walks the leaf as one flat array of `numel` elements."""
+    return t.is_contiguous() or (
+        t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
 
 
 def _launch(p, m, v, g, a, b, lrwd, b1, b2) -> None:
@@ -131,6 +152,10 @@ def leaf_update(p, m, v, g, scalars: Tuple[float, float, float], b1: float,
         return
     if p.device.type != "cuda":
         raise ValueError(f"fused_adam: unsupported device {p.device}")
+    if not _same_layout(g, p):
+        # a gradient in another memory format than its leaf (autograd
+        # picks the format): one copy into the leaf's layout
+        g = torch.empty_like(p, dtype=g.dtype).copy_(g)
     _launch(p, m, v, g, a, b, lrwd, float(b1), float(b2))
 
 

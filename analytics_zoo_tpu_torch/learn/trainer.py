@@ -19,6 +19,16 @@ L1356-1369, L1385-1388), `evaluate_keras` (L1906) and `predict_keras`
   masters through the cast; the predictions are cast to f32 before the
   loss; inputs are never cast. Not `torch.autocast`, whose per-op dtype
   policy is not what the JAX package computes.
+- Stateful layers (BatchNorm): the state path of the JAX step (L755-787,
+  `_merge_state` L634) is the training forward itself. `Model.apply`
+  writes each stateful layer's updates into its buffers
+  (`keras.engine.merge_state`); under mixed precision they are computed
+  from the bf16 casts of the parameters and statistics, as the JAX step
+  computes them, and land in the float32 buffers. The optimizer steps
+  `named_parameters()` only, so the moving statistics have no moments
+  (the JAX sweep carries them as leaves whose update `_merge_state` then
+  overwrites: 267 leaves against 161 for ResNet-50). `evaluate` and
+  `predict` read the moving statistics.
 - One optimizer step per batch: `fused_apply` (the fused-Adam kernel, in
   place) when the optimizer has it, else `update` and `p += u`.
   `fused_optimizer=True` swaps the compiled optimizer for its fused twin

@@ -4,8 +4,8 @@ Port of `analytics_zoo_tpu/models/common.py`: `ZooModel` (L21) with its
 Keras passthroughs `compile`, `fit`, `evaluate`, `predict` and
 `predict_classes`. A ZooModel wraps a constructed Keras-style graph
 (`self.model`, a `KerasNet`) and its hyperparameters (`self._config`).
-`save_model` / `load_model` and `summary` wait for weight persistence
-(ROADMAP.md queue 1).
+`save_model` / `load_model` and `summary` wait for weight persistence and
+raise NotImplementedError naming it (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from analytics_zoo_tpu_torch.keras.engine import KerasNet
+
+PERSISTENCE_NOT_PORTED = ("ZooModel save/load and summary are not ported "
+                          "yet (ROADMAP.md queue 1, item 2)")
 
 
 class ZooModel:
@@ -45,3 +48,13 @@ class ZooModel:
         probs = self.predict(x, batch_per_thread=batch_per_thread)
         cls = np.argmax(probs, axis=-1)
         return cls if zero_based_label else cls + 1
+
+    def summary(self):
+        raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+
+    def save_model(self, path: str, over_write: bool = False):
+        raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+
+    @classmethod
+    def load_model(cls, path: str) -> "ZooModel":
+        raise NotImplementedError(PERSISTENCE_NOT_PORTED)

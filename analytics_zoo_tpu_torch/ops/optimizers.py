@@ -180,11 +180,13 @@ def fused_adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
     schedule (called with the pre-increment step count)."""
 
     def init_fn(params):
+        # moments in each param's memory format (a channels_last conv
+        # kernel's too), which the kernel walks as one flat array
         return FusedAdamState(
             0,
-            {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.items()},
-            {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.items()})
 
     def fused_apply(grads, state, params):

@@ -4,7 +4,8 @@ GPU: build its kernels, hold each against its plain PyTorch version, serve
 a full-width BERT-base classifier through the port's `InferenceModel`,
 train it through `Estimator.fit`, train, evaluate and rank with NeuralCF at
 MovieLens-20M scale, serve generative decoding at GPT-2 small's widths
-through `DecodeServing`, and print what it measured.
+through `DecodeServing`, serve and train ResNet-50 at ImageNet's widths,
+and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -32,7 +33,8 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    fraction, seeds;
 5. the dropout kernel on `[32,512,768]`: exact against its own mask, keep
    fraction, backward mask, rates 0 and 1; times;
-6. the fused-Adam kernel over tensors shaped like BERT-base's leaves, 3
+6. the fused-Adam kernel over tensors shaped like BERT-base's leaves (f32
+   and bf16) and like ResNet-50's (f32; conv kernels channels_last), 3
    steps against the plain version, in place; times;
 7. serving: BERT-base (vocab 30522, hidden 768, 12 blocks, 12 heads,
    intermediate 3072, seq 512, 2 classes, `use_flash=True`) with random
@@ -84,8 +86,23 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    share) and a summary of tokens/s, TTFT and ITL beside
    `decode_attention`'s device ms in the profiled step; teacher-forced
    logits against the port's CPU run and against the plain path;
-13. a `kernels` line listing every kernel of the port;
-14. the last line, `{"ok": true, "device": {...}}`.
+13. image serving: ResNet-50 v1.5 (224×224×3, 1000 classes) through
+   `ImageClassifier` with random weights from the seed (BatchNorm
+   statistics calibrated on one random batch), warmed over buckets 1-128,
+   answering batches of 1, 8, 32 and 128 in f32 and bf16; no kernel built
+   on the request path; a profiled window at batch 32 (device time by op
+   class, idle share); probabilities against the port's CPU run;
+14. image training: the same architecture through
+   `Estimator.from_keras(..., optimizer="adam").fit(..., batch_size=256,
+   mixed_precision=True, fused_optimizer=True)`: step time, images/s, MFU
+   from the convolution and dense shapes, peak memory, 161 fused-Adam
+   launches a step, no build after warmup, moving statistics float32, a
+   profiled fit (device time by op class); the kernel path against the
+   plain path (3 steps, f32 and bf16) beside the rounding floor;
+15. one Inception-v1 training step (batch 32): its `Dropout` layer launches
+   the dropout kernel forward and backward, checked at that shape;
+16. a `kernels` line listing every kernel of the port;
+17. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -122,10 +139,13 @@ from analytics_zoo_tpu_torch.kernels import \
 from analytics_zoo_tpu_torch.kernels.philox import \
     attention_keep_scale  # noqa: E402
 from analytics_zoo_tpu_torch.common.tree import tree_leaves  # noqa: E402
+from analytics_zoo_tpu_torch.keras import layers as KL  # noqa: E402
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
 from analytics_zoo_tpu_torch.models.bert import BERTClassifier  # noqa: E402
 from analytics_zoo_tpu_torch.models.generative import \
     TinyDecoder  # noqa: E402
+from analytics_zoo_tpu_torch.models.image import (  # noqa: E402
+    ImageClassifier, inception_v1, resnet)
 from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: E402
     NeuralCF, UserItemFeature)
 from analytics_zoo_tpu_torch.observability.registry import \
@@ -980,98 +1000,123 @@ def phase_dropout(card: str, seed: int):
 ADAM_HP = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
 
 
-def phase_fused_adam(card: str, seed: int):
-    shapes = [tuple(p.shape) for p in BERTClassifier(
-        NUM_CLASSES, device="cuda", **BERT_BASE).parameters()]
-    torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+def fused_adam_row(card: str, leaves, pdtype, gen, mix: str):
+    """The fused-Adam kernel over one leaf mix (`leaves`: tensors giving
+    each leaf's shape and memory format; a channels_last conv kernel stays
+    channels_last, its moments and gradient with it): 3 steps against the
+    plain version (bit-exact, in place, one launch a leaf), then a sweep's
+    device time beside the plain version's, `AdamW(fused=True)`'s and the
+    bound."""
     hp = ADAM_HP
-    results = {}
-    for pdtype in (torch.float32, torch.bfloat16):
-        def rnd(shape, s=1.0, dtype=torch.float32):
-            return (torch.randn(shape, device="cuda", generator=gen)
-                    * s).to(dtype)
-        params = {i: rnd(s, 0.02, pdtype) for i, s in enumerate(shapes)}
-        mu = {i: rnd(s, 1e-3) for i, s in enumerate(shapes)}
-        nu = {i: rnd(s, 1e-3) ** 2 for i, s in enumerate(shapes)}
-        plain = [{i: t.clone() for i, t in d.items()}
-                 for d in (params, mu, nu)]
-        ptrs = [{i: t.data_ptr() for i, t in d.items()}
-                for d in (params, mu, nu)]
-        before = LAUNCHES.get(fad.KERNEL_NAME)
-        for count in (1, 2, 3):
-            grads = {i: rnd(s, 1e-2, pdtype) for i, s in enumerate(shapes)}
-            fad.fused_adam_step(params, mu, nu, grads, count, lr=hp["lr"],
-                                b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
-                                weight_decay=hp["weight_decay"])
-            sc = fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"],
-                                   hp["eps"], hp["weight_decay"])
-            for i in params:
-                pn, mn, vn = fad._adam_math(
-                    plain[0][i].float(), plain[1][i], plain[2][i],
-                    grads[i].float(), *sc, hp["b1"], hp["b2"])
-                plain[0][i].copy_(pn)
-                plain[1][i].copy_(mn)
-                plain[2][i].copy_(vn)
-        torch.cuda.synchronize()
-        launches = LAUNCHES.get(fad.KERNEL_NAME) - before
-        max_abs_err = max((a[i].float() - b[i].float()).abs().max().item()
-                          for a, b in zip((params, mu, nu), plain)
-                          for i in params)
-        in_place = all(d[i].data_ptr() == ptr[i]
-                       for d, ptr in zip((params, mu, nu), ptrs)
-                       for i in params)
-        del plain
-        ok = max_abs_err == 0.0 and in_place and launches == 3 * len(shapes)
 
-        def sweep():
-            fad.fused_adam_step(params, mu, nu, grads, 4, lr=hp["lr"],
-                                b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
-                                weight_decay=hp["weight_decay"])
+    def rnd(t, s=1.0, dtype=torch.float32):
+        fmt = torch.channels_last if t.dim() == 4 and t.is_contiguous(
+            memory_format=torch.channels_last) and not t.is_contiguous() \
+            else torch.contiguous_format
+        return (torch.randn(t.shape, device="cuda", generator=gen)
+                * s).to(dtype).contiguous(memory_format=fmt)
+    params = {i: rnd(t, 0.02, pdtype) for i, t in enumerate(leaves)}
+    mu = {i: rnd(t, 1e-3) for i, t in enumerate(leaves)}
+    nu = {i: rnd(t, 1e-3) ** 2 for i, t in enumerate(leaves)}
+    plain = [{i: t.clone() for i, t in d.items()}
+             for d in (params, mu, nu)]
+    ptrs = [{i: t.data_ptr() for i, t in d.items()}
+            for d in (params, mu, nu)]
+    before = LAUNCHES.get(fad.KERNEL_NAME)
+    for count in (1, 2, 3):
+        grads = {i: rnd(t, 1e-2, pdtype) for i, t in enumerate(leaves)}
+        fad.fused_adam_step(params, mu, nu, grads, count, lr=hp["lr"],
+                            b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                            weight_decay=hp["weight_decay"])
+        sc = fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"],
+                               hp["eps"], hp["weight_decay"])
+        for i in params:
+            pn, mn, vn = fad._adam_math(
+                plain[0][i].float(), plain[1][i], plain[2][i],
+                grads[i].float(), *sc, hp["b1"], hp["b2"])
+            plain[0][i].copy_(pn)
+            plain[1][i].copy_(mn)
+            plain[2][i].copy_(vn)
+    torch.cuda.synchronize()
+    launches = LAUNCHES.get(fad.KERNEL_NAME) - before
+    max_abs_err = max((a[i].float() - b[i].float()).abs().max().item()
+                      for a, b in zip((params, mu, nu), plain)
+                      for i in params)
+    in_place = all(d[i].data_ptr() == ptr[i]
+                   for d, ptr in zip((params, mu, nu), ptrs)
+                   for i in params)
+    del plain
+    ok = max_abs_err == 0.0 and in_place and launches == 3 * len(leaves)
 
-        def plain_sweep():
-            sc = fad._fold_scalars(4, hp["lr"], hp["b1"], hp["b2"],
-                                   hp["eps"], hp["weight_decay"])
-            for i in params:
-                pn, mn, vn = fad._adam_math(params[i].float(), mu[i], nu[i],
-                                            grads[i].float(), *sc, hp["b1"],
-                                            hp["b2"])
-                params[i].copy_(pn)
-                mu[i].copy_(mn)
-                nu[i].copy_(vn)
-        # device time of the 153 launches of a sweep; the host needs
-        # longer to issue them (one ctypes call per leaf), kept as wall_ms
-        kernel_ms, kernel_by = device_ms(sweep, 10)
-        wall_ms = time_ms(sweep, 10)
-        plain_ms, plain_by = device_ms(plain_sweep, 3)
-        leaves = [params[i].detach().clone() for i in params]
-        for t, i in zip(leaves, params):
-            t.grad = grads[i]
-        opt = torch.optim.AdamW(leaves, lr=hp["lr"],
-                                betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
-                                weight_decay=hp["weight_decay"], fused=True)
-        library_ms, library_by = device_ms(opt.step, 10)
-        del opt, leaves
-        flops, nbytes = fad.update_cost(params)
-        t_mem = nbytes / MEM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-        row = {"phase": "fused_adam", "param_dtype": str(pdtype)[6:],
-               "leaves": len(shapes),
-               "elements": sum(math.prod(s) for s in shapes),
-               "steps": 3, "max_abs_err": max_abs_err,
-               "in_place": in_place, "launches": launches, "ok": ok,
-               "kernel_ms_per_sweep": kernel_ms, "wall_ms": wall_ms,
-               "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "timed_by": {"kernel_ms_per_sweep": kernel_by,
-                            "plain_ms": plain_by, "library_ms": library_by},
-               "bound_ms": max(t_mem, t_ops),
-               "bound_by": "bytes" if t_mem >= t_ops else "operations",
-               "bytes": nbytes, "card": card}
-        emit(row)
-        results[pdtype] = row
-        del params, mu, nu, grads
-        torch.cuda.empty_cache()
+    def sweep():
+        fad.fused_adam_step(params, mu, nu, grads, 4, lr=hp["lr"],
+                            b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                            weight_decay=hp["weight_decay"])
+
+    def plain_sweep():
+        sc = fad._fold_scalars(4, hp["lr"], hp["b1"], hp["b2"],
+                               hp["eps"], hp["weight_decay"])
+        for i in params:
+            pn, mn, vn = fad._adam_math(params[i].float(), mu[i], nu[i],
+                                        grads[i].float(), *sc, hp["b1"],
+                                        hp["b2"])
+            params[i].copy_(pn)
+            mu[i].copy_(mn)
+            nu[i].copy_(vn)
+    # device time of a sweep's launches, one a leaf; the host needs longer
+    # to issue them (one ctypes call per leaf), kept as wall_ms
+    kernel_ms, kernel_by = device_ms(sweep, 10)
+    wall_ms = time_ms(sweep, 10)
+    plain_ms, plain_by = device_ms(plain_sweep, 3)
+    # the library call on default-format copies (the same bytes)
+    lib_leaves = [params[i].detach().clone(
+        memory_format=torch.contiguous_format) for i in params]
+    for t, i in zip(lib_leaves, params):
+        t.grad = grads[i].contiguous()
+    opt = torch.optim.AdamW(lib_leaves, lr=hp["lr"],
+                            betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
+                            weight_decay=hp["weight_decay"], fused=True)
+    library_ms, library_by = device_ms(opt.step, 10)
+    del opt, lib_leaves
+    flops, nbytes = fad.update_cost(params)
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    row = {"phase": "fused_adam", "leaf_mix": mix,
+           "param_dtype": str(pdtype)[6:], "leaves": len(leaves),
+           "channels_last_leaves": sum(
+               1 for p in params.values() if not p.is_contiguous()),
+           "elements": sum(t.numel() for t in leaves),
+           "steps": 3, "max_abs_err": max_abs_err,
+           "in_place": in_place, "launches": launches, "ok": ok,
+           "kernel_ms_per_sweep": kernel_ms, "wall_ms": wall_ms,
+           "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "timed_by": {"kernel_ms_per_sweep": kernel_by,
+                        "plain_ms": plain_by, "library_ms": library_by},
+           "bound_ms": max(t_mem, t_ops),
+           "bound_by": "bytes" if t_mem >= t_ops else "operations",
+           "bytes": nbytes, "card": card}
+    emit(row)
+    del params, mu, nu, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_fused_adam(card: str, seed: int):
+    """BERT-base's 153 leaves in f32 and bf16 (keyed by dtype), and
+    ResNet-50's 161 (4-d conv kernels channels_last, 1-d BatchNorm
+    vectors, the dense head) in f32, the masters a mixed-precision fit
+    steps (key "resnet50")."""
+    bert = list(BERTClassifier(NUM_CLASSES, device="cuda",
+                               **BERT_BASE).parameters())
+    resnet50 = list(resnet(50, IMG_CLASSES, IMG_SHAPE).parameters())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    results = {pdtype: fused_adam_row(card, bert, pdtype, gen, "bert_base")
+               for pdtype in (torch.float32, torch.bfloat16)}
+    results["resnet50"] = fused_adam_row(card, resnet50, torch.float32, gen,
+                                         "resnet50")
+    del bert, resnet50
+    torch.cuda.empty_cache()
     if not all(r["ok"] for r in results.values()):
         raise SystemExit("chip_smoke: fused Adam check failed")
     return results
@@ -2418,6 +2463,460 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
     return row
 
 
+# ---------------------------------------------------------------------------
+# image classification: ResNet-50 served and trained, Inception-v1's Dropout
+# ---------------------------------------------------------------------------
+# `examples/inception_imagenet.py:145-165`'s ImageNet setting: ResNet-50 at
+# 224×224, 1000 classes, batch 256, "adam", mixed precision.
+IMG_SHAPE = (224, 224, 3)
+IMG_CLASSES = 1000
+IMG_BATCHES = (1, 8, 32, 128)
+IMG_REQUESTS = 20
+IMG_DISTINCT = 4            # request arrays per batch, cycled
+IMG_PROFILE_BATCH = 32
+IMG_CALIBRATION = 32
+IMG_CHECK_ROWS = 3
+# Softmax probabilities over 1000 classes. f32, the card against the port's
+# CPU run of the same weights: 53 convolutions summed in cuDNN's order (TF32
+# off) instead of the CPU's — 5e-4, as for BERT's logits. bf16 against the
+# f32 card: every weight and activation rounds to 8 bits of mantissa through
+# 53 convolutions and BatchNorms — 5e-2.
+IMG_PROB_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+IMG_TRAIN_BATCH = 256
+IMG_TRAIN_STEPS = 8
+IMG_WARM_STEPS = 2
+IMG_PROFILE_STEPS = 2
+# The kernel path (fused Adam) against the plain path (plain Adam): 3 steps
+# on one batch of 64 from the same weights, cuDNN deterministic, Adam at lr
+# 1e-4. The two optimizers round differently (the kernel folds the bias
+# correction into its scalars), so from the second step the runs start
+# from parameters a few ulps apart. Adam's m/√v maps such a difference in a
+# near-zero gradient onto a step of up to ±lr, ReLUs, max pools and 53
+# BatchNorms pass it on, and under bf16 a master an ulp across a rounding
+# midpoint moves its bf16 cast by 2^-8. The same run measures that floor:
+# the plain path again from the weights one ulp up (`nextafter`). Steps 1
+# and 2 (at most one update apart) hold the losses to BERT's tolerances,
+# 1e-4 (f32) and 2e-2 (bf16); step 3 to the larger of those and
+# IMG_FLOOR_FACTOR times the floor, the largest deviation of the one-ulp
+# run over the 3 steps (the two paths' masters differ by up to a few ulps
+# after each of two updates, not by one ulp once). Measured on an H100:
+# f32 steps 1-2 within 1e-6, step 3 6.9e-4 against a floor of 3.8e-3; bf16
+# steps 1-2 equal, step 3 2.1e-2 against a floor of 1.0e-2.
+IMG_PATH_BATCH = 64
+IMG_PATH_LR = 1e-4
+IMG_F32_LOSS_TOL = 1e-4
+IMG_BF16_LOSS_TOL = 2e-2
+IMG_FLOOR_FACTOR = 3.0
+INCEPTION_BATCH = 32
+IMG_LOSS = "sparse_categorical_crossentropy"
+
+
+def op_class(kernel: str) -> str:
+    """The op class of a CUDA kernel's name, for the image profiles."""
+    n = kernel.lower()
+    if "tonchw" in n or "tonhwc" in n:
+        return "layout_transpose"
+    if "bn_" in n or "batch_norm" in n:
+        return "batchnorm"
+    if any(k in n for k in ("fprop", "dgrad", "wgrad", "conv", "implicit",
+                            "cudnn")):
+        return "cudnn_conv"
+    if "fused_adam" in n:
+        return "fused_adam"
+    if "dropout" in n:
+        return "dropout"
+    if any(k in n for k in ("gemm", "cublas", "cutlass")):
+        return "dense_gemm"
+    if "pool" in n:
+        return "pool"
+    if "reduce" in n:
+        return "reduction"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "elementwise"
+
+
+def profile_classes(fn, reps: int):
+    """Device ms per call by op class and the top kernels, over `reps`
+    calls of `fn` under torch.profiler (a window that recorded nothing is
+    run again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3 / reps,
+                 e.count / reps) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            break
+    rows.sort(key=lambda r: -r[1])
+    dev = sum(r[1] for r in rows)
+    classes = {}
+    for name, ms, calls in rows:
+        c = classes.setdefault(op_class(name), {"ms": 0.0, "calls": 0.0})
+        c["ms"] += ms
+        c["calls"] += calls
+    return dev, dict(sorted(classes.items(), key=lambda kv: -kv[1]["ms"])), [
+        {"kernel": name[:96], "ms": ms, "calls": calls}
+        for name, ms, calls in rows[:12]]
+
+
+def image_forward_flops(model) -> float:
+    """FLOPs of one image's forward, from the convolution and dense shapes
+    of the graph: 2 · output elements · window · input channels / groups a
+    convolution, 2 · in · out a dense layer."""
+    total = 0.0
+    for node in model._order:
+        layer = node.layer
+        if isinstance(layer, KL._ConvND):
+            out, inp = node.shape, node.inputs[0].shape
+            tf = layer.dim_ordering == "tf"
+            c_in = inp[-1] if tf else inp[1]
+            spatial = out[1:-1] if tf else out[2:]
+            total += (2.0 * math.prod(spatial) * layer.nb_filter
+                      * math.prod(layer.kernel_size) * c_in / layer.groups)
+        elif isinstance(layer, KL.Dense):
+            total += 2.0 * node.inputs[0].shape[-1] * layer.output_dim
+    return total
+
+
+def calibrate_batchnorm(model, x: torch.Tensor) -> None:
+    """Set every BatchNorm's moving statistics to the statistics of batch
+    `x` (one training forward at momentum 0), so an inference forward of
+    random weights keeps its activations at the scale a training forward
+    gives them."""
+    bns = [l for l in model.ordered_layers()
+           if isinstance(l, KL.BatchNormalization)]
+    saved = [l.momentum for l in bns]
+    for l in bns:
+        l.momentum = 0.0
+    with torch.no_grad():
+        model.apply(x, training=True)
+    for l, m in zip(bns, saved):
+        l.momentum = m
+
+
+def load_by_order(model, state):
+    """A state dict of another instance of the same architecture (layer
+    names count per process), matched key by key in graph order."""
+    model.load_state_dict(dict(zip(model.state_dict().keys(),
+                                   state.values())))
+    return model
+
+
+def phase_image_serving(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    clf = ImageClassifier(depth=50, class_num=IMG_CLASSES,
+                          input_shape=IMG_SHAPE)
+    model = clf.model
+    model.ensure_built(seed=seed)
+    # the head N(0, 0.02), as BERT's classifier here: Glorot's limit on a
+    # 2048 → 1000 kernel turns random features into logits whose softmax
+    # is one-hot, where the bf16 check would compare argmaxes
+    head = model.ordered_layers()[-1]
+    with torch.no_grad():
+        head.kernel.normal_(0.0, 0.02, generator=torch.Generator(
+            device="cuda").manual_seed(seed + 69))
+    rs = np.random.default_rng(seed + 70)
+    calibrate_batchnorm(model, torch.from_numpy(rs.random(
+        (IMG_CALIBRATION,) + IMG_SHAPE, dtype=np.float32)).cuda())
+    # (a deep copy of the graph would recurse once a node)
+    model_bf16 = load_by_order(resnet(50, IMG_CLASSES, IMG_SHAPE),
+                               model.state_dict()).to(torch.bfloat16)
+    servers = {}
+    for dtype_name, m in (("float32", model), ("bfloat16", model_bf16)):
+        im = InferenceModel(max_batch=IMG_BATCHES[-1]).load_keras(m)
+        if im.serving_dtype != dtype_name:
+            raise SystemExit(f"chip_smoke: serving {im.serving_dtype}, "
+                             f"expected {dtype_name}")
+        im.warmup(np.zeros(IMG_SHAPE, np.float32))
+        emit({"phase": "image_warmup", "dtype": dtype_name,
+              "buckets": sorted(im.warmed_buckets),
+              "seconds": im.warmup_report})
+        servers[dtype_name] = im
+    bf16_buffers = all(b.dtype == torch.bfloat16
+                       for b in model_bf16.buffers())
+    emit({"phase": "image_load", "seconds": time.perf_counter() - t0,
+          "layers": len(model.ordered_layers()),
+          "leaves": len(list(model.parameters())),
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "moving_stat_values": sum(b.numel() for b in model.buffers()),
+          "bf16_buffers": bf16_buffers})
+    requests = {b: [rs.random((b,) + IMG_SHAPE, dtype=np.float32)
+                    for _ in range(IMG_DISTINCT)] for b in IMG_BATCHES}
+    check_x = rs.random((IMG_CHECK_ROWS,) + IMG_SHAPE, dtype=np.float32)
+    builds = _build.build_events()
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    latencies, outputs = {}, {}
+    for dtype_name, im in servers.items():
+        for b in IMG_BATCHES:
+            times = []
+            for i in range(IMG_REQUESTS):
+                t1 = time.perf_counter()
+                out = im.predict(requests[b][i % IMG_DISTINCT])
+                times.append((time.perf_counter() - t1) * 1e3)
+                if out.shape != (b, IMG_CLASSES) or \
+                        not np.isfinite(out).all():
+                    raise SystemExit(f"chip_smoke: bad image output "
+                                     f"{out.shape} at batch {b}")
+            latencies[(dtype_name, b)] = times
+        outputs[dtype_name] = im.predict(check_x)
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    builds_after = _build.build_events()
+    for (dtype_name, b), times in latencies.items():
+        p50 = float(np.percentile(times, 50))
+        emit({"phase": "image_serving", "model": "resnet50",
+              "dtype": dtype_name, "batch": b, "requests": len(times),
+              "p50_ms": p50, "p80_ms": float(np.percentile(times, 80)),
+              "p99_ms": float(np.percentile(times, 99)),
+              "mean_ms": float(np.mean(times)),
+              "images_per_s_at_p50": b / p50 * 1e3, "card": card})
+    # no kernel of the port is on this path: convolutions, BatchNorm,
+    # pools and the head are cuDNN's and PyTorch's, as they are XLA's in
+    # the JAX package
+    emit({"phase": "image_serving_launches", "counts": counts,
+          "builds_before": builds, "builds_after": builds_after})
+    if builds_after != builds or not bf16_buffers:
+        raise SystemExit("chip_smoke: a kernel was built on the image "
+                         "request path, or bf16 serving kept f32 buffers")
+    for dtype_name, im in servers.items():
+        x = requests[IMG_PROFILE_BATCH][0]
+        p50 = float(np.percentile(latencies[(dtype_name, IMG_PROFILE_BATCH)],
+                                  50))
+        dev, classes, top = profile_classes(lambda: im.predict(x), 3)
+        emit({"phase": "image_profile", "dtype": dtype_name,
+              "batch": IMG_PROFILE_BATCH, "device_ms_per_predict": dev,
+              "predict_p50_ms": p50,
+              "idle_share": (1.0 - dev / p50) if dev else None,
+              "by_class": classes, "top": top, "card": card})
+    del servers, model_bf16
+    torch.cuda.empty_cache()
+
+    cpu_model = load_by_order(resnet(50, IMG_CLASSES, IMG_SHAPE,
+                                     device="cpu"), model.state_dict())
+    t1 = time.perf_counter()
+    cpu_probs = InferenceModel(max_batch=4, device="cpu").load_keras(
+        cpu_model).predict(check_x)
+    emit({"phase": "image_cpu_reference",
+          "seconds": time.perf_counter() - t1})
+    check_logits("image_card_f32_vs_cpu_f32", outputs["float32"], cpu_probs,
+                 IMG_PROB_TOL["float32"])
+    check_logits("image_card_bf16_vs_card_f32", outputs["bfloat16"],
+                 outputs["float32"], IMG_PROB_TOL["bfloat16"])
+    top1 = [r[0][0] for r in clf.top_n(outputs["float32"], 1)]
+    top1_cpu = [r[0][0] for r in clf.top_n(cpu_probs, 1)]
+    emit({"phase": "image_top1", "card_f32": top1, "cpu_f32": top1_cpu,
+          "same": top1 == top1_cpu})
+    del model, cpu_model, clf
+    torch.cuda.empty_cache()
+    return counts
+
+
+def image_fit_runs(state, batch, mixed_precision: bool):
+    """The kernel path (fused Adam) and the plain path (plain Adam) from
+    the same weights over 3 steps of one batch, cuDNN deterministic, and
+    the plain path again from the weights one ulp up (`nextafter`): how far
+    two runs that differ only in rounding drift apart. {name: (losses,
+    moving statistics, launch counts, buffer dtypes)}."""
+    runs = {}
+    nudged = {k: torch.nextafter(v, torch.full_like(v, math.inf))
+              if v.is_floating_point() and "moving" not in k else v
+              for k, v in state.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, opt, start in (
+                ("kernel", optimizers.fused_adam(IMG_PATH_LR), state),
+                ("plain", optimizers.adam(IMG_PATH_LR), state),
+                ("plain_ulp", optimizers.adam(IMG_PATH_LR), nudged)):
+            m = load_by_order(resnet(50, IMG_CLASSES, IMG_SHAPE), start)
+            LAUNCHES.reset()
+            h = Estimator.from_keras(m, optimizer=opt, loss=IMG_LOSS).fit(
+                batch, epochs=3, batch_size=IMG_PATH_BATCH,
+                mixed_precision=mixed_precision,
+                fused_optimizer=name == "kernel")
+            moving = [b.detach().clone() for b in m.buffers()]
+            runs[name] = (h["loss"], moving, LAUNCHES.snapshot(),
+                          sorted({str(b.dtype)[6:] for b in moving}))
+            del m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return runs
+
+
+
+def phase_image_training(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = resnet(50, IMG_CLASSES, IMG_SHAPE)
+    model.ensure_built(seed=seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_leaves = len(list(model.parameters()))
+    fwd_flops = image_forward_flops(model)
+    flops_step = 3.0 * fwd_flops * IMG_TRAIN_BATCH
+    rs = np.random.default_rng(seed + 72)
+    n = IMG_TRAIN_BATCH * IMG_TRAIN_STEPS
+    t0 = time.perf_counter()
+    data = {"x": rs.random((n,) + IMG_SHAPE, dtype=np.float32),
+            "y": rs.integers(0, IMG_CLASSES, n).astype(np.int32)}
+    data_s = time.perf_counter() - t0
+    warm_n = IMG_WARM_STEPS * IMG_TRAIN_BATCH
+    est = Estimator.from_keras(model, optimizer="adam", loss=IMG_LOSS)
+    fit_kw = dict(epochs=1, batch_size=IMG_TRAIN_BATCH, mixed_precision=True,
+                  fused_optimizer=True)
+    t0 = time.perf_counter()
+    est.fit({"x": data["x"][:warm_n], "y": data["y"][:warm_n]}, **fit_kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    builds = _build.build_events()
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    t1 = time.perf_counter()
+    hist = est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    builds_after = _build.build_events()
+    step_ms = dt / IMG_TRAIN_STEPS * 1e3
+    expected = {fad.KERNEL_NAME: n_leaves}
+    per_step = {k: counts.get(k, 0) / IMG_TRAIN_STEPS for k in expected}
+    buffers_f32 = all(b.dtype == torch.float32 for b in model.buffers())
+    row = {"phase": "image_train", "model": "resnet50",
+           "input": list(IMG_SHAPE), "classes": IMG_CLASSES,
+           "batch": IMG_TRAIN_BATCH, "steps": IMG_TRAIN_STEPS,
+           "data_s": data_s, "warm_fit_s": warm_s, "step_ms": step_ms,
+           "images_per_s": n / dt, "forward_flops_per_image": fwd_flops,
+           "flops_per_step": flops_step,
+           "mfu": flops_step * IMG_TRAIN_STEPS / dt / PEAK_BF16,
+           "max_memory_allocated_gb": peak / 1e9, "loss": hist["loss"],
+           "launches": counts, "launches_per_step": per_step,
+           "expected_per_step": expected, "leaves": n_leaves,
+           "builds_before": builds, "builds_after": builds_after,
+           "moving_stats_f32": buffers_f32, "card": card}
+    emit(row)
+    if per_step != {k: float(v) for k, v in expected.items()}:
+        raise SystemExit(f"chip_smoke: image launches per step {per_step}, "
+                         f"expected {expected}")
+    if builds_after != builds or not buffers_f32 or not all(
+            math.isfinite(x) for x in hist["loss"]):
+        raise SystemExit("chip_smoke: image training check failed")
+    prof_n = IMG_PROFILE_STEPS * IMG_TRAIN_BATCH
+    prof_data = {"x": data["x"][:prof_n], "y": data["y"][:prof_n]}
+    dev, classes, top = profile_classes(lambda: est.fit(prof_data, **fit_kw),
+                                        1)
+    dev /= IMG_PROFILE_STEPS
+    for c in classes.values():
+        c["ms"] /= IMG_PROFILE_STEPS
+        c["calls"] /= IMG_PROFILE_STEPS
+    emit({"phase": "image_train_profile", "device_ms_per_step": dev,
+          "step_ms": step_ms,
+          "idle_share": (1.0 - dev / step_ms) if dev else None,
+          "by_class": classes, "top": top, "card": card})
+    del est, model, data, prof_data
+    torch.cuda.empty_cache()
+
+    # -- the kernel path against the plain path, f32 and bf16 --------------
+    batch = {"x": rs.random((IMG_PATH_BATCH,) + IMG_SHAPE, dtype=np.float32),
+             "y": rs.integers(0, IMG_CLASSES, IMG_PATH_BATCH
+                              ).astype(np.int32)}
+    ok = True
+    for mp, tol in ((False, IMG_F32_LOSS_TOL), (True, IMG_BF16_LOSS_TOL)):
+        runs = image_fit_runs(state, batch, mp)
+        (lk, mk, ck, dk), (lp, mpl, cp, dp) = runs["kernel"], runs["plain"]
+        lu = runs["plain_ulp"][0]
+        errs = [abs(a - b) for a, b in zip(lk, lp)]
+        floor = max(abs(a - b) for a, b in zip(lu, lp))
+        last_tol = max(tol, IMG_FLOOR_FACTOR * floor)
+        moving_err = max((a - b).abs().max().item()
+                         for a, b in zip(mk, mpl))
+        path_ok = (all(e <= tol for e in errs[:2]) and errs[2] <= last_tol
+                   and all(math.isfinite(x) for x in lk + lp + lu)
+                   and ck.get(fad.KERNEL_NAME, 0) == 3 * n_leaves
+                   and cp.get(fad.KERNEL_NAME, 0) == 0
+                   and dk == dp == ["float32"])
+        emit({"phase": "image_train_kernel_vs_plain",
+              "dtype": "bfloat16" if mp else "float32", "steps": 3,
+              "batch": IMG_PATH_BATCH, "lr": IMG_PATH_LR,
+              "loss_kernel": lk, "loss_plain": lp, "loss_plain_ulp": lu,
+              "loss_err_per_step": errs, "loss_tol_steps_1_2": tol,
+              "rounding_floor": floor, "loss_tol_step_3": last_tol,
+              "moving_stats_max_abs_diff": moving_err,
+              "moving_stat_dtypes": dk, "launches_kernel_path": ck,
+              "launches_plain_path": cp, "ok": path_ok, "card": card})
+        ok = ok and path_ok
+    if not ok:
+        raise SystemExit("chip_smoke: image kernel-vs-plain check failed")
+    return counts
+
+
+def phase_image_dropout(card: str, seed: int):
+    """One Inception-v1 training step (batch 32, bf16, fused Adam): its
+    `Dropout` layer launches the dropout kernel once forward and once
+    backward; the kernel checked at that shape against its plain
+    version."""
+    model = inception_v1(IMG_CLASSES, IMG_SHAPE)
+    model.ensure_built(seed=seed)
+    n_leaves = len(list(model.parameters()))
+    rs = np.random.default_rng(seed + 73)
+    data = {"x": rs.random((INCEPTION_BATCH,) + IMG_SHAPE, dtype=np.float32),
+            "y": rs.integers(0, IMG_CLASSES, INCEPTION_BATCH
+                             ).astype(np.int32)}
+    est = Estimator.from_keras(model, optimizer="adam", loss=IMG_LOSS)
+    fit_kw = dict(epochs=1, batch_size=INCEPTION_BATCH, mixed_precision=True,
+                  fused_optimizer=True)
+    est.fit(data, **fit_kw)                        # warm
+    torch.cuda.synchronize()
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    hist = est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    expected = {dr.KERNEL_NAME: 2, fad.KERNEL_NAME: n_leaves}
+    node = next(n for n in model._order if isinstance(n.layer, KL.Dropout))
+    drop = node.layer
+    shape = (INCEPTION_BATCH, node.inputs[0].shape[-1])
+    checks = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 74)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        got = dr.dropout_apply(x, drop.rate, seed + 75)
+        want = dr._reference_dropout(x, drop.rate, dr.dropout_keep(
+            shape, seed + 75, drop.rate, "cuda"))
+        checks[str(dtype)[6:]] = (got.float() - want.float()).abs().max(
+        ).item()
+    ok = ({k: counts.get(k, 0) for k in expected} == expected
+          and all(v == 0.0 for v in checks.values())
+          and all(math.isfinite(x) for x in hist["loss"]))
+    emit({"phase": "image_dropout", "model": "inception_v1",
+          "batch": INCEPTION_BATCH, "rate": drop.rate, "step_ms": step_ms,
+          "launches": counts, "expected": expected,
+          "dropout_shape": list(shape), "max_abs_err_vs_plain": checks,
+          "loss": hist["loss"], "ok": ok, "card": card})
+    del est, model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("chip_smoke: Inception-v1 Dropout check failed")
+    return counts
+
+
 # How an entry's `ms`, `plain_ms` and `library_ms` were taken: "events"
 # (`time_ms`), "graph" (`graph_ms`) or "profiler" (`device_ms`, which takes
 # "graph" when the profiler records nothing).
@@ -2605,9 +3104,22 @@ def main(argv=None) -> int:
     ncf_counts = phase_ncf(card, args.seed)
     decs = phase_decode_kernels(card, args.seed)
     gen = phase_generative(card, args.seed)
+    phase_image_serving(card, args.seed)
+    img_counts = phase_image_training(card, args.seed)
+    inception_counts = phase_image_dropout(card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
+    r50 = adam["resnet50"]
+    entries[fad.KERNEL_NAME].update(
+        launches_resnet50=img_counts.get(fad.KERNEL_NAME, 0),
+        launches_inception_step=inception_counts.get(fad.KERNEL_NAME, 0),
+        resnet50_sweep={k: r50[k] for k in (
+            "leaves", "elements", "param_dtype", "max_abs_err",
+            "kernel_ms_per_sweep", "wall_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "timed_by")})
+    entries[dr.KERNEL_NAME].update(
+        launches_inception_step=inception_counts.get(dr.KERNEL_NAME, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]
