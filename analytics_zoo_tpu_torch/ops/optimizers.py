@@ -173,7 +173,7 @@ def adam_weight_decay(lr: float = 1e-3,
 def fused_adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 0.0) -> FusedGradientTransformation:
-    """Adam/AdamW as one fused-kernel pass over each leaf
+    """Adam/AdamW as one fused-kernel launch over every leaf
     (`kernels/fused_adam.py`): read (grad, m, v, param), write (m, v,
     param) in place, bias correction folded, decoupled weight decay, f32
     moments with f32/bf16 params. `learning_rate` may be a float or a

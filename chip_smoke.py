@@ -33,9 +33,13 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    fraction, seeds;
 5. the dropout kernel on `[32,512,768]`: exact against its own mask, keep
    fraction, backward mask, rates 0 and 1; times;
-6. the fused-Adam kernel over tensors shaped like BERT-base's leaves (f32
-   and bf16) and like ResNet-50's (f32; conv kernels channels_last), 3
-   steps against the plain version, in place; times;
+6. the fused-Adam kernel (one launch a sweep of up to 704 leaves): edge
+   leaves (the four (p, g) dtype pairs, ragged counts, 0-d and empty
+   leaves, views off 16-byte alignment) and more leaves than a launch
+   takes; then tensors shaped like BERT-base's leaves (f32 and bf16) and
+   like ResNet-50's (f32; conv kernels channels_last): 3 steps against the
+   plain version, in place, a step at one leaf a launch bit-equal to one
+   launch a sweep; device and host times of both launch patterns;
 7. serving: BERT-base (vocab 30522, hidden 768, 12 blocks, 12 heads,
    intermediate 3072, seq 512, 2 classes, `use_flash=True`) with random
    weights from the seed, warmed over buckets 1-32, answering requests of
@@ -59,8 +63,9 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    classes) through `Estimator.from_keras(..., optimizer="adam").fit(...,
    batch_size=8192, lazy_embeddings=True, fused_optimizer=True)` over
    524,288 samples: step time, samples/s, peak memory, launches per step
-   (4 segment_adam, 4 segment_sum, 8 fused_adam), a profiled fit; the dense
-   leg (`lazy_embeddings=False`, 12 fused_adam a step); the kernel path
+   (4 segment_adam, 4 segment_sum, 1 fused_adam over the 8 dense leaves),
+   a profiled fit; the dense leg (`lazy_embeddings=False`, 1 fused_adam a
+   step over 12 leaves); the kernel path
    against the plain path (3 steps); the loss falling on a learnable
    rule; `evaluate(metrics=["accuracy"])` on held-out pairs and
    `recommend_for_user` against a top-k of `predict`;
@@ -95,8 +100,9 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
 14. image training: the same architecture through
    `Estimator.from_keras(..., optimizer="adam").fit(..., batch_size=256,
    mixed_precision=True, fused_optimizer=True)`: step time, images/s, MFU
-   from the convolution and dense shapes, peak memory, 161 fused-Adam
-   launches a step, no build after warmup, moving statistics float32, a
+   from the convolution and dense shapes, peak memory, one fused-Adam
+   launch a step (161 leaves) and no gradient copied into its leaf's
+   layout, no build after warmup, moving statistics float32, a
    profiled fit (device time by op class); the kernel path against the
    plain path (3 steps, f32 and bf16) beside the rounding floor;
 15. one Inception-v1 training step (batch 32): its `Dropout` layer launches
@@ -285,6 +291,14 @@ def device_ms(fn, reps: int):
         if total_us > 0:
             return total_us / 1e3 / reps, "profiler"
     return graph_ms(fn, reps), "graph"
+
+
+def median_device_ms(fn, reps: int, windows: int = 3):
+    """device_ms's median over `windows` profiling windows, and how it was
+    taken: now and then a window misses kernels and reads short (seen on
+    the card below the bound)."""
+    got = sorted(device_ms(fn, reps) for _ in range(windows))
+    return got[windows // 2]
 
 
 def graph_ms(fn, reps: int, replays: int = 5) -> float:
@@ -1000,15 +1014,72 @@ def phase_dropout(card: str, seed: int):
 ADAM_HP = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
 
 
+def adam_sweep(params, mu, nu, grads, count):
+    hp = ADAM_HP
+    fad.fused_adam_step(params, mu, nu, grads, count, lr=hp["lr"],
+                        b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                        weight_decay=hp["weight_decay"])
+
+
+def adam_sweep_leaf_by_leaf(plan):
+    """The kernel at one leaf a launch (the launch pattern before the
+    multi-tensor kernel): a sweep's table launched by `plan`
+    (`fad._launch_plan(numel, 1)`, made once)."""
+    hp = ADAM_HP
+
+    def sweep(params, mu, nu, grads, count):
+        table = fad._build_table(*(list(d.values())
+                                   for d in (params, mu, nu, grads)))
+        fad._launch(table._replace(launches=plan),
+                    fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"],
+                                      hp["eps"], hp["weight_decay"]),
+                    hp["b1"], hp["b2"])
+    return sweep
+
+
+def plain_adam_sweep(params, mu, nu, grads, count):
+    """The plain version, leaf by leaf, in place."""
+    hp = ADAM_HP
+    sc = fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"], hp["eps"],
+                           hp["weight_decay"])
+    for i in params:
+        pn, mn, vn = fad._adam_math(params[i].float(), mu[i], nu[i],
+                                    grads[i].float(), *sc, hp["b1"],
+                                    hp["b2"])
+        params[i].copy_(pn)
+        mu[i].copy_(mn)
+        nu[i].copy_(vn)
+
+
+def adam_max_err(got, want) -> float:
+    return max(((a[i].float() - b[i].float()).abs().max().item()
+                for a, b in zip(got, want) for i in a if a[i].numel()),
+               default=0.0)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host ms a call to issue `reps` calls (after three warm ones and a
+    synchronize), not waiting for the device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
 def fused_adam_row(card: str, leaves, pdtype, gen, mix: str):
     """The fused-Adam kernel over one leaf mix (`leaves`: tensors giving
     each leaf's shape and memory format; a channels_last conv kernel stays
     channels_last, its moments and gradient with it): 3 steps against the
-    plain version (bit-exact, in place, one launch a leaf), then a sweep's
-    device time beside the plain version's, `AdamW(fused=True)`'s and the
-    bound."""
-    hp = ADAM_HP
-
+    plain version (bit-exact, in place, one launch for every
+    `fad.MAX_LEAVES` leaves a step), a 4th step at one leaf a launch
+    (bit-equal to one launch a sweep), then a sweep's device and host time
+    beside the same kernel at one leaf a launch, the plain version's,
+    `AdamW(fused=True)`'s and the bound."""
     def rnd(t, s=1.0, dtype=torch.float32):
         fmt = torch.channels_last if t.dim() == 4 and t.is_contiguous(
             memory_format=torch.channels_last) and not t.is_contiguous() \
@@ -1023,77 +1094,93 @@ def fused_adam_row(card: str, leaves, pdtype, gen, mix: str):
     ptrs = [{i: t.data_ptr() for i, t in d.items()}
             for d in (params, mu, nu)]
     before = LAUNCHES.get(fad.KERNEL_NAME)
+    copies = fad.GRAD_COPIES.get(fad.KERNEL_NAME)
     for count in (1, 2, 3):
         grads = {i: rnd(t, 1e-2, pdtype) for i, t in enumerate(leaves)}
-        fad.fused_adam_step(params, mu, nu, grads, count, lr=hp["lr"],
-                            b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
-                            weight_decay=hp["weight_decay"])
-        sc = fad._fold_scalars(count, hp["lr"], hp["b1"], hp["b2"],
-                               hp["eps"], hp["weight_decay"])
-        for i in params:
-            pn, mn, vn = fad._adam_math(
-                plain[0][i].float(), plain[1][i], plain[2][i],
-                grads[i].float(), *sc, hp["b1"], hp["b2"])
-            plain[0][i].copy_(pn)
-            plain[1][i].copy_(mn)
-            plain[2][i].copy_(vn)
+        adam_sweep(params, mu, nu, grads, count)
+        plain_adam_sweep(*plain, grads, count)
     torch.cuda.synchronize()
     launches = LAUNCHES.get(fad.KERNEL_NAME) - before
-    max_abs_err = max((a[i].float() - b[i].float()).abs().max().item()
-                      for a, b in zip((params, mu, nu), plain)
-                      for i in params)
+    per_sweep = fad.sweep_launches(leaves)
+    max_abs_err = adam_max_err((params, mu, nu), plain)
     in_place = all(d[i].data_ptr() == ptr[i]
                    for d, ptr in zip((params, mu, nu), ptrs)
                    for i in params)
+    # step 4 both ways from the same state: one launch a sweep, and one
+    # leaf a launch (the launch pattern before the multi-tensor kernel)
+    for d, p in zip(plain, (params, mu, nu)):
+        for i in d:
+            d[i].copy_(p[i])
+    adam_sweep(params, mu, nu, grads, 4)
+    one_plan = fad._launch_plan(np.array(
+        [t.numel() for t in leaves if t.numel() > 0], np.int64), 1)
+    leaf_by_leaf = adam_sweep_leaf_by_leaf(one_plan)
+    before_one = LAUNCHES.get(fad.KERNEL_NAME)
+    leaf_by_leaf(*plain, grads, 4)
+    torch.cuda.synchronize()
+    one_launches = LAUNCHES.get(fad.KERNEL_NAME) - before_one
+    one_err = adam_max_err((params, mu, nu), plain)
+    grad_copies = fad.GRAD_COPIES.get(fad.KERNEL_NAME) - copies
     del plain
-    ok = max_abs_err == 0.0 and in_place and launches == 3 * len(leaves)
+    ok = (max_abs_err == 0.0 and in_place and launches == 3 * per_sweep
+          and one_err == 0.0
+          and one_launches == len(one_plan))
 
     def sweep():
-        fad.fused_adam_step(params, mu, nu, grads, 4, lr=hp["lr"],
-                            b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
-                            weight_decay=hp["weight_decay"])
+        adam_sweep(params, mu, nu, grads, 5)
 
-    def plain_sweep():
-        sc = fad._fold_scalars(4, hp["lr"], hp["b1"], hp["b2"],
-                               hp["eps"], hp["weight_decay"])
-        for i in params:
-            pn, mn, vn = fad._adam_math(params[i].float(), mu[i], nu[i],
-                                        grads[i].float(), *sc, hp["b1"],
-                                        hp["b2"])
-            params[i].copy_(pn)
-            mu[i].copy_(mn)
-            nu[i].copy_(vn)
-    # device time of a sweep's launches, one a leaf; the host needs longer
-    # to issue them (one ctypes call per leaf), kept as wall_ms
-    kernel_ms, kernel_by = device_ms(sweep, 10)
+    def sweep_one_a_launch():
+        leaf_by_leaf(params, mu, nu, grads, 5)
+
+    # device time of a sweep (the profiler's kernel time, the median of
+    # three windows; one launch a leaf adds the gaps between launches,
+    # which it does not count);
+    # wall_ms: CUDA events around 10 sweeps, whichever of the host and the
+    # device is slower; host_ms: the host's time to issue a sweep
+    kernel_ms, kernel_by = median_device_ms(sweep, 10)
     wall_ms = time_ms(sweep, 10)
-    plain_ms, plain_by = device_ms(plain_sweep, 3)
+    issue_ms = host_ms(sweep, 10)
+    one_ms, one_by = median_device_ms(sweep_one_a_launch, 10)
+    one_wall_ms = time_ms(sweep_one_a_launch, 10)
+    one_issue_ms = host_ms(sweep_one_a_launch, 10)
+    plain_ms, plain_by = device_ms(
+        lambda: plain_adam_sweep(params, mu, nu, grads, 5), 3)
     # the library call on default-format copies (the same bytes)
     lib_leaves = [params[i].detach().clone(
         memory_format=torch.contiguous_format) for i in params]
     for t, i in zip(lib_leaves, params):
         t.grad = grads[i].contiguous()
-    opt = torch.optim.AdamW(lib_leaves, lr=hp["lr"],
-                            betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
-                            weight_decay=hp["weight_decay"], fused=True)
+    opt = torch.optim.AdamW(lib_leaves, lr=ADAM_HP["lr"],
+                            betas=(ADAM_HP["b1"], ADAM_HP["b2"]),
+                            eps=ADAM_HP["eps"],
+                            weight_decay=ADAM_HP["weight_decay"], fused=True)
     library_ms, library_by = device_ms(opt.step, 10)
     del opt, lib_leaves
-    flops, nbytes = fad.update_cost(params)
+    flops, nbytes = fad.update_cost(params, grads)
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    bound_ms = max(t_mem, t_ops)
     row = {"phase": "fused_adam", "leaf_mix": mix,
            "param_dtype": str(pdtype)[6:], "leaves": len(leaves),
            "channels_last_leaves": sum(
                1 for p in params.values() if not p.is_contiguous()),
            "elements": sum(t.numel() for t in leaves),
+           "chunks": sum(-(-t.numel() // fad.CHUNK) for t in leaves),
            "steps": 3, "max_abs_err": max_abs_err,
-           "in_place": in_place, "launches": launches, "ok": ok,
-           "kernel_ms_per_sweep": kernel_ms, "wall_ms": wall_ms,
-           "plain_ms": plain_ms,
+           "in_place": in_place, "launches": launches,
+           "launches_per_sweep": per_sweep, "grad_layout_copies": grad_copies,
+           "one_leaf_a_launch": {"launches": one_launches,
+                                 "max_abs_err_vs_one_a_sweep": one_err,
+                                 "kernel_ms_per_sweep": one_ms,
+                                 "wall_ms": one_wall_ms,
+                                 "host_ms": one_issue_ms, "timed_by": one_by},
+           "ok": ok, "kernel_ms_per_sweep": kernel_ms, "wall_ms": wall_ms,
+           "host_ms": issue_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
+           "pct_of_bound": 100.0 * bound_ms / kernel_ms,
            "timed_by": {"kernel_ms_per_sweep": kernel_by,
                         "plain_ms": plain_by, "library_ms": library_by},
-           "bound_ms": max(t_mem, t_ops),
+           "bound_ms": bound_ms,
            "bound_by": "bytes" if t_mem >= t_ops else "operations",
            "bytes": nbytes, "card": card}
     emit(row)
@@ -1102,17 +1189,91 @@ def fused_adam_row(card: str, leaves, pdtype, gen, mix: str):
     return row
 
 
+# The edge leaves of one sweep: the four (p, g) dtype pairs, counts that
+# are not multiples of 4 or 8, a 0-d and an empty leaf, channels_last
+# leaves, a leaf of more than one chunk; every 1-d leaf once more as a view
+# one element into a larger buffer (not 16-byte aligned).
+ADAM_EDGE_LEAVES = [((3, 5), "f", "f", False), ((16, 8, 3, 3), "f", "b", True),
+                    ((), "f", "f", False), ((0, 4), "b", "b", False),
+                    ((fad.CHUNK + 13,), "f", "b", False),
+                    ((7, 3, 2, 2), "b", "b", True), ((37,), "b", "f", False),
+                    ((64,), "b", "b", False), ((1001,), "f", "f", False)]
+
+
+def fused_adam_edges(card: str, gen):
+    """The edge leaves above in one sweep, then more leaves than a launch
+    takes (`fad.MAX_LEAVES` + 9, ragged sizes): 3 steps each, bit-exact
+    against the plain version, in place, the launches a sweep expected."""
+    dt = {"f": torch.float32, "b": torch.bfloat16}
+
+    def make(shape, dtype, cl, scale, offset=0, square=False):
+        t = torch.randn(shape, device="cuda", generator=gen) * scale
+        t = (t * t if square else t).to(dtype)
+        if cl:
+            t = t.contiguous(memory_format=torch.channels_last)
+        if offset:
+            base = torch.zeros(t.numel() + offset, dtype=dtype,
+                               device="cuda")
+            base[offset:] = t.reshape(-1)
+            t = base[offset:]
+        return t
+
+    def case(specs):
+        params, mu, nu = {}, {}, {}
+        grads = [{} for _ in range(3)]
+        for i, (shape, pd, gd, cl, off) in enumerate(specs):
+            params[i] = make(shape, dt[pd], cl, 0.5, off)
+            mu[i] = make(shape, torch.float32, cl, 1e-2, off)
+            nu[i] = make(shape, torch.float32, cl, 3e-2, off, square=True)
+            for g in grads:
+                g[i] = make(shape, dt[gd], cl, 1.0, off)
+        plain = [{i: t.clone() for i, t in d.items()}
+                 for d in (params, mu, nu)]
+        ptrs = [[t.data_ptr() for t in d.values()] for d in (params, mu, nu)]
+        before = LAUNCHES.get(fad.KERNEL_NAME)
+        for count, g in enumerate(grads, 1):
+            adam_sweep(params, mu, nu, g, count)
+            plain_adam_sweep(*plain, g, count)
+        torch.cuda.synchronize()
+        launches = LAUNCHES.get(fad.KERNEL_NAME) - before
+        return {"leaves": len(specs),
+                "misaligned_leaves": sum(
+                    1 for i in params if any(d[i].data_ptr() % fad.ALIGN
+                                             for d in (params, mu, nu))),
+                "launches": launches,
+                "expected_launches": 3 * fad.sweep_launches(
+                    params.values()),
+                "max_abs_err": adam_max_err((params, mu, nu), plain),
+                "in_place": ptrs == [[t.data_ptr() for t in d.values()]
+                                     for d in (params, mu, nu)]}
+    edges = [s + (0,) for s in ADAM_EDGE_LEAVES] + [
+        s + (1,) for s in ADAM_EDGE_LEAVES if len(s[0]) == 1]
+    rs = np.random.default_rng(7)
+    many = [((int(n),), "f", "f", False, 0)
+            for n in rs.integers(1, 3000, fad.MAX_LEAVES + 9)]
+    rows = {"edges": case(edges), "many_leaves": case(many)}
+    ok = all(r["max_abs_err"] == 0.0 and r["in_place"]
+             and r["launches"] == r["expected_launches"]
+             for r in rows.values())
+    out = {"phase": "fused_adam_edges", **rows, "ok": ok,
+           "config": fad.launch_config(), "card": card}
+    emit(out)
+    return out
+
+
 def phase_fused_adam(card: str, seed: int):
     """BERT-base's 153 leaves in f32 and bf16 (keyed by dtype), and
     ResNet-50's 161 (4-d conv kernels channels_last, 1-d BatchNorm
     vectors, the dense head) in f32, the masters a mixed-precision fit
-    steps (key "resnet50")."""
+    steps (key "resnet50"); the edge cases (key "edges")."""
     bert = list(BERTClassifier(NUM_CLASSES, device="cuda",
                                **BERT_BASE).parameters())
     resnet50 = list(resnet(50, IMG_CLASSES, IMG_SHAPE).parameters())
     gen = torch.Generator(device="cuda").manual_seed(seed + 40)
-    results = {pdtype: fused_adam_row(card, bert, pdtype, gen, "bert_base")
-               for pdtype in (torch.float32, torch.bfloat16)}
+    results = {"edges": fused_adam_edges(card, gen)}
+    for pdtype in (torch.float32, torch.bfloat16):
+        results[pdtype] = fused_adam_row(card, bert, pdtype, gen,
+                                         "bert_base")
     results["resnet50"] = fused_adam_row(card, resnet50, torch.float32, gen,
                                          "resnet50")
     del bert, resnet50
@@ -1219,6 +1380,7 @@ def phase_training(card: str, seed: int):
 
     model = new_model(state)
     n_leaves = len(list(model.parameters()))
+    sweep = fad.sweep_launches(model.parameters())
     flops_step = train_flops_per_step(model, cfg, TRAIN_BATCH)
     est = Estimator.from_keras(model, optimizer=fused(), loss=loss)
     fit_kw = dict(epochs=1, batch_size=TRAIN_BATCH, mixed_precision=True,
@@ -1245,7 +1407,7 @@ def phase_training(card: str, seed: int):
                 fa.BWD_DKV_NAME: cfg["n_block"],
                 fa.BWD_DQ_NAME: cfg["n_block"],
                 dr.KERNEL_NAME: 2 * (2 * cfg["n_block"] + 2),
-                fad.KERNEL_NAME: n_leaves}
+                fad.KERNEL_NAME: sweep}
     per_step = {k: counts.get(k, 0) / TRAIN_STEPS for k in expected}
     emit({"phase": "train", "seq_len": cfg["seq_len"],
           "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "warm_fit_s": warm_s,
@@ -1629,7 +1791,9 @@ def phase_ncf(card: str, seed: int):
     hist, step_ms, counts, peak = timed_ncf_fit(est, data, fit_kw,
                                                 NCF_STEPS)
     # -------------------------------------------------------------------------
-    expected = {seg.KERNEL_NAME: 4, seg.SUM_NAME: 4, fad.KERNEL_NAME: n_dense}
+    # the 8 dense leaves in one fused-Adam launch a step
+    expected = {seg.KERNEL_NAME: 4, seg.SUM_NAME: 4,
+                fad.KERNEL_NAME: -(-n_dense // fad.MAX_LEAVES)}
     per_step = {k: v / NCF_STEPS for k, v in counts.items()}
     emit({"phase": "ncf_train", "leg": "lazy_fused", "config": NCF_CFG,
           "batch": NCF_BATCH, "steps": NCF_STEPS, "samples": n,
@@ -1665,9 +1829,10 @@ def phase_ncf(card: str, seed: int):
           "max_memory_allocated_gb": dpeak / 1e9, "loss": dhist["loss"],
           "launches_per_step": dper_step,
           "lazy_speedup": dstep_ms / step_ms, "card": card})
-    if dper_step != {fad.KERNEL_NAME: float(len(init))}:
+    dense_sweep = -(-len(init) // fad.MAX_LEAVES)     # 12 leaves, 1 launch
+    if dper_step != {fad.KERNEL_NAME: float(dense_sweep)}:
         raise SystemExit(f"chip_smoke: dense NCF launches per step "
-                         f"{dper_step}, expected {len(init)} fused_adam")
+                         f"{dper_step}, expected {dense_sweep} fused_adam")
     emit(dict(profile_fit(est, prof_data, dense_kw, 8, dstep_ms),
               leg="dense_fused", card=card))
     del est, dense
@@ -2763,6 +2928,7 @@ def phase_image_training(card: str, seed: int):
     model.ensure_built(seed=seed)
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     n_leaves = len(list(model.parameters()))
+    sweep = fad.sweep_launches(model.parameters())
     fwd_flops = image_forward_flops(model)
     flops_step = 3.0 * fwd_flops * IMG_TRAIN_BATCH
     rs = np.random.default_rng(seed + 72)
@@ -2784,16 +2950,18 @@ def phase_image_training(card: str, seed: int):
 
     # -- the main path: every count is 0 just before, read just after -----
     LAUNCHES.reset()
+    fad.GRAD_COPIES.reset()
     t1 = time.perf_counter()
     hist = est.fit(data, **fit_kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     counts = LAUNCHES.snapshot()
+    grad_copies = fad.GRAD_COPIES.get(fad.KERNEL_NAME)
     # -------------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
     builds_after = _build.build_events()
     step_ms = dt / IMG_TRAIN_STEPS * 1e3
-    expected = {fad.KERNEL_NAME: n_leaves}
+    expected = {fad.KERNEL_NAME: sweep}
     per_step = {k: counts.get(k, 0) / IMG_TRAIN_STEPS for k in expected}
     buffers_f32 = all(b.dtype == torch.float32 for b in model.buffers())
     row = {"phase": "image_train", "model": "resnet50",
@@ -2806,6 +2974,7 @@ def phase_image_training(card: str, seed: int):
            "max_memory_allocated_gb": peak / 1e9, "loss": hist["loss"],
            "launches": counts, "launches_per_step": per_step,
            "expected_per_step": expected, "leaves": n_leaves,
+           "grad_layout_copies_per_step": grad_copies / IMG_TRAIN_STEPS,
            "builds_before": builds, "builds_after": builds_after,
            "moving_stats_f32": buffers_f32, "card": card}
     emit(row)
@@ -2846,7 +3015,7 @@ def phase_image_training(card: str, seed: int):
                          for a, b in zip(mk, mpl))
         path_ok = (all(e <= tol for e in errs[:2]) and errs[2] <= last_tol
                    and all(math.isfinite(x) for x in lk + lp + lu)
-                   and ck.get(fad.KERNEL_NAME, 0) == 3 * n_leaves
+                   and ck.get(fad.KERNEL_NAME, 0) == 3 * sweep
                    and cp.get(fad.KERNEL_NAME, 0) == 0
                    and dk == dp == ["float32"])
         emit({"phase": "image_train_kernel_vs_plain",
@@ -2871,7 +3040,7 @@ def phase_image_dropout(card: str, seed: int):
     version."""
     model = inception_v1(IMG_CLASSES, IMG_SHAPE)
     model.ensure_built(seed=seed)
-    n_leaves = len(list(model.parameters()))
+    sweep = fad.sweep_launches(model.parameters())
     rs = np.random.default_rng(seed + 73)
     data = {"x": rs.random((INCEPTION_BATCH,) + IMG_SHAPE, dtype=np.float32),
             "y": rs.integers(0, IMG_CLASSES, INCEPTION_BATCH
@@ -2889,7 +3058,7 @@ def phase_image_dropout(card: str, seed: int):
     step_ms = (time.perf_counter() - t0) * 1e3
     counts = LAUNCHES.snapshot()
     # -------------------------------------------------------------------------
-    expected = {dr.KERNEL_NAME: 2, fad.KERNEL_NAME: n_leaves}
+    expected = {dr.KERNEL_NAME: 2, fad.KERNEL_NAME: sweep}
     node = next(n for n in model._order if isinstance(n.layer, KL.Dropout))
     drop = node.layer
     shape = (INCEPTION_BATCH, node.inputs[0].shape[-1])
@@ -3000,8 +3169,14 @@ def kernel_entries(attn, bwd, drop, adam, serve_counts, train_counts,
             bound_by=adam_main["bound_by"],
             library_ms=adam_main["library_ms"],
             timed_by=timed_by(adam_main, "kernel_ms_per_sweep"),
-            shape=f"{adam_main['leaves']} BERT-base leaves (one sweep)",
+            shape=(f"{adam_main['leaves']} BERT-base leaves, one sweep: "
+                   f"{adam_main['launches_per_sweep']} launch(es) of up to "
+                   f"{fad.MAX_LEAVES} leaves, chunks of {fad.CHUNK} "
+                   f"elements"),
             dtype=adam_main["param_dtype"],
+            host_ms=adam_main["host_ms"],
+            one_leaf_a_launch=adam_main["one_leaf_a_launch"],
+            launch_config=adam["edges"]["config"],
             launches_ncf=ncf_counts.get(fad.KERNEL_NAME, 0),
             verdict="ok" if all(r["ok"] for r in adam.values()) else "fail"),
     }
@@ -3116,8 +3291,9 @@ def main(argv=None) -> int:
         launches_inception_step=inception_counts.get(fad.KERNEL_NAME, 0),
         resnet50_sweep={k: r50[k] for k in (
             "leaves", "elements", "param_dtype", "max_abs_err",
-            "kernel_ms_per_sweep", "wall_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "timed_by")})
+            "launches_per_sweep", "kernel_ms_per_sweep", "wall_ms",
+            "host_ms", "one_leaf_a_launch", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "pct_of_bound", "timed_by")})
     entries[dr.KERNEL_NAME].update(
         launches_inception_step=inception_counts.get(dr.KERNEL_NAME, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)

@@ -792,7 +792,8 @@ def test_fused_adam_on_a_channels_last_leaf_on_gpu(dtype):
 def test_resnet_forward_and_fit_on_gpu():
     """ResNet-18 on the card: the forward against the CPU's (cuDNN, TF32
     off: 1e-4), and a fused fit launching the fused-Adam kernel once a
-    leaf a step, with float32 moving statistics after a bf16 fit."""
+    step (one launch sweeps every leaf), with float32 moving statistics
+    after a bf16 fit."""
     _need_gpu()
     cpu = timage.resnet(18, 4, (32, 32, 3), device="cpu")
     cpu.ensure_built(seed=0)
@@ -808,5 +809,6 @@ def test_resnet_forward_and_fit_on_gpu():
     Estimator.from_keras(gpu, optimizer="adam", loss=LOSS).fit(
         (xs, ys), epochs=2, batch_size=8, mixed_precision=True,
         fused_optimizer=True)
-    assert LAUNCHES.get(fad.KERNEL_NAME) == 2 * len(list(gpu.parameters()))
+    assert LAUNCHES.get(fad.KERNEL_NAME) == 2 * fad.sweep_launches(
+        gpu.parameters()) == 2
     assert all(b.dtype == torch.float32 for b in gpu.buffers())
