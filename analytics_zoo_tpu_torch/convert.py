@@ -1,6 +1,7 @@
 """Carry weights and optimizer state between the JAX package's parameter
-trees and the port's state dicts: BERT's, and a functional `Model`'s
-(NeuralCF, the image models).
+trees and the port's state dicts: BERT's, and a functional `Model`'s or a
+`Sequential`'s (NeuralCF, the image models, AnomalyDetector,
+TextClassifier, SessionRecommender).
 
 The tree is what `analytics_zoo_tpu.models.bert.BERTClassifier.build`
 returns, as nested dicts of numpy arrays:
@@ -27,12 +28,18 @@ build, or the JAX package's `FusedAdamState`) maps onto the port's
 `ops.optimizers.FusedAdamState` and back, its moment trees mapped like the
 parameters.
 
-A functional `Model`'s tree is `{layer name: {leaf: array}}` (`{}` for a
-layer without parameters); the port's state dict is keyed
-`"<layer name>.<leaf>"`. Layers are matched by their position in the
-graph order (`Model.ordered_layers` here, `Model._ordered_layers()` there),
-not by name: given names (`ncf_mlp_user`, ...) agree, but auto-generated
-ones (`dense_3`) count per process and differ between the two models. The
+A functional `Model`'s or a `Sequential`'s tree is `{layer name: {leaf:
+array}}` (`{}` for a layer without parameters); the port's state dict is
+keyed `"<layer name>.<leaf>"`. Layers are matched by their position in the
+graph order (`ordered_layers` here, `_ordered_layers()` there), not by
+name: given names (`ncf_mlp_user`, ...) agree, but auto-generated ones
+(`dense_3`) count per process and differ between the two models. Three
+layers nest: a `Sequential` inside one is a subtree of its own layers
+(matched by position too: its entry in the name list is `(name, [its
+layers' names])`); `Bidirectional`'s `{"forward", "backward"}` subtrees are
+its submodules `forward_layer` and `backward_layer`; and `TimeDistributed`
+keeps its inner layer's leaves at its own level in the JAX tree, under its
+submodule `layer` in the port. The
 lazy-embedding optimizer state (`learn/lazy_embedding.init_state`: the
 rest optimizer's Adam state, per-table `(mu, nu)` and the step count)
 crosses the same way.
@@ -57,7 +64,9 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.tree import tree_leaves
-from analytics_zoo_tpu_torch.keras.layers import _ConvND
+from analytics_zoo_tpu_torch.keras.engine import Sequential
+from analytics_zoo_tpu_torch.keras.layers import (Bidirectional,
+                                                  TimeDistributed, _ConvND)
 from analytics_zoo_tpu_torch.keras.transformer import (stack_block_params,
                                                        unstack_block_params)
 from analytics_zoo_tpu_torch.ops.optimizers import FusedAdamState
@@ -104,9 +113,11 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a numpy array (bfloat16 as float32: numpy has none)."""
+    """A tensor as a numpy array of its own (bfloat16 as float32: numpy has
+    none): a copy, since `.numpy()` of a CPU tensor shares its memory, and
+    training the port model in place would change the JAX tree."""
     t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -179,21 +190,26 @@ def opt_state_to_jax(state: FusedAdamState,
 
 
 # ---------------------------------------------------------------------------
-# functional Model (NeuralCF)
+# functional Model and Sequential (NeuralCF, the image and recurrent models)
 # ---------------------------------------------------------------------------
-def _port_names(model, jax_layer_names: Sequence[str]) -> Dict[str, str]:
-    """JAX layer name → port layer name, by position in the graph order."""
+def _entry_name(entry) -> str:
+    return entry if isinstance(entry, str) else entry[0]
+
+
+def _port_layers(model, jax_layer_names: Sequence) -> Dict[str, tuple]:
+    """JAX layer name → (port layer, its entry in `jax_layer_names`), by
+    position in the graph order."""
     layers = model.ordered_layers()
     if len(layers) != len(jax_layer_names):
         raise ValueError(f"the JAX model has {len(jax_layer_names)} layers, "
                          f"the port's {len(layers)}")
-    return {j: l.name for j, l in zip(jax_layer_names, layers)}
+    return {_entry_name(e): (l, e) for e, l in zip(jax_layer_names, layers)}
 
 
-def _conv_layers(model) -> Dict[str, int]:
-    """Port name → spatial rank, for the convolutions of `model`."""
-    return {l.name: l.spatial_rank for l in model.ordered_layers()
-            if isinstance(l, _ConvND)}
+def _port_names(model, jax_layer_names: Sequence) -> Dict[str, str]:
+    """JAX layer name → port layer name, by position in the graph order."""
+    return {j: l.name for j, (l, _) in
+            _port_layers(model, jax_layer_names).items()}
 
 
 def _hwio_to_oihw(a: np.ndarray, rank: int) -> np.ndarray:
@@ -206,44 +222,89 @@ def _oihw_to_hwio(a: np.ndarray, rank: int) -> np.ndarray:
         np.transpose(a, tuple(range(2, rank + 2)) + (1, 0)))
 
 
-def model_params_from_jax(tree: Mapping, jax_layer_names: Sequence[str],
-                          model) -> Dict[str, torch.Tensor]:
-    """A JAX functional `Model`'s parameter tree → the port `Model`'s state
-    dict (CPU tensors; `load_state_dict` copies them onto the model's
-    device). `jax_layer_names` lists the JAX model's layers in graph order
-    (`[l.name for l in jax_model._ordered_layers()]`). None leaves (the
-    tables of a lazy-embedding rest state) are skipped."""
-    names = _port_names(model, jax_layer_names)
-    convs = _conv_layers(model)
-    out: Dict[str, torch.Tensor] = {}
-    for jname, sub in tree.items():
-        if jname not in names:
-            raise ValueError(f"layer {jname!r} is not in the JAX layer list")
-        pname = names[jname]
-        for leaf, value in sub.items():
-            if value is None:
-                continue
-            if leaf == "kernel" and pname in convs:
-                value = _hwio_to_oihw(np.asarray(value), convs[pname])
-            out[f"{pname}.{leaf}"] = _to_tensor(value)
+def _layer_from_jax(layer, sub: Mapping, entry) -> Dict[str, Any]:
+    """One layer's JAX subtree → {state-dict key below the layer: leaf}."""
+    if isinstance(layer, Sequential):
+        return _tree_from_jax(sub, entry[1], layer)
+    if isinstance(layer, Bidirectional):
+        return {f"{half}_layer.{leaf}": value
+                for half in ("forward", "backward")
+                for leaf, value in sub[half].items()}
+    if isinstance(layer, TimeDistributed):
+        return {f"layer.{key}": value for key, value in
+                _layer_from_jax(layer.layer, sub, None).items()}
+    out = dict(sub)
+    if isinstance(layer, _ConvND) and out.get("kernel") is not None:
+        out["kernel"] = _hwio_to_oihw(np.asarray(out["kernel"]),
+                                      layer.spatial_rank)
     return out
 
 
+def _tree_from_jax(tree: Mapping, jax_layer_names: Sequence,
+                   model) -> Dict[str, Any]:
+    layers = _port_layers(model, jax_layer_names)
+    out: Dict[str, Any] = {}
+    for jname, sub in tree.items():
+        if jname not in layers:
+            raise ValueError(f"layer {jname!r} is not in the JAX layer list")
+        layer, entry = layers[jname]
+        for key, value in _layer_from_jax(layer, sub, entry).items():
+            out[f"{layer.name}.{key}"] = value
+    return out
+
+
+def _layer_to_jax(layer, flat: Mapping[str, np.ndarray], entry) -> Dict:
+    """Inverse of `_layer_from_jax`."""
+    if isinstance(layer, Sequential):
+        return _tree_to_jax(flat, entry[1], layer)
+    if isinstance(layer, Bidirectional):
+        tree: Dict = {"forward": {}, "backward": {}}
+        for key, value in flat.items():
+            half, leaf = key.split(".", 1)
+            tree[half[:-len("_layer")]][leaf] = value
+        return tree
+    if isinstance(layer, TimeDistributed):
+        return _layer_to_jax(layer.layer, {key.split(".", 1)[1]: value
+                                           for key, value in flat.items()},
+                             None)
+    out = dict(flat)
+    if isinstance(layer, _ConvND) and "kernel" in out:
+        out["kernel"] = _oihw_to_hwio(out["kernel"], layer.spatial_rank)
+    return out
+
+
+def _tree_to_jax(flat: Mapping[str, np.ndarray], jax_layer_names: Sequence,
+                 model) -> Dict:
+    layers = _port_layers(model, jax_layer_names)
+    groups: Dict[str, Dict[str, np.ndarray]] = {
+        l.name: {} for l, _ in layers.values()}
+    for key, value in flat.items():
+        name, rest = key.split(".", 1)
+        groups[name][rest] = value
+    return {j: _layer_to_jax(l, groups[l.name], e)
+            for j, (l, e) in layers.items()}
+
+
+def model_params_from_jax(tree: Mapping, jax_layer_names: Sequence,
+                          model) -> Dict[str, torch.Tensor]:
+    """A JAX functional `Model`'s or `Sequential`'s parameter tree → the
+    port model's state dict (CPU tensors; `load_state_dict` copies them
+    onto the model's device). `jax_layer_names` lists the JAX model's
+    layers in graph order (`[l.name for l in jax_model._ordered_layers()]`),
+    a nested `Sequential` as `(name, [its layers' names])`. None leaves
+    (the tables of a lazy-embedding rest state) are skipped."""
+    return {k: _to_tensor(v) for k, v in
+            _tree_from_jax(tree, jax_layer_names, model).items()
+            if v is not None}
+
+
 def model_params_to_jax(state_dict: Mapping[str, torch.Tensor],
-                        jax_layer_names: Sequence[str], model) -> Dict:
+                        jax_layer_names: Sequence, model) -> Dict:
     """Inverse of `model_params_from_jax`: a port state dict → the JAX tree
     under the JAX layer names, every layer present (`{}` when it has no
     parameters), in graph order."""
-    to_jax = {p: j for j, p in _port_names(model, jax_layer_names).items()}
-    convs = _conv_layers(model)
-    tree: Dict = {j: {} for j in jax_layer_names}
-    for key, value in state_dict.items():
-        layer, leaf = key.split(".", 1)
-        value = _to_numpy(value)
-        if leaf == "kernel" and layer in convs:
-            value = _oihw_to_hwio(value, convs[layer])
-        tree[to_jax[layer]][leaf] = value
-    return tree
+    return _tree_to_jax({k: _to_numpy(v) for k, v in state_dict.items()},
+                        jax_layer_names, model)
 
 
 def model_opt_state_from_jax(state, jax_layer_names: Sequence[str], model,

@@ -5,8 +5,11 @@ Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with
 `stateful` and `call_and_state` (L61-80) and its symbolic `__call__`
 (L82), `Node` (L110), `Input` (L128), `_topo_sort` (L134), `KerasNet`
 (L151) with `compile` (L183, the single-loss form), `fit` (L246),
-`evaluate` (L255), `predict` (L262) and `ensure_built` (L234), and `Model`
-(L513, `build` L548, `apply` and `apply_and_state` L566-612). In the JAX
+`evaluate` (L255), `predict` (L262) and `ensure_built` (L234),
+`Sequential` (L414-511: `add`, the list constructor, `build`, `apply`,
+`apply_and_state`, `compute_output_shape`, `call` / `call_and_state` and
+the symbolic `__call__` as a layer, `input_shape`) and `Model` (L513,
+`build` L548, `apply` and `apply_and_state` L566-612). In the JAX
 package a layer is a pure function plus a parameter pytree (`build(rng,
 shape) -> params`, `call(params, x)`); here a layer is an `nn.Module` that
 owns its parameters, so the parameter argument goes away:
@@ -23,13 +26,15 @@ owns its parameters, so the parameter argument goes away:
   seeds from;
 - parameters are created with the sizes the layer's config gives, at
   construction, or, for a layer whose sizes depend on its input's width
-  (`Dense`), when it is first called on a node; they are created on the
-  layer's `device` and `dtype`, and hold no values until `build(generator)`
-  fills them (the JAX init families: Glorot uniform kernels, zero biases,
-  N(0, 0.02) or U[0, 0.05) embeddings) or a state dict is loaded
+  (`Dense`), when it is first called on a node or a `Sequential` walks
+  its shapes; they are created on the layer's `device` and `dtype`, and
+  hold no values until `build(generator)` fills them (the JAX init
+  families: Glorot uniform kernels, orthogonal recurrent kernels, zero
+  biases, N(0, 0.02) or U[0, 0.05) embeddings) or a state dict is loaded
   (`convert` carries JAX weights across);
-- `Model` registers its layers as submodules under their names, in graph
-  order, so its state-dict keys are `"<layer name>.<leaf>"`.
+- `Model` and `Sequential` register their layers as submodules under
+  their names, in order, so their state-dict keys are
+  `"<layer name>.<leaf>"`.
 
 Parameters are trainable (`requires_grad`); serving, `evaluate` and
 `predict` run under `torch.inference_mode`, so they build no autograd
@@ -53,9 +58,9 @@ both, and the optimizer never changes them in the JAX package either (their
 gradient is zero in a training forward, which normalises with the batch's
 statistics, and `_merge_state` overwrites whatever the step wrote).
 
-A nested `Model` used as a layer, `Sequential`, multi-output losses and
-`ZooModel` persistence wait for later slices of the port (ROADMAP.md
-queue 1, item 2).
+A nested `Model` used as a layer (a `Sequential` can be one), multi-output
+losses and `ZooModel` persistence wait for later slices of the port
+(ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from __future__ import annotations
 import collections
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -119,9 +125,13 @@ class Layer(nn.Module):
     # statistics, in buffers)
     stateful = False
 
-    def __init__(self, name: Optional[str] = None):
+    def __init__(self, name: Optional[str] = None,
+                 input_shape: Optional[Sequence] = None):
         super().__init__()
         self.name = name or _auto_name(type(self).__name__)
+        # the Keras contract: `input_shape` excludes the batch dimension
+        self.input_shape = (None,) + tuple(input_shape) \
+            if input_shape is not None else None
         self._params_created = False
 
     # -- subclass API ------------------------------------------------------
@@ -137,7 +147,15 @@ class Layer(nn.Module):
 
     def create_parameters(self, input_shape) -> None:
         """Create the parameters whose sizes come from the input's shape
-        (called once, at the layer's first call on a node)."""
+        (called once, through `ensure_parameters`)."""
+
+    def ensure_parameters(self, input_shape) -> None:
+        """`create_parameters` unless done: at construction when the layer
+        was given `input_shape`, else at its first call on a node or when a
+        `Sequential` walks its shapes."""
+        if not self._params_created:
+            self.create_parameters(input_shape)
+            self._params_created = True
 
     def call(self, x, *, training: bool = False):
         raise NotImplementedError
@@ -172,9 +190,7 @@ class Layer(nn.Module):
             else [inputs]
         in_shapes = [n.shape for n in nodes]
         shape_in = in_shapes if len(in_shapes) > 1 else in_shapes[0]
-        if not self._params_created:
-            self.create_parameters(shape_in)
-            self._params_created = True
+        self.ensure_parameters(shape_in)
         return Node(layer=self, inputs=nodes,
                     shape=self.compute_output_shape(shape_in))
 
@@ -299,8 +315,9 @@ class KerasNet(nn.Module):
     def ensure_built(self, sample_input=None, seed: int = 0
                      ) -> Dict[str, torch.Tensor]:
         """Initialise parameters from `seed` unless already built or loaded;
-        returns the state dict. `sample_input` is accepted for the JAX
-        signature; sizes come from the model's config."""
+        returns the state dict. A `Model`'s sizes come from its graph, so it
+        ignores `sample_input`; a `Sequential` may take its input's shape
+        from it."""
         if not self._built:
             with torch.no_grad():
                 self.build(torch.Generator().manual_seed(seed))
@@ -313,6 +330,142 @@ class KerasNet(nn.Module):
                                          assign=assign)
         self._built = True
         return result
+
+
+def _add_updates(updates: State, layer, upd) -> None:
+    """Collect one layer's state updates under its name; a nested model's
+    come keyed by paths below it, which take its name as a prefix."""
+    if not upd:
+        return
+    if isinstance(layer, KerasNet):
+        for path, leaves in upd.items():
+            updates[f"{layer.name}.{path}"] = leaves
+    else:
+        updates.setdefault(layer.name, {}).update(upd)
+
+
+def _sample_shape(sample) -> Shape:
+    """The shape a sample batch gives a model: batch dimension None."""
+    shape = sample.shape if hasattr(sample, "shape") else np.shape(sample)
+    return (None,) + tuple(int(d) for d in shape[1:])
+
+
+class Sequential(KerasNet):
+    """Linear stack (`Topology.scala:854`), registered as submodules under
+    the layers' names, so its state-dict keys are `"<layer name>.<leaf>"`
+    (a nested `Sequential` adds its own name in front).
+
+    The port's layers create their parameters when their input's shape is
+    known, so `add` walks the shapes as the JAX package's `build` does:
+    from the first layer's `input_shape`, each layer gets the running shape
+    (`ensure_parameters`) and passes on its `compute_output_shape`. When the
+    first layer has no `input_shape`, creation waits for
+    `ensure_built(sample_input)`, or for the shape a symbolic call or an
+    enclosing `Sequential` gives it. A `Sequential` can be a layer: added to
+    another, or called on a `Node`."""
+
+    def __init__(self, layers: Optional[Sequence] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.layers: List = []
+        self._params_created = False
+        self._out_shape: Optional[Shape] = None
+        for layer in (layers or []):
+            self.add(layer)
+
+    def add(self, layer) -> "Sequential":
+        if any(layer is l for l in self.layers):
+            raise ValueError(f"{layer.name} is already in {self.name}")
+        self.add_module(layer.name, layer)
+        self.layers.append(layer)
+        if len(self.layers) == 1 and layer.input_shape is not None:
+            self._params_created = True
+            self._out_shape = layer.input_shape
+        if self._params_created:
+            layer.ensure_parameters(self._out_shape)
+            self._out_shape = layer.compute_output_shape(self._out_shape)
+        return self
+
+    @property
+    def input_shape(self) -> Optional[Shape]:
+        return self.layers[0].input_shape if self.layers else None
+
+    def create_parameters(self, input_shape) -> None:
+        self._params_created = True
+        shape = self.input_shape or input_shape
+        for layer in self.layers:
+            layer.ensure_parameters(shape)
+            shape = layer.compute_output_shape(shape)
+        self._out_shape = shape
+
+    def ensure_parameters(self, input_shape) -> None:
+        if not self._params_created:
+            self.create_parameters(input_shape)
+
+    def ensure_built(self, sample_input=None, seed: int = 0
+                     ) -> Dict[str, torch.Tensor]:
+        """As `KerasNet.ensure_built`; a stack whose first layer has no
+        `input_shape` creates its parameters from `sample_input`'s shape
+        first."""
+        if not self._params_created:
+            if sample_input is None:
+                raise ValueError(f"Cannot build {self.name}: no input_shape "
+                                 "on the first layer and no sample input")
+            self.create_parameters(_sample_shape(sample_input))
+        return super().ensure_built(sample_input, seed)
+
+    def build(self, generator: torch.Generator) -> None:
+        for layer in self.layers:
+            layer.build(generator)
+
+    def apply(self, inputs, *, training: bool = False,
+              seed: Optional[int] = None):
+        """The forward; in training, the stateful layers' buffers take
+        their updates (`merge_state`)."""
+        out, updates = self.apply_and_state(inputs, training=training,
+                                            seed=seed)
+        merge_state(self, updates)
+        return out
+
+    def apply_and_state(self, inputs, *, training: bool = False,
+                        seed: Optional[int] = None) -> Tuple[Any, State]:
+        """`(output, {layer name: {buffer: new value}})`, writing nothing.
+        Layer i gets the seed `site_seed(seed, i)`, where the JAX package
+        splits its key once a layer."""
+        x = inputs
+        updates: State = {}
+        for i, layer in enumerate(self.layers):
+            sub = None if seed is None else site_seed(seed, i)
+            x, upd = layer.call_and_state(x, training=training, seed=sub)
+            _add_updates(updates, layer, upd)
+        return x, updates
+
+    # -- as a layer ----------------------------------------------------------
+    def call(self, x, *, training: bool = False, seed: Optional[int] = None):
+        return self.apply(x, training=training, seed=seed)
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[int] = None):
+        return self.apply_and_state(x, training=training, seed=seed)
+
+    def compute_output_shape(self, input_shape):
+        shape = input_shape
+        for layer in self.layers:
+            shape = layer.compute_output_shape(shape)
+        return shape
+
+    def __call__(self, *args, **kwargs):
+        """A symbolic call on a `Node`, or the forward."""
+        if args and _is_symbolic(args[0]):
+            if len(args) > 1 or kwargs:
+                raise TypeError(f"{self.name}: a symbolic call takes the "
+                                "input node(s) only")
+            return Layer._call_symbolic(self, args[0])
+        return super().__call__(*args, **kwargs)
+
+    def ordered_layers(self) -> List:
+        """The layers in order: the order `convert` maps weights by."""
+        return list(self.layers)
 
 
 class Model(KerasNet):
@@ -384,8 +537,7 @@ class Model(KerasNet):
             y, upd = node.layer.call_and_state(arg, training=training,
                                                seed=sub)
             values[id(node)] = y
-            if upd:
-                updates.setdefault(node.layer.name, {}).update(upd)
+            _add_updates(updates, node.layer, upd)
         outs = [values[id(o)] for o in self.outputs]
         return (outs if len(outs) > 1 else outs[0]), updates
 

@@ -1,20 +1,28 @@
 """Initializers, activations and the core layers.
 
 Port of the part of `analytics_zoo_tpu/keras/layers.py` that BERT,
-NeuralCF and the image models use: `get_init` (L44, with the
-"glorot_uniform", "uniform" and "zeros" families of L30-41),
-`get_activation` (L73), `Dense` (L96), `Activation` (L131), `Dropout`
-(L140), `Flatten` (L156), `Select` (L241), `Merge` (L275, all seven
-modes), `merge` (L329), `Embedding` (L338), `BatchNormalization` (L392),
-`LayerNormalization` (L456), and the convolutions and pools of L479-704:
-`_ConvND` with `Convolution1D/2D/3D` and their `Conv*D` aliases,
-`_PoolND` with `MaxPooling1D/2D` and `AveragePooling1D/2D`, and
-`_GlobalPool` with its four subclasses. Initializers match the JAX ones in
-distribution, not in bits (the two frameworks draw different numbers from
-one seed); `"uniform"` is `jax.nn.initializers.uniform(0.05)`, which
-draws from [0, 0.05), not ±0.05. `"gelu"` is `jax.nn.gelu`'s default, the
-tanh approximation — not torch's erf form. `Dense` keeps its kernel as
-[in, out], the JAX layout.
+NeuralCF, the image models and the recurrent models use: `get_init` (L44,
+with the whole table of L30-41), `get_activation` (L73), `Dense` (L96),
+`Activation` (L131), `Dropout` (L140), `Flatten` (L156), `Select` (L241),
+`Merge` (L275, all seven modes), `merge` (L329), `Embedding` (L338),
+`WordEmbedding` (L380), `BatchNormalization` (L392), `LayerNormalization`
+(L456), the convolutions and pools of L479-704 (`_ConvND` with
+`Convolution1D/2D/3D` and their `Conv*D` aliases, `_PoolND` with
+`MaxPooling1D/2D` and `AveragePooling1D/2D`, `_GlobalPool` with its four
+subclasses), `ZeroPadding2D` (L706), `UpSampling2D` (L727), and the
+recurrent layers of L753-928: `_Recurrent`, `SimpleRNN`, `LSTM`, `GRU`
+(both reset forms), `Bidirectional` and `TimeDistributed`. Initializers
+match the JAX ones in distribution, not in bits (the two frameworks draw
+different numbers from one seed); `"uniform"` is
+`jax.nn.initializers.uniform(0.05)`, which draws from [0, 0.05), not
+±0.05. `"gelu"` is `jax.nn.gelu`'s default, the tanh approximation — not
+torch's erf form. `Dense` keeps its kernel as [in, out], the JAX layout.
+
+The recurrences are PyTorch ops in a Python loop over time, as the JAX
+package's are `lax.scan`s outside any Pallas kernel. They cannot go to
+cuDNN's RNNs: the default inner activation is `hard_sigmoid`, not the
+sigmoid cuDNN fixes, and the default GRU applies its reset gate before the
+recurrent product.
 
 Images stay channels-last (NHWC) at the API, as in the JAX package
 (`dim_ordering="th"` takes NCHW). Inside a convolution or a pool,
@@ -41,6 +49,7 @@ epsilon 1e-3. The moving statistics are buffers (`keras/engine.py`).
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -67,17 +76,60 @@ def _uniform(gen, shape, limit):
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
 
 
-def _glorot_uniform(gen, shape):
-    fan_in, fan_out = _fans(shape)
-    return _uniform(gen, shape, math.sqrt(6.0 / (fan_in + fan_out)))
+# the standard deviation of N(0, 1) truncated to (-2, 2)
+_TRUNCATED_STD = 0.87962566103423978
 
 
-# The rest of the JAX package's initializers come with the layers that use
-# them (convolutions, recurrent kernels).
+def _truncated_normal(gen, shape):
+    """N(0, 1) truncated to (-2, 2), by the inverse CDF of a uniform draw
+    (the method of `jax.random.truncated_normal`)."""
+    lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=gen)
+    return (math.sqrt(2.0) * torch.erfinv(u)).clamp_(-2.0, 2.0)
+
+
+def _variance_scaling(scale: float, mode: str, distribution: str) -> Init:
+    """`jax.nn.initializers.variance_scaling` (fans from the last two axes
+    and the window before them)."""
+    def init(gen, shape):
+        fan_in, fan_out = _fans(shape)
+        denom = fan_in if mode == "fan_in" else (fan_in + fan_out) / 2
+        if distribution == "uniform":
+            return _uniform(gen, shape, math.sqrt(3.0 * scale / denom))
+        return _truncated_normal(gen, shape) * (math.sqrt(scale / denom)
+                                                / _TRUNCATED_STD)
+    return init
+
+
+def _orthogonal(gen, shape):
+    """`jax.nn.initializers.orthogonal()`: the last axis holds the columns;
+    a [rows, cols] matrix has orthonormal columns when rows >= cols, else
+    orthonormal rows (a recurrent kernel [H, n·H]: orthonormal rows). Q of
+    the QR of a Gaussian matrix, its columns' signs set by R's diagonal."""
+    if len(shape) < 2:
+        raise ValueError("orthogonal initializer requires at least a 2D "
+                         "shape")
+    cols = shape[-1]
+    rows = math.prod(shape) // cols
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=gen)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return (q.T if rows < cols else q).reshape(shape).contiguous()
+
+
+# the JAX package's table (`keras/layers.py:30-41`); they match it in
+# distribution, not in bits
 _INITS: Dict[str, Init] = {
-    "glorot_uniform": _glorot_uniform,
-    "uniform": lambda gen, shape: torch.rand(shape, generator=gen) * 0.05,
+    "glorot_uniform": _variance_scaling(1.0, "fan_avg", "uniform"),
+    "glorot_normal": _variance_scaling(1.0, "fan_avg", "truncated_normal"),
+    "he_normal": _variance_scaling(2.0, "fan_in", "truncated_normal"),
+    "he_uniform": _variance_scaling(2.0, "fan_in", "uniform"),
+    "lecun_normal": _variance_scaling(1.0, "fan_in", "truncated_normal"),
+    "orthogonal": _orthogonal,
     "zeros": lambda gen, shape: torch.zeros(shape),
+    "ones": lambda gen, shape: torch.ones(shape),
+    "uniform": lambda gen, shape: torch.rand(shape, generator=gen) * 0.05,
+    "normal": lambda gen, shape: torch.randn(shape, generator=gen) * 0.05,
 }
 
 
@@ -102,7 +154,9 @@ _ACTIVATIONS: Dict[str, Callable] = {
     "relu6": F.relu6,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
-    "hard_sigmoid": lambda x: F.relu6(x + 3.0) / 6.0,
+    # jax.nn.hard_sigmoid, relu6(x + 3) / 6, in one pass (x / 6 + 1/2
+    # clamped to [0, 1]; a bf16 input rounds once, where JAX rounds twice)
+    "hard_sigmoid": F.hardsigmoid,
     "softmax": lambda x: torch.softmax(x, dim=-1),
     "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
     "softplus": F.softplus,
@@ -172,15 +226,14 @@ class Dense(Layer):
                  device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  name: Optional[str] = None):
-        super().__init__(name=name)
+        super().__init__(name=name, input_shape=input_shape)
         self.output_dim = output_dim
         self.activation = get_activation(activation)
         self.use_bias = use_bias
         self.init = get_init(init)
         self._device, self._dtype = device, dtype
-        if input_shape is not None:
-            self.create_parameters((None,) + tuple(input_shape))
-            self._params_created = True
+        if self.input_shape is not None:
+            self.ensure_parameters(self.input_shape)
 
     def create_parameters(self, input_shape):
         self.kernel = new_parameter((input_shape[-1], self.output_dim),
@@ -320,10 +373,11 @@ class Embedding(Layer):
 
     def __init__(self, input_dim: int, output_dim: int, init="uniform",
                  weights: Optional[np.ndarray] = None, trainable: bool = True,
+                 input_shape: Optional[Sequence] = None,
                  device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  name: Optional[str] = None):
-        super().__init__(name=name)
+        super().__init__(name=name, input_shape=input_shape)
         self.input_dim, self.output_dim = input_dim, output_dim
         self.init = get_init(init)
         self.weights = weights
@@ -353,6 +407,18 @@ class Embedding(Layer):
         return tuple(input_shape) + (self.output_dim,)
 
 
+class WordEmbedding(Embedding):
+    """`keras/layers/WordEmbedding.scala`: a frozen `Embedding` over a given
+    [vocab, dim] matrix. The table stays a parameter, with a zero gradient
+    (JAX: `stop_gradient`), so an optimizer without weight decay leaves it
+    as it is."""
+
+    def __init__(self, embedding_matrix: np.ndarray, **kw):
+        vocab, dim = np.shape(embedding_matrix)
+        super().__init__(vocab, dim, weights=np.asarray(embedding_matrix),
+                         trainable=False, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------
@@ -371,12 +437,11 @@ class BatchNormalization(Layer):
                  device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  name: Optional[str] = None):
-        super().__init__(name=name)
+        super().__init__(name=name, input_shape=input_shape)
         self.epsilon, self.momentum, self.axis = epsilon, momentum, axis
         self._device, self._dtype = device, dtype
-        if input_shape is not None:
-            self.create_parameters((None,) + tuple(input_shape))
-            self._params_created = True
+        if self.input_shape is not None:
+            self.ensure_parameters(self.input_shape)
 
     def create_parameters(self, input_shape):
         dim = input_shape[self.axis]
@@ -486,7 +551,7 @@ class _ConvND(Layer):
                  device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  name: Optional[str] = None):
-        super().__init__(name=name)
+        super().__init__(name=name, input_shape=input_shape)
         self.nb_filter = nb_filter
         self.kernel_size = tuple(kernel_size)
         self.activation = get_activation(activation)
@@ -499,9 +564,8 @@ class _ConvND(Layer):
         self.init = get_init(init)
         self.groups = int(groups)
         self._device, self._dtype = device, dtype
-        if input_shape is not None:
-            self.create_parameters((None,) + tuple(input_shape))
-            self._params_created = True
+        if self.input_shape is not None:
+            self.ensure_parameters(self.input_shape)
 
     def create_parameters(self, input_shape):
         in_ch = input_shape[1] if self.dim_ordering == "th" \
@@ -705,3 +769,291 @@ class GlobalMaxPooling1D(_GlobalPool):
 class GlobalAveragePooling1D(_GlobalPool):
     spatial_axes = (1,)
     reducer = "avg"
+
+
+class ZeroPadding2D(Layer):
+    """Zero rows and columns on both sides of the two spatial axes (JAX
+    L706); `padding` is (rows, columns) a side."""
+
+    def __init__(self, padding=(1, 1), dim_ordering: str = "tf",
+                 input_shape: Optional[Sequence] = None,
+                 name: Optional[str] = None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.pad = tuple(padding)
+        self.dim_ordering = dim_ordering
+
+    def call(self, x, *, training: bool = False):
+        ph, pw = self.pad
+        if self.dim_ordering == "tf":
+            return F.pad(x, (0, 0, pw, pw, ph, ph))
+        return F.pad(x, (pw, pw, ph, ph))
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        first = 1 if self.dim_ordering == "tf" else 2
+        for axis, p in zip((first, first + 1), self.pad):
+            s[axis] = None if s[axis] is None else s[axis] + 2 * p
+        return tuple(s)
+
+
+class UpSampling2D(Layer):
+    """Repeat each row `size[0]` times and each column `size[1]` times
+    (JAX L727)."""
+
+    def __init__(self, size=(2, 2), dim_ordering: str = "tf",
+                 input_shape: Optional[Sequence] = None,
+                 name: Optional[str] = None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.size = tuple(size)
+        self.dim_ordering = dim_ordering
+
+    def call(self, x, *, training: bool = False):
+        first = 1 if self.dim_ordering == "tf" else 2
+        sh, sw = self.size
+        return x.repeat_interleave(sh, dim=first).repeat_interleave(
+            sw, dim=first + 1)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        first = 1 if self.dim_ordering == "tf" else 2
+        for axis, k in zip((first, first + 1), self.size):
+            s[axis] = None if s[axis] is None else s[axis] * k
+        return tuple(s)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent layers
+# ---------------------------------------------------------------------------
+class _Recurrent(Layer):
+    """A recurrence over the time axis of `[B, T, F]` (JAX L753-812). The
+    parameters are the JAX package's, in its layout and gate order: `kernel`
+    [F, n·H], `recurrent` [H, n·H], `bias` [n·H]. The input product of every
+    step is one GEMM before the loop (`x @ kernel + bias`, time-major), so a
+    step is one `h @ recurrent` and its gate math: the JAX step's function
+    up to rounding (it adds the bias after the two products). The loop is
+    Python over PyTorch ops, as the JAX package scans outside any Pallas
+    kernel; the per-step inputs come from one `unbind` and the sequence
+    goes out through one `stack`, whose backwards are one op each.
+
+    The input follows the parameters' dtype and so does the carry (JAX
+    L790, L799-802): under bf16 mixed precision h (and an LSTM's c) stay
+    bf16 at every step. `go_backwards` walks time from the end; with
+    `return_sequences` the sequence comes back in input order (JAX
+    L804-806; Keras would leave it reversed)."""
+
+    n_gates = 1
+
+    def __init__(self, output_dim: int, activation="tanh",
+                 inner_activation="hard_sigmoid",
+                 return_sequences: bool = False, go_backwards: bool = False,
+                 init="glorot_uniform", inner_init="orthogonal",
+                 input_shape: Optional[Sequence] = None,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.output_dim = output_dim
+        self.activation = get_activation(activation)
+        self.inner_activation = get_activation(inner_activation)
+        self.return_sequences = return_sequences
+        self.go_backwards = go_backwards
+        self.init = get_init(init)
+        self.inner_init = get_init(inner_init)
+        self._device, self._dtype = device, dtype
+        if self.input_shape is not None:
+            self.ensure_parameters(self.input_shape)
+
+    def create_parameters(self, input_shape):
+        width = self.n_gates * self.output_dim
+        self.kernel = new_parameter((input_shape[-1], width), self._device,
+                                    self._dtype)
+        self.recurrent = new_parameter((self.output_dim, width),
+                                       self._device, self._dtype)
+        self.bias = new_parameter((width,), self._device, self._dtype)
+
+    def build(self, generator):
+        fill_(self.kernel, self.init(generator, tuple(self.kernel.shape)))
+        fill_(self.recurrent, self.inner_init(
+            generator, tuple(self.recurrent.shape)))
+        fill_(self.bias, torch.zeros(self.bias.shape))
+        return self
+
+    def initial_state(self, batch: int):
+        return self.kernel.new_zeros((batch, self.output_dim))
+
+    def step(self, carry, xw_t):
+        """`(carry, h)` after one step; `xw_t` is this step's
+        `x_t @ kernel + bias`."""
+        raise NotImplementedError
+
+    def call(self, x, *, training: bool = False):
+        x = _match_param_dtype(x, self.kernel)
+        batch, steps = x.shape[0], x.shape[1]
+        xw = torch.addmm(self.bias, x.transpose(0, 1).reshape(
+            steps * batch, -1), self.kernel).view(steps, batch, -1)
+        xw = xw.unbind(0)
+        carry = self.initial_state(batch)
+        order = range(steps - 1, -1, -1) if self.go_backwards \
+            else range(steps)
+        outs = [None] * steps
+        for t in order:
+            carry, h = self.step(carry, xw[t])
+            outs[t] = h
+        return torch.stack(outs, dim=1) if self.return_sequences else h
+
+    def compute_output_shape(self, input_shape):
+        if self.return_sequences:
+            return (input_shape[0], input_shape[1], self.output_dim)
+        return (input_shape[0], self.output_dim)
+
+
+class SimpleRNN(_Recurrent):
+    """`h = activation(x_t @ kernel + h @ recurrent + bias)` (JAX L815)."""
+
+    n_gates = 1
+
+    def step(self, h, xw_t):
+        h = self.activation(torch.addmm(xw_t, h, self.recurrent))
+        return h, h
+
+
+class LSTM(_Recurrent):
+    """Gate order i, f, c, o (Keras's; JAX L824). The inner activation
+    takes the i|f columns in one call."""
+
+    n_gates = 4
+
+    def initial_state(self, batch: int):
+        zeros = super().initial_state(batch)
+        return zeros, zeros
+
+    def step(self, carry, xw_t):
+        h, c = carry
+        d = self.output_dim
+        zif, zc, zo = torch.addmm(xw_t, h, self.recurrent).split(
+            (2 * d, d, d), dim=1)
+        i, f = self.inner_activation(zif).chunk(2, dim=1)
+        c = torch.addcmul(f * c, i, self.activation(zc))
+        h = self.inner_activation(zo) * self.activation(c)
+        return (h, c), h
+
+
+class GRU(_Recurrent):
+    """Gate order z, r, h (Keras's; JAX L845). The default applies the
+    reset gate to `h @ recurrent` before adding the input's candidate
+    columns (Keras's reset-before form, which cuDNN's GRU does not
+    compute); `reset_after=True` adds a `recurrent_bias` [3·H] to
+    `h @ recurrent` first (the torch / cuDNN form, for converting their
+    weights). The new state `z·h + (1 − z)·candidate` is one `lerp`."""
+
+    n_gates = 3
+
+    def __init__(self, *args, reset_after: bool = False, **kw):
+        self.reset_after = reset_after
+        super().__init__(*args, **kw)
+
+    def create_parameters(self, input_shape):
+        super().create_parameters(input_shape)
+        if self.reset_after:
+            self.recurrent_bias = new_parameter(
+                (self.n_gates * self.output_dim,), self._device, self._dtype)
+
+    def build(self, generator):
+        super().build(generator)
+        if self.reset_after:
+            fill_(self.recurrent_bias, torch.zeros(self.recurrent_bias.shape))
+        return self
+
+    def step(self, h, xw_t):
+        d = self.output_dim
+        hz = torch.addmm(self.recurrent_bias, h, self.recurrent) \
+            if self.reset_after else h @ self.recurrent
+        x_zr, x_h = xw_t.split((2 * d, d), dim=1)
+        h_zr, h_h = hz.split((2 * d, d), dim=1)
+        z, r = self.inner_activation(x_zr + h_zr).chunk(2, dim=1)
+        candidate = self.activation(torch.addcmul(x_h, r, h_h))
+        h = torch.lerp(candidate, h, z)
+        return h, h
+
+
+class Bidirectional(Layer):
+    """`keras/layers/Bidirectional.scala` (JAX L875): the wrapped layer
+    and a copy walking time the other way, merged by concat, sum, mul or
+    ave. The two are submodules `forward_layer` and `backward_layer` (an
+    `nn.Module` cannot have a child named `forward`); `convert` maps them
+    to the JAX tree's `forward` and `backward`."""
+
+    MODES = ("concat", "sum", "mul", "ave")
+
+    def __init__(self, layer: _Recurrent, merge_mode: str = "concat",
+                 input_shape: Optional[Sequence] = None,
+                 name: Optional[str] = None):
+        if merge_mode not in self.MODES:
+            raise ValueError(f"Unsupported merge_mode: {merge_mode}")
+        super().__init__(name=name, input_shape=input_shape)
+        self.forward_layer = layer
+        self.backward_layer = copy.deepcopy(layer)
+        self.backward_layer.name = layer.name + "_bwd"
+        self.backward_layer.go_backwards = not layer.go_backwards
+        self.merge_mode = merge_mode
+        if self.input_shape is not None:
+            self.ensure_parameters(self.input_shape)
+
+    def create_parameters(self, input_shape):
+        self.forward_layer.ensure_parameters(input_shape)
+        self.backward_layer.ensure_parameters(input_shape)
+
+    def call(self, x, *, training: bool = False):
+        f = self.forward_layer.call(x, training=training)
+        b = self.backward_layer.call(x, training=training)
+        if self.merge_mode == "concat":
+            return torch.cat([f, b], dim=-1)
+        if self.merge_mode == "sum":
+            return f + b
+        if self.merge_mode == "mul":
+            return f * b
+        return (f + b) / 2.0
+
+    def compute_output_shape(self, input_shape):
+        out = list(self.forward_layer.compute_output_shape(input_shape))
+        if self.merge_mode == "concat":
+            out[-1] *= 2
+        return tuple(out)
+
+
+class TimeDistributed(Layer):
+    """`keras/layers/TimeDistributed.scala` (JAX L913): the inner layer on
+    every step, time folded into the batch (one call on [B·T, ...]). Its
+    parameters are the submodule `layer`'s; the JAX tree keeps them at the
+    wrapper's own level, which `convert` maps. As in the JAX package, the
+    inner layer's state updates are not kept."""
+
+    def __init__(self, layer: Layer, input_shape: Optional[Sequence] = None,
+                 name: Optional[str] = None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.layer = layer
+        if self.input_shape is not None:
+            self.ensure_parameters(self.input_shape)
+
+    @staticmethod
+    def _inner_shape(input_shape):
+        return (input_shape[0],) + tuple(input_shape[2:])
+
+    def create_parameters(self, input_shape):
+        self.layer.ensure_parameters(self._inner_shape(input_shape))
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[int] = None):
+        b, t = x.shape[0], x.shape[1]
+        y, _ = self.layer.call_and_state(
+            x.reshape((b * t,) + tuple(x.shape[2:])), training=training,
+            seed=seed)
+        return y.reshape((b, t) + tuple(y.shape[1:])), {}
+
+    def call(self, x, *, training: bool = False):
+        return self.call_and_state(x, training=training)[0]
+
+    def compute_output_shape(self, input_shape):
+        inner = self.layer.compute_output_shape(
+            self._inner_shape(input_shape))
+        return (input_shape[0], input_shape[1]) + tuple(inner[1:])

@@ -286,7 +286,7 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             "training batches are whole-batch only. Lower batch_size or "
             "add data.")
     if not model.built:
-        model.ensure_built(seed=seed)
+        model.ensure_built(x, seed=seed)
     if model.optimizer is None:
         raise RuntimeError("Model must be compiled before fit")
     lazy_specs = None
@@ -356,7 +356,7 @@ def evaluate_keras(model, x, y=None, batch_per_thread: int = 32,
     over `(x, y)`, on the device the parameters live on. Whole batches
     first; then the tail, padded to a whole batch and sliced to its real
     rows before the metrics see it."""
-    model.ensure_built()
+    model.ensure_built(x)
     ms = metrics if metrics is not None else model.metrics
     if not ms:
         from analytics_zoo_tpu_torch.ops.metrics import Loss
@@ -388,7 +388,7 @@ def predict_keras(model, x, batch_per_thread: int = 32):
     """The model's outputs on `x` as numpy arrays (float32 for a bf16
     model), in batches of `batch_per_thread`, the last padded to a whole
     batch and sliced to its real rows."""
-    model.ensure_built()
+    model.ensure_built(x)
     device = _model_device(model)
     outs: List[Any] = []
     for xb, _, real in iter_batches(x, None, batch_per_thread,

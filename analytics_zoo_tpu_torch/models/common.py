@@ -2,10 +2,11 @@
 
 Port of `analytics_zoo_tpu/models/common.py`: `ZooModel` (L21) with its
 Keras passthroughs `compile`, `fit`, `evaluate`, `predict` and
-`predict_classes`. A ZooModel wraps a constructed Keras-style graph
-(`self.model`, a `KerasNet`) and its hyperparameters (`self._config`).
-`save_model` / `load_model` and `summary` wait for weight persistence and
-raise NotImplementedError naming it (ROADMAP.md queue 1, item 2).
+`predict_classes`. A ZooModel wraps a constructed Keras-style model
+(`self.model`, a functional `Model` or a `Sequential`) and its
+hyperparameters (`self._config`). What still waits: persistence
+(`save_model` / `load_model`) and `summary`, which raise
+NotImplementedError naming ROADMAP.md queue 1, item 2.
 """
 
 from __future__ import annotations

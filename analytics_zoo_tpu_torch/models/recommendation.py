@@ -3,12 +3,16 @@
 Port of `analytics_zoo_tpu/models/recommendation.py`: `UserItemFeature`
 (L29), `Recommender` (L37) with `predict_user_item_pair`,
 `recommend_for_user` and `recommend_for_item`, and `NeuralCF` (L68) with
-its `lazy_embedding_specs` (L117-140). The architecture is the
-reference's (`NeuralCF.scala:60-97`): MLP user and item embeddings
-concatenated into a Dense relu stack, and a GMF branch (the product of the
-MF embeddings) concatenated before the softmax. Ids are 1-based, so the
-tables have count + 1 rows. `WideAndDeep` and `SessionRecommender` wait
-(ROADMAP.md queue 1).
+its `lazy_embedding_specs` (L117-140), and `SessionRecommender` (L221-279)
+with `recommend_for_session`. NeuralCF's architecture is the reference's
+(`NeuralCF.scala:60-97`): MLP user and item embeddings concatenated into a
+Dense relu stack, and a GMF branch (the product of the MF embeddings)
+concatenated before the softmax. SessionRecommender's
+(`session_recommender.py:69-94`) is a GRU stack over the session's item
+embeddings into a softmax over the items; its history branch
+(`include_history=True`) sums embeddings through an `ops/autograd.Lambda`,
+which is not ported, and raises. Ids are 1-based, so the tables have count
++ 1 rows. `WideAndDeep` waits (ROADMAP.md queue 1, item 2).
 
 `device` says where the parameters are created (None is `cuda`; the CPU
 only when asked, as everywhere in the port).
@@ -146,3 +150,66 @@ class NeuralCF(Recommender):
                               set_ids_fn=_set_ids_fn(col[n]))
             for n in table_names]
         return model
+
+
+HISTORY_NOT_PORTED = (
+    "SessionRecommender(include_history=True) sums the history embeddings "
+    "through ops/autograd.Lambda, which is not ported yet (ROADMAP.md "
+    "queue 1, item 2: a nested Model used as a layer, with "
+    "ops/autograd.Lambda)")
+
+
+class SessionRecommender(Recommender):
+    """Session-based GRU recommender (`session_recommender.py:30,69-94`).
+    Input: [B, session_length] of 1-based item ids; output: a softmax over
+    the `item_count` items."""
+
+    def __init__(self, item_count: int, item_embed: int = 100,
+                 rnn_hidden_layers: Sequence[int] = (40, 20),
+                 session_length: int = 0, include_history: bool = False,
+                 mlp_hidden_layers: Sequence[int] = (40, 20),
+                 history_length: int = 0, device: DeviceLike = None):
+        super().__init__()
+        if session_length <= 0:
+            raise ValueError("session_length must be positive")
+        if include_history and history_length <= 0:
+            raise ValueError("history_length must be positive with history")
+        if include_history:
+            raise NotImplementedError(HISTORY_NOT_PORTED)
+        self._config = dict(item_count=item_count, item_embed=item_embed,
+                            rnn_hidden_layers=list(rnn_hidden_layers),
+                            session_length=session_length,
+                            include_history=include_history,
+                            mlp_hidden_layers=list(mlp_hidden_layers),
+                            history_length=history_length)
+        self.item_count = item_count
+        self.item_embed = item_embed
+        self.rnn_hidden_layers = list(rnn_hidden_layers)
+        self.session_length = session_length
+        self.include_history = include_history
+        self.mlp_hidden_layers = list(mlp_hidden_layers)
+        self.history_length = history_length
+        self.device = device
+        self.model = self.build_model()
+
+    def build_model(self) -> Model:
+        dev = self.device
+        inp = Input(shape=(self.session_length,))
+        x = L.Embedding(self.item_count + 1, self.item_embed, init="uniform",
+                        device=dev)(inp)
+        for units in self.rnn_hidden_layers[:-1]:
+            x = L.GRU(units, return_sequences=True, device=dev)(x)
+        x = L.GRU(self.rnn_hidden_layers[-1], device=dev)(x)
+        logits = L.Dense(self.item_count, device=dev)(x)
+        return Model(inp, L.Activation("softmax")(logits))
+
+    def recommend_for_session(self, sessions: np.ndarray, max_items: int = 5,
+                              zero_based_label: bool = True):
+        """The `max_items` most probable items of each session, as (item,
+        probability) pairs; items are 0-based unless `zero_based_label` is
+        False."""
+        probs = self.predict(sessions)
+        top = np.argsort(-probs, axis=-1)[:, :max_items]
+        shift = 0 if zero_based_label else 1
+        return [list(zip((t + shift).tolist(), probs[i, t].tolist()))
+                for i, t in enumerate(top)]

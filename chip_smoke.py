@@ -5,7 +5,8 @@ a full-width BERT-base classifier through the port's `InferenceModel`,
 train it through `Estimator.fit`, train, evaluate and rank with NeuralCF at
 MovieLens-20M scale, serve generative decoding at GPT-2 small's widths
 through `DecodeServing`, serve and train ResNet-50 at ImageNet's widths,
-and print what it measured.
+serve and train the recurrent models (TextClassifier at news20's widths,
+AnomalyDetector, SessionRecommender), and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -107,8 +108,32 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    plain path (3 steps, f32 and bf16) beside the rounding floor;
 15. one Inception-v1 training step (batch 32): its `Dropout` layer launches
    the dropout kernel forward and backward, checked at that shape;
-16. a `kernels` line listing every kernel of the port;
-17. the last line, `{"ok": true, "device": {...}}`.
+16. TextClassifier at the news20 example's widths (5,001 x 200 frozen
+   `WordEmbedding` of a random matrix, seq 500, hidden 256, 20 classes),
+   lstm and gru, through `Estimator.from_keras(..., optimizer="adam")
+   .fit(..., batch_size=128, mixed_precision=True, fused_optimizer=True)`:
+   step ms, samples/s, tokens/s, MFU from the GEMM shapes, peak memory,
+   two dropout and one fused-Adam launch a step, no build after warmup,
+   the frozen table unchanged; a profiled fit (device ms and ops a step by
+   op class, idle share); the kernel path against the plain path (the
+   dropout layer on its plain version with the same keep masks, plain
+   Adam; 3 steps, f32 and bf16);
+17. TextClassifier (lstm, gru, cnn) through `InferenceModel`, f32 and bf16,
+   answering batches of 1, 8, 32 and 128; probabilities against the port's
+   CPU run;
+18. the recurrence's yardstick: the port's LSTM and GRU layers beside
+   `torch.nn.LSTM` / `torch.nn.GRU` (cuDNN: sigmoid gates, reset-after, a
+   different function the port never calls) at B 128, T 500, E 200, H
+   256, forward and forward + backward, with the FLOP bound;
+19. AnomalyDetector at the JAX defaults on (50, 3) windows, batch 1024,
+   "adam", "mse", f32: `unroll` of a seeded series with injected spikes,
+   `fit` (six dropout and one fused-Adam launch a step), `InferenceModel`
+   predict p50 at batch 1024, `detect_anomalies` finding the spikes, the
+   card against the CPU, kernel path against plain path;
+20. SessionRecommender (GRU (40, 20), 5,000 items, sessions of 10): the
+   card's softmax against the CPU's;
+21. a `kernels` line listing every kernel of the port;
+22. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -116,6 +141,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import itertools
 import json
@@ -147,13 +173,17 @@ from analytics_zoo_tpu_torch.kernels.philox import \
 from analytics_zoo_tpu_torch.common.tree import tree_leaves  # noqa: E402
 from analytics_zoo_tpu_torch.keras import layers as KL  # noqa: E402
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
+from analytics_zoo_tpu_torch.models.anomalydetection import (  # noqa: E402
+    AnomalyDetector, detect_anomalies, unroll)
 from analytics_zoo_tpu_torch.models.bert import BERTClassifier  # noqa: E402
 from analytics_zoo_tpu_torch.models.generative import \
     TinyDecoder  # noqa: E402
 from analytics_zoo_tpu_torch.models.image import (  # noqa: E402
     ImageClassifier, inception_v1, resnet)
 from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: E402
-    NeuralCF, UserItemFeature)
+    NeuralCF, SessionRecommender, UserItemFeature)
+from analytics_zoo_tpu_torch.models.textclassification import \
+    TextClassifier  # noqa: E402
 from analytics_zoo_tpu_torch.observability.registry import \
     MetricsRegistry  # noqa: E402
 from analytics_zoo_tpu_torch.ops import objectives, optimizers  # noqa: E402
@@ -2690,7 +2720,8 @@ def op_class(kernel: str) -> str:
         return "fused_adam"
     if "dropout" in n:
         return "dropout"
-    if any(k in n for k in ("gemm", "cublas", "cutlass")):
+    if any(k in n for k in ("gemm", "cublas", "cutlass", "nvjet",
+                            "splitkreduce")):
         return "dense_gemm"
     if "pool" in n:
         return "pool"
@@ -3086,6 +3117,579 @@ def phase_image_dropout(card: str, seed: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# recurrent models: TextClassifier (news20), AnomalyDetector (NYC taxi),
+# SessionRecommender
+# ---------------------------------------------------------------------------
+# TextClassifier at the news20 example's widths
+# (`pyzoo/zoo/examples/textclassification/`, the JAX defaults
+# sequence_length=500, encoder_output_dim=256): 20 classes, 5,000 words and
+# the padding row through `WordEmbedding` of a random [5001, 200] matrix in
+# place of GloVe-200d, batch 128.
+TXT_CLASSES = 20
+TXT_WORDS = 5000
+TXT_EMBED = 200
+TXT_SEQ = 500
+TXT_HIDDEN = 256
+TXT_HEAD = 128
+TXT_BATCH = 128
+TXT_TRAIN_STEPS = 8
+TXT_WARM_STEPS = 2
+TXT_PROFILE_STEPS = 2
+TXT_SERVE_BATCHES = (1, 8, 32, 128)
+TXT_REQUESTS = 20
+TXT_CHECK_ROWS = 3
+# Softmax probabilities over 20 classes. f32, the card against the port's
+# CPU run of the same weights: 500 recurrent steps of cuBLAS sums in
+# another order than the CPU's (TF32 off) — 5e-4, as for BERT and ResNet-50.
+# bf16 against the f32 card: h and c round to bf16 at each of the 500
+# steps, as in the JAX package — 5e-2.
+TXT_PROB_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+# The kernel path (dropout kernel, fused Adam) against the plain path
+# (dropout's plain version on the same Philox keep masks, plain Adam): 3
+# steps on one batch from the same weights, Adam at lr 1e-4, losses within
+# PERF.md §2's 1e-4 (f32) and 2e-2 (bf16).
+RNN_PATH_LR = 1e-4
+RNN_PATH_TOL = {False: 1e-4, True: 2e-2}       # keyed by mixed precision
+RNN_LOSS = "sparse_categorical_crossentropy"
+# AnomalyDetector at the JAX defaults (hidden (8, 32, 15), dropouts 0.2)
+# on the reference NYC-taxi app's input (`apps/anomaly-detection/`: 50
+# steps of 3 features, batch 1024), "adam", "mse", f32.
+AD_SHAPE = (50, 3)
+AD_BATCH = 1024
+AD_TRAIN_STEPS = 8
+AD_WARM_STEPS = 2
+AD_PROFILE_STEPS = 2
+AD_REQUESTS = 20
+AD_SERVE_MAX_BATCH = 512    # a batch of 1024 goes out as two, both in flight
+AD_SPIKES = 12
+AD_SPIKE = 5.0
+AD_CHECK_ROWS = 64
+# The regression output, the card against the CPU: 5e-4 of the largest
+# magnitude (three LSTMs of 50 steps, summed in another order).
+AD_REL_TOL = 5e-4
+# SessionRecommender: the default widths, session_length 10, item_count
+# 5,000 (chosen here: no published configuration gives them). A check: the
+# card's f32 softmax over 5,000 items against the CPU's, 5e-4 of the
+# largest probability (each is ~2e-4, so an absolute 5e-4 would hold
+# anything).
+SR_CFG = dict(item_count=5000, item_embed=100, rnn_hidden_layers=(40, 20),
+              session_length=10)
+SR_ROWS = 64
+SR_REL_TOL = 5e-4
+RNN_YARDSTICK_LABEL = ("sigmoid gates / reset-after: a different function, "
+                       "never called by the port")
+
+
+def plain_dropout(x, rate, *, seed=None):
+    """`fused_dropout`'s function through the plain version, on the keep
+    mask the kernel draws from the same Philox bits: the plain path's
+    stand-in for the `Dropout` layers."""
+    if rate <= 0.0:
+        return x
+    return dr._reference_dropout(x, rate, dr.dropout_keep(
+        x.shape, seed, rate, x.device))
+
+
+@contextlib.contextmanager
+def plain_dropout_layers():
+    saved = KL.fused_dropout
+    KL.fused_dropout = plain_dropout
+    try:
+        yield
+    finally:
+        KL.fused_dropout = saved
+
+
+def rnn_fit_runs(new_model, state, data, batch: int, loss: str,
+                 mixed_precision: bool):
+    """The kernel path and the plain path from the same weights over 3
+    steps of one batch: {name: (losses, launch counts)}."""
+    runs = {}
+    for name in ("kernel", "plain"):
+        m = load_by_order(new_model(), state)
+        kernel = name == "kernel"
+        opt = optimizers.fused_adam(RNN_PATH_LR) if kernel \
+            else optimizers.adam(RNN_PATH_LR)
+        LAUNCHES.reset()
+        with contextlib.nullcontext() if kernel else plain_dropout_layers():
+            h = Estimator.from_keras(m, optimizer=opt, loss=loss).fit(
+                data, epochs=3, batch_size=batch,
+                mixed_precision=mixed_precision, fused_optimizer=kernel)
+        runs[name] = (h["loss"], LAUNCHES.snapshot())
+        del m
+    torch.cuda.empty_cache()
+    return runs
+
+
+def rnn_path_checks(phase: str, new_model, state, data, batch: int,
+                    loss: str, sweep: int, drops: int, dtypes, card: str):
+    """`rnn_fit_runs` in each dtype: losses within RNN_PATH_TOL, the kernel
+    path launching `drops` dropout kernels and `sweep` fused-Adam launches
+    a step, the plain path none."""
+    ok = True
+    for mp in dtypes:
+        runs = rnn_fit_runs(new_model, state, data, batch, loss, mp)
+        (lk, ck), (lp, cp) = runs["kernel"], runs["plain"]
+        errs = [abs(a - b) for a, b in zip(lk, lp)]
+        want = {dr.KERNEL_NAME: 3 * drops, fad.KERNEL_NAME: 3 * sweep}
+        path_ok = (all(e <= RNN_PATH_TOL[mp] for e in errs)
+                   and all(math.isfinite(x) for x in lk + lp)
+                   and {k: ck.get(k, 0) for k in want} == want
+                   and not any(cp.get(k, 0) for k in want))
+        emit({"phase": phase + "_kernel_vs_plain",
+              "dtype": "bfloat16" if mp else "float32", "steps": 3,
+              "batch": batch, "lr": RNN_PATH_LR, "loss_kernel": lk,
+              "loss_plain": lp, "loss_err_per_step": errs,
+              "loss_tol": RNN_PATH_TOL[mp], "launches_kernel_path": ck,
+              "launches_plain_path": cp, "expected_kernel_path": want,
+              "ok": path_ok, "card": card})
+        ok = ok and path_ok
+    if not ok:
+        raise SystemExit(f"chip_smoke: {phase} kernel-vs-plain check failed")
+
+
+def dropout_at(shape, dtype, rate: float, seed: int) -> float:
+    """The dropout kernel at one of the path's shapes against its plain
+    version on the same keep mask: the max abs difference (0 expected)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    got = dr.dropout_apply(x, rate, seed + 1)
+    want = dr._reference_dropout(x, rate, dr.dropout_keep(
+        shape, seed + 1, rate, "cuda"))
+    return (got.float() - want.float()).abs().max().item()
+
+
+def text_model(encoder: str, matrix, device=None):
+    return TextClassifier(TXT_CLASSES, sequence_length=TXT_SEQ,
+                          encoder=encoder, encoder_output_dim=TXT_HIDDEN,
+                          embedding_weights=matrix, device=device)
+
+
+def text_forward_flops(encoder: str) -> float:
+    """FLOPs of one sequence's forward, from the shapes: the input GEMM
+    2·T·E·n·H, the recurrent GEMM 2·T·H·n·H (n gates: 4 LSTM, 3 GRU) and
+    the head 2·H·128 + 2·128·classes; the gate math and the lookup are
+    left out."""
+    n = {"lstm": 4, "gru": 3}[encoder]
+    return (2.0 * TXT_SEQ * (TXT_EMBED + TXT_HIDDEN) * n * TXT_HIDDEN
+            + 2.0 * TXT_HIDDEN * TXT_HEAD + 2.0 * TXT_HEAD * TXT_CLASSES)
+
+
+def text_matrix(seed: int) -> np.ndarray:
+    """A random [5001, 200] matrix in GloVe-200d's place (its entries'
+    scale, ~0.4)."""
+    rs = np.random.default_rng(seed)
+    return rs.standard_normal((TXT_WORDS + 1, TXT_EMBED),
+                              dtype=np.float32) * 0.4
+
+
+def profile_fit_by_class(est, data, fit_kw, steps: int):
+    """Device ms a step, device ops a step, by op class and the top
+    kernels, over a profiled fit of `steps` steps."""
+    dev, classes, top = profile_classes(lambda: est.fit(data, **fit_kw), 1)
+    for c in list(classes.values()) + top:
+        c["ms"] /= steps
+        c["calls"] /= steps
+    ops = sum(c["calls"] for c in classes.values())
+    return dev / steps, ops, classes, top
+
+
+def phase_text_training(card: str, seed: int, encoder: str):
+    """TextClassifier (`encoder` lstm or gru) trained through
+    `Estimator.fit(mixed_precision=True, fused_optimizer=True)` at batch
+    128: the main path, its profile, and the kernel path against the plain
+    path in f32 and bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    matrix = text_matrix(seed + 80)
+    clf = text_model(encoder, matrix)
+    model = clf.model
+    model.ensure_built(seed=seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    table = model.layers[0].embeddings.detach().clone()
+    n_leaves = len(list(model.parameters()))
+    sweep = fad.sweep_launches(model.parameters())
+    rs = np.random.default_rng(seed + 81)
+    n = TXT_BATCH * TXT_TRAIN_STEPS
+    data = {"x": rs.integers(0, TXT_WORDS + 1, (n, TXT_SEQ)).astype(np.int32),
+            "y": rs.integers(0, TXT_CLASSES, n).astype(np.int32)}
+    est = Estimator.from_keras(model, optimizer="adam", loss=RNN_LOSS)
+    fit_kw = dict(epochs=1, batch_size=TXT_BATCH, mixed_precision=True,
+                  fused_optimizer=True)
+    warm_n = TXT_WARM_STEPS * TXT_BATCH
+    t0 = time.perf_counter()
+    est.fit({"x": data["x"][:warm_n], "y": data["y"][:warm_n]}, **fit_kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    builds = _build.build_events()
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    t1 = time.perf_counter()
+    hist = est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    builds_after = _build.build_events()
+    step_ms = dt / TXT_TRAIN_STEPS * 1e3
+    expected = {dr.KERNEL_NAME: 2, fad.KERNEL_NAME: sweep}
+    per_step = {k: counts.get(k, 0) / TXT_TRAIN_STEPS for k in expected}
+    flops_step = 3.0 * text_forward_flops(encoder) * TXT_BATCH
+    table_same = torch.equal(model.layers[0].embeddings.detach(), table)
+    emit({"phase": "text_train", "encoder": encoder, "batch": TXT_BATCH,
+          "seq": TXT_SEQ, "hidden": TXT_HIDDEN, "embed": TXT_EMBED,
+          "classes": TXT_CLASSES, "steps": TXT_TRAIN_STEPS,
+          "warm_fit_s": warm_s, "step_ms": step_ms,
+          "samples_per_s": n / dt, "tokens_per_s": n * TXT_SEQ / dt,
+          "flops_per_step": flops_step,
+          "mfu": flops_step * TXT_TRAIN_STEPS / dt / PEAK_BF16,
+          "max_memory_allocated_gb": peak / 1e9, "loss": hist["loss"],
+          "launches": counts, "launches_per_step": per_step,
+          "expected_per_step": expected, "leaves": n_leaves,
+          "frozen_table_unchanged": table_same, "builds_before": builds,
+          "builds_after": builds_after, "card": card})
+    if per_step != {k: float(v) for k, v in expected.items()}:
+        raise SystemExit(f"chip_smoke: text {encoder} launches per step "
+                         f"{per_step}, expected {expected}")
+    if builds_after != builds or not table_same or not all(
+            math.isfinite(x) for x in hist["loss"]):
+        raise SystemExit(f"chip_smoke: text {encoder} training check failed")
+    prof_n = TXT_PROFILE_STEPS * TXT_BATCH
+    dev, ops, classes, top = profile_fit_by_class(
+        est, {"x": data["x"][:prof_n], "y": data["y"][:prof_n]}, fit_kw,
+        TXT_PROFILE_STEPS)
+    emit({"phase": "text_train_profile", "encoder": encoder,
+          "device_ms_per_step": dev, "device_ops_per_step": ops,
+          "step_ms": step_ms, "idle_share": (1.0 - dev / step_ms)
+          if dev else None, "by_class": classes, "top": top, "card": card})
+    del est, model, clf
+    torch.cuda.empty_cache()
+
+    batch = {"x": data["x"][:TXT_BATCH], "y": data["y"][:TXT_BATCH]}
+    rnn_path_checks("text_" + encoder,
+                    lambda: text_model(encoder, matrix).model, state, batch,
+                    TXT_BATCH, RNN_LOSS, sweep, 2, (False, True), card)
+    drop_err = dropout_at((TXT_BATCH, TXT_HEAD), torch.bfloat16, 0.2,
+                          seed + 82)
+    emit({"phase": "text_dropout_shape", "encoder": encoder,
+          "shape": [TXT_BATCH, TXT_HEAD], "dtype": "bfloat16",
+          "max_abs_err_vs_plain": drop_err, "ok": drop_err == 0.0})
+    if drop_err != 0.0:
+        raise SystemExit("chip_smoke: dropout kernel at the text shape")
+    return {"counts": counts, "step_ms": step_ms, "device_ms": dev,
+            "device_ops": ops}
+
+
+def phase_text_serving(card: str, seed: int):
+    """TextClassifier (lstm, gru, cnn) through `InferenceModel`, f32 and
+    bf16, at batches 1, 8, 32 and 128; probabilities against the port's
+    CPU run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    matrix = text_matrix(seed + 83)
+    rs = np.random.default_rng(seed + 84)
+    requests = {b: rs.integers(0, TXT_WORDS + 1, (b, TXT_SEQ)).astype(
+        np.int32) for b in TXT_SERVE_BATCHES}
+    check_x = requests[TXT_SERVE_BATCHES[-1]][:TXT_CHECK_ROWS]
+    result = {}
+    for encoder in ("lstm", "gru", "cnn"):
+        clf = text_model(encoder, matrix)
+        model = clf.model
+        model.ensure_built(seed=seed)
+        m16 = load_by_order(text_model(encoder, matrix).model,
+                            model.state_dict()).to(torch.bfloat16)
+        servers = {}
+        for dtype_name, m in (("float32", model), ("bfloat16", m16)):
+            im = InferenceModel(max_batch=TXT_SERVE_BATCHES[-1]).load_keras(m)
+            t0 = time.perf_counter()
+            im.warmup(np.zeros((TXT_SEQ,), np.int32))
+            emit({"phase": "text_warmup", "encoder": encoder,
+                  "dtype": dtype_name, "seconds": time.perf_counter() - t0,
+                  "buckets": sorted(im.warmed_buckets)})
+            servers[dtype_name] = im
+        builds = _build.build_events()
+
+        # -- the main path: every count is 0 just before, read just after -
+        LAUNCHES.reset()
+        latencies, outputs = {}, {}
+        for dtype_name, im in servers.items():
+            for b in TXT_SERVE_BATCHES:
+                times = []
+                for _ in range(TXT_REQUESTS):
+                    t1 = time.perf_counter()
+                    out = im.predict(requests[b])
+                    times.append((time.perf_counter() - t1) * 1e3)
+                    if out.shape != (b, TXT_CLASSES) or \
+                            not np.isfinite(out).all():
+                        raise SystemExit(f"chip_smoke: bad text output "
+                                         f"{out.shape} at batch {b}")
+                latencies[(dtype_name, b)] = times
+            outputs[dtype_name] = im.predict(check_x)
+        counts = LAUNCHES.snapshot()
+        # ---------------------------------------------------------------------
+        builds_after = _build.build_events()
+        for (dtype_name, b), times in latencies.items():
+            p50 = float(np.percentile(times, 50))
+            emit({"phase": "text_serving", "encoder": encoder,
+                  "dtype": dtype_name, "batch": b, "requests": len(times),
+                  "p50_ms": p50, "p80_ms": float(np.percentile(times, 80)),
+                  "p99_ms": float(np.percentile(times, 99)),
+                  "mean_ms": float(np.mean(times)),
+                  "sequences_per_s_at_p50": b / p50 * 1e3, "card": card})
+        # inference runs no dropout and no optimizer: no kernel of the port
+        emit({"phase": "text_serving_launches", "encoder": encoder,
+              "counts": counts, "builds_before": builds,
+              "builds_after": builds_after})
+        if builds_after != builds:
+            raise SystemExit("chip_smoke: a kernel was built on the text "
+                             "request path")
+        del servers, m16
+        cpu = load_by_order(text_model(encoder, matrix, device="cpu").model,
+                            model.state_dict())
+        cpu_probs = InferenceModel(max_batch=4, device="cpu").load_keras(
+            cpu).predict(check_x)
+        check_logits(f"text_{encoder}_card_f32_vs_cpu_f32",
+                     outputs["float32"], cpu_probs, TXT_PROB_TOL["float32"])
+        check_logits(f"text_{encoder}_card_bf16_vs_card_f32",
+                     outputs["bfloat16"], outputs["float32"],
+                     TXT_PROB_TOL["bfloat16"])
+        result[encoder] = {
+            f"{d}_b{b}": float(np.percentile(t, 50))
+            for (d, b), t in latencies.items()}
+        del model, clf, cpu
+        torch.cuda.empty_cache()
+    return result
+
+
+def recurrent_yardstick(card: str, seed: int):
+    """The port's LSTM and GRU layers beside cuDNN's `nn.LSTM` / `nn.GRU`
+    at TextClassifier's shapes (B 128, T 500, E 200, H 256), forward and
+    forward + backward, f32 (TF32 off) and bf16. cuDNN computes sigmoid
+    gates and the reset-after GRU: a different function, timed here as a
+    yardstick and never called by the port. Times by CUDA events (the
+    port's loop is host-bound, so its events read the wall) and the
+    port's device time under torch.profiler; the bound counts the input
+    and recurrent GEMMs (backward 2x the forward)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, T, E, H = TXT_BATCH, TXT_SEQ, TXT_EMBED, TXT_HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(seed + 85)
+    rows = []
+    for cell, n, port_cls, lib_cls in (("lstm", 4, KL.LSTM, torch.nn.LSTM),
+                                       ("gru", 3, KL.GRU, torch.nn.GRU)):
+        for dtype in (torch.float32, torch.bfloat16):
+            layer = port_cls(H, input_shape=(T, E), dtype=dtype)
+            layer.build(torch.Generator().manual_seed(seed))
+            lib = lib_cls(E, H, batch_first=True).to("cuda", dtype)
+            lib.flatten_parameters()
+            x = torch.randn(B, T, E, device="cuda", generator=gen).to(dtype)
+
+            def port_fwd():
+                with torch.no_grad():
+                    layer(x)
+
+            def port_fwd_bwd():
+                layer(x).float().sum().backward()
+
+            def lib_fwd():
+                with torch.no_grad():
+                    lib(x)
+
+            def lib_fwd_bwd():
+                lib(x)[0][:, -1].float().sum().backward()
+
+            flops = 2.0 * B * T * (E + H) * n * H
+            nbytes = (B * T * E + (E + H + 1) * n * H + B * H) * \
+                (torch.finfo(dtype).bits // 8)
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+            row = {"phase": "recurrent_yardstick", "label":
+                   RNN_YARDSTICK_LABEL, "cell": cell,
+                   "dtype": str(dtype)[6:], "shape": [B, T, E, H],
+                   "port_fwd_ms": time_ms(port_fwd, 3),
+                   "port_fwd_device_ms": device_ms(port_fwd, 2)[0],
+                   "port_fwd_bwd_ms": time_ms(port_fwd_bwd, 3),
+                   "port_fwd_bwd_device_ms": device_ms(port_fwd_bwd, 2)[0],
+                   "library": f"torch.nn.{lib_cls.__name__}",
+                   "library_on_cudnn": torch.backends.cudnn.is_acceptable(x),
+                   "library_fwd_ms": time_ms(lib_fwd, 10),
+                   "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, 10),
+                   "bound_fwd_ms": max(t_ops, t_mem),
+                   "bound_fwd_bwd_ms": max(3 * t_ops, t_mem),
+                   "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                   "card": card}
+            emit(row)
+            rows.append(row)
+            del layer, lib, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def anomaly_series(rs, n_points: int):
+    """A seeded stand-in for the NYC-taxi series: a daily and a weekly
+    cycle (half-hourly) with noise on 3 features, and AD_SPIKES spikes of
+    +AD_SPIKE on the first, placed after the first window. Returns the
+    series and the spikes' indices into `unroll`'s targets."""
+    t = np.arange(n_points)
+    day, week = 2 * np.pi * t / 48.0, 2 * np.pi * t / 336.0
+    series = np.stack([np.sin(day) + 0.5 * np.sin(week), np.cos(day),
+                       np.sin(week)], axis=1)
+    series = series + 0.05 * rs.standard_normal(series.shape)
+    at = np.sort(rs.choice(np.arange(AD_SHAPE[0], n_points),
+                           AD_SPIKES, replace=False))
+    series[at, 0] += AD_SPIKE
+    return series.astype(np.float32), at - AD_SHAPE[0]
+
+
+def phase_anomaly(card: str, seed: int):
+    """AnomalyDetector at the JAX defaults trained through
+    `Estimator.fit(fused_optimizer=True)` at batch 1024 on windows of a
+    seeded series (`unroll`), served through `InferenceModel`, its
+    predictions through `detect_anomalies`; the card against the CPU and
+    the kernel path against the plain path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.default_rng(seed + 90)
+    n = AD_BATCH * AD_TRAIN_STEPS
+    series, targets = anomaly_series(rs, n + AD_SHAPE[0])
+    x, y = unroll(series, AD_SHAPE[0])
+    ad = AnomalyDetector(AD_SHAPE)
+    model = ad.model
+    model.ensure_built(seed=seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sweep = fad.sweep_launches(model.parameters())
+    est = Estimator.from_keras(model, optimizer="adam", loss="mse")
+    fit_kw = dict(epochs=1, batch_size=AD_BATCH, fused_optimizer=True)
+    warm_n = AD_WARM_STEPS * AD_BATCH
+    est.fit({"x": x[:warm_n], "y": y[:warm_n]}, **fit_kw)
+    torch.cuda.synchronize()
+    builds = _build.build_events()
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    hist = est.fit({"x": x, "y": y}, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    builds_after = _build.build_events()
+    step_ms = dt / AD_TRAIN_STEPS * 1e3
+    drops = 2 * len(ad.dropouts)
+    expected = {dr.KERNEL_NAME: drops, fad.KERNEL_NAME: sweep}
+    per_step = {k: counts.get(k, 0) / AD_TRAIN_STEPS for k in expected}
+    prof_n = AD_PROFILE_STEPS * AD_BATCH
+    dev, ops, classes, top = profile_fit_by_class(
+        est, {"x": x[:prof_n], "y": y[:prof_n]}, fit_kw, AD_PROFILE_STEPS)
+    emit({"phase": "anomaly_train", "input": list(AD_SHAPE),
+          "hidden": ad.hidden_layers, "dropouts": ad.dropouts,
+          "batch": AD_BATCH, "steps": AD_TRAIN_STEPS, "step_ms": step_ms,
+          "samples_per_s": n / dt, "loss": hist["loss"],
+          "device_ms_per_step": dev, "device_ops_per_step": ops,
+          "idle_share": (1.0 - dev / step_ms) if dev else None,
+          "by_class": classes, "top": top[:6], "launches": counts,
+          "launches_per_step": per_step, "expected_per_step": expected,
+          "leaves": len(list(model.parameters())), "builds_before": builds,
+          "builds_after": builds_after, "card": card})
+    if per_step != {k: float(v) for k, v in expected.items()} or \
+            builds_after != builds or \
+            not all(math.isfinite(v) for v in hist["loss"]):
+        raise SystemExit("chip_smoke: anomaly training check failed")
+
+    im = InferenceModel(max_batch=AD_SERVE_MAX_BATCH).load_keras(model)
+    im.warmup(np.zeros(AD_SHAPE, np.float32))
+    builds = _build.build_events()
+    request = x[:AD_BATCH]
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    times = []
+    for _ in range(AD_REQUESTS):
+        t1 = time.perf_counter()
+        out = im.predict(request)
+        times.append((time.perf_counter() - t1) * 1e3)
+    pred = im.predict(x)
+    serve_counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    found = detect_anomalies(y, pred, AD_SPIKES)
+    recall = len(set(found.tolist()) & set(targets.tolist())) / AD_SPIKES
+    cpu = load_by_order(AnomalyDetector(AD_SHAPE, device="cpu").model,
+                        model.state_dict())
+    check = x[:AD_CHECK_ROWS]
+    want = InferenceModel(max_batch=AD_CHECK_ROWS, device="cpu").load_keras(
+        cpu).predict(check)
+    got = pred[:AD_CHECK_ROWS]
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ok = (out.shape == (AD_BATCH, 1) and pred.shape == (n, 1)
+          and bool(np.isfinite(pred).all()) and rel <= AD_REL_TOL
+          and recall == 1.0 and _build.build_events() == builds)
+    emit({"phase": "anomaly_serving", "batch": AD_BATCH,
+          "max_batch": AD_SERVE_MAX_BATCH, "requests": AD_REQUESTS,
+          "p50_ms": float(np.percentile(times, 50)),
+          "p99_ms": float(np.percentile(times, 99)),
+          "launches": serve_counts, "card_vs_cpu_rel_err": rel,
+          "rel_tol": AD_REL_TOL, "spikes": AD_SPIKES,
+          "detected": found.tolist(), "injected": targets.tolist(),
+          "recall": recall, "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("chip_smoke: anomaly serving or detection check "
+                         "failed")
+    del im, est, cpu
+    rnn_path_checks("anomaly", lambda: AnomalyDetector(AD_SHAPE).model,
+                    state, {"x": x[:AD_BATCH], "y": y[:AD_BATCH]}, AD_BATCH,
+                    "mse", sweep, drops, (False,), card)
+    errs = {str(list(s)): dropout_at(s, torch.float32, 0.2, seed + 91 + i)
+            for i, s in enumerate(((AD_BATCH, AD_SHAPE[0], 8),
+                                   (AD_BATCH, AD_SHAPE[0], 32),
+                                   (AD_BATCH, 15)))}
+    emit({"phase": "anomaly_dropout_shapes", "dtype": "float32",
+          "max_abs_err_vs_plain": errs,
+          "ok": all(e == 0.0 for e in errs.values())})
+    if any(e != 0.0 for e in errs.values()):
+        raise SystemExit("chip_smoke: dropout kernel at the anomaly shapes")
+    del model, ad
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": step_ms, "device_ms": dev}
+
+
+def phase_session_check(card: str, seed: int):
+    """SessionRecommender (a check, no timing): the card's f32 softmax
+    over 5,000 items against the port's CPU run, through `InferenceModel`
+    and `recommend_for_session`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sr = SessionRecommender(**SR_CFG)
+    sr.model.ensure_built(seed=seed)
+    rs = np.random.default_rng(seed + 95)
+    sessions = rs.integers(1, SR_CFG["item_count"] + 1,
+                           (SR_ROWS, SR_CFG["session_length"])).astype(
+        np.int32)
+    im = InferenceModel(max_batch=SR_ROWS).load_keras(sr.model)
+    im.warmup(np.zeros(SR_CFG["session_length"], np.int32),
+              buckets=[SR_ROWS])
+    got = im.predict(sessions)
+    cpu = SessionRecommender(**SR_CFG, device="cpu")
+    load_by_order(cpu.model, sr.model.state_dict())
+    want = InferenceModel(max_batch=SR_ROWS, device="cpu").load_keras(
+        cpu.model).predict(sessions)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    top = [[i for i, _ in r] for r in sr.recommend_for_session(sessions, 5)]
+    top_cpu = [[i for i, _ in r]
+               for r in cpu.recommend_for_session(sessions, 5)]
+    ok = (got.shape == (SR_ROWS, SR_CFG["item_count"])
+          and bool(np.isfinite(got).all()) and rel <= SR_REL_TOL
+          and bool(np.allclose(got.sum(-1), 1.0, atol=1e-4)))
+    emit({"phase": "session_check", **{k: list(v) if isinstance(v, tuple)
+                                        else v for k, v in SR_CFG.items()},
+          "rows": SR_ROWS, "card_vs_cpu_rel_err": rel, "rel_tol": SR_REL_TOL,
+          "prob_max": float(want.max()), "top5_same_rows": sum(
+              a == b for a, b in zip(top, top_cpu)), "ok": ok, "card": card})
+    if not ok:
+        raise SystemExit("chip_smoke: SessionRecommender check failed")
+    del im, sr, cpu
+    torch.cuda.empty_cache()
+
+
 # How an entry's `ms`, `plain_ms` and `library_ms` were taken: "events"
 # (`time_ms`), "graph" (`graph_ms`) or "profiler" (`device_ms`, which takes
 # "graph" when the profiler records nothing).
@@ -3282,6 +3886,12 @@ def main(argv=None) -> int:
     phase_image_serving(card, args.seed)
     img_counts = phase_image_training(card, args.seed)
     inception_counts = phase_image_dropout(card, args.seed)
+    text = {enc: phase_text_training(card, args.seed, enc)
+            for enc in ("lstm", "gru")}
+    phase_text_serving(card, args.seed)
+    recurrent_yardstick(card, args.seed)
+    anomaly = phase_anomaly(card, args.seed)
+    phase_session_check(card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -3296,6 +3906,11 @@ def main(argv=None) -> int:
             "bound_ms", "bound_by", "pct_of_bound", "timed_by")})
     entries[dr.KERNEL_NAME].update(
         launches_inception_step=inception_counts.get(dr.KERNEL_NAME, 0))
+    for name in (dr.KERNEL_NAME, fad.KERNEL_NAME):
+        entries[name].update(
+            launches_text_lstm=text["lstm"]["counts"].get(name, 0),
+            launches_text_gru=text["gru"]["counts"].get(name, 0),
+            launches_anomaly=anomaly["counts"].get(name, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]

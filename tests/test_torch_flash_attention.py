@@ -309,13 +309,16 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 def test_port_calls_no_library_attention_and_no_torch_compile():
     """No module of the port calls a library kernel for a function it
-    ports (attention, dropout, the optimizer) or compiles its plain
-    versions: those calls appear only in chip_smoke.py's yardsticks."""
+    ports (attention, dropout, the optimizer, the recurrences: cuDNN's
+    RNNs compute sigmoid gates and the reset-after GRU, another function)
+    or compiles its plain versions: those calls appear only in
+    chip_smoke.py's yardsticks."""
     bad = [str(p.relative_to(REPO)) for p in _package_sources()
            if any(s in p.read_text() for s in (
                "scaled_dot_product_attention", "torch.compile",
                "cudnn", "F.dropout(", "functional.dropout(",
-               "nn.Dropout(", "torch.optim.", "autocast("))]
+               "nn.Dropout(", "torch.optim.", "autocast(",
+               "nn.LSTM(", "nn.GRU(", "nn.RNN(", "_VF."))]
     assert bad == []
 
 
