@@ -34,9 +34,11 @@ keyed `"<layer name>.<leaf>"`. Layers are matched by their position in the
 graph order (`ordered_layers` here, `_ordered_layers()` there), not by
 name: given names (`ncf_mlp_user`, ...) agree, but auto-generated ones
 (`dense_3`) count per process and differ between the two models. Three
-layers nest: a `Sequential` inside one is a subtree of its own layers
-(matched by position too: its entry in the name list is `(name, [its
-layers' names])`); `Bidirectional`'s `{"forward", "backward"}` subtrees are
+layers nest: a `Sequential` or a functional `Model` inside one is a
+subtree of its own layers (matched by position too: its entry in the name
+list is `(name, [its layers' names])`, as `layer_names` lists a port
+model's), converted in both directions like the outer model, its
+convolution kernels transposed too; `Bidirectional`'s `{"forward", "backward"}` subtrees are
 its submodules `forward_layer` and `backward_layer`; and `TimeDistributed`
 keeps its inner layer's leaves at its own level in the JAX tree, under its
 submodule `layer` in the port. The
@@ -64,7 +66,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.tree import tree_leaves
-from analytics_zoo_tpu_torch.keras.engine import Sequential
+from analytics_zoo_tpu_torch.keras.engine import KerasNet
 from analytics_zoo_tpu_torch.keras.layers import (Bidirectional,
                                                   TimeDistributed, _ConvND)
 from analytics_zoo_tpu_torch.keras.transformer import (stack_block_params,
@@ -196,6 +198,14 @@ def _entry_name(entry) -> str:
     return entry if isinstance(entry, str) else entry[0]
 
 
+def layer_names(model) -> list:
+    """A port model's layer names in graph order, a nested model as
+    `(name, [its layers' names])`: the `jax_layer_names` of its own tree
+    (what persistence saves under)."""
+    return [(l.name, layer_names(l)) if isinstance(l, KerasNet) else l.name
+            for l in model.ordered_layers()]
+
+
 def _port_layers(model, jax_layer_names: Sequence) -> Dict[str, tuple]:
     """JAX layer name → (port layer, its entry in `jax_layer_names`), by
     position in the graph order."""
@@ -224,7 +234,7 @@ def _oihw_to_hwio(a: np.ndarray, rank: int) -> np.ndarray:
 
 def _layer_from_jax(layer, sub: Mapping, entry) -> Dict[str, Any]:
     """One layer's JAX subtree → {state-dict key below the layer: leaf}."""
-    if isinstance(layer, Sequential):
+    if isinstance(layer, KerasNet):
         return _tree_from_jax(sub, entry[1], layer)
     if isinstance(layer, Bidirectional):
         return {f"{half}_layer.{leaf}": value
@@ -255,7 +265,7 @@ def _tree_from_jax(tree: Mapping, jax_layer_names: Sequence,
 
 def _layer_to_jax(layer, flat: Mapping[str, np.ndarray], entry) -> Dict:
     """Inverse of `_layer_from_jax`."""
-    if isinstance(layer, Sequential):
+    if isinstance(layer, KerasNet):
         return _tree_to_jax(flat, entry[1], layer)
     if isinstance(layer, Bidirectional):
         tree: Dict = {"forward": {}, "backward": {}}
@@ -291,7 +301,8 @@ def model_params_from_jax(tree: Mapping, jax_layer_names: Sequence,
     port model's state dict (CPU tensors; `load_state_dict` copies them
     onto the model's device). `jax_layer_names` lists the JAX model's
     layers in graph order (`[l.name for l in jax_model._ordered_layers()]`),
-    a nested `Sequential` as `(name, [its layers' names])`. None leaves
+    a nested `Sequential` or `Model` as `(name, [its layers' names])`. None
+    leaves
     (the tables of a lazy-embedding rest state) are skipped."""
     return {k: _to_tensor(v) for k, v in
             _tree_from_jax(tree, jax_layer_names, model).items()
@@ -331,8 +342,9 @@ def model_opt_state_to_jax(state: FusedAdamState,
     JAX trees), with float32 zeros for the buffers' entries, as the JAX
     state holds them. Wrap it as the JAX side needs
     (`optax.ScaleByAdamState(*t)`, `FusedAdamState(*t)`)."""
+    params = dict(model.named_parameters())
     zeros = {k: torch.zeros(b.shape, dtype=torch.float32)
-             for k, b in model.named_buffers()}
+             for k, b in model.state_dict().items() if k not in params}
 
     def tree(moments):
         return model_params_to_jax(dict(moments, **zeros), jax_layer_names,

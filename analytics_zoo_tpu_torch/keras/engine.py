@@ -6,10 +6,13 @@ Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with
 (L82), `Node` (L110), `Input` (L128), `_topo_sort` (L134), `KerasNet`
 (L151) with `compile` (L183, the single-loss form), `fit` (L246),
 `evaluate` (L255), `predict` (L262) and `ensure_built` (L234),
-`Sequential` (L414-511: `add`, the list constructor, `build`, `apply`,
-`apply_and_state`, `compute_output_shape`, `call` / `call_and_state` and
-the symbolic `__call__` as a layer, `input_shape`) and `Model` (L513,
-`build` L548, `apply` and `apply_and_state` L566-612). In the JAX
+persistence (`save_weights`, `load_weights_tree`, `load_weights`,
+`_order_path`, `_layer_order`, `_remap_loaded`, L268-392), `summary` and
+`_summary_rows` (L394-412), `Sequential` (L414-511: `add`, the list
+constructor, `build`, `apply`, `apply_and_state`, `compute_output_shape`,
+`call` / `call_and_state` and the symbolic `__call__` as a layer,
+`input_shape`) and `Model` (L513, `build` L548, `apply` and
+`apply_and_state` L566-612, and as a layer L604-625). In the JAX
 package a layer is a pure function plus a parameter pytree (`build(rng,
 shape) -> params`, `call(params, x)`); here a layer is an `nn.Module` that
 owns its parameters, so the parameter argument goes away:
@@ -58,14 +61,34 @@ both, and the optimizer never changes them in the JAX package either (their
 gradient is zero in a training forward, which normalises with the batch's
 statistics, and `_merge_state` overwrites whatever the step wrote).
 
-A nested `Model` used as a layer (a `Sequential` can be one), multi-output
-losses and `ZooModel` persistence wait for later slices of the port
-(ROADMAP.md queue 1, item 2).
+A `Model` or a `Sequential` is a layer too: called on a node it adds
+itself to the enclosing graph, registered as one submodule, so its
+state-dict keys take its name in front (`"<model>.<layer>.<leaf>"`); its
+stateful layers' updates come keyed by paths below its name; and it takes
+the seed its node gets (`site_seed(seed, i)`) and splits it again for its
+own nodes, where the JAX package splits the key it is handed. Nodes may be
+wrapped in the autograd DSL's `Variable` (`ops/autograd.py`): a layer
+called on Variables returns a Variable, and `Model` takes them for inputs
+and outputs.
+
+Persistence writes the JAX package's artifact: the parameter tree
+(`convert.model_params_to_jax`, under this model's own layer names) through
+`learn/checkpoint.save_pytree` (npz + structure json with the npz's CRC)
+and the `.layers.json` order sidecar. Loading remaps the saved tree onto
+this instance's layer names (positionally by the sidecar, and inside a
+nested model by the JAX package's sort of auto-generated names, which
+count per process) and loads it through `convert.model_params_from_jax`.
+So an artifact saved by either package loads in the other. Multi-output
+losses wait for a later slice (ROADMAP.md queue 1, 'The rest of
+training').
 """
 
 from __future__ import annotations
 
 import collections
+import json
+import os
+import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -78,6 +101,8 @@ from analytics_zoo_tpu_torch.kernels.philox import site_seed
 Shape = Tuple[Optional[int], ...]
 
 _name_counters: Dict[str, int] = collections.defaultdict(int)
+# an auto-generated layer name: "<class>_<count>"
+_AUTO_NAME = re.compile(r"^(.*)_(\d+)$")
 
 
 def _auto_name(cls_name: str) -> str:
@@ -93,10 +118,33 @@ def new_parameter(shape, device: DeviceLike, dtype: torch.dtype
                                     dtype=dtype))
 
 
+def _as_node(item) -> Optional["Node"]:
+    """A `Node`, or the node an autograd `Variable` wraps; else None."""
+    if isinstance(item, Node):
+        return item
+    node = getattr(item, "node", None)
+    return node if isinstance(node, Node) else None
+
+
 def _is_symbolic(inputs) -> bool:
     if isinstance(inputs, (list, tuple)):
-        return bool(inputs) and all(isinstance(i, Node) for i in inputs)
-    return isinstance(inputs, Node)
+        return bool(inputs) and all(_as_node(i) is not None for i in inputs)
+    return _as_node(inputs) is not None
+
+
+def _call_symbolic(layer, inputs):
+    """`layer` applied to node(s): its parameters are created from the
+    input shapes (`ensure_parameters`) and the output node is returned,
+    wrapped in the inputs' `Variable` type when they came wrapped."""
+    raw = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    nodes = [_as_node(i) for i in raw]
+    wrapper = next((type(i) for i in raw if not isinstance(i, Node)), None)
+    in_shapes = [n.shape for n in nodes]
+    shape_in = in_shapes if len(in_shapes) > 1 else in_shapes[0]
+    layer.ensure_parameters(shape_in)
+    out = Node(layer=layer, inputs=nodes,
+               shape=layer.compute_output_shape(shape_in))
+    return wrapper(node=out) if wrapper is not None else out
 
 
 State = Dict[str, Dict[str, torch.Tensor]]
@@ -114,7 +162,21 @@ def merge_state(module: nn.Module, updates: State) -> None:
             getattr(layer, leaf).copy_(value)
 
 
-class Layer(nn.Module):
+class _GraphCall:
+    """The `__call__` of a layer and of a model used as a layer: on a
+    `Node` or a list of nodes (or autograd `Variable`s), a symbolic call
+    that yields the output node; on anything else, the forward."""
+
+    def __call__(self, *args, **kwargs):
+        if args and _is_symbolic(args[0]):
+            if len(args) > 1 or kwargs:
+                raise TypeError(f"{self.name}: a symbolic call takes the "
+                                "input node(s) only")
+            return _call_symbolic(self, args[0])
+        return super().__call__(*args, **kwargs)
+
+
+class Layer(_GraphCall, nn.Module):
     """Base layer. Subclasses create their parameters in `__init__` or, when
     their sizes depend on the input, in `create_parameters`; fill them in
     `build`; and implement `call` (and `compute_output_shape` when the
@@ -174,26 +236,6 @@ class Layer(nn.Module):
     def forward(self, *args, **kwargs):
         return self.call(*args, **kwargs)
 
-    # -- graph building ----------------------------------------------------
-    def __call__(self, *args, **kwargs):
-        """On a `Node` or a list of nodes: a symbolic call that yields the
-        output node. On anything else: the forward."""
-        if args and _is_symbolic(args[0]):
-            if len(args) > 1 or kwargs:
-                raise TypeError(f"{self.name}: a symbolic call takes the "
-                                "input node(s) only")
-            return self._call_symbolic(args[0])
-        return super().__call__(*args, **kwargs)
-
-    def _call_symbolic(self, inputs) -> "Node":
-        nodes = list(inputs) if isinstance(inputs, (list, tuple)) \
-            else [inputs]
-        in_shapes = [n.shape for n in nodes]
-        shape_in = in_shapes if len(in_shapes) > 1 else in_shapes[0]
-        self.ensure_parameters(shape_in)
-        return Node(layer=self, inputs=nodes,
-                    shape=self.compute_output_shape(shape_in))
-
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name})"
 
@@ -236,7 +278,7 @@ def _topo_sort(outputs: Sequence[Node]) -> List[Node]:
     return order
 
 
-class KerasNet(nn.Module):
+class KerasNet(_GraphCall, nn.Module):
     """Model base (`Topology.scala:67` in the reference): a built model owns
     its parameters; `apply` is its forward."""
 
@@ -321,15 +363,177 @@ class KerasNet(nn.Module):
         if not self._built:
             with torch.no_grad():
                 self.build(torch.Generator().manual_seed(seed))
-            self._built = True
+            self._mark_built()
         return self.state_dict()
 
     def load_state_dict(self, state_dict, strict: bool = True,
                         assign: bool = False):
         result = super().load_state_dict(state_dict, strict=strict,
                                          assign=assign)
-        self._built = True
+        self._mark_built()
         return result
+
+    def _mark_built(self) -> None:
+        """This model and the models nested in it have their values."""
+        for m in self.modules():
+            if isinstance(m, KerasNet):
+                m._built = True
+
+    def ordered_layers(self) -> List:
+        """The layers in graph order: the order `convert`, persistence and
+        `summary` go by (auto-generated names differ between processes).
+        A nested model is one entry."""
+        return []
+
+    # -- as a layer ----------------------------------------------------------
+    def ensure_parameters(self, input_shape) -> None:
+        """A `Model`'s parameters exist once its graph does; `Sequential`
+        creates its own from the shape it is called on."""
+
+    def call(self, x, *, training: bool = False, seed: Optional[int] = None):
+        return self.apply(x, training=training, seed=seed)
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[int] = None):
+        """`(output, {path below this model: {buffer: value}})`: the
+        seed this model's node gets is split again for its own nodes."""
+        return self.apply_and_state(x, training=training, seed=seed)
+
+    # -- persistence (`models/common/ZooModel.scala` save/load) -----------
+    def save_weights(self, path: str) -> None:
+        """Write this model's parameters and buffers as the JAX package's
+        artifact: its parameter tree under this model's layer names
+        (`<path>.npz` + `<path>.structure.json`) and the layer-order
+        sidecar `<path>.layers.json`."""
+        from analytics_zoo_tpu_torch import convert
+        from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
+        if not self._built:
+            raise ValueError("Model has no parameters yet; call fit or "
+                             "ensure_built first")
+        ckpt.save_pytree(path, convert.model_params_to_jax(
+            self.state_dict(), convert.layer_names(self), self))
+        order = self._layer_order()
+        if order:
+            with open(self._order_path(path), "w") as fh:
+                json.dump(order, fh)
+
+    def load_weights_tree(self, path: str) -> Dict[str, Any]:
+        """Read an artifact written by `save_weights` (of either package)
+        and remap it onto this instance's layer names, without loading it:
+        the JAX parameter tree, numpy leaves."""
+        from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
+        loaded = ckpt.load_pytree(path)
+        order = None
+        if os.path.exists(self._order_path(path)):
+            with open(self._order_path(path)) as fh:
+                order = json.load(fh)
+        return self._remap_loaded(loaded, order)
+
+    def load_weights(self, path: str) -> "KerasNet":
+        """`load_weights_tree`, loaded into this model's parameters and
+        buffers (on their device, in their dtype)."""
+        from analytics_zoo_tpu_torch import convert
+        self.load_state_dict(convert.model_params_from_jax(
+            self.load_weights_tree(path), convert.layer_names(self), self))
+        return self
+
+    @staticmethod
+    def _order_path(path: str) -> str:
+        base = path[:-4] if path.endswith(".npz") else path
+        return base + ".layers.json"
+
+    def _layer_order(self) -> List[str]:
+        return [l.name for l in self.ordered_layers()]
+
+    def _remap_loaded(self, loaded: Dict[str, Any],
+                      order: Optional[List[str]] = None) -> Dict[str, Any]:
+        """Saved layer names → this instance's (JAX L317-392), recursing
+        into nested models. With the order sidecar the match is by
+        position (a saved auto-generated name of another class at a
+        position is an architecture mismatch); without it, names that
+        agree map by name, else layers map per class prefix in the order
+        of their auto-generated names' numbers (creation order)."""
+        layers = self.ordered_layers()
+        if not layers:
+            return loaded
+        if order is not None and (len(order) != len(loaded)
+                                  or set(order) != set(loaded)):
+            raise ValueError(
+                f"Stale/mismatched layer-order sidecar: order has "
+                f"{len(order)} names, saved params have {len(loaded)}")
+        if len(loaded) != len(layers):
+            raise ValueError(
+                f"Saved weights have {len(loaded)} layers, model has "
+                f"{len(layers)}")
+
+        def remap_child(layer, value):
+            if isinstance(layer, KerasNet):
+                return layer._remap_loaded(value)
+            return value
+
+        if order is not None:
+            for layer, sname in zip(layers, order):
+                saved_auto = _AUTO_NAME.match(sname)
+                cur_auto = _AUTO_NAME.match(layer.name)
+                if saved_auto and cur_auto \
+                        and cur_auto.group(1) == type(layer).__name__.lower() \
+                        and saved_auto.group(1) != cur_auto.group(1):
+                    raise ValueError(
+                        f"Saved layer {sname!r} does not match model layer "
+                        f"{layer.name!r} ({type(layer).__name__}) at the "
+                        "same structural position")
+            return {layer.name: remap_child(layer, loaded[sname])
+                    for layer, sname in zip(layers, order)}
+
+        if set(loaded) == {l.name for l in layers}:
+            return {l.name: remap_child(l, loaded[l.name]) for l in layers}
+
+        def split(name: str):
+            m = _AUTO_NAME.match(name)
+            return (m.group(1), int(m.group(2))) if m else (name, 0)
+
+        saved_by_prefix: Dict[str, List] = {}
+        for name in loaded:
+            p, n = split(name)
+            saved_by_prefix.setdefault(p, []).append((n, name))
+        cur_by_prefix: Dict[str, List] = {}
+        for layer in layers:
+            p, n = split(layer.name)
+            cur_by_prefix.setdefault(p, []).append((n, layer))
+        if {p: len(v) for p, v in saved_by_prefix.items()} != \
+                {p: len(v) for p, v in cur_by_prefix.items()}:
+            raise ValueError(
+                f"Saved layer classes {sorted(saved_by_prefix)} do not match "
+                f"model layer classes {sorted(cur_by_prefix)}")
+        result: Dict[str, Any] = {}
+        for p, cur_list in cur_by_prefix.items():
+            for (_, layer), (_, sname) in zip(
+                    sorted(cur_list, key=lambda t: t[0]),
+                    sorted(saved_by_prefix[p], key=lambda t: t[0])):
+                result[layer.name] = remap_child(layer, loaded[sname])
+        return result
+
+    # -- summary ---------------------------------------------------------------
+    def summary(self) -> str:
+        """Print and return the JAX package's summary text: one row a layer
+        (name and class, "-", its count of values, moving statistics
+        included), then the total. A model without values has no rows."""
+        rows = self._summary_rows()
+        lines = [f"Model: {self.name}", "-" * 60]
+        for layer, shape, count in rows:
+            lines.append(f"{layer:<30} {str(shape):<20} {count}")
+        lines.append("-" * 60)
+        lines.append(f"Total params: {sum(r[2] for r in rows)}")
+        text = "\n".join(lines)
+        print(text)
+        return text
+
+    def _summary_rows(self) -> List[Tuple[str, str, int]]:
+        if not self._built:
+            return []
+        return [(f"{layer.name} ({type(layer).__name__})", "-",
+                 sum(t.numel() for t in layer.state_dict().values()))
+                for layer in self.ordered_layers()]
 
 
 def _add_updates(updates: State, layer, upd) -> None:
@@ -440,31 +644,13 @@ class Sequential(KerasNet):
             _add_updates(updates, layer, upd)
         return x, updates
 
-    # -- as a layer ----------------------------------------------------------
-    def call(self, x, *, training: bool = False, seed: Optional[int] = None):
-        return self.apply(x, training=training, seed=seed)
-
-    def call_and_state(self, x, *, training: bool = False,
-                       seed: Optional[int] = None):
-        return self.apply_and_state(x, training=training, seed=seed)
-
     def compute_output_shape(self, input_shape):
         shape = input_shape
         for layer in self.layers:
             shape = layer.compute_output_shape(shape)
         return shape
 
-    def __call__(self, *args, **kwargs):
-        """A symbolic call on a `Node`, or the forward."""
-        if args and _is_symbolic(args[0]):
-            if len(args) > 1 or kwargs:
-                raise TypeError(f"{self.name}: a symbolic call takes the "
-                                "input node(s) only")
-            return Layer._call_symbolic(self, args[0])
-        return super().__call__(*args, **kwargs)
-
     def ordered_layers(self) -> List:
-        """The layers in order: the order `convert` maps weights by."""
         return list(self.layers)
 
 
@@ -477,10 +663,10 @@ class Model(KerasNet):
                  outputs: Union[Node, Sequence[Node]],
                  name: Optional[str] = None):
         super().__init__(name)
-        self.inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
-            else [inputs]
-        self.outputs = list(outputs) if isinstance(outputs, (list, tuple)) \
-            else [outputs]
+        self.inputs = [_as_node(i) for i in inputs] \
+            if isinstance(inputs, (list, tuple)) else [_as_node(inputs)]
+        self.outputs = [_as_node(o) for o in outputs] \
+            if isinstance(outputs, (list, tuple)) else [_as_node(outputs)]
         self._order = _topo_sort(self.outputs)
         # one parameter set per layer object (weight sharing); two distinct
         # layers with one name is an error, as in Keras
@@ -545,7 +731,5 @@ class Model(KerasNet):
         outs = [o.shape for o in self.outputs]
         return outs if len(outs) > 1 else outs[0]
 
-    def ordered_layers(self) -> List[Layer]:
-        """The layers in graph order: the order `convert` maps weights by
-        (auto-generated names differ between processes)."""
+    def ordered_layers(self) -> List:
         return list(self._layers)

@@ -2,23 +2,34 @@
 
 Port of `analytics_zoo_tpu/models/common.py`: `ZooModel` (L21) with its
 Keras passthroughs `compile`, `fit`, `evaluate`, `predict` and
-`predict_classes`. A ZooModel wraps a constructed Keras-style model
-(`self.model`, a functional `Model` or a `Sequential`) and its
-hyperparameters (`self._config`). What still waits: persistence
-(`save_model` / `load_model`) and `summary`, which raise
-NotImplementedError naming ROADMAP.md queue 1, item 2.
+`predict_classes`, `summary` and persistence (`_save_config`,
+`save_model`, `load_model`, L51-90). A ZooModel wraps a constructed
+Keras-style model (`self.model`, a functional `Model` or a `Sequential`)
+and its hyperparameters (`self._config`).
+
+A saved model is the JAX package's directory: `config.json` (`{"class":
+<class name>, "config": <constructor arguments>}`, no device in it) and
+the weights artifact `weights.npz`, `weights.structure.json` and
+`weights.layers.json` (`KerasNet.save_weights`). So a model saved by either
+package loads in the other. `load_model(path, device=None)` builds the
+model on the card unless the caller passes `device="cpu"`.
+
+Not ported yet: `save_model_encrypted` (`learn/encrypted.py`, ROADMAP.md
+queue 1, item 8), `set_checkpoint` and `set_tensorboard` (ROADMAP.md queue
+1, 'The rest of training'); they raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common.device import DeviceLike
 from analytics_zoo_tpu_torch.keras.engine import KerasNet
-
-PERSISTENCE_NOT_PORTED = ("ZooModel save/load and summary are not ported "
-                          "yet (ROADMAP.md queue 1, item 2)")
+from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE
 
 
 class ZooModel:
@@ -50,12 +61,49 @@ class ZooModel:
         cls = np.argmax(probs, axis=-1)
         return cls if zero_based_label else cls + 1
 
-    def summary(self):
-        raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+    def summary(self) -> str:
+        return self.model.summary()
 
-    def save_model(self, path: str, over_write: bool = False):
-        raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+    # -- persistence -------------------------------------------------------
+    def _save_config(self, path: str, over_write: bool) -> None:
+        """The config-json step of `save_model`."""
+        os.makedirs(path, exist_ok=True)
+        cfg_path = os.path.join(path, "config.json")
+        if os.path.exists(cfg_path) and not over_write:
+            raise FileExistsError(f"{path} exists; pass over_write=True")
+        with open(cfg_path, "w") as fh:
+            json.dump({"class": type(self).__name__,
+                       "config": self._config}, fh)
+
+    def save_model(self, path: str, over_write: bool = False) -> None:
+        """`ZooModel.saveModel`: config json + weights."""
+        self._save_config(path, over_write)
+        self.model.save_weights(os.path.join(path, "weights"))
+
+    def save_model_encrypted(self, path: str, secret: str, salt: str,
+                             over_write: bool = False):
+        raise NotImplementedError(
+            "save_model_encrypted needs learn/encrypted.py, which is not "
+            "ported yet (ROADMAP.md queue 1, item 8)")
 
     @classmethod
-    def load_model(cls, path: str) -> "ZooModel":
-        raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+    def load_model(cls, path: str, device: DeviceLike = None) -> "ZooModel":
+        """A model saved by `save_model` (of either package), built on
+        `device` (None is `cuda`) with its saved weights."""
+        with open(os.path.join(path, "config.json")) as fh:
+            blob = json.load(fh)
+        if blob["class"] != cls.__name__:
+            raise ValueError(
+                f"Checkpoint is a {blob['class']}, not {cls.__name__}")
+        inst = cls(**blob["config"], device=device)
+        inst.model.load_weights(os.path.join(path, "weights"))
+        return inst
+
+    def set_checkpoint(self, path: str):
+        raise NotImplementedError(
+            f"set_checkpoint needs training checkpoints, which are not "
+            f"ported yet ({NOT_PORTED_QUEUE})")
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        raise NotImplementedError(
+            f"set_tensorboard is not ported yet ({NOT_PORTED_QUEUE})")

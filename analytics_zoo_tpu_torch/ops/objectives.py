@@ -122,8 +122,8 @@ _NOT_PORTED = ("mae", "mean_absolute_error", "hinge", "mape",
 
 
 def get(loss: Any, **kwargs) -> Objective:
-    """Resolve a loss from its compile string (or pass an Objective or a
-    plain callable through)."""
+    """Resolve a loss from its compile string (or pass an Objective, such
+    as an `ops/autograd.CustomLoss`, or a plain callable through)."""
     if isinstance(loss, Objective):
         return loss
     if callable(loss):

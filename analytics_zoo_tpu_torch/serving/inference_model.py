@@ -3,15 +3,17 @@
 Port of `analytics_zoo_tpu/serving/inference_model.py`: `_next_bucket`
 (L64), `PendingPrediction` (L71), `_JoinedPending` (L276), the buckets and
 the admission semaphore of `InferenceModel.__init__` (L305-395),
-`load_keras` (L398), `load_fn` (L495), `predict` (L1135), `predict_async`
-(L1140) and `warmup` (L1231); and the generative decode half (L1353-1671):
+`load_keras` (L398), `load_zoo_model` (L425), `load_fn` (L495), `predict`
+(L1135), `predict_async` (L1140) and `warmup` (L1231); and the generative decode half (L1353-1671):
 `load_generative`, `warmup_generative`, `warmup_generative_paged`,
 `generative_prefill`, `generative_step`, `generative_prefill_paged`,
 `generative_step_paged` and `account_generative`.
 
 - A batch is padded to a power-of-two bucket by repeating its last row on
-  the device, and a batch above `max_batch` is split into chunks that are
-  all dispatched before any is awaited.
+  the device, in its own dtype (a uint8 image batch is uploaded and padded
+  as uint8; only float64 narrows to float32), and a batch above
+  `max_batch` is split into chunks that are all dispatched before any is
+  awaited.
 - Dispatch is asynchronous: `predict_async` returns once the forward is
   queued on the device; `PendingPrediction.result()` copies the valid rows
   to the host (the one sync) and records dispatch + materialize time in
@@ -167,9 +169,13 @@ class InferenceModel:
     # -- loaders ---------------------------------------------------------
     def load_keras(self, model, params=None,
                    quantize: Optional[str] = None) -> "InferenceModel":
-        """A port Keras-style model (a built `KerasNet`). `params`, a state
-        dict, is loaded into it first. The model moves to this
+        """A port Keras-style model (a built `KerasNet`, nested models
+        included, or a `ZooModel`, served through its `model`). `params`,
+        a state dict, is loaded into it first. The model moves to this
         InferenceModel's device in place and is put in eval mode."""
+        from analytics_zoo_tpu_torch.models.common import ZooModel
+        if isinstance(model, ZooModel):
+            model = model.model
         if quantize is not None:
             if quantize != "int8":
                 raise ValueError(
@@ -180,6 +186,14 @@ class InferenceModel:
         if not model.built:
             raise ValueError("Model has no parameters; fit or load first")
         return self.load_fn(lambda m, x: m.apply(x, training=False), model)
+
+    def load_zoo_model(self, cls, path: str,
+                       quantize: Optional[str] = None) -> "InferenceModel":
+        """`doLoadBigDL` analogue: a `ZooModel` directory saved by either
+        package (`cls.load_model`), built on this InferenceModel's
+        device."""
+        return self.load_keras(cls.load_model(path, device=self.device),
+                               quantize=quantize)
 
     @staticmethod
     def _infer_serving_dtype(weights) -> str:

@@ -722,7 +722,7 @@ def test_inference_model_serves_resnet():
                                atol=1e-6)
 
 
-def test_image_classifier_matches_jax():
+def test_image_classifier_matches_jax(tmp_path):
     label_map = {0: "cat", 1: "dog", 2: "fish"}
     t = timage.ImageClassifier(depth=18, class_num=3, input_shape=(32, 32, 3),
                                label_map=label_map, device="cpu")
@@ -744,8 +744,12 @@ def test_image_classifier_matches_jax():
                                    rtol=0, atol=1e-4)
     assert isinstance(got[0][0][0], str)
     assert t._config == j._config
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        t.save_model("unused")
+    t.save_model(str(tmp_path / "clf"))
+    again = timage.ImageClassifier.load_model(str(tmp_path / "clf"),
+                                              device="cpu")
+    assert again.label_map == t.label_map
+    np.testing.assert_array_equal(
+        again.predict_image_set(Images, top_n=2, batch_per_thread=4), got)
     lenet = timage.ImageClassifier(class_num=10, input_shape=(1, 28, 28),
                                    arch="lenet", device="cpu")
     assert isinstance(lenet.model.ordered_layers()[0], L.Convolution2D)

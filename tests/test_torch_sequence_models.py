@@ -173,9 +173,15 @@ def test_session_recommender_matches_jax():
 
 
 def test_session_recommender_history_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        trec.SessionRecommender(30, session_length=5, include_history=True,
+    """The history branch is ported now (its parity with the JAX package
+    is in `test_torch_autograd.py`): it builds two inputs, and the
+    argument checks stay."""
+    t = trec.SessionRecommender(30, session_length=5, include_history=True,
                                 history_length=4, device="cpu")
+    assert len(t.model.inputs) == 2
+    with pytest.raises(ValueError, match="history_length"):
+        trec.SessionRecommender(30, session_length=5, include_history=True,
+                                device="cpu")
     with pytest.raises(ValueError, match="session_length"):
         trec.SessionRecommender(30, device="cpu")
 
