@@ -342,9 +342,7 @@ def model_opt_state_to_jax(state: FusedAdamState,
     JAX trees), with float32 zeros for the buffers' entries, as the JAX
     state holds them. Wrap it as the JAX side needs
     (`optax.ScaleByAdamState(*t)`, `FusedAdamState(*t)`)."""
-    params = dict(model.named_parameters())
-    zeros = {k: torch.zeros(b.shape, dtype=torch.float32)
-             for k, b in model.state_dict().items() if k not in params}
+    zeros = _buffer_zeros(model)
 
     def tree(moments):
         return model_params_to_jax(dict(moments, **zeros), jax_layer_names,
@@ -399,6 +397,152 @@ def lazy_state_to_jax(state: Mapping, jax_layer_names: Sequence[str],
                 _to_numpy(m) for m in state["tables"][f"{layer}/{leaf}"])
                 for layer, leaf in table_leaves},
             "t": np.int32(state["t"])}
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints: the model tree and the optimizer state in optax's
+# layout (`learn/checkpoint.py`, `learn/trainer.fit_keras`)
+# ---------------------------------------------------------------------------
+def _graph_model(model) -> bool:
+    """A functional `Model` or a `Sequential` (its tree is keyed by layer
+    name); else a model converted whole, as BERT is."""
+    return bool(model.ordered_layers())
+
+
+def state_to_jax(flat: Mapping[str, torch.Tensor], model) -> Dict:
+    """A state dict (or a dict of moments keyed like it) → the JAX tree of
+    `model`: `model_params_to_jax` under the model's own layer names, or
+    `params_to_jax` for a model without layers (BERT)."""
+    if _graph_model(model):
+        return model_params_to_jax(flat, layer_names(model), model)
+    return params_to_jax(flat)
+
+
+def state_from_jax(tree: Mapping, model) -> Dict[str, torch.Tensor]:
+    """Inverse of `state_to_jax`, for a tree keyed by this model's layer
+    names (remap a saved tree first: `KerasNet._remap_loaded`)."""
+    if _graph_model(model):
+        return model_params_from_jax(tree, layer_names(model), model)
+    return params_from_jax(tree)
+
+
+def _buffer_zeros(model) -> Dict[str, torch.Tensor]:
+    params = dict(model.named_parameters())
+    return {k: torch.zeros(b.shape, dtype=torch.float32)
+            for k, b in model.state_dict().items() if k not in params}
+
+
+def _moments_to_jax(moments: Mapping[str, torch.Tensor], model,
+                    tables=()) -> Dict:
+    """A params-shaped dict of moments → the JAX tree: float32 zeros for
+    the buffers (the JAX state holds them as leaves), None at the lazy
+    tables' leaves (`tables`: `(port layer, leaf)` pairs)."""
+    tree = state_to_jax(dict(moments, **_buffer_zeros(model)), model)
+    if tables:
+        to_jax = {p: j for j, p in
+                  _port_names(model, layer_names(model)).items()}
+        for layer, leaf in tables:
+            tree[to_jax[layer]][leaf] = None
+    return tree
+
+
+def _layout_to_jax(node, model, tables=()):
+    """One node of an optimizer state in optax's layout → the JAX state's
+    node: records field by field, moment dicts keyed like the parameters
+    as JAX trees (what `model_opt_state_to_jax` makes of an Adam record's
+    `mu` and `nu`), counts as int32."""
+    if isinstance(node, tuple):
+        parts = [_layout_to_jax(v, model, tables) for v in node]
+        return type(node)(*parts) if hasattr(node, "_fields") \
+            else tuple(parts)
+    if isinstance(node, Mapping):
+        return _moments_to_jax(node, model, tables)
+    if isinstance(node, (int, np.integer)):
+        return np.int32(node)
+    raise TypeError(f"cannot lay out optimizer state node {type(node)}")
+
+
+def _fill_moments(dst: Mapping[str, torch.Tensor],
+                  src: Mapping[str, torch.Tensor]) -> Mapping:
+    """Copy `src` into the template's tensors in place: each keeps its
+    device, dtype and memory format (the fused kernel walks a
+    channels_last moment as the param's flat array)."""
+    for k, t in dst.items():
+        t.copy_(src[k])
+    return dst
+
+
+def _layout_from_jax(jnode, pnode, model):
+    """Inverse of `_layout_to_jax` into `pnode`, a fresh state's node of
+    the same layout, whose tensors take the values in place (the moments
+    of buffers, zeros in the JAX state, are dropped)."""
+    if isinstance(pnode, tuple):
+        parts = [_layout_from_jax(j, p, model) for j, p in zip(jnode, pnode)]
+        return type(pnode)(*parts) if hasattr(pnode, "_fields") \
+            else tuple(parts)
+    if isinstance(pnode, Mapping):
+        conv = state_from_jax(jnode, model)
+        return _fill_moments(pnode, conv)
+    return int(np.asarray(jnode))
+
+
+def opt_layout_to_jax(optimizer, state, model, lazy: bool = False):
+    """The port optimizer's state → the JAX optimizer state in optax's
+    layout (records as tuples, moment trees under the model's layer
+    names, numpy leaves): what a training checkpoint's
+    `optimMethod-<name>.<iteration>` holds, leaf for leaf what the JAX
+    package's `optimizer.init` would build. `lazy` states
+    (`learn/lazy_embedding.init_state`) come back as the JAX package's
+    `{"rest": <the rest optimizer's layout, None at the tables>, "tables":
+    {"layer/leaf": (mu, nu)}, "t": int32}`."""
+    if not lazy:
+        return _layout_to_jax(optimizer.to_optax(state), model)
+    out = lazy_state_to_jax(state, layer_names(model), model)
+    tables = [key.split("/", 1) for key in state["tables"]]
+    out["rest"] = _layout_to_jax(optimizer.to_optax(state["rest"]), model,
+                                 tables)
+    return out
+
+
+def opt_layout_from_jax(optimizer, tree, state, model, lazy: bool = False):
+    """A saved optimizer tree (of either package, its moment trees keyed by
+    this model's layer names: see `remap_moment_trees`) poured into
+    `state`, a fresh `init` of `optimizer` for this model, in place: leaf
+    by leaf in optax's order (`learn.checkpoint.restore_opt_state`, which
+    raises ValueError on a leaf count or shape that differs). Returns the
+    filled state."""
+    from analytics_zoo_tpu_torch.learn.checkpoint import restore_opt_state
+    template = opt_layout_to_jax(optimizer, state, model, lazy)
+    filled = restore_opt_state(template, tree)
+    if not lazy:
+        return optimizer.from_optax(_layout_from_jax(
+            filled, optimizer.to_optax(state), model))
+    names = _port_names(model, layer_names(model))
+    rest = optimizer.from_optax(_layout_from_jax(
+        filled["rest"], optimizer.to_optax(state["rest"]), model))
+    tables = {}
+    for key, (mu, nu) in filled["tables"].items():
+        layer, leaf = key.split("/", 1)
+        dst = state["tables"][f"{names[layer]}/{leaf}"]
+        dst[0].copy_(_to_tensor(mu))
+        dst[1].copy_(_to_tensor(nu))
+        tables[f"{names[layer]}/{leaf}"] = dst
+    return {"rest": rest, "tables": tables, "t": int(filled["t"])}
+
+
+def remap_moment_trees(tree, layer_keys, remap):
+    """Every params-shaped dict in a saved optimizer tree (its keys are
+    `layer_keys`, the saved model tree's layer names) through `remap` (the
+    model's `_remap_loaded`), so that its layers carry this instance's
+    names, as the saved parameters do."""
+    if isinstance(tree, dict):
+        if tree and set(tree) == set(layer_keys):
+            return remap(tree)
+        return {k: remap_moment_trees(v, layer_keys, remap)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [remap_moment_trees(v, layer_keys, remap) for v in tree]
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ symbolic graph (`Node`, `Input`) and the functional `Model`.
 Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with
 `stateful` and `call_and_state` (L61-80) and its symbolic `__call__`
 (L82), `Node` (L110), `Input` (L128), `_topo_sort` (L134), `KerasNet`
-(L151) with `compile` (L183, the single-loss form), `fit` (L246),
+(L151) with `compile` (L183, the single-loss form), `set_checkpoint`
+(L230) and its `_checkpoint_path` (L160), `fit` (L246),
 `evaluate` (L255), `predict` (L262) and `ensure_built` (L234),
 persistence (`save_weights`, `load_weights_tree`, `load_weights`,
 `_order_path`, `_layer_order`, `_remap_loaded`, L268-392), `summary` and
@@ -290,6 +291,7 @@ class KerasNet(_GraphCall, nn.Module):
         self.optimizer = None
         self.metrics: List[Any] = []
         self._optimizer_spec = None
+        self._checkpoint_path: Optional[str] = None
 
     # -- subclass API ------------------------------------------------------
     def build(self, generator: torch.Generator) -> None:
@@ -324,10 +326,17 @@ class KerasNet(_GraphCall, nn.Module):
         self.metrics = zmetrics.resolve(
             metrics, loss if isinstance(loss, str) else None)
 
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        """`Topology.scala:249`: `fit` writes training checkpoints under
+        `path` (`learn/checkpoint.CheckpointManager`) and
+        `fit(auto_resume=True)` continues from them."""
+        self._checkpoint_path = path
+
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
             validation_data=None, distributed: bool = True, **kwargs):
         """Train on in-memory arrays where the parameters live; returns
-        the history dict (`learn/trainer.fit_keras`)."""
+        the history dict (`learn/trainer.fit_keras`), with per-epoch
+        `val_<metric>` entries for `validation_data=(x, y)`."""
         from analytics_zoo_tpu_torch.learn.trainer import fit_keras
         return fit_keras(self, x, y, batch_size=batch_size, epochs=nb_epoch,
                          validation_data=validation_data,

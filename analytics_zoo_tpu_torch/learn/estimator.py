@@ -1,26 +1,63 @@
 """Estimator — the unified training façade, single device.
 
 Port of `analytics_zoo_tpu/learn/estimator.py`: `Estimator.__init__`
-(L79), `from_keras` (L89) and `fit` (L160), and from `to_dataset` (L56)
-the in-memory forms `TPUDataset.from_ndarrays` takes: `{"x": ..., "y":
-...}`, `(x, y)` or a bare x. The JAX `fit` wraps the trainer in a
-retry-and-restore loop over `model_dir` checkpoints; the port has no
-checkpoints yet, so `model_dir` is refused and a failure raises
-(ROADMAP.md queue 1).
+(L79), `from_keras` (L89), `fit` (L160) with its retry-and-restore loop
+(L244-292), `_restore_latest` and `_restore` (L294-310), `predict`,
+`evaluate` (without `_evaluate_quantized`, whose int8 path is ROADMAP.md
+queue 1, item 3), `get_model`, `save`, `load` (L312-449) and
+`load_orca_checkpoint` (L451); and from `to_dataset` (L56) the in-memory
+forms `TPUDataset.from_ndarrays` takes: `{"x": ..., "y": ...}`, `(x, y)`
+or a bare x.
 
-`device`: where `fit` trains; `None` is `cuda`, and asking for `cuda`
-without a GPU raises. The model is moved there in place before training.
+With `model_dir`, `fit` checkpoints into it (`model.set_checkpoint`) and
+runs the reference's retry loop (`Topology.scala:1255-1337`): on a
+training failure other than a ValueError or a device error, reload the
+newest checkpoint and go on with the epochs left, up to
+`failure.retry_times` failures within `failure.retry_time_interval_s`
+(`FailureConfig`, the JAX package's `common/config.py:64-65` defaults).
+As in the JAX package, the reload restores the parameters only
+(`_restore_latest`), so a retried fit starts its optimizer state afresh,
+and the retry runs `fit_keras` with `seed + epoch_done`.
+
+`device`: where `fit`, `predict` and `evaluate` run; `None` is `cuda`, and
+asking for `cuda` without a GPU raises. The model is moved there in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import logging
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from analytics_zoo_tpu_torch import convert
 from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.learn import checkpoint as ckpt_mod
 from analytics_zoo_tpu_torch.learn import trainer
+from analytics_zoo_tpu_torch.observability.registry import get_registry
 from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE
+
+log = logging.getLogger("analytics_zoo_tpu_torch.estimator")
+
+# device faults are not retried, as the JAX package lets
+# `jax.errors.JaxRuntimeError` through
+_DEVICE_ERRORS = tuple(e for e in (torch.cuda.OutOfMemoryError,
+                                   getattr(torch, "AcceleratorError", None))
+                       if e is not None)
+
+
+@dataclass
+class FailureConfig:
+    """Retry/recovery semantics of the reference's training loop
+    (`Topology.scala:1255-1337`): `bigdl.failure.retryTimes` default 5
+    within a 120 s sliding window, restore from the latest snapshot on
+    failure (the JAX package's `common/config.FailureConfig`)."""
+
+    retry_times: int = 5
+    retry_time_interval_s: int = 120
 
 
 def to_dataset(data):
@@ -32,7 +69,7 @@ def to_dataset(data):
     if isinstance(data, (np.ndarray, tuple, list)):
         return data, None
     raise NotImplementedError(
-        f"Estimator.fit takes in-memory arrays ({{'x': ..., 'y': ...}}, "
+        f"Estimator takes in-memory arrays ({{'x': ..., 'y': ...}}, "
         f"(x, y) or x); {type(data).__name__} is not ported yet "
         f"({NOT_PORTED_QUEUE})")
 
@@ -41,14 +78,14 @@ class Estimator:
     """Unified estimator façade (`orca/learn/base_estimator.py:43`)."""
 
     def __init__(self, model, model_dir: Optional[str] = None,
-                 device: DeviceLike = None):
-        if model_dir is not None:
-            raise NotImplementedError(
-                "Estimator(model_dir=...) needs checkpoints, which are not "
-                f"ported yet ({NOT_PORTED_QUEUE})")
+                 device: DeviceLike = None,
+                 failure: Optional[FailureConfig] = None):
         self.model = model
-        self.model_dir = None
+        self.model_dir = model_dir
         self.device = device
+        self.failure = failure or FailureConfig()
+        self._load_ckpt: Optional[Tuple[str, Optional[int]]] = None
+        self._resume_epoch = 0
 
     @staticmethod
     def from_keras(keras_model, model_dir: Optional[str] = None,
@@ -60,6 +97,10 @@ class Estimator:
             keras_model.compile(optimizer or "adam", loss or "mse", metrics)
         return Estimator(keras_model, model_dir, device)
 
+    def _on_device(self):
+        self.model.to(resolve_device(self.device))
+
+    # -- training with retry/resume ---------------------------------------
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
             validation_data=None, checkpoint_trigger=None,
             feature_cols=None, label_cols=None, seed: int = 0,
@@ -67,15 +108,136 @@ class Estimator:
         """Train on `data` for `epochs`; `fit_kwargs` pass through to
         `learn.trainer.fit_keras` (`mixed_precision=True` runs bf16
         compute with f32 masters, `fused_optimizer=True` swaps a stock
-        adam/adamw for the fused-Adam kernel). Returns the history."""
-        device = resolve_device(self.device)
+        adam/adamw for the fused-Adam kernel, `auto_resume`,
+        `step_retries`, `step_timeout_s`, `end_trigger`).
+        `validation_data` (any form `to_dataset` takes) is evaluated after
+        every epoch into `history["val_<metric>"]`. Returns the history."""
         if feature_cols is not None or label_cols is not None:
             raise NotImplementedError(
                 "feature_cols/label_cols (DataFrame input) are not ported "
                 f"yet ({NOT_PORTED_QUEUE})")
         x, y = to_dataset(data)
-        self.model.to(device)
-        return trainer.fit_keras(
-            self.model, x, y, batch_size=batch_size or 32, epochs=epochs,
-            validation_data=validation_data, shuffle=True,
-            checkpoint_trigger=checkpoint_trigger, seed=seed, **fit_kwargs)
+        val = to_dataset(validation_data) if validation_data is not None \
+            else None
+        self._on_device()
+        if self.model_dir:
+            self.model.set_checkpoint(self.model_dir)
+        if self._load_ckpt is not None:
+            self._restore(*self._load_ckpt)
+            self._load_ckpt = None
+
+        failures: List[float] = []
+        epoch_done = self._resume_epoch
+        history: Dict[str, List[float]] = {}
+        while epoch_done < epochs:
+            try:
+                h = trainer.fit_keras(
+                    self.model, x, y, batch_size=batch_size or 32,
+                    epochs=epochs - epoch_done, validation_data=val,
+                    shuffle=True, checkpoint_trigger=checkpoint_trigger,
+                    seed=seed + epoch_done, **fit_kwargs)
+                for k, v in h.items():
+                    history.setdefault(k, []).extend(v)
+                break
+            except (KeyboardInterrupt,) + _DEVICE_ERRORS:
+                raise
+            except ValueError:
+                raise  # config errors are not retryable (IllegalArgument)
+            except Exception as e:  # noqa: BLE001 — retry semantics
+                now = time.time()
+                cfg = self.failure
+                failures = [t for t in failures
+                            if now - t < cfg.retry_time_interval_s]
+                failures.append(now)
+                if len(failures) > cfg.retry_times:
+                    log.error("Exceeded %d failures within %ds window; "
+                              "giving up", cfg.retry_times,
+                              cfg.retry_time_interval_s)
+                    raise
+                # counted only once the budget check passed: the final
+                # fatal failure re-raises above and is not a recovery
+                get_registry().counter(
+                    "training_retries_total",
+                    "training failures recovered by snapshot-restore "
+                    "retry").inc()
+                log.warning("Training failure (%s: %s); restoring latest "
+                            "snapshot and retrying (%d/%d)",
+                            type(e).__name__, e, len(failures),
+                            cfg.retry_times)
+                epoch_done = self._restore_latest() or epoch_done
+        self._resume_epoch = 0
+        return history
+
+    def _load_params(self, path: str, version: Optional[int] = None):
+        """The parameters (and buffers) of a checkpoint into the model,
+        remapped onto its layer names; returns the checkpoint's meta."""
+        params, _, meta = ckpt_mod.load_checkpoint(path, version)
+        self.model.load_state_dict(convert.state_from_jax(
+            self.model._remap_loaded(params), self.model))
+        return meta
+
+    def _restore_latest(self) -> Optional[int]:
+        """Parameters only, as the JAX package does: the retried fit's
+        optimizer state starts afresh."""
+        if not self.model_dir:
+            return None
+        if ckpt_mod.latest_checkpoint(self.model_dir) is None:
+            return None
+        meta = self._load_params(self.model_dir)
+        return int(meta.get("epoch", 0)) if meta else None
+
+    def _restore(self, path: str, version: Optional[int]):
+        meta = self._load_params(path, version)
+        self._resume_epoch = int(meta.get("epoch", 0)) if meta else 0
+
+    # -- inference ---------------------------------------------------------
+    def predict(self, data, batch_per_thread: int = 32, feature_cols=None):
+        if feature_cols is not None:
+            raise NotImplementedError(
+                "feature_cols (DataFrame input) is not ported yet "
+                f"({NOT_PORTED_QUEUE})")
+        x, _ = to_dataset(data)
+        self._on_device()
+        return self.model.predict(x, batch_per_thread=batch_per_thread)
+
+    def evaluate(self, data, batch_per_thread: int = 32, metrics=None,
+                 feature_cols=None, label_cols=None,
+                 quantize: Optional[str] = None) -> Dict[str, float]:
+        """The metrics (`metrics`, else the compiled ones, else the loss)
+        over `data`. `quantize="int8"` (the JAX package's quality-gated
+        int8 evaluation) waits for the int8 serving path."""
+        if quantize is not None:
+            from analytics_zoo_tpu_torch.serving.quantization import \
+                INT8_NOT_PORTED
+            raise NotImplementedError(INT8_NOT_PORTED)
+        if feature_cols is not None or label_cols is not None:
+            raise NotImplementedError(
+                "feature_cols/label_cols (DataFrame input) are not ported "
+                f"yet ({NOT_PORTED_QUEUE})")
+        from analytics_zoo_tpu_torch.ops import metrics as zmetrics
+        ms = zmetrics.resolve(metrics) if metrics else None
+        x, y = to_dataset(data)
+        self._on_device()
+        return self.model.evaluate(x, y, batch_per_thread=batch_per_thread,
+                                   metrics=ms)
+
+    # -- persistence (`orca` save/load + load_orca_checkpoint) ------------
+    def get_model(self):
+        return self.model
+
+    def save(self, path: str) -> str:
+        self.model.save_weights(path)
+        return path
+
+    def load(self, path: str) -> "Estimator":
+        self.model.load_weights(path)
+        return self
+
+    def load_orca_checkpoint(self, path: str,
+                             version: Optional[int] = None) -> "Estimator":
+        """Resume from a `model.<version>` checkpoint
+        (`orca/learn/tf/estimator.py:125` semantics; version=None →
+        latest): the next `fit` loads its parameters and starts at its
+        epoch."""
+        self._load_ckpt = (path, version)
+        return self

@@ -1,12 +1,18 @@
 """The training loop behind `KerasNet.fit` and `Estimator.fit`.
 
 Port of the single-device path of `analytics_zoo_tpu/learn/trainer.py`:
-`_tree_len` / `_tree_take` / `_num_batches` (L143-155), `iter_batches`
-(L158), `_cast_tree` (L647), `_make_one_step` (L737, without sharding) as
+`_TrainingMetrics` (L38-75: the validation gauge and the resume and
+step-retry counters), `_tree_len` / `_tree_take` / `_num_batches`
+(L143-155), `iter_batches` (L158), `_step_with_watchdog` (L236-300),
+`_cast_tree` (L647), `_make_one_step` (L737, without sharding) as
 `build_train_step` (L805), `_pick_one_step` (L968), `build_eval_step`
 (L985), `fit_keras` (L996) with its lazy-embedding branch (L1327-1330,
-L1356-1369, L1385-1388), `evaluate_keras` (L1906) and `predict_keras`
-(L1974).
+L1356-1369, L1385-1388), auto-resume (L1270-1316), the checkpoint manager
+and its default `EveryEpoch` trigger (L1496-1501), `_ckpt_extra` /
+`_ckpt_save` (L1638-1700), the mid-epoch trigger and `end_trigger`
+(L1748-1760), per-epoch validation (L1818-1828), the epoch-boundary
+trigger (L1830-1840) and the emergency checkpoint (L1842-1866),
+`evaluate_keras` (L1906) and `predict_keras` (L1974).
 
 - Batching: `iter_batches` with the same `np.random.RandomState(seed +
   epoch)` shuffle and the same dropped remainder, so a port fit and a JAX
@@ -47,26 +53,53 @@ L1356-1369, L1385-1388), `evaluate_keras` (L1906) and `predict_keras`
 - Seeds: one integer per step from a `torch.Generator` seeded with `seed`,
   handed to the model's dropout sites.
 - History: `history["loss"]` holds one mean per epoch; the step losses
-  stay on the device and are read once per epoch (the only host sync).
+  stay on the device and are read once per epoch (the only host sync
+  besides validation and the triggers that read the loss).
+- Fault tolerance, as in the JAX package. With `model.set_checkpoint(dir)`
+  a `CheckpointManager` writes checkpoints (`learn/checkpoint.py`) at
+  every firing of `checkpoint_trigger` (default `EveryEpoch`): the model
+  tree, the optimizer state in optax's layout (`convert.opt_layout_to_jax`)
+  and the meta (`epoch`, `iteration`, `epoch_finished`,
+  `opt_state_layout`), then the publish marker. A fit that fails leaves an
+  emergency checkpoint and raises. `auto_resume=True` continues from the
+  newest intact epoch-boundary checkpoint: parameters, buffers, optimizer
+  state, iteration and the step-seed generator, so the continued losses
+  are bitwise those of an uninterrupted fit (the shuffle is `seed +
+  epoch`). The port's generator is saved under its own meta key
+  (`torch_generator`, its state in base64); the JAX package's `rng` key
+  is a jax key the port cannot use, so a checkpoint written by the JAX
+  package resumes with a fresh generator and a warning, as the JAX
+  package does for a checkpoint without `rng`. `step_retries` retries a
+  failed step; `step_timeout_s` runs each step on a watchdog thread, on
+  the caller's device and stream. The `trainer.step` fault point fires
+  before the step touches anything: the step updates the parameters in
+  place, so a failure inside it leaves them half-updated, and the last
+  checkpoint is then the resume point.
 
-The optimizer state starts fresh at each call, as in the JAX package.
-Steps are dispatched one by one: `steps_per_run=k` is accepted for the
-JAX signature (k steps between loss reads there) and changes nothing here,
-since losses are read once per epoch anyway; a k-step CUDA graph is
-ROADMAP work. The arguments of the JAX loop that are not ported raise
-NotImplementedError when given a value other than their default.
+The optimizer state starts fresh at each call unless it resumes, as in the
+JAX package. Steps are dispatched one by one: `steps_per_run=k` is
+accepted for the JAX signature (k steps between loss reads there) and
+changes nothing here, since losses are read once per epoch anyway; a
+k-step CUDA graph is ROADMAP work. The arguments of the JAX loop that are
+not ported raise NotImplementedError when given a value other than their
+default.
 """
 
 from __future__ import annotations
 
+import base64
 import logging
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from analytics_zoo_tpu_torch.common import faults
+from analytics_zoo_tpu_torch.common import triggers as tg
 from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.observability.registry import get_registry
 from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE, as_fused
 
 log = logging.getLogger("analytics_zoo_tpu_torch.learn")
@@ -74,22 +107,38 @@ log = logging.getLogger("analytics_zoo_tpu_torch.learn")
 # Arguments of the JAX `fit_keras` that the port does not run yet, with
 # their defaults: a value other than the default raises.
 _NOT_PORTED_ARGS = {
-    "validation_data": None,        # per-epoch validation
-    "checkpoint_trigger": None,     # checkpoints and auto-resume
-    "end_trigger": None,
-    "batch_iter_factory": None,     # streaming datasets
-    "prefetch_depth": None,         # the background input pipeline
-    "sharding_rules": None,         # distributed training
+    "int8_sidecar": False,          # the int8 serving path (queue 1, item 3)
     "flops_per_step": None,         # training telemetry
     "metrics_report_s": None,
-    "compile_cache_dir": None,
-    "auto_resume": False,
-    "int8_sidecar": False,
-    "step_retries": 0,
-    "step_timeout_s": None,
     "profile_steps": None,
     "profile_dir": None,
+    "prefetch_depth": None,         # the background input pipeline
+    "batch_iter_factory": None,     # streaming datasets
+    "sharding_rules": None,         # distributed training
+    "compile_cache_dir": None,
 }
+
+# The meta key of the step-seed generator's state (the JAX package keeps
+# its jax key under "rng").
+GENERATOR_KEY = "torch_generator"
+
+
+class _TrainingMetrics:
+    """The training telemetry the port's loop publishes into the
+    process-wide registry (the JAX `_TrainingMetrics`' validation gauge and
+    resume and step-retry counters); get-or-create, so counters accumulate
+    across fits."""
+
+    def __init__(self, registry=None):
+        reg = registry if registry is not None else get_registry()
+        self.val = reg.gauge("training_validation_metric",
+                             "last validation metrics, labeled by name")
+        self.resumes = reg.counter(
+            "training_resumes_total",
+            "training runs continued from a checkpoint by auto_resume")
+        self.step_retries = reg.counter(
+            "training_step_retries_total",
+            "failed/hung training steps retried by the step watchdog")
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +180,84 @@ def iter_batches(x, y=None, batch_size: int = 32, shuffle: bool = False,
         xb = _tree_take(x, sel)
         yb = _tree_take(y, sel) if y is not None else None
         yield xb, yb, real
+
+
+def _step_with_watchdog(step_fn, args, retries: int,
+                        timeout_s: Optional[float], retry_counter,
+                        iteration: int, device: torch.device):
+    """One training step under the fault-tolerance contract: a failed step
+    is retried up to `retries` times; with `timeout_s` the step runs on a
+    watchdog thread (on `device` and the caller's current stream) so a hung
+    step surfaces as TimeoutError instead of a silent stall. The
+    `trainer.step` fault point fires before the step starts, so an
+    injected failure retries on untouched parameters. A real failure
+    inside the step may leave them half-updated (the step writes in
+    place); the caller's emergency checkpoint then records them as they
+    are and the last periodic checkpoint stays the resume point."""
+    stream = torch.cuda.current_stream(device) \
+        if device.type == "cuda" else None
+    attempts = 0
+    while True:
+        try:
+            if timeout_s is None:
+                faults.fire("trainer.step", iteration=iteration,
+                            attempt=attempts)
+                return step_fn(*args)
+            box: Dict[str, Any] = {}
+            cancelled = threading.Event()
+            done = threading.Event()
+
+            def run():
+                try:
+                    faults.fire("trainer.step", iteration=iteration,
+                                attempt=attempts)
+                    if cancelled.is_set():
+                        return          # timed out during the stall
+                    if stream is None:
+                        box["out"] = step_fn(*args)
+                    else:
+                        with torch.cuda.device(device), \
+                                torch.cuda.stream(stream):
+                            box["out"] = step_fn(*args)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    box["exc"] = e
+                finally:
+                    done.set()
+
+            t = threading.Thread(target=run, daemon=True,
+                                 name="train-step-watchdog")
+            t.start()
+            if not done.wait(timeout_s):
+                cancelled.set()
+                # grace window: a step that is merely slow completes here
+                # and its result is valid; retrying instead would race it
+                # on the parameters it is writing in place (its kernels
+                # keep running on the stream after the timeout)
+                if done.wait(timeout_s) and "out" in box:
+                    log.warning(
+                        "training step %d exceeded the %ss watchdog but "
+                        "completed in the grace window; using its result "
+                        "(raise step_timeout_s if this recurs)",
+                        iteration, timeout_s)
+                    return box["out"]
+                raise TimeoutError(
+                    f"training step {iteration} exceeded the "
+                    f"{timeout_s}s watchdog")
+            if "exc" in box:
+                raise box["exc"]
+            if "out" not in box:
+                raise RuntimeError(
+                    f"training step {iteration} was cancelled by an "
+                    "earlier watchdog timeout")
+            return box["out"]
+        except Exception as e:  # noqa: BLE001 — retry policy owns this
+            attempts += 1
+            if attempts > retries:
+                raise
+            retry_counter.inc()
+            log.warning(
+                "training step %d failed (%s: %s); retry %d/%d",
+                iteration, type(e).__name__, e, attempts, retries)
 
 
 def _to_device(tree, device: torch.device):
@@ -221,6 +348,66 @@ def _pick_one_step(model, loss_fn, optimizer, mixed_precision: bool,
     return build_train_step(model, loss_fn, optimizer, mixed_precision)
 
 
+def _opt_layout(optimizer) -> str:
+    """The layout marker auto-resume checks: a fused fit's state
+    (FusedAdamState) differs from the stock optax chain's."""
+    return "fused" if getattr(optimizer, "fused_apply", None) is not None \
+        else "tree"
+
+
+def restore_training_state(model, optimizer, opt_state, gen: torch.Generator,
+                           path: str, lazy: bool = False):
+    """Auto-resume's restore: the newest intact epoch-boundary checkpoint
+    under `path` (`find_resume_checkpoint`) into the model's parameters and
+    buffers (remapped onto its layer names), into `opt_state` (a fresh
+    `init` of `optimizer`, filled in place; a checkpoint without optimizer
+    state leaves it fresh) and into `gen`'s state. Returns
+    `(opt_state, meta)` with `meta["iteration"]` set, or None when there
+    is no checkpoint. Raises ValueError when the checkpoint's
+    `opt_state_layout` is not the one `optimizer` builds."""
+    from analytics_zoo_tpu_torch import convert
+    from analytics_zoo_tpu_torch.learn.checkpoint import (
+        find_resume_checkpoint, load_checkpoint)
+    found = find_resume_checkpoint(path)
+    if found is None:
+        return None
+    run_dir, version, _ = found
+    # verify=False: find_resume_checkpoint CRC-verified exactly this
+    # version moments ago
+    saved_params, saved_opt, meta = load_checkpoint(run_dir, version,
+                                                    verify=False)
+    if saved_opt is not None:
+        saved_layout = meta.get("opt_state_layout", "tree")
+        if saved_layout != _opt_layout(optimizer):
+            raise ValueError(
+                f"auto_resume: checkpoint optimizer state is "
+                f"{saved_layout!r} but this fit would build "
+                f"{_opt_layout(optimizer)!r} (fused_optimizer toggled "
+                "between runs?); re-run with the original setting")
+    # a fresh process's auto-generated layer names differ from the
+    # checkpointing process's: remap onto this instance
+    model.load_state_dict(convert.state_from_jax(
+        model._remap_loaded(saved_params), model))
+    if saved_opt is not None:
+        opt_state = convert.opt_layout_from_jax(
+            optimizer, convert.remap_moment_trees(
+                saved_opt, list(saved_params), model._remap_loaded),
+            opt_state, model, lazy=lazy)
+    if GENERATOR_KEY in meta:
+        gen.set_state(torch.frombuffer(bytearray(base64.b64decode(
+            meta[GENERATOR_KEY])), dtype=torch.uint8))
+    else:
+        log.warning(
+            "auto-resume: checkpoint has no %s state (written by the JAX "
+            "package?); continuing with a fresh generator — dropout seeds "
+            "will differ from the uninterrupted run", GENERATOR_KEY)
+    meta = dict(meta, iteration=int(meta.get("iteration", version)))
+    log.info("auto-resume: continuing from %s/model.%d (epoch %d, "
+             "iteration %d)", run_dir, version, int(meta.get("epoch", 0)),
+             meta["iteration"])
+    return opt_state, meta
+
+
 def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
               validation_data=None, distributed: bool = True,
               shuffle: bool = True, checkpoint_trigger=None,
@@ -245,24 +432,23 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
               profile_dir: Optional[str] = None
               ) -> Dict[str, List[float]]:
     """`KerasNet.fit` backend: trains `model` in place on the device its
-    parameters live on; returns `{"loss": [mean per epoch]}`.
+    parameters live on; returns `{"loss": [mean per epoch]}`, with
+    `"val_<metric>"` lists when `validation_data=(x, y)` is given.
 
     `distributed` is accepted (one device: nothing to distribute);
     `prefetch` is accepted and batches are copied to the device in the
     step loop; `device_cache` may be None or False (host batches, the JAX
     package's shuffle). `fused_optimizer=None` means False (the port has
-    no config file or environment switch)."""
-    given = dict(validation_data=validation_data,
-                 checkpoint_trigger=checkpoint_trigger,
-                 end_trigger=end_trigger,
-                 batch_iter_factory=batch_iter_factory,
+    no config file or environment switch). `checkpoint_trigger`,
+    `end_trigger`, `auto_resume`, `step_retries` and `step_timeout_s` are
+    the JAX package's (the module docstring)."""
+    given = dict(batch_iter_factory=batch_iter_factory,
                  prefetch_depth=prefetch_depth,
                  sharding_rules=sharding_rules,
                  flops_per_step=flops_per_step,
                  metrics_report_s=metrics_report_s,
                  compile_cache_dir=compile_cache_dir,
-                 auto_resume=auto_resume, int8_sidecar=int8_sidecar,
-                 step_retries=step_retries, step_timeout_s=step_timeout_s,
+                 int8_sidecar=int8_sidecar,
                  profile_steps=profile_steps, profile_dir=profile_dir)
     for name, default in _NOT_PORTED_ARGS.items():
         value = given[name]
@@ -289,6 +475,11 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         model.ensure_built(x, seed=seed)
     if model.optimizer is None:
         raise RuntimeError("Model must be compiled before fit")
+    ckpt_path = getattr(model, "_checkpoint_path", None)
+    if auto_resume and not ckpt_path:
+        raise ValueError(
+            "auto_resume=True needs a checkpoint directory; call "
+            "model.set_checkpoint(path) first")
     lazy_specs = None
     if lazy_embeddings:
         from analytics_zoo_tpu_torch.learn.lazy_embedding import resolve_specs
@@ -302,25 +493,125 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         opt_state = init_state(params, lazy_specs, optimizer)
     else:
         opt_state = optimizer.init(params)
-    one_step = _pick_one_step(model, model.loss, optimizer, mixed_precision,
-                              lazy_specs, bool(fused_optimizer))
+    opt_layout = _opt_layout(optimizer)
     gen = torch.Generator().manual_seed(seed)
 
+    # -- auto-resume: continue from the newest intact epoch-boundary
+    # checkpoint instead of step 0 --------------------------------------
+    start_epoch = 0
+    iteration = 0
+    resumed = None
+    if auto_resume:
+        resumed = restore_training_state(model, optimizer, opt_state, gen,
+                                         ckpt_path, lazy=bool(lazy_specs))
+        if resumed is not None:
+            opt_state, meta = resumed
+            start_epoch = int(meta.get("epoch", 0))
+            iteration = int(meta["iteration"])
+    one_step = _pick_one_step(model, model.loss, optimizer, mixed_precision,
+                              lazy_specs, bool(fused_optimizer))
+
+    ckpt_mgr = None
+    if ckpt_path:
+        from analytics_zoo_tpu_torch import convert
+        from analytics_zoo_tpu_torch.learn.checkpoint import (
+            CheckpointManager, write_publish_marker)
+        ckpt_mgr = CheckpointManager(ckpt_path)
+        if checkpoint_trigger is None:
+            checkpoint_trigger = tg.EveryEpoch()
+    telemetry = _TrainingMetrics()
+    if resumed is not None:
+        telemetry.resumes.inc()
+
+    def _ckpt_extra(ep: int, finished: bool) -> Dict[str, Any]:
+        """Checkpoint sidecar: everything auto-resume needs for bitwise
+        continuation — epoch/iteration cursors, the step-seed generator,
+        and the opt-state layout marker."""
+        return {"epoch": ep, "iteration": iteration,
+                "epoch_finished": finished,
+                GENERATOR_KEY: base64.b64encode(
+                    gen.get_state().numpy().tobytes()).decode("ascii"),
+                "opt_state_layout": opt_layout}
+
+    def _ckpt_save(extra: Dict[str, Any]) -> None:
+        """One commit funnel for every save site (mid-epoch trigger,
+        epoch boundary, emergency): the checkpoint set, then the publish
+        marker, the last act (a failure there leaves the version
+        resumable but unpublished)."""
+        ckpt_mgr.save(iteration, convert.state_to_jax(model.state_dict(),
+                                                      model),
+                      convert.opt_layout_to_jax(optimizer, opt_state, model,
+                                                lazy=bool(lazy_specs)),
+                      extra=extra)
+        try:
+            write_publish_marker(ckpt_mgr.run_dir, iteration, extra=extra)
+        except Exception as e:  # noqa: BLE001 — resume still works
+            log.warning("publish marker failed at iteration %d (%s: %s); "
+                        "the version resumes but will not roll out",
+                        iteration, type(e).__name__, e)
+
     history: Dict[str, List[float]] = {"loss": []}
-    for epoch in range(epochs):
-        losses = []   # device scalars; read once at the end of the epoch
-        for xb, yb, _ in iter_batches(x, y, batch_size, shuffle=shuffle,
-                                      seed=seed + epoch):
-            step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
-            params, opt_state, loss = one_step(
-                params, opt_state, _to_device(xb, device),
-                _to_device(yb, device) if yb is not None else None,
-                step_seed)
-            losses.append(loss)
-        step_losses = torch.stack(losses).cpu().numpy()
-        mean_loss = float(step_losses.mean())
-        history["loss"].append(mean_loss)
-        log.info("Epoch %d/%d  loss=%.4f", epoch + 1, epochs, mean_loss)
+    epoch = start_epoch
+    try:
+        for epoch in range(start_epoch, epochs):
+            losses = []   # device scalars; read once at the end of the epoch
+            for xb, yb, _ in iter_batches(x, y, batch_size, shuffle=shuffle,
+                                          seed=seed + epoch):
+                step_seed = int(torch.randint(0, 2 ** 62, (1,),
+                                              generator=gen))
+                params, opt_state, loss = _step_with_watchdog(
+                    one_step, (params, opt_state, _to_device(xb, device),
+                               _to_device(yb, device) if yb is not None
+                               else None, step_seed),
+                    step_retries, step_timeout_s, telemetry.step_retries,
+                    iteration, device)
+                iteration += 1
+                losses.append(loss)
+                # triggers that read .loss (Min/MaxLoss) sync on it;
+                # counter triggers stay asynchronous
+                state = tg.TriggerState(epoch=epoch, iteration=iteration,
+                                        loss=loss)
+                if checkpoint_trigger and ckpt_mgr and \
+                        checkpoint_trigger(state):
+                    _ckpt_save(_ckpt_extra(epoch, False))
+                if end_trigger and end_trigger(state):
+                    break
+            mean_loss = float(torch.stack(losses).cpu().numpy().mean()) \
+                if losses else 0.0
+            history["loss"].append(mean_loss)
+            log.info("Epoch %d/%d  loss=%.4f", epoch + 1, epochs, mean_loss)
+
+            if validation_data is not None:
+                vx, vy = validation_data
+                val = evaluate_keras(model, vx, vy,
+                                     batch_per_thread=max(batch_size, 1))
+                for k, v in val.items():
+                    history.setdefault("val_" + k, []).append(v)
+                    telemetry.val.set(v, name=k)
+
+            # epoch-boundary checkpoint trigger (EveryEpoch semantics)
+            state = tg.TriggerState(epoch=epoch + 1, iteration=iteration,
+                                    epoch_finished=True)
+            if checkpoint_trigger and ckpt_mgr and checkpoint_trigger(state):
+                _ckpt_save(_ckpt_extra(epoch + 1, True))
+            if end_trigger and end_trigger(state):
+                break
+    except Exception:
+        # the step watchdog exhausted its retries, or any other failure:
+        # leave an emergency checkpoint so auto_resume (or an operator)
+        # can continue; skipped when this iteration is already on disk (an
+        # emergency save would demote a boundary checkpoint's meta)
+        if ckpt_mgr is not None and iteration > 0 \
+                and iteration not in ckpt_mgr._saved:
+            try:
+                _ckpt_save(dict(_ckpt_extra(epoch, False), emergency=True))
+                log.warning("emergency checkpoint written at iteration %d",
+                            iteration)
+            except Exception as ce:  # noqa: BLE001 — already failing
+                log.warning("emergency checkpoint failed (%s: %s); the "
+                            "last periodic checkpoint is the resume "
+                            "point", type(ce).__name__, ce)
+        raise
     return history
 
 

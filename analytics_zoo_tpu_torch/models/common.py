@@ -14,9 +14,12 @@ the weights artifact `weights.npz`, `weights.structure.json` and
 package loads in the other. `load_model(path, device=None)` builds the
 model on the card unless the caller passes `device="cpu"`.
 
+`set_checkpoint` (JAX L92) hands the directory to the wrapped model, whose
+`fit` then writes training checkpoints there (`learn/checkpoint.py`).
+
 Not ported yet: `save_model_encrypted` (`learn/encrypted.py`, ROADMAP.md
-queue 1, item 8), `set_checkpoint` and `set_tensorboard` (ROADMAP.md queue
-1, 'The rest of training'); they raise NotImplementedError.
+queue 1, item 8) and `set_tensorboard` (ROADMAP.md queue 1, 'The rest of
+training'); they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,9 +103,7 @@ class ZooModel:
         return inst
 
     def set_checkpoint(self, path: str):
-        raise NotImplementedError(
-            f"set_checkpoint needs training checkpoints, which are not "
-            f"ported yet ({NOT_PORTED_QUEUE})")
+        self.model.set_checkpoint(path)
 
     def set_tensorboard(self, log_dir: str, app_name: str):
         raise NotImplementedError(

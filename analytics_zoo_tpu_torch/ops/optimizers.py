@@ -1,20 +1,36 @@
 """Optimizers and learning-rate schedules, with the compile-string
 registry.
 
-Port of `analytics_zoo_tpu/ops/optimizers.py`: `warmup_linear_decay`
-(L28), `fixed` (L58), `adam_weight_decay` (L66), `FusedAdamState` (L91),
+Port of `analytics_zoo_tpu/ops/optimizers.py` (the whole file):
+`warmup_linear_decay` (L28), `poly_epoch_decay` (L47), `fixed` (L58),
+`adam_weight_decay` (L66, with its `mask`), `FusedAdamState` (L91),
 `FusedGradientTransformation` (L104), `fused_adam` (L119), `_FUSED_EQUIV`
-(L173), `as_fused` (L182) and `get` (L208).
+(L173), `as_fused` (L182), the registry (L196-205: sgd, rmsprop, adamax,
+adagrad, adadelta, adam, adamw, adam_weight_decay) and `get` (L208).
 
 The JAX package builds its optimizers from optax; the port writes its own
-Adam/AdamW with the same contract — `init(params) -> state`,
-`update(grads, state, params) -> (updates, state)`, updates applied as
-`p + u` — and optax's arithmetic step by step (`scale_by_adam`,
+with the same contract — `init(params) -> state`, `update(grads, state,
+params) -> (updates, state)`, updates applied as `p + u` — and optax's
+arithmetic step by step (`scale_by_adam`, `scale_by_adamax`,
+`scale_by_rms` with `eps` inside the square root, `scale_by_rss` with its
+accumulator starting at 0.1, `scale_by_adadelta`, `trace`-less SGD,
 `add_decayed_weights`, `scale_by_learning_rate`): moments in the param
 dtype, bias correction `1 - β^t` formed in f32, `lr` negated and cast to
-the update's dtype. Parameter trees are dicts of tensors keyed by state-dict
-name. `fused_adam(...)` adds `fused_apply`, which runs the fused-Adam kernel
-(`kernels/fused_adam.py`) over every leaf in place.
+the update's dtype. These optimizers have no Pallas twin in the JAX
+package, so plain PyTorch is their port. Parameter trees are dicts of
+tensors keyed by state-dict name. `fused_adam(...)` adds `fused_apply`,
+which runs the fused-Adam kernel (`kernels/fused_adam.py`) over every leaf
+in place.
+
+Optimizer state in optax's layout. A checkpoint holds the state as optax
+lays it out, one record per link of the chain (`EmptyState` for a link
+without state, `ScaleByScheduleState(count)` for a scheduled rate), since
+the JAX `restore_opt_state` pours leaves into its template by leaf order.
+The states of the optimizers added here are that layout already (tuples
+of the records below, counts as host ints). Adam and AdamW keep the one
+`FusedAdamState` record the kernels and the lazy-embedding paths step;
+their `to_optax(state)` and `from_optax(layout)` give and take the chain
+(`convert.opt_layout_to_jax` / `opt_layout_from_jax` carry it across).
 
 Schedules are host functions of the integer step count returning a float,
 computed in float32 as the JAX schedules compute them.
@@ -55,6 +71,19 @@ def warmup_linear_decay(lr: float, total_steps: int,
     return schedule
 
 
+def poly_epoch_decay(lr: float, power: float, max_epochs: int,
+                     steps_per_epoch: int) -> Schedule:
+    """`PolyEpochDecay` (`Adam.scala:141-151`): lr * (1 -
+    epoch/maxEpochs)^power, epoch-granular."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        epoch = min(step // steps_per_epoch, max_epochs)
+        return float(f32(lr) * (f32(1.0) - f32(epoch) / f32(max_epochs))
+                     ** f32(power))
+    return schedule
+
+
 def fixed(lr: float) -> Schedule:
     """`Fixed` schedule (`common/Optim.scala:29`): lr at every step."""
     return lambda step: float(np.float32(lr))
@@ -63,6 +92,32 @@ def fixed(lr: float) -> Schedule:
 def _lr_at(learning_rate: LearningRate, count: int) -> float:
     return learning_rate(count) if callable(learning_rate) \
         else learning_rate
+
+
+def _lr_state(learning_rate: LearningRate, count: int):
+    """The state of `scale_by_learning_rate`'s link: a schedule keeps the
+    count it is read at, a constant nothing."""
+    return ScaleByScheduleState(count) if callable(learning_rate) \
+        else EmptyState()
+
+
+def _scale_by_lr(learning_rate: LearningRate, count: int, updates):
+    """`scale_by_learning_rate`: a constant multiplies as a weak-typed
+    scalar, a schedule's value is cast to each update's dtype; both equal
+    multiplying by −lr rounded to the update's dtype."""
+    step = np.float32(-np.float32(_lr_at(learning_rate, count)))
+    return {n: u * torch.tensor(float(step), dtype=u.dtype)
+            for n, u in updates.items()}
+
+
+def _lr_count(state) -> int:
+    """The schedule count a chain's state holds (0 without a schedule)."""
+    return next((part.count for part in state
+                 if isinstance(part, ScaleByScheduleState)), 0)
+
+
+def _next_lr_state(learning_rate: LearningRate, state):
+    return _lr_state(learning_rate, _lr_count(state) + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -78,9 +133,48 @@ class FusedAdamState(NamedTuple):
     nu: Dict[str, torch.Tensor]
 
 
+class EmptyState(NamedTuple):
+    """optax's `EmptyState`: a link of a chain that keeps no state."""
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax's `ScaleByScheduleState`: the step count a scheduled rate is
+    read at (a host int)."""
+
+    count: int
+
+
+class ScaleByRmsState(NamedTuple):
+    nu: Dict[str, torch.Tensor]
+
+
+class ScaleByRssState(NamedTuple):
+    sum_of_squares: Dict[str, torch.Tensor]
+
+
+class ScaleByAdaDeltaState(NamedTuple):
+    e_g: Dict[str, torch.Tensor]
+    e_x: Dict[str, torch.Tensor]
+
+
+class MaskedState(NamedTuple):
+    """optax's `MaskedState` around a masked link (`adamw(mask=...)`)."""
+
+    inner_state: Any
+
+
+def _identity_layout(state):
+    return state
+
+
 class GradientTransformation(NamedTuple):
+    """`init`, `update`, and the optax layout of the state: `to_optax`
+    gives the chain's records, `from_optax` takes them back."""
+
     init: Callable
     update: Callable
+    to_optax: Callable = _identity_layout
+    from_optax: Callable = _identity_layout
 
 
 class FusedGradientTransformation(NamedTuple):
@@ -92,12 +186,17 @@ class FusedGradientTransformation(NamedTuple):
     init: Callable
     update: Callable
     fused_apply: Callable
+    to_optax: Callable = _identity_layout
+    from_optax: Callable = _identity_layout
 
 
 def _adam(learning_rate: LearningRate, b1: float, b2: float, eps: float,
-          weight_decay: Optional[float]) -> GradientTransformation:
-    """optax.adam (weight_decay None) or optax.adamw, eps_root 0, no
-    mask, moments in the param dtype."""
+          weight_decay: Optional[float],
+          mask: Optional[Any] = None) -> GradientTransformation:
+    """optax.adam (weight_decay None) or optax.adamw, eps_root 0, moments
+    in the param dtype. `mask` (a dict of bools keyed like the params, or
+    a callable that makes one from them) limits the weight decay to the
+    leaves it marks, as optax's `masked` does."""
     f32 = np.float32
 
     def init_fn(params):
@@ -110,6 +209,7 @@ def _adam(learning_rate: LearningRate, b1: float, b2: float, eps: float,
         if weight_decay is not None and params is None:
             raise ValueError("adamw needs the params: call "
                              "update(grads, state, params)")
+        decays = _decay_mask(mask, params, grads)
         count = state.count + 1
         bc1 = float(f32(1.0) - f32(b1) ** f32(count))
         bc2 = float(f32(1.0) - f32(b2) ** f32(count))
@@ -122,12 +222,30 @@ def _adam(learning_rate: LearningRate, b1: float, b2: float, eps: float,
             mu_hat = mu / torch.tensor(bc1, dtype=torch.float32).to(mu.dtype)
             nu_hat = nu / torch.tensor(bc2, dtype=torch.float32).to(nu.dtype)
             u = mu_hat / (torch.sqrt(nu_hat) + eps)
-            if weight_decay is not None:
+            if weight_decay is not None and decays[name]:
                 u = u + weight_decay * params[name]
             updates[name] = u * torch.tensor(step, dtype=u.dtype)
         return updates, FusedAdamState(count, state.mu, state.nu)
 
-    return GradientTransformation(init_fn, update_fn)
+    def to_optax(state):
+        parts = [state]
+        if weight_decay is not None:
+            parts.append(EmptyState() if mask is None
+                         else MaskedState(EmptyState()))
+        parts.append(_lr_state(learning_rate, state.count))
+        return tuple(parts)
+
+    def from_optax(layout):
+        return layout[0]
+
+    return GradientTransformation(init_fn, update_fn, to_optax, from_optax)
+
+
+def _decay_mask(mask, params, grads) -> Dict[str, bool]:
+    if mask is None:
+        return {n: True for n in grads}
+    marks = mask(params) if callable(mask) else mask
+    return {n: bool(marks[n]) for n in grads}
 
 
 def adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
@@ -138,9 +256,11 @@ def adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
 
 def adamw(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 1e-4) -> GradientTransformation:
-    """optax.adamw (decoupled weight decay)."""
-    return _adam(learning_rate, b1, b2, eps, weight_decay)
+          weight_decay: float = 1e-4,
+          mask: Optional[Any] = None) -> GradientTransformation:
+    """optax.adamw (decoupled weight decay, limited to the leaves `mask`
+    marks when given)."""
+    return _adam(learning_rate, b1, b2, eps, weight_decay, mask)
 
 
 def adam_weight_decay(lr: float = 1e-3,
@@ -154,20 +274,146 @@ def adam_weight_decay(lr: float = 1e-3,
                       mask: Optional[Any] = None) -> GradientTransformation:
     """BERT AdamWeightDecay: decoupled weight decay 0.01, eps 1e-6, linear
     warmup over `warmup_portion` of `total_steps` then linear decay to
-    zero. No fused twin, as in the JAX package: the schedule lives in a
-    closure that `as_fused` must not guess at."""
+    zero; `mask` (a dict of bools keyed like the params, or a callable
+    making one) limits the decay to the leaves it marks. No fused twin, as
+    in the JAX package: the schedule lives in a closure that `as_fused`
+    must not guess at."""
     if schedule != "linear":
         raise ValueError(f"Unsupported warmup schedule: {schedule}")
-    if mask is not None:
-        raise NotImplementedError(
-            f"adam_weight_decay(mask=...) is not ported yet "
-            f"({NOT_PORTED_QUEUE})")
     if total_steps > 0:
         sched = warmup_linear_decay(lr, total_steps, warmup_portion)
     else:
         sched = fixed(lr)
     return adamw(sched, b1=beta1, b2=beta2, eps=epsilon,
-                 weight_decay=weight_decay)
+                 weight_decay=weight_decay, mask=mask)
+
+
+def _zeros(params, fill: float = 0.0):
+    return {n: torch.full_like(p, fill) for n, p in params.items()}
+
+
+def sgd(learning_rate: LearningRate = 0.01) -> GradientTransformation:
+    """optax.sgd without momentum: chain(identity, scale_by_learning_rate);
+    its state is (EmptyState(), the rate's link)."""
+
+    def init_fn(params):
+        return (EmptyState(), _lr_state(learning_rate, 0))
+
+    @torch.no_grad()
+    def update_fn(grads, state, params=None):
+        updates = _scale_by_lr(learning_rate, _lr_count(state), grads)
+        return updates, (EmptyState(), _next_lr_state(learning_rate, state))
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def rmsprop(learning_rate: LearningRate = 0.001, decay: float = 0.9,
+            eps: float = 1e-8) -> GradientTransformation:
+    """optax.rmsprop (not centered, no momentum, `eps_in_sqrt=True`):
+    ν ← (1−decay)·g² + decay·ν, u = g·rsqrt(ν + eps); its state is
+    (ScaleByRmsState(nu), the rate's link, EmptyState())."""
+
+    def init_fn(params):
+        return (ScaleByRmsState(_zeros(params)),
+                _lr_state(learning_rate, 0), EmptyState())
+
+    @torch.no_grad()
+    def update_fn(grads, state, params=None):
+        nu = {n: (1 - decay) * (g * g) + decay * state[0].nu[n]
+              for n, g in grads.items()}
+        u = {n: torch.rsqrt(nu[n] + eps) * g for n, g in grads.items()}
+        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+                (ScaleByRmsState(nu), _next_lr_state(learning_rate, state),
+                 EmptyState()))
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def adamax(learning_rate: LearningRate = 0.002, b1: float = 0.9,
+           b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """optax.adamax: μ ← (1−b1)·g + b1·μ, ν ← max(|g| + eps, b2·ν),
+    u = μ / (1 − b1^t) / ν; its state is (ScaleByAdamState(count, mu, nu),
+    the rate's link)."""
+    f32 = np.float32
+
+    def init_fn(params):
+        return (FusedAdamState(0, _zeros(params), _zeros(params)),
+                _lr_state(learning_rate, 0))
+
+    @torch.no_grad()
+    def update_fn(grads, state, params=None):
+        adam_state = state[0]
+        count = adam_state.count + 1
+        bc1 = float(f32(1.0) - f32(b1) ** f32(count))
+        mu, nu, u = {}, {}, {}
+        for n, g in grads.items():
+            mu[n] = (1 - b1) * g + b1 * adam_state.mu[n]
+            nu[n] = torch.maximum(torch.abs(g) + eps, b2 * adam_state.nu[n])
+            mu_hat = mu[n] / torch.tensor(bc1, dtype=torch.float32).to(
+                mu[n].dtype)
+            u[n] = mu_hat / nu[n]
+        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+                (FusedAdamState(count, mu, nu),
+                 _next_lr_state(learning_rate, state)))
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def adagrad(learning_rate: LearningRate = 0.01,
+            initial_accumulator_value: float = 0.1,
+            eps: float = 1e-7) -> GradientTransformation:
+    """optax.adagrad: s ← g² + s (s starts at 0.1), u = g·rsqrt(s + eps)
+    where s > 0, else 0; its state is (ScaleByRssState(sum_of_squares),
+    the rate's link)."""
+
+    def init_fn(params):
+        return (ScaleByRssState(_zeros(params, initial_accumulator_value)),
+                _lr_state(learning_rate, 0))
+
+    @torch.no_grad()
+    def update_fn(grads, state, params=None):
+        sos = {n: g * g + state[0].sum_of_squares[n]
+               for n, g in grads.items()}
+        u = {n: torch.where(sos[n] > 0, torch.rsqrt(sos[n] + eps), 0.0) * g
+             for n, g in grads.items()}
+        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+                (ScaleByRssState(sos), _next_lr_state(learning_rate, state)))
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def adadelta(learning_rate: LearningRate = 1.0, rho: float = 0.9,
+             eps: float = 1e-6,
+             weight_decay: float = 0.0) -> GradientTransformation:
+    """optax.adadelta: chain(add_decayed_weights(weight_decay),
+    scale_by_adadelta, scale_by_learning_rate); e_g ← (1−ρ)·g² + ρ·e_g,
+    u = √(e_x + eps) / √(e_g + eps) · g, e_x ← (1−ρ)·u² + ρ·e_x. Its state
+    is (EmptyState(), ScaleByAdaDeltaState(e_g, e_x), the rate's link).
+    Like optax it needs the params (the decay link adds `wd · p`, 0 · p
+    included)."""
+
+    def init_fn(params):
+        return (EmptyState(),
+                ScaleByAdaDeltaState(_zeros(params), _zeros(params)),
+                _lr_state(learning_rate, 0))
+
+    @torch.no_grad()
+    def update_fn(grads, state, params=None):
+        if params is None:
+            raise ValueError("adadelta needs the params: call "
+                             "update(grads, state, params)")
+        e_g, e_x, u = {}, {}, {}
+        for n, g in grads.items():
+            g = g + weight_decay * params[n]
+            e_g[n] = (1 - rho) * (g * g) + rho * state[1].e_g[n]
+            u[n] = (torch.sqrt(state[1].e_x[n] + eps)
+                    / torch.sqrt(e_g[n] + eps)) * g
+            e_x[n] = (1 - rho) * (u[n] * u[n]) + rho * state[1].e_x[n]
+        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+                (EmptyState(), ScaleByAdaDeltaState(e_g, e_x),
+                 _next_lr_state(learning_rate, state)))
+
+    return GradientTransformation(init_fn, update_fn)
 
 
 def fused_adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
@@ -237,13 +483,17 @@ def as_fused(optimizer: Any, spec: Any) -> Optional[Any]:
 
 
 # Registry — the JAX package's strings and defaults (`KerasUtils.scala`
-# 207-216). The strings not ported yet raise NotImplementedError.
+# 207-216).
 _REGISTRY: Dict[str, Callable[[], GradientTransformation]] = {
+    "sgd": lambda: sgd(learning_rate=0.01),
+    "rmsprop": lambda: rmsprop(learning_rate=0.001, decay=0.9),
+    "adamax": lambda: adamax(learning_rate=0.002, eps=1e-8),
+    "adagrad": lambda: adagrad(learning_rate=0.01),
+    "adadelta": lambda: adadelta(learning_rate=1.0, rho=0.95, eps=1e-8),
     "adam": lambda: adam(learning_rate=0.001),
     "adamw": lambda: adam_weight_decay(),
     "adam_weight_decay": lambda: adam_weight_decay(),
 }
-_NOT_PORTED = ("sgd", "rmsprop", "adamax", "adagrad", "adadelta")
 
 
 def get(optimizer: Any):
@@ -254,9 +504,6 @@ def get(optimizer: Any):
             and callable(getattr(optimizer, "update", None)):
         return optimizer
     key = str(optimizer).lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet ({NOT_PORTED_QUEUE})")
     if key not in _REGISTRY:
         raise ValueError(f"Unsupported optimizer: {optimizer}")
     return _REGISTRY[key]()

@@ -156,8 +156,22 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
 23. checks without timing: `SessionRecommender(include_history=True)`
    served and fitted one step against the CPU, and the `CustomLoss` of
    `examples/autograd_custom_loss.py` fitted 3 steps against the CPU;
-24. a `kernels` line listing every kernel of the port;
-25. the last line, `{"ok": true, "device": {...}}`.
+24. TextClassifier-lstm at news20's widths compiled with the JAX
+   registry's `"adagrad"`, trained 2 epochs of 8 steps through a
+   checkpointed `Estimator` (`model_dir`, the default `EveryEpoch`
+   trigger) with a validation split of 256 rows, bf16: step ms,
+   samples/s, validation per epoch, checkpoint save seconds and bytes,
+   the run directory (`find_resume_checkpoint` must accept it), 2 dropout
+   launches a step; then the kernel path against the plain path, f32;
+25. WideAndDeep (phase 22's widths, fused Adam) killed by a fault at
+   `trainer.step` in epoch 3 and resumed by a fresh instance with
+   `auto_resume=True`: the state restored from disk bitwise the saved
+   state, the resumed epoch-3 loss, parameters and moments against an
+   uninterrupted fit (bitwise or not, and the largest relative
+   difference, at most 1e-6), the resume seconds, one fused-Adam launch a
+   step;
+26. a `kernels` line listing every kernel of the port;
+27. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -4331,6 +4345,433 @@ def phase_autograd_checks(card: str, seed: int):
     torch.cuda.empty_cache()
 
 
+# Path A: the news20 TextClassifier with its own optimizer, the JAX
+# registry's "adagrad" (`optax.adagrad(0.01)`), under a checkpointed
+# Estimator: 2 epochs of 8 steps at batch 128, a validation split of 256
+# rows evaluated after each epoch, bf16 with f32 masters
+TXTA_EPOCHS = 2
+TXTA_STEPS = 8
+TXTA_VAL = 256
+TXTA_WARM_STEPS = 2
+# the compiled "accuracy" and the loss as a validation metric (the metric
+# string "loss" means the mean squared error, in the JAX package too)
+TXTA_METRICS = ["accuracy", "loss_sparse_categorical_crossentropy"]
+# Path B: WideAndDeep at MovieLens-1M widths (phase 22's data and
+# batch, fused Adam) fitted 3 epochs, killed by a fault at `trainer.step`
+# two steps into epoch 3, resumed by a fresh instance with auto_resume; the
+# resumed epoch-3 loss and the final parameters and moments against an
+# uninterrupted fit in the same call
+RES_EPOCHS = 3
+RES_KILL_AT = 2 * WND_TRAIN_STEPS + 2      # iteration the fault fires at
+RES_REL_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Wrap each `(owner, attribute)` in `targets` to add its wall seconds
+    and call count to the yielded dict, keyed by attribute; the
+    originals come back on exit."""
+    spent = {name: {"s": 0.0, "calls": 0} for _, name in targets}
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name]["s"] += time.perf_counter() - t0
+                spent[name]["calls"] += 1
+        return wrapper
+
+    for owner, name, fn in saved:
+        setattr(owner, name, timed(name, fn))
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def version_files(run_dir: str, version: int) -> dict:
+    """{file: bytes} of one checkpoint version's set."""
+    pat = re.compile(rf"(model|optimMethod-.+)\.{version}\.")
+    return {f: os.path.getsize(os.path.join(run_dir, f))
+            for f in sorted(os.listdir(run_dir)) if pat.match(f)}
+
+
+def text_adagrad_path_check(matrix, state, data, seed: int) -> dict:
+    """The kernel path (the dropout kernel) against the plain path (the
+    plain dropout on the same Philox masks) of the Adagrad fit, 3 f32 steps
+    on one batch from the same weights: losses within RNN_PATH_TOL, the
+    update within RNN_UPDATE_TOL, and launches (2 dropout kernels a step
+    on the kernel path, none on the plain one)."""
+    runs = {}
+    for name in ("kernel", "plain"):
+        m = load_by_order(text_model("lstm", matrix).model, state)
+        initial = [p.detach().clone() for p in m.parameters()]
+        LAUNCHES.reset()
+        with contextlib.nullcontext() if name == "kernel" \
+                else plain_dropout_layers():
+            h = Estimator.from_keras(m, optimizer="adagrad",
+                                     loss=RNN_LOSS).fit(
+                data, epochs=3, batch_size=TXT_BATCH, seed=seed)
+        runs[name] = (h["loss"], LAUNCHES.snapshot(),
+                      [p.detach().clone() for p in m.parameters()])
+        del m
+    (lk, ck, pk), (lp, cp, pp) = runs["kernel"], runs["plain"]
+    errs = [abs(a - b) for a, b in zip(lk, lp)]
+    upd = update_errors(initial, pk, pp)
+    ok = (all(e <= RNN_PATH_TOL[False] for e in errs)
+          and all(math.isfinite(v) for v in lk + lp)
+          and upd["update_rel_l2_err"] is not None
+          and upd["update_rel_l2_err"] <= RNN_UPDATE_TOL[False]
+          and ck.get(dr.KERNEL_NAME, 0) == 6 and not cp.get(dr.KERNEL_NAME))
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "steps": 3, "loss_kernel": lk,
+            "loss_plain": lp, "loss_err_per_step": errs,
+            "loss_tol": RNN_PATH_TOL[False], **upd,
+            "update_tol": RNN_UPDATE_TOL[False],
+            "launches_kernel_path": ck, "launches_plain_path": cp, "ok": ok}
+
+
+def optimizer_host_ms(model) -> dict:
+    """Host ms of one optimizer step over the model's parameters on random
+    gradients: the plain Adagrad (its update and the `p += u` pass, as the
+    trainer runs them) beside the fused-Adam sweep (one launch)."""
+    params = dict(model.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = {n: torch.randn(p.shape, device="cuda", generator=gen)
+             for n, p in params.items()}
+    ada, fused = optimizers.get("adagrad"), optimizers.fused_adam(1e-3)
+    state = {"adagrad": ada.init(params), "fused": fused.init(params)}
+
+    @torch.no_grad()
+    def adagrad_step():
+        u, state["adagrad"] = ada.update(grads, state["adagrad"], params)
+        for n, t in params.items():
+            t.add_(u[n])
+
+    @torch.no_grad()
+    def fused_step():
+        _, state["fused"] = fused.fused_apply(grads, state["fused"], params)
+    return {"adagrad": host_ms(adagrad_step, 20),
+            "fused_adam": host_ms(fused_step, 20), "leaves": len(params)}
+
+
+def phase_text_adagrad(card: str, seed: int):
+    """Path A: TextClassifier-lstm at news20's widths compiled with
+    "adagrad", trained through `Estimator.from_keras(model,
+    model_dir=...).fit(epochs=2, validation_data=..., mixed_precision=True)`
+    (the default `EveryEpoch` checkpoint trigger): step ms, samples/s,
+    validation per epoch, checkpoint save seconds and bytes, the run
+    directory, which `find_resume_checkpoint` must accept; then the kernel
+    path against the plain path in f32."""
+    from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.learn import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    matrix = text_matrix(seed + 130)
+    clf = text_model("lstm", matrix)
+    model = clf.model
+    model.ensure_built(seed=seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    table = model.layers[0].embeddings.detach().clone()
+    rs = np.random.default_rng(seed + 131)
+    n = TXT_BATCH * TXTA_STEPS
+    data = {"x": rs.integers(0, TXT_WORDS + 1, (n, TXT_SEQ)).astype(np.int32),
+            "y": rs.integers(0, TXT_CLASSES, n).astype(np.int32)}
+    val = {"x": rs.integers(0, TXT_WORDS + 1, (TXTA_VAL, TXT_SEQ)
+                            ).astype(np.int32),
+           "y": rs.integers(0, TXT_CLASSES, TXTA_VAL).astype(np.int32)}
+    fit_kw = dict(batch_size=TXT_BATCH, validation_data=val,
+                  mixed_precision=True, seed=seed)
+    warm_n = TXTA_WARM_STEPS * TXT_BATCH
+    t0 = time.perf_counter()
+    from analytics_zoo_tpu_torch.ops.metrics import Loss
+    Estimator.from_keras(model, optimizer="adagrad", loss=RNN_LOSS,
+                         metrics=[TXTA_METRICS[0], Loss(RNN_LOSS)]).fit(
+        {"x": data["x"][:warm_n], "y": data["y"][:warm_n]}, epochs=1,
+        **fit_kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    builds = _build.build_events()
+    with tempfile.TemporaryDirectory() as tmp:
+        est = Estimator.from_keras(model, model_dir=tmp)
+        with timed_calls([(ckpt.CheckpointManager, "save"),
+                          (ckpt, "write_publish_marker"),
+                          (convert, "state_to_jax"),
+                          (convert, "opt_layout_to_jax"),
+                          (trainer, "evaluate_keras"),
+                          (trainer, "_step_with_watchdog"),
+                          (trainer, "_to_device")]) as spent:
+            # -- the main path: every count is 0 just before, read just
+            # after ----------------------------------------------------------
+            LAUNCHES.reset()
+            t1 = time.perf_counter()
+            hist = est.fit(data, epochs=TXTA_EPOCHS, **fit_kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            counts = LAUNCHES.snapshot()
+            # -----------------------------------------------------------------
+        builds_after = _build.build_events()
+        found = ckpt.find_resume_checkpoint(tmp)
+        run_dir, version = (found[0], found[1]) if found else (None, None)
+        listing = {f: os.path.getsize(os.path.join(run_dir, f))
+                   for f in sorted(os.listdir(run_dir))} if found else {}
+        ckpt_bytes = sum(version_files(run_dir, version).values()) \
+            if found else 0
+        published = bool(found) and ckpt.published_intact(run_dir, version)
+    steps = TXTA_EPOCHS * TXTA_STEPS
+    save_s = spent["save"]["s"] + spent["write_publish_marker"]["s"]
+    host_copy_s = spent["state_to_jax"]["s"] + \
+        spent["opt_layout_to_jax"]["s"]
+    expected = {dr.KERNEL_NAME: 2}
+    per_step = {k: counts.get(k, 0) / steps for k in expected}
+    val_keys = sorted(k for k in hist if k.startswith("val_"))
+    table_same = torch.equal(model.layers[0].embeddings.detach(), table)
+    ok = (per_step == {k: float(v) for k, v in expected.items()}
+          and not counts.get(fad.KERNEL_NAME)
+          and builds_after == builds and table_same
+          and found is not None and version == steps
+          and found[2].get("epoch") == TXTA_EPOCHS and published
+          and val_keys == ["val_loss", "val_sparse_categorical_accuracy"]
+          and all(len(hist[k]) == TXTA_EPOCHS for k in val_keys)
+          and all(math.isfinite(v) for k in hist for v in hist[k])
+          and spent["save"]["calls"] == TXTA_EPOCHS)
+    emit({"phase": "text_adagrad_train", "encoder": "lstm",
+          "optimizer": "adagrad", "lr": 0.01, "batch": TXT_BATCH,
+          "seq": TXT_SEQ, "hidden": TXT_HIDDEN, "embed": TXT_EMBED,
+          "classes": TXT_CLASSES, "epochs": TXTA_EPOCHS,
+          "steps_per_epoch": TXTA_STEPS, "val_rows": TXTA_VAL,
+          "warm_fit_s": warm_s, "fit_s": dt,
+          "step_ms": (dt - save_s - host_copy_s
+                      - spent["evaluate_keras"]["s"]) / steps * 1e3,
+          "fit_ms_per_step": dt / steps * 1e3,
+          "validation_s": spent["evaluate_keras"]["s"] / TXTA_EPOCHS,
+          "host_ms_per_step": {
+              "step_call": spent["_step_with_watchdog"]["s"] / steps * 1e3,
+              "uploads_validation_included":
+              spent["_to_device"]["s"] / steps * 1e3},
+          "samples_per_s": n * TXTA_EPOCHS / dt, "loss": hist["loss"],
+          **{k: hist[k] for k in val_keys},
+          "checkpoint_saves": spent["save"]["calls"],
+          "checkpoint_save_s": save_s / max(spent["save"]["calls"], 1),
+          "checkpoint_host_copy_s": host_copy_s
+          / max(spent["state_to_jax"]["calls"], 1),
+          "checkpoint_bytes": ckpt_bytes, "run_dir_listing": listing,
+          "resume_checkpoint": {"version": version,
+                                "meta_epoch": found[2].get("epoch")
+                                if found else None,
+                                "published": published},
+          "launches": counts, "launches_per_step": per_step,
+          "expected_per_step": expected, "frozen_table_unchanged": table_same,
+          "builds_before": builds, "builds_after": builds_after, "ok": ok,
+          "card": card})
+    if not ok:
+        raise SystemExit("chip_smoke: text Adagrad checkpointed fit failed")
+    prof_n = TXT_PROFILE_STEPS * TXT_BATCH
+    dev, ops, classes, top = profile_fit_by_class(
+        Estimator.from_keras(model),
+        {"x": data["x"][:prof_n], "y": data["y"][:prof_n]},
+        dict(epochs=1, batch_size=TXT_BATCH, mixed_precision=True,
+             seed=seed), TXT_PROFILE_STEPS)
+    step_ms = (dt - save_s - host_copy_s
+               - spent["evaluate_keras"]["s"]) / steps * 1e3
+    emit({"phase": "text_adagrad_profile", "device_ms_per_step": dev,
+          "device_ops_per_step": ops, "step_ms": step_ms,
+          "idle_share": (1.0 - dev / step_ms) if dev else None,
+          "by_class": classes, "top": top[:6],
+          "optimizer_host_ms": optimizer_host_ms(model), "card": card})
+    del est, model, clf
+    torch.cuda.empty_cache()
+    check = text_adagrad_path_check(
+        matrix, state, {"x": data["x"][:TXT_BATCH],
+                        "y": data["y"][:TXT_BATCH]}, seed)
+    emit({"phase": "text_adagrad_kernel_vs_plain", **check, "card": card})
+    if not check["ok"]:
+        raise SystemExit("chip_smoke: text Adagrad kernel-vs-plain check "
+                         "failed")
+    return {"counts": counts, "step_ms": dt / steps * 1e3}
+
+
+def sorted_leaves(tree) -> list:
+    """A tree's leaves with dict keys in sorted order, so that trees built
+    in another insertion order line up."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in sorted_leaves(v)]
+    return [tree]
+
+
+def max_rel_diff(a, b) -> float:
+    """max |a − b| / max(|b|, tiny) over every element of two trees of
+    arrays."""
+    worst = 0.0
+    for x, y in zip(sorted_leaves(a), sorted_leaves(b)):
+        x = np.asarray(x, np.float64)
+        y = np.asarray(y, np.float64)
+        if x.size:
+            worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(
+                np.abs(y), np.finfo(np.float32).tiny))))
+    return worst
+
+
+def tree_bitwise(a, b) -> bool:
+    la, lb = sorted_leaves(a), sorted_leaves(b)
+    return len(la) == len(lb) and all(
+        np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(la, lb))
+
+
+def phase_resume(card: str, seed: int):
+    """Path B: WideAndDeep at MovieLens-1M widths, fused Adam (one sweep
+    launch a step), `set_checkpoint` then a 3-epoch fit killed by a fault
+    at `trainer.step` in epoch 3 (an emergency checkpoint, then the
+    raise); a fresh instance's `fit(auto_resume=True)` continues from the
+    epoch-2 boundary. The state restored from disk against the saved one
+    (bitwise), the resumed epoch-3 loss and the final parameters and
+    moments against an uninterrupted fit in the same call (bitwise, else
+    within RES_REL_TOL), the resume seconds."""
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.learn import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.default_rng(seed + 140)
+    x, y = wide_and_deep_data(rs, WND_SAMPLES)
+    kw = dict(batch_size=WND_BATCH, seed=seed, fused_optimizer=True)
+
+    def new():
+        m = WideAndDeep(**WND_CFG)
+        m.model.ensure_built(seed=seed)
+        m.compile("adam", IMG_LOSS)
+        return m
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            full_dir = os.path.join(tmp, "uninterrupted")
+            run_dir_root = os.path.join(tmp, "killed")
+            full = new()
+            full.set_checkpoint(full_dir)
+            h_full = full.fit(x, y, nb_epoch=RES_EPOCHS, **kw)
+            torch.cuda.synchronize()
+            builds = _build.build_events()
+
+            killed = new()
+            killed.set_checkpoint(run_dir_root)
+            faults.inject("trainer.step", faults.Fault(
+                exc=RuntimeError("injected: the card fell over"),
+                match=lambda c: c.get("iteration", 0) >= RES_KILL_AT))
+            try:
+                killed.fit(x, y, nb_epoch=RES_EPOCHS, **kw)
+                raised = False
+            except RuntimeError:
+                raised = True
+            finally:
+                faults.clear("trainer.step")
+            listed = ckpt.list_checkpoints(run_dir_root)
+            newest_dir, newest = listed[0]
+            newest_meta = ckpt.read_checkpoint_meta(newest_dir, newest)
+            found = ckpt.find_resume_checkpoint(run_dir_root)
+
+            # the state restored from disk against the state saved there
+            probe = new()
+            opt = optimizers.as_fused(probe.model.optimizer, "adam")
+            gen = torch.Generator()
+            fresh = opt.init(dict(probe.model.named_parameters()))
+            restored, meta = trainer.restore_training_state(
+                probe.model, opt, fresh, gen, run_dir_root)
+            s_params, s_opt, s_meta = ckpt.load_checkpoint(found[0],
+                                                           found[1])
+            r_params = convert.state_to_jax(probe.model.state_dict(),
+                                            probe.model)
+            r_opt = convert.opt_layout_to_jax(opt, restored, probe.model)
+            want_gen = torch.Generator().manual_seed(seed)
+            torch.randint(0, 2 ** 62, (found[1],), generator=want_gen)
+            restore_exact = {
+                "params": tree_bitwise(
+                    r_params, probe.model._remap_loaded(s_params)),
+                "mu_nu_count": tree_bitwise(
+                    r_opt, convert.remap_moment_trees(
+                        s_opt, list(s_params), probe.model._remap_loaded)),
+                "count": int(restored.count) == found[1],
+                "generator": torch.equal(gen.get_state(),
+                                         want_gen.get_state())}
+            del probe, restored, fresh
+
+            resumed = new()
+            resumed.set_checkpoint(run_dir_root)
+            with timed_calls([(trainer, "restore_training_state")]) as spent:
+                # -- the main path: every count is 0 just before, read
+                # just after -------------------------------------------------
+                LAUNCHES.reset()
+                t0 = time.perf_counter()
+                h = resumed.fit(x, y, nb_epoch=RES_EPOCHS,
+                                auto_resume=True, **kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = LAUNCHES.snapshot()
+                # -------------------------------------------------------------
+            builds_after = _build.build_events()
+            remap = full.model._remap_loaded
+            f_params, f_opt, _ = ckpt.load_checkpoint(full_dir)
+            g_params, g_opt, g_meta = ckpt.load_checkpoint(run_dir_root)
+            f_opt = convert.remap_moment_trees(f_opt, list(f_params), remap)
+            g_opt = convert.remap_moment_trees(g_opt, list(g_params), remap)
+            f_params, g_params = remap(f_params), remap(g_params)
+            state_equal = all(torch.equal(a, b) for a, b in zip(
+                resumed.model.state_dict().values(),
+                full.model.state_dict().values()))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    loss_equal = h["loss"] == h_full["loss"][2:]
+    params_bitwise = tree_bitwise(g_params, f_params)
+    moments_bitwise = tree_bitwise(g_opt, f_opt)
+    loss_rel = abs(h["loss"][0] - h_full["loss"][2]) / abs(
+        h_full["loss"][2]) if len(h["loss"]) == 1 else float("inf")
+    params_rel = max_rel_diff(g_params, f_params)
+    moments_rel = max_rel_diff(g_opt, f_opt)
+    sweep = fad.sweep_launches(resumed.model.parameters())
+    expected = {fad.KERNEL_NAME: sweep}
+    per_step = {k: counts.get(k, 0) / WND_TRAIN_STEPS for k in expected}
+    ok = (raised and newest == RES_KILL_AT and newest_meta.get("emergency")
+          and found is not None and found[1] == 2 * WND_TRAIN_STEPS
+          and found[2].get("epoch") == 2 and all(restore_exact.values())
+          and meta["iteration"] == found[1] and len(h["loss"]) == 1
+          and max(loss_rel, params_rel, moments_rel) <= RES_REL_TOL
+          and per_step == {k: float(v) for k, v in expected.items()}
+          and builds_after == builds and g_meta.get("iteration") ==
+          RES_EPOCHS * WND_TRAIN_STEPS)
+    emit({"phase": "resume", "model": "WideAndDeep", "samples": WND_SAMPLES,
+          "batch": WND_BATCH, "epochs": RES_EPOCHS,
+          "steps_per_epoch": WND_TRAIN_STEPS, "killed_at_iteration":
+          RES_KILL_AT, "raised": raised, "newest_checkpoint": newest,
+          "newest_meta": {k: newest_meta.get(k) for k in (
+              "epoch", "iteration", "epoch_finished", "emergency",
+              "opt_state_layout")},
+          "resumed_from": found[1] if found else None,
+          "resume_s": spent["restore_training_state"]["s"],
+          "resumed_fit_s": dt, "restored_equals_saved": restore_exact,
+          "loss_uninterrupted": h_full["loss"], "loss_resumed": h["loss"],
+          "loss_bitwise": loss_equal, "params_bitwise": params_bitwise,
+          "moments_bitwise": moments_bitwise,
+          "live_state_bitwise": state_equal,
+          "max_rel_diff": {"loss": loss_rel, "params": params_rel,
+                           "moments": moments_rel},
+          "rel_tol": RES_REL_TOL, "launches": counts,
+          "launches_per_step": per_step, "expected_per_step": expected,
+          "builds_before": builds, "builds_after": builds_after, "ok": ok,
+          "card": card})
+    if not ok:
+        raise SystemExit("chip_smoke: the killed WideAndDeep fit did not "
+                         "resume to the uninterrupted run")
+    del full, killed, resumed
+    torch.cuda.empty_cache()
+    return {"counts": counts}
+
+
 # How an entry's `ms`, `plain_ms` and `library_ms` were taken: "events"
 # (`time_ms`), "graph" (`graph_ms`) or "profiler" (`device_ms`, which takes
 # "graph" when the profiler records nothing).
@@ -4536,6 +4977,8 @@ def main(argv=None) -> int:
     inception = phase_inception_imagenet(card, args.seed)
     wide = phase_wide_and_deep(card, args.seed)
     phase_autograd_checks(card, args.seed)
+    text_adagrad = phase_text_adagrad(card, args.seed)
+    resume = phase_resume(card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -4549,7 +4992,10 @@ def main(argv=None) -> int:
             "host_ms", "one_leaf_a_launch", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "pct_of_bound", "timed_by")})
     entries[dr.KERNEL_NAME].update(
-        launches_inception_step=inception_counts.get(dr.KERNEL_NAME, 0))
+        launches_inception_step=inception_counts.get(dr.KERNEL_NAME, 0),
+        launches_text_adagrad=text_adagrad["counts"].get(dr.KERNEL_NAME, 0))
+    entries[fad.KERNEL_NAME].update(
+        launches_resume=resume["counts"].get(fad.KERNEL_NAME, 0))
     for name in (dr.KERNEL_NAME, fad.KERNEL_NAME):
         entries[name].update(
             launches_text_lstm=text["lstm"]["counts"].get(name, 0),

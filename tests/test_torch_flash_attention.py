@@ -302,6 +302,11 @@ def test_port_never_imports_jax_or_the_jax_package():
     interpreter, so a runtime check of sys.modules proves nothing."""
     sources = _port_sources()
     assert len(sources) > 10 and (REPO / "chip_smoke.py").is_file()
+    # the modules copied or ported from the JAX package's jax-free files
+    assert {"common/triggers.py", "common/faults.py", "learn/schedule.py",
+            "learn/trigger.py", "learn/metrics.py", "learn/checkpoint.py",
+            "observability/registry.py"} <= {
+        p.relative_to(PORT).as_posix() for p in _package_sources()}
     bad = [(str(p.relative_to(REPO)), root) for p in sources
            for root in _imported_roots(p) if root in _FORBIDDEN_ROOTS]
     assert bad == []

@@ -402,8 +402,7 @@ def test_optimizer_registry():
     assert callable(optimizers.get("AdamW").update)
     tx = optimizers.adamw()
     assert optimizers.get(tx) is tx
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.get("sgd")
+    assert callable(optimizers.get("sgd").update)
     with pytest.raises(ValueError, match="Unsupported"):
         optimizers.get("nope")
     assert optimizers.as_fused(optimizers.get("adam"), "adam").fused_apply
@@ -421,8 +420,8 @@ def test_optimizer_registry():
     # a warmup instance carries its schedule in a closure: no twin
     assert optimizers.as_fused(optimizers.adam_weight_decay(
         1e-4, warmup_portion=0.1, total_steps=10), None) is None
-    with pytest.raises(NotImplementedError):
-        optimizers.adam_weight_decay(mask={"w": True})
+    assert optimizers.as_fused(optimizers.adam_weight_decay(
+        mask={"w": True}), None) is None
 
 
 def test_fused_adam_costs_match_the_jax_package():
@@ -498,8 +497,7 @@ def test_objectives_match_jax(case):
 
 
 def test_objective_registry():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        objectives.get("hinge")
+    assert isinstance(objectives.get("hinge"), objectives.Hinge)
     with pytest.raises(ValueError, match="Unsupported"):
         objectives.get("nope")
     fn = objectives.get(lambda t, p: (p - t).abs().mean())

@@ -333,10 +333,11 @@ def test_load_errors(tmp_path):
         unbuilt.model.save_weights(str(tmp_path / "nothing"))
     for call in (lambda: t.save_model_encrypted(str(tmp_path / "e"), "s",
                                                 "salt"),
-                 lambda: t.set_checkpoint(str(tmp_path)),
                  lambda: t.set_tensorboard(str(tmp_path), "app")):
         with pytest.raises(NotImplementedError, match="queue 1"):
             call()
+    t.set_checkpoint(str(tmp_path))
+    assert t.model._checkpoint_path == str(tmp_path)
 
 
 def test_inference_model_load_zoo_model(tmp_path):

@@ -326,9 +326,10 @@ def test_optimizer_state_round_trips(kind):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"validation_data": ([1], [1])}, {"checkpoint_trigger": object()},
+    {"int8_sidecar": True}, {"metrics_report_s": 1.0},
     {"sharding_rules": True}, {"prefetch_depth": 2},
-    {"device_cache": True}, {"auto_resume": True}, {"step_retries": 2},
+    {"device_cache": True}, {"compile_cache_dir": "cache"},
+    {"batch_iter_factory": lambda epoch: iter(())},
     {"profile_steps": (0, 1)}, {"flops_per_step": 1.0},
 ])
 def test_unported_fit_arguments_raise(kwargs):
@@ -343,8 +344,9 @@ def test_unported_fit_arguments_raise(kwargs):
 def test_estimator_guards(monkeypatch):
     _, tloss = _loss_pair()
     tm = _port_model(_jax_model().params, **NO_DROP)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        Estimator(tm, model_dir="/nowhere")
+    assert Estimator(tm, model_dir="/nowhere").model_dir == "/nowhere"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Estimator(tm, device="cpu").fit(_data(n=8), feature_cols=["a"])
     with pytest.raises(ValueError, match="Unsupported metric"):
         Estimator.from_keras(tm, optimizer="adam", loss=tloss,
                              metrics=["no_such_metric"])
