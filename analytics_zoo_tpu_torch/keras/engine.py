@@ -4,8 +4,9 @@ symbolic graph (`Node`, `Input`) and the functional `Model`.
 Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with
 `stateful` and `call_and_state` (L61-80) and its symbolic `__call__`
 (L82), `Node` (L110), `Input` (L128), `_topo_sort` (L134), `KerasNet`
-(L151) with `compile` (L183, the single-loss form), `set_checkpoint`
-(L230) and its `_checkpoint_path` (L160), `fit` (L246),
+(L151) with `compile` (L183, a list of losses summed over the outputs,
+L193-214), `set_tensorboard` (L226), `set_checkpoint` (L230) and its
+`_checkpoint_path` (L160), `fit` (L246),
 `evaluate` (L255), `predict` (L262) and `ensure_built` (L234),
 persistence (`save_weights`, `load_weights_tree`, `load_weights`,
 `_order_path`, `_layer_order`, `_remap_loaded`, L268-392), `summary` and
@@ -79,9 +80,7 @@ and the `.layers.json` order sidecar. Loading remaps the saved tree onto
 this instance's layer names (positionally by the sidecar, and inside a
 nested model by the JAX package's sort of auto-generated names, which
 count per process) and loads it through `convert.model_params_from_jax`.
-So an artifact saved by either package loads in the other. Multi-output
-losses wait for a later slice (ROADMAP.md queue 1, 'The rest of
-training').
+So an artifact saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -90,7 +89,8 @@ import collections
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -279,6 +279,26 @@ def _topo_sort(outputs: Sequence[Node]) -> List[Node]:
     return order
 
 
+def _multi_output_loss(fns: Sequence[Callable]) -> Callable:
+    """One loss per output, summed (JAX `KerasNet.compile` L197-212), with
+    its two checks: as many outputs as losses, and labels given as a list
+    of that many arrays."""
+    def _combined(y_true, y_pred):
+        if not isinstance(y_pred, (list, tuple)) or len(y_pred) != len(fns):
+            n = len(y_pred) if isinstance(y_pred, (list, tuple)) else 1
+            raise ValueError(
+                f"compile() got {len(fns)} losses but the model produces "
+                f"{n} output(s)")
+        if not isinstance(y_true, (list, tuple)) or len(y_true) != len(fns):
+            raise ValueError(
+                f"multi-output loss needs a list of {len(fns)} label "
+                "arrays (got a single array — it would zip batch rows, "
+                "not outputs)")
+        return sum(fn(t, p) for fn, t, p in zip(fns, y_true, y_pred))
+
+    return _combined
+
+
 class KerasNet(_GraphCall, nn.Module):
     """Model base (`Topology.scala:67` in the reference): a built model owns
     its parameters; `apply` is its forward."""
@@ -292,6 +312,7 @@ class KerasNet(_GraphCall, nn.Module):
         self.metrics: List[Any] = []
         self._optimizer_spec = None
         self._checkpoint_path: Optional[str] = None
+        self._tensorboard_dir: Optional[str] = None
 
     # -- subclass API ------------------------------------------------------
     def build(self, generator: torch.Generator) -> None:
@@ -312,19 +333,29 @@ class KerasNet(_GraphCall, nn.Module):
         `"accuracy"` resolves by the loss string). The compile string is
         remembered (`_optimizer_spec`) so `fit(fused_optimizer=True)` can
         find its fused twin and lazy embeddings their Adam defaults. A list
-        of losses (multi-output) is not ported yet."""
+        of losses is the Keras multi-output contract (JAX L193-214): one
+        loss per output, summed; the labels are then a list of arrays, one
+        per output."""
         from analytics_zoo_tpu_torch.ops import metrics as zmetrics
         from analytics_zoo_tpu_torch.ops import objectives, optimizers
-        if isinstance(loss, (list, tuple)):
-            raise NotImplementedError(
-                "compile() with one loss per output is not ported yet "
-                f"({optimizers.NOT_PORTED_QUEUE})")
         self._optimizer_spec = optimizer if isinstance(optimizer, str) \
             else None
-        self.loss = objectives.get(loss)
+        loss_str = loss if isinstance(loss, str) else None
+        if isinstance(loss, (list, tuple)):
+            self.loss = _multi_output_loss([objectives.get(fn)
+                                            for fn in loss])
+        else:
+            self.loss = objectives.get(loss)
         self.optimizer = optimizers.get(optimizer)
-        self.metrics = zmetrics.resolve(
-            metrics, loss if isinstance(loss, str) else None)
+        self.metrics = zmetrics.resolve(metrics, loss_str)
+        # step costs counted for the old loss and optimizer
+        self.__dict__.pop("_roofline_cost_memo", None)
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """`Topology.scala:208`: `fit` writes its summaries (loss,
+        throughput, step time, validation) under `log_dir/app_name/train`
+        (`utils/tensorboard.SummaryWriter`)."""
+        self._tensorboard_dir = f"{log_dir.rstrip('/')}/{app_name}"
 
     def set_checkpoint(self, path: str, over_write: bool = True):
         """`Topology.scala:249`: `fit` writes training checkpoints under

@@ -24,7 +24,21 @@ weights (inside the flash kernels with `use_flash`), on the attention
 output and after the FFN of every block. Each site's seed derives from its
 parent's by a fixed rule (`kernels.philox.site_seed(seed, site index)`),
 the port's stand-in for splitting a `jax.random` key, so one integer
-reproduces a whole step. `remat` is not ported (ROADMAP.md queue 1).
+reproduces a whole step.
+
+`BERT(remat=True)` (JAX L272-279, the unstacked loop L395-402) recomputes
+each block in the backward instead of keeping its activations:
+`torch.utils.checkpoint` (non-reentrant) around every block. The JAX
+policy, `dots_with_no_batch_dims_saveable`, saves nothing inside a block
+(every product carries the batch), which is what a whole-block
+checkpoint does. The block's parameters enter the checkpointed function
+as arguments, so the recompute reads the tensors the forward read (the
+bf16 casts of a mixed-precision step, not the f32 masters). The dropout
+masks come from integer seeds, so the recompute draws the same ones: a
+remat step computes bitwise what a plain step computes. It launches the
+forward kernels of a block twice a step (flash attention and the
+block's two dropout sites), and keeps none of a block's activations, the
+flash forward's O and lse included, past the block.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from analytics_zoo_tpu_torch.common.device import DeviceLike
 from analytics_zoo_tpu_torch.common.tree import tree_map
@@ -198,6 +213,21 @@ class TransformerEncoderBlock(Layer):
         return self.ln2.call(x + h)
 
 
+def _parameter_slots(module: nn.Module):
+    """`(owning module's _parameters dict, leaf name)` for each parameter
+    of `module`: where remat's recompute puts a block's parameters back.
+    A direct swap, as `torch.func.functional_call` does it, without its
+    per-call checks (~0.2 ms of host time a call, measured on the CPU)."""
+    slots = []
+    for name, _ in module.named_parameters():
+        owner = module
+        *path, leaf = name.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        slots.append((owner._parameters, leaf))
+    return slots
+
+
 def stack_block_params(params: Dict, n_block: int, prefix: str) -> Dict:
     """UNSTACKED JAX-layout BERT tree (per-block subtrees named
     `{prefix}_block{i}`) → the stacked layout (`blocks` = one `[L, ...]`
@@ -230,7 +260,8 @@ class BERT(Layer):
                  seq_len: int = 512, intermediate_size: int = 3072,
                  type_vocab: int = 2, hidden_drop: float = 0.1,
                  attn_drop: float = 0.1, pooled_only: bool = False,
-                 use_flash: bool = False, device: DeviceLike = None,
+                 use_flash: bool = False, remat: bool = False,
+                 device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  name: Optional[str] = None):
         super().__init__(name=name)
@@ -238,6 +269,7 @@ class BERT(Layer):
         self.seq_len, self.type_vocab = seq_len, type_vocab
         self.hidden_drop = hidden_drop
         self.pooled_only = pooled_only
+        self.remat = remat
         self.n_block = n_block
         self.word_embeddings = new_parameter((vocab, hidden_size), device,
                                              dtype)
@@ -269,6 +301,32 @@ class BERT(Layer):
             generator, tuple(self.pooler_kernel.shape)))
         fill_(self.pooler_bias, torch.zeros(self.pooler_bias.shape))
         return super().build(generator)
+
+    def _run_block(self, blk, h, mask, training: bool,
+                   seed: Optional[int]):
+        """One block; with `remat` (and autograd on) under a whole-block
+        checkpoint whose inputs are `h`, the mask and the block's
+        parameters as the forward sees them (the recompute puts them back
+        in place of whatever the block holds then)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk.call([h, mask], training=training, seed=seed)
+        slots = _parameter_slots(blk)
+        tensors = [owner[leaf] for owner, leaf in slots]
+
+        def run(hh, mm, *params):
+            held = [owner[leaf] for owner, leaf in slots]
+            for (owner, leaf), t in zip(slots, params):
+                owner[leaf] = t
+            try:
+                return blk.call([hh, mm], training=training, seed=seed)
+            finally:
+                for (owner, leaf), t in zip(slots, held):
+                    owner[leaf] = t
+
+        # the masks come from `seed`, not from torch's generators: no RNG
+        # state to stash and restore around the recompute
+        return checkpoint(run, h, mask, *tensors, use_reentrant=False,
+                          preserve_rng_state=False)
 
     @staticmethod
     def make_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -308,7 +366,7 @@ class BERT(Layer):
             h = _dropout(seeds[0], self.hidden_drop, h)
         mask = self.make_mask(attn_mask)
         for blk, blk_seed in zip(self.blocks, seeds[1:]):
-            h = blk.call([h, mask], training=training, seed=blk_seed)
+            h = self._run_block(blk, h, mask, training, blk_seed)
         pooled = torch.tanh(maybe_int8_matmul(h[:, 0], self, "pooler_kernel")
                             + self.pooler_bias)
         if self.pooled_only:

@@ -5,13 +5,27 @@ Each kernel module keeps the plain PyTorch version of its function beside
 the wrapper. The wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the kernel or raises. Every launch adds
 one to the kernel's count in `LAUNCHES`, so a run can show that its main
-path went through the kernel.
+path went through the kernel. A recompute launches again and counts
+again: under `BERT(remat=True)` a training step launches the flash
+forward twice a block (24 at BERT-base's 12 blocks) and each block's two
+dropout passes twice.
+
+Every wrapper also declares the cost of one call, the FLOPs and HBM bytes
+its Pallas twin declares in its `pl.CostEstimate`, by running its body
+inside `kernel_region(cost_fn, *args)`. A ctypes launch is invisible to
+the roofline layer's operator counters (`observability/roofline.py`), so
+the region hands its declared cost to every active `CostSink` instead,
+and the counters skip the operators inside it: the plain path's aten ops
+on the CPU, the allocations around a launch on the card. A step's count
+is therefore the same whichever route runs the kernel. With no sink
+active a region costs one list test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict
+from typing import Callable, Dict, List
 
 
 class LaunchCounter:
@@ -40,3 +54,58 @@ class LaunchCounter:
 
 
 LAUNCHES = LaunchCounter()
+
+
+class CostSink:
+    """What a counting pass implements to receive declared kernel costs
+    (`observability.roofline.CostMeter`)."""
+
+    def add_declared(self, flops: float, bytes_: float) -> None:
+        raise NotImplementedError
+
+
+_SINKS: List[CostSink] = []
+_SINKS_LOCK = threading.Lock()
+_REGION = threading.local()
+
+
+def add_sink(sink: CostSink) -> None:
+    """Start handing declared costs to `sink`. Process-wide: a kernel
+    region entered by any thread while the sink is active reaches it (the
+    backward of a CUDA step runs on autograd's device thread)."""
+    with _SINKS_LOCK:
+        _SINKS.append(sink)
+
+
+def remove_sink(sink: CostSink) -> None:
+    with _SINKS_LOCK:
+        _SINKS.remove(sink)
+
+
+def in_kernel_region() -> bool:
+    """True inside a kernel region on this thread: the operator counters
+    skip what runs here."""
+    return getattr(_REGION, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def kernel_region(cost_fn: Callable, *args):
+    """One call of a kernel wrapper, on either route. `cost_fn(*args)`
+    gives its declared `(flops, bytes)`; it is evaluated only while a sink
+    is active, and only for the outermost region (a wrapper that calls
+    another declares the whole)."""
+    if not _SINKS:
+        yield
+        return
+    depth = getattr(_REGION, "depth", 0)
+    if depth == 0:
+        flops, bytes_ = cost_fn(*args)
+        with _SINKS_LOCK:
+            sinks = list(_SINKS)
+        for sink in sinks:
+            sink.add_declared(float(flops), float(bytes_))
+    _REGION.depth = depth + 1
+    try:
+        yield
+    finally:
+        _REGION.depth = depth

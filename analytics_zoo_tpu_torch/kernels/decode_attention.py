@@ -51,7 +51,7 @@ import math
 
 import torch
 
-from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build
+from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
 
 KERNEL_NAME = "decode_attention"
 PAGED_NAME = "paged_decode_attention"
@@ -226,6 +226,18 @@ def _launch_paged(q, k_pool, v_pool, tables, lengths,
     return out
 
 
+def decode_cost(q, kv_bucket: int, table_entries: int = 0):
+    """(flops, bytes) of one decode step (JAX `_decode_cost` L95, declared
+    at L199; `_paged_cost` L208 adds the block table's int32 entries):
+    QKᵀ and PV over the bucket, the K and V windows streamed once."""
+    S, H, D = q.shape
+    item = q.element_size()
+    kv_bytes = 2.0 * S * H * kv_bucket * D * item
+    qo_bytes = 2.0 * S * H * D * item + 4.0 * S
+    return (4.0 * S * H * kv_bucket * D,
+            kv_bytes + qo_bytes + 4.0 * S * table_entries)
+
+
 def _route(t: torch.Tensor, what: str) -> bool:
     """True to launch the kernel (a CUDA tensor), False for the plain
     version (a CPU tensor); any other device raises."""
@@ -249,11 +261,12 @@ def decode_attention(q, k_pool, v_pool, lengths, kv_bucket: int
     L = k_pool.shape[2]
     if not 1 <= kv_bucket <= L:
         raise ValueError(f"kv_bucket {kv_bucket} outside [1, {L}]")
-    lengths = lengths.to(torch.int32)
-    if not _route(q, KERNEL_NAME):
-        return _reference_decode_attention(q, k_pool, v_pool, lengths,
-                                           kv_bucket)
-    return _launch(q, k_pool, v_pool, lengths, kv_bucket)
+    with kernel_region(decode_cost, q, kv_bucket):
+        lengths = lengths.to(torch.int32)
+        if not _route(q, KERNEL_NAME):
+            return _reference_decode_attention(q, k_pool, v_pool, lengths,
+                                               kv_bucket)
+        return _launch(q, k_pool, v_pool, lengths, kv_bucket)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
@@ -278,10 +291,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
         raise ValueError(
             f"block table has {tables.shape[-1]} entries, kv_bucket "
             f"{kv_bucket} needs {n_kb}")
-    lengths = lengths.to(torch.int32)
-    tables = tables.to(torch.int32)
-    if not _route(q, PAGED_NAME):
-        return _reference_paged_decode_attention(
-            q, k_pool, v_pool, tables, lengths, kv_bucket)
-    return _launch_paged(q, k_pool, v_pool, tables.contiguous(), lengths,
-                         kv_bucket)
+    with kernel_region(decode_cost, q, kv_bucket, n_kb):
+        lengths = lengths.to(torch.int32)
+        tables = tables.to(torch.int32)
+        if not _route(q, PAGED_NAME):
+            return _reference_paged_decode_attention(
+                q, k_pool, v_pool, tables, lengths, kv_bucket)
+        return _launch_paged(q, k_pool, v_pool, tables.contiguous(),
+                             lengths, kv_bucket)

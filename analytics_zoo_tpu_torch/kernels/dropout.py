@@ -13,7 +13,8 @@ the kernel's uint32 rule (keep iff bits >= `_dropout_threshold(rate)`,
 scale 1/(1-rate)), on bits from Philox (`kernels/philox.py`). Routing is
 static: a CPU tensor takes the plain version (`_reference_dropout`, with the
 same Philox bits, so it drops the same elements), a CUDA tensor launches
-the kernel or raises.
+the kernel or raises. Its declared cost (`kernels.kernel_region`) is the
+JAX kernel's (L143): one read and one write of x, 3 FLOPs an element.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build
+from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
 from analytics_zoo_tpu_torch.kernels.philox import dropout_bits
 
 KERNEL_NAME = "dropout"
@@ -96,14 +97,23 @@ def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     return out
 
 
+def dropout_cost(x: torch.Tensor):
+    """(flops, bytes) of one pass (JAX L143): threshold, scale and select
+    an element; x read once and written once, the bits never in HBM."""
+    n = x.numel()
+    return 3.0 * n, float(2 * n * x.element_size())
+
+
 def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """One pass of the rule over `x` (0 < rate < 1): CPU tensors take the
     plain version, CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return _reference_dropout(x, rate, dropout_keep(x.shape, seed, rate))
-    if x.device.type != "cuda":
-        raise ValueError(f"dropout: unsupported device {x.device}")
-    return _launch(x, rate, seed)
+    with kernel_region(dropout_cost, x):
+        if x.device.type == "cpu":
+            return _reference_dropout(x, rate,
+                                      dropout_keep(x.shape, seed, rate))
+        if x.device.type != "cuda":
+            raise ValueError(f"dropout: unsupported device {x.device}")
+        return _launch(x, rate, seed)
 
 
 class _Dropout(torch.autograd.Function):

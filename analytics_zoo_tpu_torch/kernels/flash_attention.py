@@ -31,6 +31,10 @@ Routing is static, as in the JAX package:
 
 Layouts are the JAX package's: q, k, v are `[B, H, T, Dh]`; the padding mask
 is additive `[B, 1, 1, T]` float32; lse and delta are `[B, H, T]` float32.
+
+Declared costs (`kernels.kernel_region`) are the JAX kernels' `_attn_cost`
+(L258): 2 products for the forward (L315), and for the backward the dQ
+and dK/dV pair the port launches, 3 + 4 products (L559, L589).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build
+from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
 from analytics_zoo_tpu_torch.kernels.dropout import _byte_threshold
 from analytics_zoo_tpu_torch.kernels.philox import attention_keep_scale
 
@@ -110,6 +114,29 @@ def _reference_attention_bwd(q, k, v, mask, o, lse, do,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p_v, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _attn_cost(n_matmuls: int, q, extra_f32_out_elems: int = 0):
+    """(flops, bytes) of one attention kernel over `[B,H,T,D]` (JAX L258):
+    `n_matmuls` T×T×D products a head at 2 FLOPs each; bytes are the
+    O(T·D) streams, never the O(T²) scores."""
+    B, H, T, D = q.shape
+    bh = B * H
+    item = q.element_size()
+    return (2.0 * n_matmuls * bh * T * T * D,
+            float(bh * T * D * item * (4 + n_matmuls)
+                  + extra_f32_out_elems * 4))
+
+
+def _fwd_cost(q):
+    B, H, T, _ = q.shape
+    return _attn_cost(2, q, extra_f32_out_elems=B * H * T)   # QKᵀ + PV
+
+
+def _bwd_cost(q):
+    dq = _attn_cost(3, q)       # scores, dP/dS, dQ
+    dkv = _attn_cost(4, q)      # scores, dV, dS, dK
+    return dq[0] + dkv[0], dq[1] + dkv[1]
 
 
 def _dropout_args(dropout_rate: float, dropout_seed: Optional[int]):
@@ -300,13 +327,15 @@ def flash_attention_fwd(q, k, v, mask: Optional[torch.Tensor] = None,
     """(O `[B,H,T,D]` in the input dtype, lse `[B,H,T]` float32) for a
     padding mask `[B,1,1,T]` or none. CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
-        keep = _keep_scale(q, dropout_rate, dropout_seed)
-        return (_reference_attention(q, k, v, mask, keep),
-                _reference_lse(q, k, mask))
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, mask, dropout_rate, dropout_seed)
+    with kernel_region(_fwd_cost, q):
+        if q.device.type == "cpu":
+            keep = _keep_scale(q, dropout_rate, dropout_seed)
+            return (_reference_attention(q, k, v, mask, keep),
+                    _reference_lse(q, k, mask))
+        if q.device.type != "cuda":
+            raise ValueError(
+                f"flash_attention: unsupported device {q.device}")
+        return _launch(q, k, v, mask, dropout_rate, dropout_seed)
 
 
 def flash_attention_bwd(q, k, v, mask, o, lse, do,
@@ -316,13 +345,15 @@ def flash_attention_bwd(q, k, v, mask, o, lse, do,
     """(dq, dk, dv) in the input dtype from the forward's inputs, O, lse
     and the output gradient. CPU tensors take the plain version; CUDA
     tensors launch the dK/dV and dQ kernels."""
-    if q.device.type == "cpu":
-        keep = _keep_scale(q, dropout_rate, dropout_seed)
-        return _reference_attention_bwd(q, k, v, mask, o, lse, do, keep)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch_bwd(q, k, v, mask, o, lse, do, dropout_rate,
-                       dropout_seed)
+    with kernel_region(_bwd_cost, q):
+        if q.device.type == "cpu":
+            keep = _keep_scale(q, dropout_rate, dropout_seed)
+            return _reference_attention_bwd(q, k, v, mask, o, lse, do, keep)
+        if q.device.type != "cuda":
+            raise ValueError(
+                f"flash_attention: unsupported device {q.device}")
+        return _launch_bwd(q, k, v, mask, o, lse, do, dropout_rate,
+                           dropout_seed)
 
 
 class _FlashAttention(torch.autograd.Function):

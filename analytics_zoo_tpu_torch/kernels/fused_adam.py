@@ -52,7 +52,8 @@ from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.kernels import LAUNCHES, LaunchCounter, _build
+from analytics_zoo_tpu_torch.kernels import (LAUNCHES, LaunchCounter, _build,
+                                            kernel_region)
 
 KERNEL_NAME = "fused_adam"
 SOURCE = "fused_adam.cu"
@@ -383,6 +384,17 @@ def _launch(table: Table, scalars, b1: float, b2: float) -> None:
             LAUNCHES.add(KERNEL_NAME)
 
 
+def _sweep_cost(ps, gs):
+    """(flops, bytes) of a sweep: `leaf_cost` (JAX L104, declared at L162)
+    of every leaf, the gradient read in its own dtype."""
+    flops = bytes_ = 0.0
+    for p, g in zip(ps, gs):
+        f, b = leaf_cost(tuple(p.shape), p.dtype, g.dtype)
+        flops += f
+        bytes_ += b
+    return flops, bytes_
+
+
 def _sweep(ps: List[torch.Tensor], ms: List[torch.Tensor],
            vs: List[torch.Tensor], gs: List[torch.Tensor],
            scalars: Tuple[float, float, float], b1: float, b2: float
@@ -392,6 +404,11 @@ def _sweep(ps: List[torch.Tensor], ms: List[torch.Tensor],
     `MAX_LEAVES` leaves."""
     if not ps:
         return
+    with kernel_region(_sweep_cost, ps, gs):
+        _sweep_routes(ps, ms, vs, gs, scalars, b1, b2)
+
+
+def _sweep_routes(ps, ms, vs, gs, scalars, b1: float, b2: float) -> None:
     if ps[0].device.type == "cpu":
         _one_device(ps + ms + vs + gs)
         a, b, lrwd = scalars

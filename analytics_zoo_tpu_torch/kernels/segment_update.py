@@ -42,7 +42,7 @@ import torch
 from torch.func import functional_call
 
 from analytics_zoo_tpu_torch.common.tree import tree_map
-from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build
+from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
 from analytics_zoo_tpu_torch.kernels.fused_adam import (_adam_math,
                                                         _fold_scalars)
 
@@ -106,14 +106,24 @@ def _launch_segment_sum(d_rows, sids, order, seg) -> torch.Tensor:
     return g_slots
 
 
+def segment_sum_cost(d_rows):
+    """(flops, bytes) of the segment sum: one add an element, the rows
+    read once and as many slots written (XLA's scatter-add in the JAX
+    package, counted there by cost analysis)."""
+    n = d_rows.numel()
+    return float(n), float(2 * n * d_rows.element_size())
+
+
 def segment_sum(d_rows, sids, order, seg) -> torch.Tensor:
     """g_slots [n, dim]: slot `seg[k]` holds the sum of the rows of its run
     of equal ids, added in sorted order; slots past the last are zero."""
-    if d_rows.device.type == "cpu":
-        return _reference_segment_sum(d_rows, order, seg)
-    if d_rows.device.type != "cuda":
-        raise ValueError(f"segment_sum: unsupported device {d_rows.device}")
-    return _launch_segment_sum(d_rows, sids, order, seg)
+    with kernel_region(segment_sum_cost, d_rows):
+        if d_rows.device.type == "cpu":
+            return _reference_segment_sum(d_rows, order, seg)
+        if d_rows.device.type != "cuda":
+            raise ValueError(
+                f"segment_sum: unsupported device {d_rows.device}")
+        return _launch_segment_sum(d_rows, sids, order, seg)
 
 
 def segment_compact(ids: torch.Tensor, d_rows: torch.Tensor):
@@ -229,15 +239,19 @@ def kernel_apply(table, mu, nu, uids, valid, g_slots,
     """Row Adam over pre-compacted slots, in place; returns (table, mu,
     nu), the same tensors. `scal` is `(a, b, lr·wd)` as host floats
     (`_fold_scalars`). CPU tensors take the plain version, CUDA tensors the
-    kernel."""
-    if table.device.type == "cpu":
-        _reference_kernel_apply(table, mu, nu, uids, valid, g_slots, scal,
-                                b1, b2)
-    elif table.device.type == "cuda":
-        _launch(table, mu, nu, uids, valid, g_slots, scal, float(b1),
-                float(b2))
-    else:
-        raise ValueError(f"segment_adam: unsupported device {table.device}")
+    kernel. Its declared cost is `segment_adam_cost` over the slots (JAX
+    L155)."""
+    with kernel_region(segment_adam_cost, uids.shape[0], table.shape[1],
+                       table.dtype):
+        if table.device.type == "cpu":
+            _reference_kernel_apply(table, mu, nu, uids, valid, g_slots,
+                                    scal, b1, b2)
+        elif table.device.type == "cuda":
+            _launch(table, mu, nu, uids, valid, g_slots, scal, float(b1),
+                    float(b2))
+        else:
+            raise ValueError(
+                f"segment_adam: unsupported device {table.device}")
     return table, mu, nu
 
 

@@ -1,18 +1,22 @@
 """The training loop behind `KerasNet.fit` and `Estimator.fit`.
 
 Port of the single-device path of `analytics_zoo_tpu/learn/trainer.py`:
-`_TrainingMetrics` (L38-75: the validation gauge and the resume and
-step-retry counters), `_tree_len` / `_tree_take` / `_num_batches`
-(L143-155), `iter_batches` (L158), `_step_with_watchdog` (L236-300),
+`_TrainingMetrics` (L38-141), `_tree_len` / `_tree_take` /
+`_num_batches` (L143-155), `iter_batches` (L158), `_step_with_watchdog`
+(L236-300), `_StepCostTracker` (L310-467), `_Prefetcher` (L470-549),
 `_cast_tree` (L647), `_make_one_step` (L737, without sharding) as
 `build_train_step` (L805), `_pick_one_step` (L968), `build_eval_step`
-(L985), `fit_keras` (L996) with its lazy-embedding branch (L1327-1330,
-L1356-1369, L1385-1388), auto-resume (L1270-1316), the checkpoint manager
-and its default `EveryEpoch` trigger (L1496-1501), `_ckpt_extra` /
-`_ckpt_save` (L1638-1700), the mid-epoch trigger and `end_trigger`
-(L1748-1760), per-epoch validation (L1818-1828), the epoch-boundary
-trigger (L1830-1840) and the emergency checkpoint (L1842-1866),
-`evaluate_keras` (L1906) and `predict_keras` (L1974).
+(L985), `fit_keras` (L996) with its input pipeline (`batch_iter_factory`,
+`prefetch`, `prefetch_depth`: L1160-1260, L1720-1740), its lazy-embedding
+branch (L1327-1330, L1356-1369, L1385-1388), auto-resume (L1270-1316),
+the checkpoint manager and its default `EveryEpoch` trigger (L1496-1501),
+the TensorBoard writer (L1504) and `metrics_report_s` (L1511), the
+roofline cost harvest (L1518-1545), the profiler window (`profile_steps`,
+`_profile_tick`, L1574-1618), `_ckpt_extra` / `_ckpt_save`
+(L1638-1700), the mid-epoch trigger and `end_trigger` (L1748-1760), the
+epoch telemetry (L1766-1816), per-epoch validation (L1818-1828), the
+epoch-boundary trigger (L1830-1840) and the emergency checkpoint
+(L1842-1866), `evaluate_keras` (L1906) and `predict_keras` (L1974).
 
 - Batching: `iter_batches` with the same `np.random.RandomState(seed +
   epoch)` shuffle and the same dropped remainder, so a port fit and a JAX
@@ -76,6 +80,37 @@ trigger (L1830-1840) and the emergency checkpoint (L1842-1866),
   place, so a failure inside it leaves them half-updated, and the last
   checkpoint is then the resume point.
 
+- The input pipeline. `batch_iter_factory(epoch)` yields `(xb, yb, real)`
+  of numpy arrays in place of the in-memory batching. With `prefetch`
+  (the default) a `_Prefetcher` thread prepares the next batches while
+  the card runs the current step, at most `prefetch_depth` (default 2)
+  ahead. On the card each batch is copied into pinned staging buffers and
+  uploaded by a non-blocking copy on a side stream (`_PinnedUploader`);
+  the step's stream waits on the copy's event, so the upload overlaps
+  the previous step's compute. `prefetch=False` uploads each batch in the
+  step loop from pageable memory. The batches and their order are the
+  same either way, and so are the losses. A host-bound step loop (BERT
+  fine-tuning) pays for the thread's wake-ups, which take the interpreter
+  lock from it (`PERF.md` §6); an image step gains from the overlap.
+- Telemetry, published into the process-wide registry under the JAX
+  package's names: per epoch the step time, steps, samples, epochs, loss
+  and throughput, `training_mfu` when `flops_per_step` is given (over the
+  card's bf16 peak, `utils/roofline.py`), the input-wait histogram and
+  the input-bound share; and `roofline_*{kind="train"}` from the step's
+  counted cost (`_StepCostTracker`: the first step of each input
+  signature runs under `observability.roofline.CostMeter`, memoized on
+  the model, so later fits count nothing). Epoch time comes from CUDA
+  events on the card and the host clock on the CPU. `metrics_report_s`
+  logs a digest of the registry at that interval (`MetricsReporter`), and
+  `model.set_tensorboard(dir, app)` mirrors the epoch scalars (and the
+  reporter's digests) into TensorBoard under `dir/app/train`.
+  `profile_steps=(start, stop)` captures iterations [start, stop) with
+  `torch.profiler` into a rotated artifact under `profile_dir` (default
+  `zoo_profiles`), listed in `history["profile_artifacts"]`; a failed
+  capture logs and does not stop the fit. The port has no environment
+  switches: the harvest is always on and the prefetch depth defaults to
+  2, as the JAX package's defaults are.
+
 The optimizer state starts fresh at each call unless it resumes, as in the
 JAX package. Steps are dispatched one by one: `steps_per_run=k` is
 accepted for the JAX signature (k steps between loss reads there) and
@@ -89,7 +124,9 @@ from __future__ import annotations
 
 import base64
 import logging
+import queue
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -108,14 +145,8 @@ log = logging.getLogger("analytics_zoo_tpu_torch.learn")
 # their defaults: a value other than the default raises.
 _NOT_PORTED_ARGS = {
     "int8_sidecar": False,          # the int8 serving path (queue 1, item 3)
-    "flops_per_step": None,         # training telemetry
-    "metrics_report_s": None,
-    "profile_steps": None,
-    "profile_dir": None,
-    "prefetch_depth": None,         # the background input pipeline
-    "batch_iter_factory": None,     # streaming datasets
-    "sharding_rules": None,         # distributed training
-    "compile_cache_dir": None,
+    "sharding_rules": None,         # distributed training (item 7)
+    "compile_cache_dir": None,      # the CUDA-graph cache (item 1)
 }
 
 # The meta key of the step-seed generator's state (the JAX package keeps
@@ -124,13 +155,29 @@ GENERATOR_KEY = "torch_generator"
 
 
 class _TrainingMetrics:
-    """The training telemetry the port's loop publishes into the
-    process-wide registry (the JAX `_TrainingMetrics`' validation gauge and
-    resume and step-retry counters); get-or-create, so counters accumulate
-    across fits."""
+    """Training telemetry published into the process-wide registry — the
+    same spine the serving side feeds (JAX L38-141). Registration is
+    get-or-create: repeated fits converge on the same families and
+    counters accumulate across fits."""
 
     def __init__(self, registry=None):
         reg = registry if registry is not None else get_registry()
+        self.step_ms = reg.histogram(
+            "training_step_ms",
+            "per-step wall time, averaged over each epoch's device sync")
+        self.steps = reg.counter("training_steps_total",
+                                 "optimizer steps run")
+        self.samples = reg.counter("training_samples_total",
+                                   "training samples consumed")
+        self.epochs = reg.counter("training_epochs_total",
+                                  "epochs completed")
+        self.loss = reg.gauge("training_loss", "mean loss of the last epoch")
+        self.throughput = reg.gauge("training_samples_per_sec",
+                                    "last epoch's training throughput")
+        self.mfu = reg.gauge(
+            "training_mfu",
+            "model FLOPs utilization vs the card's bf16 peak (needs "
+            "flops_per_step)")
         self.val = reg.gauge("training_validation_metric",
                              "last validation metrics, labeled by name")
         self.resumes = reg.counter(
@@ -139,6 +186,40 @@ class _TrainingMetrics:
         self.step_retries = reg.counter(
             "training_step_retries_total",
             "failed/hung training steps retried by the step watchdog")
+        self.input_wait_ms = reg.histogram(
+            "training_input_wait_ms",
+            "per-step wall time the training loop sat blocked on the "
+            "prefetch queue before dispatching (the input-stall "
+            "histogram)")
+        self.input_bound = reg.gauge(
+            "training_input_bound",
+            "fraction of the last epoch's time the step loop spent "
+            "blocked on the prefetch queue (0 = device-bound, 1 = fully "
+            "input-bound)")
+
+    def epoch(self, steps: int, n_seen: int, dt: float, mean_loss: float,
+              flops_per_step: Optional[float] = None,
+              device=None) -> float:
+        step_ms = dt / max(steps, 1) * 1e3
+        self.step_ms.observe(step_ms)
+        self.steps.inc(steps)
+        self.samples.inc(n_seen)
+        self.epochs.inc()
+        self.loss.set(mean_loss)
+        self.throughput.set(n_seen / max(dt, 1e-9))
+        if flops_per_step:
+            from analytics_zoo_tpu_torch.utils.roofline import peak_flops
+            self.mfu.set(flops_per_step * steps / max(dt, 1e-9)
+                         / peak_flops(device))
+        return step_ms
+
+    @staticmethod
+    def roofline(flops: float, bytes_: float, dt: float, device=None):
+        """`roofline_mfu{kind="train"}` and the other roofline gauges from
+        one epoch's counted FLOPs and bytes over its device time."""
+        from analytics_zoo_tpu_torch.observability.roofline import \
+            get_accountant
+        get_accountant().account("train", flops, bytes_, dt, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +339,234 @@ def _step_with_watchdog(step_fn, args, retries: int,
             log.warning(
                 "training step %d failed (%s: %s); retry %d/%d",
                 iteration, type(e).__name__, e, attempts, retries)
+
+
+class _StepCostTracker:
+    """Per-fit accumulation of the train step's counted FLOPs and bytes
+    for the roofline gauges (JAX L310-467). Per input signature (the
+    shapes and dtypes of the batch), the first step runs for real under a
+    `CostMeter` (`observability.roofline.count_cost`): the meter only
+    looks at the operators, so the step computes what it computes
+    without it. Its cost is memoized in `memo`, a dict on the model keyed
+    like the step, and every later step of that signature, in this fit or
+    a later one, adds the memoized cost without counting. The counted
+    step's host seconds go to `memo[HARVEST_KEY]`. The JAX package lowers
+    the step instead; its per-step cost is the same kind of number, the
+    logical work of one step (the kernels' declared costs included)."""
+
+    HARVEST_KEY = "__harvest_s__"
+
+    def __init__(self, memo: Dict):
+        self._memo = memo
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.calls = 0
+
+    def reset_epoch(self) -> None:
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.calls = 0
+
+    def _accumulate(self, cost) -> None:
+        self.flops += cost.flops
+        self.bytes += cost.bytes
+        self.calls += 1
+
+    @staticmethod
+    def _sig(batch) -> Tuple:
+        return tuple((tuple(t.shape), str(t.dtype))
+                     for t in tree_leaves(batch) if t is not None)
+
+    def step_fn(self, one_step: Callable, batch) -> Callable:
+        """`one_step` itself when the signature's cost is known (after
+        adding it), else `one_step` run under a meter."""
+        key = self._sig(batch)
+        cost = self._memo.get(key)
+        if cost is not None:
+            self._accumulate(cost)
+            return one_step
+
+        def counted(*args):
+            from analytics_zoo_tpu_torch.observability.roofline import \
+                count_cost
+            t0 = time.perf_counter()
+            out, cost = count_cost(one_step, *args)
+            self._memo.setdefault(self.HARVEST_KEY, []).append(
+                time.perf_counter() - t0)
+            self._memo[key] = cost
+            self._accumulate(cost)
+            return out
+
+        return counted
+
+
+class _PinnedUploader:
+    """The card's side of the prefetcher: a batch of numpy arrays copied
+    into pinned staging buffers (torch's copy, on its intra-op threads),
+    then to the card by non-blocking copies on a side stream, after which
+    an event is recorded. A staging buffer is reused (by shape and dtype)
+    only once its copy's event has completed. The device tensors are
+    allocated on the side stream; the consumer makes its stream wait on
+    the event and records them to that stream (`_await_upload`). Runs on
+    the prefetch thread only."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._pool: Dict[Tuple, List[Tuple[torch.Tensor, Any]]] = {}
+
+    def _staging(self, shape: Tuple, dtype: torch.dtype) -> torch.Tensor:
+        pool = self._pool.setdefault((shape, dtype), [])
+        for i, (buf, done) in enumerate(pool):
+            if done.query():
+                del pool[i]
+                return buf
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def __call__(self, item):
+        xb, yb, real = item
+        used: List[torch.Tensor] = []
+
+        def upload(a):
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            buf = self._staging(tuple(src.shape), src.dtype)
+            buf.copy_(src)
+            used.append(buf)
+            return buf.to(self.device, non_blocking=True)
+
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            xd = tree_map(upload, xb)
+            yd = tree_map(upload, yb) if yb is not None else None
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        for buf in used:
+            self._pool[(tuple(buf.shape), buf.dtype)].append((buf, done))
+        return xd, yd, real, done
+
+
+def _host_transfer(item):
+    """The CPU's side of the prefetcher: tensors over the batch's arrays
+    (no pinning, no copy to make)."""
+    xb, yb, real = item
+    as_tensor = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a))
+    return (tree_map(as_tensor, xb),
+            tree_map(as_tensor, yb) if yb is not None else None, real, None)
+
+
+def _await_upload(done, batch, device: torch.device) -> None:
+    """Make the step's stream (the caller's current stream, which the
+    step watchdog runs the step on too) wait for an upload, and record
+    the uploaded tensors to it so the allocator does not hand their
+    memory back to the side stream while the step reads them."""
+    if done is None:
+        return
+    stream = torch.cuda.current_stream(device)
+    stream.wait_event(done)
+    for t in tree_leaves(batch):
+        if t is not None:
+            t.record_stream(stream)
+
+
+class _Prefetcher:
+    """Background-thread batch prefetch (JAX L470-549): prepares and
+    uploads the next item while the device runs the current one,
+    depth-bounded so host memory stays flat. An error in the worker is
+    raised in the consumer; `close()` retires the worker. Every consumer
+    `__next__` times how long it sat blocked on the queue — the device's
+    input stall: `wait_s` accumulates the epoch total and `on_wait`
+    receives each wait."""
+
+    _END = object()
+
+    def __init__(self, source_iter, transfer, depth: int = 2,
+                 on_wait=None):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._err: Optional[BaseException] = None
+        self._stop = False
+        self._on_wait = on_wait
+        self.wait_s = 0.0
+
+        def worker():
+            try:
+                for item in source_iter:
+                    out = transfer(item)
+                    while not self._stop:
+                        try:
+                            self._q.put(out, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if self._stop:
+                        return
+            except BaseException as e:  # noqa: BLE001 — raised in consumer
+                self._err = e
+            finally:
+                # blocking put with stop checks: a full queue must not
+                # swallow the END sentinel (the consumer would hang)
+                while not self._stop:
+                    try:
+                        self._q.put(self._END, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+
+        self._t = threading.Thread(target=worker, daemon=True,
+                                   name="train-prefetch")
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        item = self._q.get()
+        waited = time.perf_counter() - t0
+        self.wait_s += waited
+        if self._on_wait is not None:
+            try:
+                self._on_wait(waited)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+        if item is self._END:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self):
+        """Unblock and retire the worker (an early exit: end_trigger, a
+        failure, the emergency checkpoint)."""
+        self._stop = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+
+
+class _EpochClock:
+    """An epoch's seconds: CUDA events on the step's stream on the card
+    (read after the epoch's loss sync), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._device = device
+
+    def start(self) -> None:
+        if self._cuda:
+            self._t0 = torch.cuda.Event(enable_timing=True)
+            self._t0.record(torch.cuda.current_stream(self._device))
+        else:
+            self._t0 = time.perf_counter()
+
+    def seconds(self) -> float:
+        if not self._cuda:
+            return time.perf_counter() - self._t0
+        t1 = torch.cuda.Event(enable_timing=True)
+        t1.record(torch.cuda.current_stream(self._device))
+        t1.synchronize()
+        return self._t0.elapsed_time(t1) / 1e3
 
 
 def _to_device(tree, device: torch.device):
@@ -433,23 +742,22 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
               ) -> Dict[str, List[float]]:
     """`KerasNet.fit` backend: trains `model` in place on the device its
     parameters live on; returns `{"loss": [mean per epoch]}`, with
-    `"val_<metric>"` lists when `validation_data=(x, y)` is given.
+    `"val_<metric>"` lists when `validation_data=(x, y)` is given and
+    `"profile_artifacts"` when `profile_steps` captured a window.
 
-    `distributed` is accepted (one device: nothing to distribute);
-    `prefetch` is accepted and batches are copied to the device in the
-    step loop; `device_cache` may be None or False (host batches, the JAX
-    package's shuffle). `fused_optimizer=None` means False (the port has
-    no config file or environment switch). `checkpoint_trigger`,
+    `batch_iter_factory(epoch) -> iterator of (xb, yb, real)` replaces the
+    in-memory batching (`x` and `y` are then not read). `prefetch`,
+    `prefetch_depth`, `flops_per_step`, `metrics_report_s`,
+    `profile_steps` and `profile_dir` are the JAX package's (the module
+    docstring). `distributed` is accepted (one device: nothing to
+    distribute); `device_cache` may be None or False (host batches, the
+    JAX package's shuffle). `fused_optimizer=None` means False (the port
+    has no config file or environment switch). `checkpoint_trigger`,
     `end_trigger`, `auto_resume`, `step_retries` and `step_timeout_s` are
-    the JAX package's (the module docstring)."""
-    given = dict(batch_iter_factory=batch_iter_factory,
-                 prefetch_depth=prefetch_depth,
-                 sharding_rules=sharding_rules,
-                 flops_per_step=flops_per_step,
-                 metrics_report_s=metrics_report_s,
+    the JAX package's too."""
+    given = dict(sharding_rules=sharding_rules,
                  compile_cache_dir=compile_cache_dir,
-                 int8_sidecar=int8_sidecar,
-                 profile_steps=profile_steps, profile_dir=profile_dir)
+                 int8_sidecar=int8_sidecar)
     for name, default in _NOT_PORTED_ARGS.items():
         value = given[name]
         if (value is not None) if default is None else (value != default):
@@ -465,14 +773,37 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                          "use fused_optimizer=True")
     if steps_per_run < 1:
         raise ValueError(f"steps_per_run must be >=1, got {steps_per_run}")
-    n = _tree_len(x)
-    if n < batch_size:
-        raise ValueError(
-            f"Dataset has {n} samples but the batch is {batch_size}; "
-            "training batches are whole-batch only. Lower batch_size or "
-            "add data.")
-    if not model.built:
-        model.ensure_built(x, seed=seed)
+    profiler = None
+    if profile_steps is not None:
+        p_start, p_stop = int(profile_steps[0]), int(profile_steps[1])
+        if not 0 <= p_start < p_stop:
+            raise ValueError(
+                f"profile_steps={profile_steps!r} must be (start, stop) "
+                "with 0 <= start < stop")
+        from analytics_zoo_tpu_torch.observability.capture import \
+            ProfileCapture
+        profiler = ProfileCapture(profile_dir or "zoo_profiles")
+    depth = int(prefetch_depth) if prefetch_depth else 2
+    if batch_iter_factory is None:
+        n = _tree_len(x)
+        if n < batch_size:
+            raise ValueError(
+                f"Dataset has {n} samples but the batch is {batch_size}; "
+                "training batches are whole-batch only. Lower batch_size "
+                "or add data.")
+        if not model.built:
+            model.ensure_built(x, seed=seed)
+
+        def batch_iter_factory(epoch):  # noqa: F811 — the default factory
+            return iter_batches(x, y, batch_size, shuffle=shuffle,
+                                seed=seed + epoch)
+    elif not model.built:
+        try:
+            sample = next(iter(batch_iter_factory(0)))[0]
+        except StopIteration:
+            raise ValueError(
+                "Dataset produced no full batches; lower batch_size")
+        model.ensure_built(sample, seed=seed)
     if model.optimizer is None:
         raise RuntimeError("Model must be compiled before fit")
     ckpt_path = getattr(model, "_checkpoint_path", None)
@@ -519,9 +850,59 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         ckpt_mgr = CheckpointManager(ckpt_path)
         if checkpoint_trigger is None:
             checkpoint_trigger = tg.EveryEpoch()
+
+    writer = None
+    if getattr(model, "_tensorboard_dir", None):
+        from analytics_zoo_tpu_torch.utils.tensorboard import SummaryWriter
+        writer = SummaryWriter(model._tensorboard_dir + "/train")
     telemetry = _TrainingMetrics()
+    reporter = None
+    if metrics_report_s:
+        from analytics_zoo_tpu_torch.observability.reporter import \
+            MetricsReporter
+        reporter = MetricsReporter(interval_s=metrics_report_s,
+                                   writer=writer).start()
     if resumed is not None:
         telemetry.resumes.inc()
+
+    # the counted roofline: one harvest per (step kind, input signature),
+    # memoized on the model (`compile` clears it)
+    from analytics_zoo_tpu_torch.observability.roofline import \
+        get_accountant
+    memo_root = getattr(model, "_roofline_cost_memo", None)
+    if memo_root is None:
+        memo_root = model._roofline_cost_memo = {}
+    cost_tracker = _StepCostTracker(memo_root.setdefault(
+        (mixed_precision, bool(lazy_specs), bool(fused_optimizer)), {}))
+    get_accountant().reset("train")
+
+    uploader = _PinnedUploader(device) if prefetch \
+        and device.type == "cuda" else None
+    clock = _EpochClock(device)
+    profile_state = {"active": False, "done": False}
+
+    def _profile_tick(it: int):
+        """Start the capture when the iteration counter reaches `start`,
+        stop it once it reaches `stop` (JAX L1584-1618)."""
+        if profiler is None or profile_state["done"]:
+            return
+        try:
+            if not profile_state["active"] and it >= p_start:
+                profiler.start(tag=f"fit-it{it}")
+                profile_state["active"] = True
+            elif profile_state["active"] and it >= p_stop:
+                manifest = profiler.stop()
+                profile_state["active"] = False
+                profile_state["done"] = True
+                history.setdefault("profile_artifacts", []).append(
+                    manifest["dir"])
+                log.info("profiler capture written to %s (%d files)",
+                         manifest["dir"], len(manifest["files"]))
+        except Exception as e:  # noqa: BLE001 — profiling must never
+            # take down the fit it watches
+            log.warning("profiler capture failed: %s: %s",
+                        type(e).__name__, e)
+            profile_state["done"] = True
 
     def _ckpt_extra(ep: int, finished: bool) -> Dict[str, Any]:
         """Checkpoint sidecar: everything auto-resume needs for bitwise
@@ -550,22 +931,42 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                         "the version resumes but will not roll out",
                         iteration, type(e).__name__, e)
 
+    def _close(batches) -> None:
+        if isinstance(batches, _Prefetcher):
+            batches.close()
+
     history: Dict[str, List[float]] = {"loss": []}
+    batches = None
     epoch = start_epoch
     try:
         for epoch in range(start_epoch, epochs):
+            it0 = iteration
+            n_seen = 0
             losses = []   # device scalars; read once at the end of the epoch
-            for xb, yb, _ in iter_batches(x, y, batch_size, shuffle=shuffle,
-                                          seed=seed + epoch):
+            clock.start()
+            source = batch_iter_factory(epoch)
+            if prefetch:
+                batches = _Prefetcher(
+                    source, uploader or _host_transfer, depth=depth,
+                    on_wait=lambda w: telemetry.input_wait_ms.observe(
+                        w * 1e3))
+            else:
+                batches = ((_to_device(xb, device),
+                            _to_device(yb, device) if yb is not None
+                            else None, real, None)
+                           for xb, yb, real in source)
+            for xb, yb, real, uploaded in batches:
+                _await_upload(uploaded, (xb, yb), device)
                 step_seed = int(torch.randint(0, 2 ** 62, (1,),
                                               generator=gen))
+                _profile_tick(iteration)
                 params, opt_state, loss = _step_with_watchdog(
-                    one_step, (params, opt_state, _to_device(xb, device),
-                               _to_device(yb, device) if yb is not None
-                               else None, step_seed),
+                    cost_tracker.step_fn(one_step, (xb, yb)),
+                    (params, opt_state, xb, yb, step_seed),
                     step_retries, step_timeout_s, telemetry.step_retries,
                     iteration, device)
                 iteration += 1
+                n_seen += real
                 losses.append(loss)
                 # triggers that read .loss (Min/MaxLoss) sync on it;
                 # counter triggers stay asynchronous
@@ -576,10 +977,33 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                     _ckpt_save(_ckpt_extra(epoch, False))
                 if end_trigger and end_trigger(state):
                     break
+            _close(batches)     # an early break leaves the worker mid-queue
+            if epoch == start_epoch and not losses:
+                raise ValueError(
+                    "Dataset produced no full batches; lower batch_size")
             mean_loss = float(torch.stack(losses).cpu().numpy().mean()) \
                 if losses else 0.0
+            dt = clock.seconds()
             history["loss"].append(mean_loss)
-            log.info("Epoch %d/%d  loss=%.4f", epoch + 1, epochs, mean_loss)
+            step_ms = telemetry.epoch(iteration - it0, n_seen, dt, mean_loss,
+                                      flops_per_step, device)
+            # the prefetch queue's blocked time over the epoch: the share
+            # of the fit that was input-bound
+            input_wait_s = batches.wait_s \
+                if isinstance(batches, _Prefetcher) else 0.0
+            telemetry.input_bound.set(min(1.0, input_wait_s / max(dt, 1e-9)))
+            get_accountant().account_stall("train", input_wait_s)
+            if cost_tracker.calls:
+                telemetry.roofline(cost_tracker.flops, cost_tracker.bytes,
+                                   dt, device)
+                cost_tracker.reset_epoch()
+            throughput = n_seen / max(dt, 1e-9)
+            if writer:
+                writer.scalar("Loss", mean_loss, iteration)
+                writer.scalar("Throughput", throughput, iteration)
+                writer.scalar("StepTime_ms", step_ms, iteration)
+            log.info("Epoch %d/%d  loss=%.4f  %.0f samples/s", epoch + 1,
+                     epochs, mean_loss, throughput)
 
             if validation_data is not None:
                 vx, vy = validation_data
@@ -588,6 +1012,8 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                 for k, v in val.items():
                     history.setdefault("val_" + k, []).append(v)
                     telemetry.val.set(v, name=k)
+                    if writer:
+                        writer.scalar("val_" + k, v, iteration)
 
             # epoch-boundary checkpoint trigger (EveryEpoch semantics)
             state = tg.TriggerState(epoch=epoch + 1, iteration=iteration,
@@ -597,6 +1023,7 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             if end_trigger and end_trigger(state):
                 break
     except Exception:
+        _close(batches)
         # the step watchdog exhausted its retries, or any other failure:
         # leave an emergency checkpoint so auto_resume (or an operator)
         # can continue; skipped when this iteration is already on disk (an
@@ -612,6 +1039,22 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                             "last periodic checkpoint is the resume "
                             "point", type(ce).__name__, ce)
         raise
+    finally:
+        _close(batches)
+        if profiler is not None and profile_state["active"]:
+            # a fit that ends (or dies) inside the window still leaves a
+            # finished, loadable artifact behind
+            try:
+                manifest = profiler.stop()
+                history.setdefault("profile_artifacts", []).append(
+                    manifest["dir"])
+            except Exception as e:  # noqa: BLE001 — already tearing down
+                log.warning("profiler capture failed: %s: %s",
+                            type(e).__name__, e)
+        if reporter is not None:
+            reporter.stop()   # a final digest (before the writer closes)
+        if writer:
+            writer.close()
     return history
 
 

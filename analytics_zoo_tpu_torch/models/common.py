@@ -15,11 +15,12 @@ package loads in the other. `load_model(path, device=None)` builds the
 model on the card unless the caller passes `device="cpu"`.
 
 `set_checkpoint` (JAX L92) hands the directory to the wrapped model, whose
-`fit` then writes training checkpoints there (`learn/checkpoint.py`).
+`fit` then writes training checkpoints there (`learn/checkpoint.py`), and
+`set_tensorboard` (JAX L95) its TensorBoard directory, where `fit` writes
+its summaries (`utils/tensorboard.py`).
 
 Not ported yet: `save_model_encrypted` (`learn/encrypted.py`, ROADMAP.md
-queue 1, item 8) and `set_tensorboard` (ROADMAP.md queue 1, 'The rest of
-training'); they raise NotImplementedError.
+queue 1, item 8); it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ import numpy as np
 
 from analytics_zoo_tpu_torch.common.device import DeviceLike
 from analytics_zoo_tpu_torch.keras.engine import KerasNet
-from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE
 
 
 class ZooModel:
@@ -106,5 +106,4 @@ class ZooModel:
         self.model.set_checkpoint(path)
 
     def set_tensorboard(self, log_dir: str, app_name: str):
-        raise NotImplementedError(
-            f"set_tensorboard is not ported yet ({NOT_PORTED_QUEUE})")
+        self.model.set_tensorboard(log_dir, app_name)

@@ -41,7 +41,8 @@ class Metric:
         return {"total": torch.zeros(()), "count": torch.zeros(())}
 
     def update(self, state: State, y_true, y_pred) -> State:
-        y_pred = torch.as_tensor(y_pred)
+        if not isinstance(y_pred, (list, tuple)):   # one output per model
+            y_pred = torch.as_tensor(y_pred)
         value, weight = self._batch(y_true, y_pred)
         return {"total": state["total"].to(value.device) + value,
                 "count": state["count"].to(value.device) + weight}
@@ -130,7 +131,11 @@ class Loss(Metric):
                           else objectives.MeanSquaredError())
 
     def _batch(self, y_true, y_pred):
-        n = _f32(y_pred.shape[0] if y_pred.dim() else 1, y_pred.device)
+        # a multi-output model's batch weighs its rows (the first output's
+        # leading dim); the JAX package weighs it by its output count
+        # (`jnp.shape` of the tuple), which differs on a short last batch
+        first = y_pred[0] if isinstance(y_pred, (list, tuple)) else y_pred
+        n = _f32(first.shape[0] if first.dim() else 1, first.device)
         return self.objective(y_true, y_pred) * n, n
 
 

@@ -1,9 +1,12 @@
-"""CRC32C (Castagnoli).
+"""CRC32C (Castagnoli) and TFRecord's masked CRC.
 
-`crc32c` gives the values of `analytics_zoo_tpu/utils/crc.py`'s (the JAX
-package cannot be imported without jax). The port's checkpoints
-(`learn/checkpoint.py`) record an npz's CRC32C in its structure sidecar,
-as the JAX package's do, so the values must be the same.
+`crc32c` and `masked_crc32c` give the values of
+`analytics_zoo_tpu/utils/crc.py`'s (L26, L33; the JAX package cannot be
+imported without jax). The port's checkpoints (`learn/checkpoint.py`)
+record an npz's CRC32C in its structure sidecar, as the JAX package's do,
+so the values must be the same. The masked form frames TensorBoard
+records (`utils/tensorboard.py`) and checks TF checkpoint entries
+(`utils/tf_checkpoint.py`).
 
 Short inputs take the table loop of that module byte by byte. A long one
 (an image model's artifact is tens of MB) is cut into `lanes` equal
@@ -88,3 +91,10 @@ def crc32c(data: bytes, crc: int = 0) -> int:
     else:
         reg = _crc_lanes(bytes(data), reg)
     return reg ^ 0xFFFFFFFF
+
+
+def masked_crc32c(data: bytes) -> int:
+    """TFRecord's masked CRC: rotate right by 15, add a constant."""
+    crc = crc32c(data)
+    return ((crc >> 15) | ((crc << 17) & 0xFFFFFFFF)) \
+        + 0xA282EAD8 & 0xFFFFFFFF

@@ -9,7 +9,11 @@ serve and train the recurrent models (TextClassifier at news20's widths,
 AnomalyDetector, SessionRecommender), serve and train the ImageNet model
 of `examples/inception_imagenet.py` (uint8 input, a `Lambda`
 normalisation, Inception-v1 nested as a layer) and WideAndDeep at
-MovieLens-1M widths (saved and reloaded), and print what it measured.
+MovieLens-1M widths (saved and reloaded), train with checkpoints and
+resume, fine-tune BERT-base for SQuAD and NER (with and without remat,
+watched by the trainer's own MFU and roofline gauges and its profiler
+window), time the prefetch thread on ResNet-50, and print what it
+measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -170,8 +174,32 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    uninterrupted fit (bitwise or not, and the largest relative
    difference, at most 1e-6), the resume seconds, one fused-Adam launch a
    step;
-26. a `kernels` line listing every kernel of the port;
-27. the last line, `{"ok": true, "device": {...}}`.
+26. BERTSQuAD at BERT-base widths fine-tuned at seq 384, batch 32, bf16
+   (Google BERT's SQuAD 1.1 recipe: lr 3e-5 with 10% warmup and linear
+   decay, eps 1e-6, weight decay 0.01, as `fused_adam`; a list of two
+   losses), dropout 0.1: 3 steps with `remat=True` against `remat=False`
+   from the same weights (bitwise or not); then 8 steps each, remat off
+   and on in turns (ABAB): step ms, tokens/s, peak memory, launches a
+   step (flash forward 12 / 24), the trainer's `training_mfu` (with
+   `flops_per_step` from `bench.py:101-111` at seq 384) beside the
+   formula's, `roofline_mfu` and `roofline_hbm_utilization`, the counted
+   FLOPs a step against the formula (within 10%) and remat's recompute;
+   a profiled fit (idle share); the fit's `profile_steps=(2, 4)` artifact
+   read back with `load_trace_events`, holding the events of the flash,
+   dropout and fused-Adam kernels; the fused AdamW against the plain
+   `adam_weight_decay` over 3 steps;
+27. BERTNER at BERT-base widths (seq 128, CoNLL-2003's 9 tags, batch 32,
+   bf16) fine-tuned 8 steps, then served through `InferenceModel` at
+   batches 1, 8 and 32 (p50 / p99, 12 flash launches a forward); card
+   f32 logits against the CPU;
+28. ResNet-50 at batch 256, bf16, deterministic cuDNN, trained without
+   and with the prefetch thread in turns (three of each, medians): step
+   ms, the host-to-device
+   copy's device ms a step, its streams and the share of it under
+   compute kernels (the fit's own profiler window), bytes a step;
+   losses and parameters bitwise equal;
+29. a `kernels` line listing every kernel of the port;
+30. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -220,7 +248,8 @@ from analytics_zoo_tpu_torch.keras.engine import (  # noqa: E402
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
 from analytics_zoo_tpu_torch.models.anomalydetection import (  # noqa: E402
     AnomalyDetector, detect_anomalies, unroll)
-from analytics_zoo_tpu_torch.models.bert import BERTClassifier  # noqa: E402
+from analytics_zoo_tpu_torch.models.bert import (  # noqa: E402
+    BERTNER, BERTClassifier, BERTSQuAD)
 from analytics_zoo_tpu_torch.models.generative import \
     TinyDecoder  # noqa: E402
 from analytics_zoo_tpu_torch.models.image import (  # noqa: E402
@@ -229,8 +258,12 @@ from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: E402
     NeuralCF, SessionRecommender, UserItemFeature, WideAndDeep)
 from analytics_zoo_tpu_torch.models.textclassification import \
     TextClassifier  # noqa: E402
-from analytics_zoo_tpu_torch.observability.registry import \
-    MetricsRegistry  # noqa: E402
+from analytics_zoo_tpu_torch.observability.capture import \
+    load_trace_events  # noqa: E402
+from analytics_zoo_tpu_torch.observability.registry import (  # noqa: E402
+    MetricsRegistry, get_registry)
+from analytics_zoo_tpu_torch.observability.roofline import \
+    get_accountant  # noqa: E402
 from analytics_zoo_tpu_torch.ops import (  # noqa: E402
     autograd, objectives, optimizers)
 from analytics_zoo_tpu_torch.ops.autograd import Lambda  # noqa: E402
@@ -1430,14 +1463,16 @@ def make_training_data(rs, n: int, cfg):
             "y": rs.integers(0, NUM_CLASSES, n).astype(np.int32)}
 
 
-def train_flops_per_step(model, cfg, batch: int) -> float:
+def train_flops_per_step(model, cfg, batch: int, seq: int = 0) -> float:
     """`bench.py:101-111`: 6 FLOPs per matmul parameter per token plus the
-    attention scores and context, 12·L·T²·D per sequence (fwd + bwd)."""
+    attention scores and context, 12·L·T²·D per sequence (fwd + bwd), at
+    sequence length `seq` (default: the position table's)."""
+    T = seq or cfg["seq_len"]
     n_params = sum(p.numel() for p in model.parameters())
     n_emb = (cfg["vocab"] + cfg["seq_len"] + 2) * cfg["hidden_size"]
-    tokens = batch * cfg["seq_len"]
+    tokens = batch * T
     return (6.0 * (n_params - n_emb) * tokens + 12.0 * cfg["n_block"]
-            * cfg["seq_len"] ** 2 * cfg["hidden_size"] * batch)
+            * T ** 2 * cfg["hidden_size"] * batch)
 
 
 def new_model(state, **kw):
@@ -4775,6 +4810,494 @@ def phase_resume(card: str, seed: int):
 # How an entry's `ms`, `plain_ms` and `library_ms` were taken: "events"
 # (`time_ms`), "graph" (`graph_ms`) or "profiler" (`device_ms`, which takes
 # "graph" when the profiler records nothing).
+# ---------------------------------------------------------------------------
+# BERT fine-tuning: SQuAD and NER
+# ---------------------------------------------------------------------------
+# Google BERT's SQuAD 1.1 recipe (`run_squad.py --max_seq_length=384
+# --doc_stride=128 --learning_rate=3e-5 --num_train_epochs=2.0`, warmup
+# 10%) at batch 32 (the BERT classifier phase's, so the two compare; the
+# recipe's 12 fits a 12 GB card). Total steps for the schedule: 2 epochs
+# of SQuAD 1.1's 87,599 training questions at batch 32.
+SQUAD_SEQ = 384
+SQUAD_QUESTION = 64
+SQUAD_BATCH = 32
+SQUAD_STEPS = 8
+SQUAD_LR = 3e-5
+SQUAD_TOTAL_STEPS = 2 * 87_599 // SQUAD_BATCH
+SQUAD_FLOP_TOL = 0.10       # counted vs bench.py's formula (the JAX test's)
+# CoNLL-2003's BIO tag set (O and B-/I- of PER, ORG, LOC, MISC) at seq 128,
+# `default_compile`'s rate 5e-5 (AdamWeightDecay, no schedule: its fused
+# twin is fused_adam(5e-5, eps=1e-6, weight_decay=0.01))
+NER_TAGS = 9
+NER_SEQ = 128
+NER_BATCH = 32
+NER_STEPS = 8
+NER_LR = 5e-5
+NER_SERVE_BATCHES = (1, 8, 32)
+NER_REQUESTS = 20
+# the prefetcher on the image step: ResNet-50 at batch 256, bf16
+PF_STEPS = 6
+PF_TURNS = 3                 # without, with: three times, in turns
+PF_PROFILE = (1, 3)          # profiled iterations [1, 3)
+BERT_TRACE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                      "flash_bwd_dq_mma_kernel", "dropout_kernel",
+                      "fused_adam_multi_kernel")
+
+
+def bert_task_state(cfg, head: str, width: int, seed: int):
+    """A BERT task's weights: the encoder of `random_classifier_tree` and a
+    `[hidden, width]` head N(0, 0.02), in the port's state-dict layout."""
+    rs = np.random.default_rng(seed + 7)
+    tree = {"bert": random_classifier_tree(cfg, 2, seed)["bert"],
+            head + "_kernel": rs.standard_normal(
+                (cfg["hidden_size"], width), dtype=np.float32) * 0.02,
+            head + "_bias": np.zeros((width,), np.float32)}
+    return convert.params_from_jax(tree)
+
+
+def squad_data(rs, n: int, cfg):
+    """SQuAD-shaped features: a 64-token question (segment 0), the
+    context after it (segment 1), real lengths 128-384, the answer span
+    inside the context."""
+    T, Q = SQUAD_SEQ, SQUAD_QUESTION
+    lengths = rs.integers(128, T + 1, n)
+    pos = np.arange(T)[None, :]
+    mask = pos < lengths[:, None]
+    ids = np.where(mask, rs.integers(1000, cfg["vocab"], (n, T)), 0)
+    segs = (pos >= Q) & mask
+    start = rs.integers(Q, lengths - 1)
+    end = np.minimum(start + rs.integers(0, 30, n), lengths - 2)
+    return {"x": [ids.astype(np.int32), segs.astype(np.int32),
+                  mask.astype(np.float32)],
+            "y": [start.astype(np.int32), end.astype(np.int32)]}
+
+
+def squad_loss():
+    loss = objectives.get("sparse_categorical_crossentropy", from_logits=True)
+    return [loss, loss]
+
+
+def squad_optimizer():
+    return optimizers.fused_adam(
+        optimizers.warmup_linear_decay(SQUAD_LR, SQUAD_TOTAL_STEPS, 0.1),
+        eps=1e-6, weight_decay=0.01)
+
+
+def squad_model(state, remat: bool):
+    model = BERTSQuAD(use_flash=True, remat=remat, device="cuda",
+                      **BERT_BASE)
+    model.load_state_dict(state)
+    return model
+
+
+def gauge(name: str, **labels):
+    return get_registry().get(name).value(**labels)
+
+
+def trace_kernel_counts(events, names) -> dict:
+    """How many kernel events of the trace carry each name."""
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {n: sum(n in k for k in kernels) for n in names}
+
+
+def phase_bert_squad(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BERT_BASE
+    rs = np.random.default_rng(seed + 120)
+    state = bert_task_state(cfg, "qa", 2, seed)
+    models = {r: squad_model(state, r) for r in (False, True)}
+    flops_step = train_flops_per_step(models[False], cfg, SQUAD_BATCH,
+                                      SQUAD_SEQ)
+    ests = {r: Estimator.from_keras(m, optimizer=squad_optimizer(),
+                                    loss=squad_loss())
+            for r, m in models.items()}
+    fit_kw = dict(batch_size=SQUAD_BATCH, mixed_precision=True,
+                  fused_optimizer=True, flops_per_step=flops_step)
+    sweep = fad.sweep_launches(models[False].parameters())
+
+    # warm fits (build, cuBLAS set-up, the cost harvest): 3 steps on one
+    # batch, remat against plain from the same weights and seed
+    batch = squad_data(rs, SQUAD_BATCH, cfg)
+    warm = {}
+    for r in (False, True):
+        t0 = time.perf_counter()
+        h = ests[r].fit(batch, epochs=3, **fit_kw)
+        torch.cuda.synchronize()
+        memo = models[r]._roofline_cost_memo[(True, False, True)]
+        warm[r] = {"loss": h["loss"], "seconds": time.perf_counter() - t0,
+                   "harvest_s": memo["__harvest_s__"]}
+    sa, sb = models[False].state_dict(), models[True].state_dict()
+    remat_loss_err = max(abs(a - b) for a, b in zip(warm[False]["loss"],
+                                                    warm[True]["loss"]))
+    remat_bitwise = (warm[False]["loss"] == warm[True]["loss"]
+                     and all(torch.equal(sa[k], sb[k]) for k in sa))
+    remat_param_err = max((sa[k].float() - sb[k].float()).abs().max().item()
+                          for k in sa)
+    emit({"phase": "squad_remat_check", "steps": 3, "dropout": 0.1,
+          "loss_remat_off": warm[False]["loss"],
+          "loss_remat_on": warm[True]["loss"],
+          "loss_max_abs_err": remat_loss_err, "loss_tol": BF16_LOSS_TOL,
+          "param_max_abs_err": remat_param_err, "bitwise": remat_bitwise,
+          "warm_fit_s": {str(r): warm[r]["seconds"] for r in warm},
+          "harvest_s": {str(r): warm[r]["harvest_s"] for r in warm},
+          "card": card})
+    if remat_loss_err > BF16_LOSS_TOL:
+        raise SystemExit("chip_smoke: remat losses outside tolerance")
+
+    # -- the main path, remat off and on in turns (ABAB): every count is 0
+    # just before each fit, read just after --------------------------------
+    data = squad_data(rs, SQUAD_BATCH * SQUAD_STEPS, cfg)
+    tokens = SQUAD_BATCH * SQUAD_SEQ * SQUAD_STEPS
+    expected = {False: {fa.KERNEL_NAME: cfg["n_block"]},
+                True: {fa.KERNEL_NAME: 2 * cfg["n_block"]}}
+    runs = []
+    counts_by = {}
+    for r in (False, True, False, True):
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        t1 = time.perf_counter()
+        hist = ests[r].fit(data, epochs=1, **fit_kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts = LAUNCHES.snapshot()
+        # -------------------------------------------------------------------
+        snap = get_accountant().snapshot("train")
+        per_step = {k: v / SQUAD_STEPS for k, v in counts.items()}
+        want = dict(expected[r], **{
+            fa.BWD_DKV_NAME: cfg["n_block"], fa.BWD_DQ_NAME: cfg["n_block"],
+            dr.KERNEL_NAME: 2 * (2 * cfg["n_block"] + 1)
+            + (2 * cfg["n_block"] if r else 0),
+            fad.KERNEL_NAME: sweep})
+        row = {"phase": "squad_train", "remat": r, "seq_len": SQUAD_SEQ,
+               "batch": SQUAD_BATCH, "steps": SQUAD_STEPS,
+               "step_ms": dt / SQUAD_STEPS * 1e3, "tokens_per_s": tokens / dt,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "loss": hist["loss"], "launches_per_step": per_step,
+               "expected_per_step": want,
+               "flops_per_step_formula": flops_step,
+               "counted_flops_per_step": snap["flops"] / SQUAD_STEPS,
+               "counted_bytes_per_step": snap["bytes"] / SQUAD_STEPS,
+               "training_mfu": gauge("training_mfu"),
+               "formula_mfu": flops_step * SQUAD_STEPS / dt / PEAK_BF16,
+               "roofline_mfu": gauge("roofline_mfu", kind="train"),
+               "roofline_hbm_utilization": gauge("roofline_hbm_utilization",
+                                                 kind="train"),
+               "training_input_bound": gauge("training_input_bound"),
+               "card": card}
+        emit(row)
+        runs.append(row)
+        counts_by.setdefault(r, counts)
+        if per_step != {k: float(v) for k, v in want.items()} or not all(
+                math.isfinite(x) for x in hist["loss"]):
+            raise SystemExit(f"chip_smoke: SQuAD launches per step "
+                             f"{per_step}, expected {want}")
+    counted = {r: runs[i]["counted_flops_per_step"] for i, r in
+               ((0, False), (1, True))}
+    flop_err = counted[False] / flops_step - 1.0
+    emit({"phase": "squad_flops", "formula": flops_step,
+          "counted": counted[False], "rel_err": flop_err,
+          "tol": SQUAD_FLOP_TOL, "remat_recompute": counted[True]
+          - counted[False], "step_ms_remat_off": [runs[0]["step_ms"],
+                                                  runs[2]["step_ms"]],
+          "step_ms_remat_on": [runs[1]["step_ms"], runs[3]["step_ms"]],
+          "card": card})
+    if abs(flop_err) > SQUAD_FLOP_TOL:
+        raise SystemExit("chip_smoke: counted FLOPs off the formula")
+    # the prefetch thread's host cost on this host-heavy step: remat off,
+    # without and with it, in turns
+    turns = {False: [], True: []}
+    for p in (False, True, False, True):
+        t1 = time.perf_counter()
+        ests[False].fit(data, epochs=1, prefetch=p, **fit_kw)
+        torch.cuda.synchronize()
+        turns[p].append((time.perf_counter() - t1) / SQUAD_STEPS * 1e3)
+    emit({"phase": "squad_prefetch_turns", "step_ms_without": turns[False],
+          "step_ms_with": turns[True], "card": card})
+    for r in (False, True):
+        steps = 2
+        prof = make_data_subset(data, SQUAD_BATCH * steps)
+        step_ms = float(np.mean([x["step_ms"] for x in runs
+                                 if x["remat"] == r]))
+        emit(dict(profile_fit(ests[r], prof, dict(fit_kw, epochs=1), steps,
+                              step_ms), phase="squad_profile", remat=r,
+                  card=card))
+
+    # -- the fit's own profiler window: an artifact holding rows 1-6 ------
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = ests[False].fit(make_data_subset(data, SQUAD_BATCH * 5),
+                               epochs=1, profile_steps=(2, 4),
+                               profile_dir=tmp, **fit_kw)
+        arts = hist.get("profile_artifacts", [])
+        events = load_trace_events(arts[0]) if arts else []
+        found = trace_kernel_counts(events, BERT_TRACE_KERNELS)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(arts[0]) for f in fs) if arts \
+            else 0
+    emit({"phase": "squad_profile_artifact", "artifacts": len(arts),
+          "events": len(events), "gz_bytes": size,
+          "kernel_events": found, "card": card})
+    if len(arts) != 1 or not all(found.values()):
+        raise SystemExit("chip_smoke: the fit's profiler artifact lacks "
+                         "kernel events")
+    del ests, models
+    torch.cuda.empty_cache()
+
+    # -- the fused AdamW against default_compile's plain optimizer --------
+    plain = optimizers.adam_weight_decay(SQUAD_LR, warmup_portion=0.1,
+                                         total_steps=SQUAD_TOTAL_STEPS,
+                                         epsilon=1e-6, weight_decay=0.01)
+    res = {}
+    for name, opt in (("fused", squad_optimizer()), ("plain", plain)):
+        m = squad_model(state, False)
+        LAUNCHES.reset()
+        h = Estimator.from_keras(m, optimizer=opt, loss=squad_loss()).fit(
+            batch, epochs=3, batch_size=SQUAD_BATCH, mixed_precision=True,
+            fused_optimizer=name == "fused")
+        res[name] = (h["loss"], {k: v.detach().clone()
+                                 for k, v in m.state_dict().items()},
+                     LAUNCHES.get(fad.KERNEL_NAME))
+        del m
+        torch.cuda.empty_cache()
+    (lf, pf, cf), (lp, pp, cp) = res["fused"], res["plain"]
+    opt_err = max(abs(a - b) for a, b in zip(lf, lp))
+    param_err = max((pf[k] - pp[k]).abs().max().item() for k in pf)
+    opt_ok = opt_err <= BF16_LOSS_TOL and cf == 3 * sweep and cp == 0
+    emit({"phase": "squad_fused_vs_plain_optimizer", "steps": 3,
+          "loss_fused": lf, "loss_plain": lp, "loss_max_abs_err": opt_err,
+          "loss_tol": BF16_LOSS_TOL, "param_max_abs_err": param_err,
+          "fused_adam_launches": [cf, cp], "ok": opt_ok, "card": card})
+    if not opt_ok:
+        raise SystemExit("chip_smoke: fused AdamW against the plain "
+                         "optimizer failed")
+    return {"counts": counts_by[False], "counts_remat": counts_by[True]}
+
+
+def make_data_subset(data, n: int):
+    return {"x": [a[:n] for a in data["x"]],
+            "y": [a[:n] for a in data["y"]] if isinstance(data["y"], list)
+            else data["y"][:n]}
+
+
+def ner_data(rs, n: int, cfg):
+    T = NER_SEQ
+    lengths = rs.integers(16, T + 1, n)
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    ids = np.where(mask, rs.integers(1000, cfg["vocab"], (n, T)), 0)
+    return {"x": [ids.astype(np.int32), np.zeros((n, T), np.int32),
+                  mask.astype(np.float32)],
+            "y": rs.integers(0, NER_TAGS, (n, T)).astype(np.int32)}
+
+
+def phase_bert_ner(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BERT_BASE
+    rs = np.random.default_rng(seed + 130)
+    state = bert_task_state(cfg, "ner", NER_TAGS, seed)
+    model = BERTNER(NER_TAGS, use_flash=True, device="cuda", **cfg)
+    model.load_state_dict(state)
+    est = Estimator.from_keras(
+        model, optimizer=optimizers.fused_adam(NER_LR, eps=1e-6,
+                                               weight_decay=0.01),
+        loss=objectives.get("sparse_categorical_crossentropy",
+                            from_logits=True))
+    fit_kw = dict(epochs=1, batch_size=NER_BATCH, mixed_precision=True,
+                  fused_optimizer=True)
+    data = ner_data(rs, NER_BATCH * NER_STEPS, cfg)
+    t0 = time.perf_counter()
+    est.fit(make_data_subset(data, 2 * NER_BATCH), **fit_kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # -- the main path (training): counts 0 just before, read just after --
+    LAUNCHES.reset()
+    t1 = time.perf_counter()
+    hist = est.fit(data, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    n = cfg["n_block"]
+    want = {fa.KERNEL_NAME: n, fa.BWD_DKV_NAME: n, fa.BWD_DQ_NAME: n,
+            dr.KERNEL_NAME: 2 * (2 * n + 1),
+            fad.KERNEL_NAME: fad.sweep_launches(model.parameters())}
+    per_step = {k: v / NER_STEPS for k, v in counts.items()}
+    emit({"phase": "ner_train", "seq_len": NER_SEQ, "batch": NER_BATCH,
+          "tags": NER_TAGS, "steps": NER_STEPS, "warm_fit_s": warm_s,
+          "step_ms": dt / NER_STEPS * 1e3,
+          "tokens_per_s": NER_BATCH * NER_SEQ * NER_STEPS / dt,
+          "loss": hist["loss"], "launches_per_step": per_step,
+          "expected_per_step": want,
+          "roofline_mfu": gauge("roofline_mfu", kind="train"),
+          "card": card})
+    if per_step != {k: float(v) for k, v in want.items()} or not all(
+            math.isfinite(x) for x in hist["loss"]):
+        raise SystemExit("chip_smoke: NER training check failed")
+
+    im = InferenceModel(max_batch=max(NER_SERVE_BATCHES)).load_keras(model)
+    T = NER_SEQ
+    im.warmup([np.zeros(T, np.int32), np.zeros(T, np.int32),
+               np.ones(T, np.float32)])
+    requests = {b: [make_data_subset(ner_data(rs, b, cfg), b)["x"]
+                    for _ in range(NER_REQUESTS)] for b in NER_SERVE_BATCHES}
+    check = ner_data(rs, 3, cfg)["x"]
+
+    # -- the main path (serving) ---------------------------------------------
+    LAUNCHES.reset()
+    forwards = 0
+    latencies = {}
+    for b in NER_SERVE_BATCHES:
+        times = []
+        for x in requests[b]:
+            t2 = time.perf_counter()
+            out = im.predict(x)
+            times.append((time.perf_counter() - t2) * 1e3)
+            forwards += 1
+            if out.shape != (b, T, NER_TAGS) or not np.isfinite(out).all():
+                raise SystemExit(f"chip_smoke: bad NER output {out.shape}")
+        latencies[b] = times
+    card_logits = im.predict(check)
+    forwards += 1
+    serve_counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    for b, times in latencies.items():
+        emit({"phase": "ner_serving", "dtype": im.serving_dtype, "batch": b,
+              "seq_len": T, "requests": len(times),
+              "p50_ms": float(np.percentile(times, 50)),
+              "p99_ms": float(np.percentile(times, 99)), "card": card})
+    if serve_counts.get(fa.KERNEL_NAME, 0) != n * forwards:
+        raise SystemExit(f"chip_smoke: NER serving launches {serve_counts}")
+    cpu_model = BERTNER(NER_TAGS, use_flash=True, device="cpu", **cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    cpu_logits = InferenceModel(max_batch=4, device="cpu").load_keras(
+        cpu_model).predict(check)
+    check_logits("ner_card_f32_vs_cpu_f32", card_logits, cpu_logits,
+                 LOGIT_TOL["float32"])
+    del est, model, im
+    torch.cuda.empty_cache()
+    return {"counts": counts, "serve_counts": serve_counts}
+
+
+def h2d_overlap(events, steps: int) -> dict:
+    """The host-to-device copies of a trace window: device ms and bytes a
+    step, their streams and the compute kernels' streams, and the share of
+    copy time during which a kernel ran on another stream."""
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0),
+                      e.get("args", {}).get("stream", e.get("tid")))
+                     for e in events if e.get("cat") == "kernel")
+    overlap = 0.0
+    for c in copies:
+        c0, c1 = c["ts"], c["ts"] + c.get("dur", 0)
+        stream = c.get("args", {}).get("stream", c.get("tid"))
+        spans = sorted((max(k0, c0), min(k1, c1)) for k0, k1, ks in kernels
+                       if ks != stream and k1 > c0 and k0 < c1)
+        end = c0
+        for a, b in spans:                  # union of the kernel spans
+            a = max(a, end)
+            if b > a:
+                overlap += b - a
+                end = b
+    copy_us = sum(c.get("dur", 0) for c in copies)
+    return {"copies": len(copies),
+            "copy_ms_per_step": copy_us / 1e3 / steps,
+            "copy_bytes_per_step": sum(c.get("args", {}).get("bytes", 0)
+                                       for c in copies) / steps,
+            "overlapped_share": overlap / copy_us if copy_us else None,
+            "copy_streams": sorted({str(c.get("args", {}).get(
+                "stream", c.get("tid"))) for c in copies}),
+            "kernel_streams": sorted({str(k[2]) for k in kernels}),
+            "copy_kinds": sorted({c["name"] for c in copies})}
+
+
+def phase_prefetch_ab(card: str, seed: int):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # deterministic convolutions: the two fits' losses must be bitwise
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        return _prefetch_ab(card, seed)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _prefetch_ab(card: str, seed: int):
+    first = resnet(50, IMG_CLASSES, IMG_SHAPE)
+    first.ensure_built(seed=seed)
+    state = {k: v.detach().clone() for k, v in first.state_dict().items()}
+    models = {False: first,
+              True: load_by_order(resnet(50, IMG_CLASSES, IMG_SHAPE), state)}
+    rs = np.random.default_rng(seed + 140)
+    B = IMG_TRAIN_BATCH
+    n = B * PF_STEPS
+    data = {"x": rs.random((n,) + IMG_SHAPE, dtype=np.float32),
+            "y": rs.integers(0, IMG_CLASSES, n).astype(np.int32)}
+    upload_bytes = data["x"][:B].nbytes + data["y"][:B].nbytes
+    ests = {p: Estimator.from_keras(m, optimizer="adam", loss=IMG_LOSS)
+            for p, m in models.items()}
+    fit_kw = dict(epochs=1, batch_size=B, mixed_precision=True,
+                  fused_optimizer=True)
+    warm = {"x": data["x"][:2 * B], "y": data["y"][:2 * B]}
+    for p in (False, True):
+        ests[p].fit(warm, prefetch=p, **fit_kw)
+    torch.cuda.synchronize()
+
+    # -- the main path, without and with the prefetcher in turns ----------
+    runs = []
+    for p in (False, True) * PF_TURNS:
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        hist = ests[p].fit(data, prefetch=p, **fit_kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = LAUNCHES.snapshot()
+        # -------------------------------------------------------------------
+        runs.append({"prefetch": p, "step_ms": dt / PF_STEPS * 1e3,
+                     "loss": hist["loss"], "launches": counts,
+                     "input_bound": gauge("training_input_bound")})
+        emit(dict(runs[-1], phase="prefetch_ab", batch=B, steps=PF_STEPS,
+                  card=card))
+    profiles = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for p in (False, True):
+            hist = ests[p].fit(
+                {"x": data["x"][:4 * B], "y": data["y"][:4 * B]},
+                prefetch=p, profile_steps=PF_PROFILE,
+                profile_dir=os.path.join(tmp, str(p)), **fit_kw)
+            events = load_trace_events(hist["profile_artifacts"][0])
+            profiles[p] = h2d_overlap(events, PF_PROFILE[1] - PF_PROFILE[0])
+            emit(dict(profiles[p], phase="prefetch_profile", prefetch=p,
+                      upload_bytes_per_step=upload_bytes, card=card))
+    # two instances: layer names differ, graph order does not
+    bitwise = (all(a["loss"] == b["loss"] for a, b in zip(runs[::2],
+                                                          runs[1::2]))
+               and all(torch.equal(a, b) for a, b in zip(
+                   models[False].state_dict().values(),
+                   models[True].state_dict().values())))
+    sweep = fad.sweep_launches(models[True].parameters())
+    launches_ok = all(r["launches"] == {fad.KERNEL_NAME: PF_STEPS * sweep}
+                      for r in runs)
+    pageable = [r["step_ms"] for r in runs[::2]]
+    pinned = [r["step_ms"] for r in runs[1::2]]
+    emit({"phase": "prefetch_summary", "step_ms_pageable": pageable,
+          "step_ms_prefetch": pinned,
+          "median_step_ms_pageable": float(np.median(pageable)),
+          "median_step_ms_prefetch": float(np.median(pinned)),
+          "losses_bitwise": bitwise, "launches_ok": launches_ok,
+          "upload_bytes_per_step": upload_bytes, "card": card})
+    if not (bitwise and launches_ok):
+        raise SystemExit("chip_smoke: prefetch A/B check failed")
+    del ests, models, data
+    torch.cuda.empty_cache()
+    return {"counts": runs[1]["launches"]}
+
+
 BY_EVENTS = {"ms": "events", "plain_ms": "events", "library_ms": "events"}
 BY_GRAPH = {"ms": "graph", "plain_ms": "graph", "library_ms": "graph"}
 # the backward kernels: SDPA's backward (fwd+bwd minus fwd) by CUDA graph,
@@ -4979,6 +5502,9 @@ def main(argv=None) -> int:
     phase_autograd_checks(card, args.seed)
     text_adagrad = phase_text_adagrad(card, args.seed)
     resume = phase_resume(card, args.seed)
+    squad = phase_bert_squad(card, args.seed)
+    ner = phase_bert_ner(card, args.seed)
+    prefetch = phase_prefetch_ab(card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -5003,6 +5529,16 @@ def main(argv=None) -> int:
             launches_anomaly=anomaly["counts"].get(name, 0),
             launches_inception_imagenet=inception["counts"].get(name, 0),
             launches_wide_and_deep=wide["counts"].get(name, 0))
+    for name in (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME,
+                 dr.KERNEL_NAME, fad.KERNEL_NAME):
+        entries[name].update(
+            launches_squad=squad["counts"].get(name, 0),
+            launches_squad_remat=squad["counts_remat"].get(name, 0),
+            launches_ner=ner["counts"].get(name, 0))
+    entries[fa.KERNEL_NAME].update(
+        launches_ner_serving=ner["serve_counts"].get(fa.KERNEL_NAME, 0))
+    entries[fad.KERNEL_NAME].update(
+        launches_prefetch_ab=prefetch["counts"].get(fad.KERNEL_NAME, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]

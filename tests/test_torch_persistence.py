@@ -331,13 +331,12 @@ def test_load_errors(tmp_path):
     unbuilt = WideAndDeep(device="cpu", **WND)
     with pytest.raises(ValueError, match="no parameters"):
         unbuilt.model.save_weights(str(tmp_path / "nothing"))
-    for call in (lambda: t.save_model_encrypted(str(tmp_path / "e"), "s",
-                                                "salt"),
-                 lambda: t.set_tensorboard(str(tmp_path), "app")):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        t.save_model_encrypted(str(tmp_path / "e"), "s", "salt")
     t.set_checkpoint(str(tmp_path))
     assert t.model._checkpoint_path == str(tmp_path)
+    t.set_tensorboard(str(tmp_path) + "/", "app")
+    assert t.model._tensorboard_dir == f"{tmp_path}/app"
 
 
 def test_inference_model_load_zoo_model(tmp_path):

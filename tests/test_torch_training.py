@@ -326,11 +326,8 @@ def test_optimizer_state_round_trips(kind):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"int8_sidecar": True}, {"metrics_report_s": 1.0},
-    {"sharding_rules": True}, {"prefetch_depth": 2},
+    {"int8_sidecar": True}, {"sharding_rules": True},
     {"device_cache": True}, {"compile_cache_dir": "cache"},
-    {"batch_iter_factory": lambda epoch: iter(())},
-    {"profile_steps": (0, 1)}, {"flops_per_step": 1.0},
 ])
 def test_unported_fit_arguments_raise(kwargs):
     _, tloss = _loss_pair()
@@ -339,6 +336,31 @@ def test_unported_fit_arguments_raise(kwargs):
                                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         est.fit(_data(n=8), batch_size=BATCH, **kwargs)
+
+
+def _one_batch_factory(epoch):
+    d = _data(n=8)
+    return iter([(d["x"], d["y"], 8)])
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"metrics_report_s": 1.0}, {"prefetch_depth": 2},
+    {"batch_iter_factory": _one_batch_factory},
+    {"profile_steps": (0, 1)}, {"flops_per_step": 1.0},
+])
+def test_ported_fit_arguments_run(kwargs, tmp_path):
+    """The telemetry and input-pipeline arguments that used to raise run
+    a one-step fit."""
+    _, tloss = _loss_pair()
+    tm = _port_model(_jax_model().params, **NO_DROP)
+    est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
+                               device="cpu")
+    if "profile_steps" in kwargs:
+        kwargs = dict(kwargs, profile_dir=str(tmp_path))
+    h = est.fit(_data(n=8), batch_size=BATCH, **kwargs)
+    assert len(h["loss"]) == 1 and np.isfinite(h["loss"][0])
+    if "profile_steps" in kwargs:
+        assert len(h["profile_artifacts"]) == 1
 
 
 def test_estimator_guards(monkeypatch):
