@@ -48,7 +48,12 @@ crosses the same way.
 
 A convolution's kernel is HWIO in the JAX tree (`[*window, in / groups,
 out]`) and OIHW in the port (`[out, in / groups, *window]`): it is
-transposed each way, its Adam moments too. BatchNorm's moving statistics
+transposed each way, its Adam moments too. The int8 form of a tree
+(`serving/quantization.py`: `<leaf>_q` int8 and `<leaf>_scale` f32 leaves)
+crosses both ways like the f32 leaves: a convolution's `kernel_q` is
+transposed as `kernel` is, its per-output-channel scale is not, and a
+stacked BERT's `[L, in, out]` `_q` leaves and `[L, out]` scales unstack
+like the f32 leaves. BatchNorm's moving statistics
 are leaves of the JAX tree and buffers of the port, under the same
 `"<layer>.<leaf>"` keys, so they cross unchanged with the weights. They
 have no optimizer state in the port (the optimizer steps parameters
@@ -72,15 +77,12 @@ from analytics_zoo_tpu_torch.keras.layers import (Bidirectional,
 from analytics_zoo_tpu_torch.keras.transformer import (stack_block_params,
                                                        unstack_block_params)
 from analytics_zoo_tpu_torch.ops.optimizers import FusedAdamState
-from analytics_zoo_tpu_torch.serving.quantization import INT8_NOT_PORTED
 
 _BLOCK_KEY = re.compile(r"^(?P<prefix>.+)_block(?P<index>\d+)$")
 
 
 def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]):
     for key, value in tree.items():
-        if key.endswith("_q"):
-            raise NotImplementedError(INT8_NOT_PORTED)
         path = f"{prefix}{key}"
         if isinstance(value, Mapping):
             _flatten(value, path + ".", out)
@@ -222,6 +224,11 @@ def _port_names(model, jax_layer_names: Sequence) -> Dict[str, str]:
             _port_layers(model, jax_layer_names).items()}
 
 
+# a convolution's f32 kernel and its int8 form are transposed between the
+# layouts; the int8 form's per-output-channel scale is not
+_CONV_KERNELS = ("kernel", "kernel_q")
+
+
 def _hwio_to_oihw(a: np.ndarray, rank: int) -> np.ndarray:
     return np.ascontiguousarray(
         np.transpose(a, (rank + 1, rank) + tuple(range(rank))))
@@ -244,9 +251,11 @@ def _layer_from_jax(layer, sub: Mapping, entry) -> Dict[str, Any]:
         return {f"layer.{key}": value for key, value in
                 _layer_from_jax(layer.layer, sub, None).items()}
     out = dict(sub)
-    if isinstance(layer, _ConvND) and out.get("kernel") is not None:
-        out["kernel"] = _hwio_to_oihw(np.asarray(out["kernel"]),
-                                      layer.spatial_rank)
+    if isinstance(layer, _ConvND):
+        for key in _CONV_KERNELS:
+            if out.get(key) is not None:
+                out[key] = _hwio_to_oihw(np.asarray(out[key]),
+                                         layer.spatial_rank)
     return out
 
 
@@ -278,8 +287,10 @@ def _layer_to_jax(layer, flat: Mapping[str, np.ndarray], entry) -> Dict:
                                            for key, value in flat.items()},
                              None)
     out = dict(flat)
-    if isinstance(layer, _ConvND) and "kernel" in out:
-        out["kernel"] = _oihw_to_hwio(out["kernel"], layer.spatial_rank)
+    if isinstance(layer, _ConvND):
+        for key in _CONV_KERNELS:
+            if key in out:
+                out[key] = _oihw_to_hwio(out[key], layer.spatial_rank)
     return out
 
 

@@ -440,18 +440,22 @@ class KerasNet(_GraphCall, nn.Module):
         return self.apply_and_state(x, training=training, seed=seed)
 
     # -- persistence (`models/common/ZooModel.scala` save/load) -----------
-    def save_weights(self, path: str) -> None:
+    def save_weights(self, path: str,
+                     params: Optional[Dict[str, Any]] = None) -> None:
         """Write this model's parameters and buffers as the JAX package's
         artifact: its parameter tree under this model's layer names
         (`<path>.npz` + `<path>.structure.json`) and the layer-order
-        sidecar `<path>.layers.json`."""
+        sidecar `<path>.layers.json`. `params`, a state dict of this
+        architecture (default: the model's own), lets derived states (the
+        int8 form, `serving/quantization.py`) use the same artifact."""
         from analytics_zoo_tpu_torch import convert
         from analytics_zoo_tpu_torch.learn import checkpoint as ckpt
-        if not self._built:
-            raise ValueError("Model has no parameters yet; call fit or "
-                             "ensure_built first")
-        ckpt.save_pytree(path, convert.model_params_to_jax(
-            self.state_dict(), convert.layer_names(self), self))
+        if params is None:
+            if not self._built:
+                raise ValueError("Model has no parameters yet; call fit or "
+                                 "ensure_built first")
+            params = self.state_dict()
+        ckpt.save_pytree(path, convert.state_to_jax(params, self))
         order = self._layer_order()
         if order:
             with open(self._order_path(path), "w") as fh:
@@ -473,8 +477,8 @@ class KerasNet(_GraphCall, nn.Module):
         """`load_weights_tree`, loaded into this model's parameters and
         buffers (on their device, in their dtype)."""
         from analytics_zoo_tpu_torch import convert
-        self.load_state_dict(convert.model_params_from_jax(
-            self.load_weights_tree(path), convert.layer_names(self), self))
+        self.load_state_dict(convert.state_from_jax(
+            self.load_weights_tree(path), self))
         return self
 
     @staticmethod

@@ -17,6 +17,12 @@ different numbers from one seed); `"uniform"` is
 `jax.nn.initializers.uniform(0.05)`, which draws from [0, 0.05), not
 ±0.05. `"gelu"` is `jax.nn.gelu`'s default, the tanh approximation — not
 torch's erf form. `Dense` keeps its kernel as [in, out], the JAX layout.
+`Dense`, `Embedding` and `_ConvND` take the int8 path of the JAX layers
+(L117, L366, L532) when their module holds the quantized form of the
+weight (`kernel_q` / `embeddings_q` buffers with their scales,
+`serving/quantization.py`): an int8 product, a per-row dequantizing
+gather, and a weight-only int8 convolution in bf16 (the port's `kernel_q`
+is OIHW, scaled over O, where the JAX one is HWIO).
 
 The recurrences are PyTorch ops in a Python loop over time, as the JAX
 package's are `lax.scan`s outside any Pallas kernel. They cannot go to
@@ -61,6 +67,9 @@ from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
 from analytics_zoo_tpu_torch.keras.engine import (Layer, Node, merge_state,
                                                   new_parameter)
 from analytics_zoo_tpu_torch.kernels.dropout import fused_dropout
+from analytics_zoo_tpu_torch.serving.quantization import (dequantize_rows,
+                                                          int8_conv,
+                                                          int8_matmul)
 
 Init = Callable[[torch.Generator, tuple], torch.Tensor]
 
@@ -249,7 +258,10 @@ class Dense(Layer):
         return self
 
     def call(self, x, *, training: bool = False):
-        y = _match_param_dtype(x, self.kernel) @ self.kernel
+        if hasattr(self, "kernel_q"):   # int8 serving (serving/quantization)
+            y = int8_matmul(x, self.kernel_q, self.kernel_scale)
+        else:
+            y = _match_param_dtype(x, self.kernel) @ self.kernel
         if self.use_bias:
             y = y + self.bias
         return self.activation(y)
@@ -399,9 +411,13 @@ class Embedding(Layer):
         return self
 
     def call(self, x, *, training: bool = False):
+        ids = torch.as_tensor(x).long()
+        if hasattr(self, "embeddings_q"):   # int8 serving
+            return dequantize_rows(self.embeddings_q, self.embeddings_scale,
+                                   ids)
         table = self.embeddings if self.trainable \
             else self.embeddings.detach()
-        return F.embedding(torch.as_tensor(x).long(), table)
+        return F.embedding(ids, table)
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
@@ -599,7 +615,8 @@ class _ConvND(Layer):
             # raw integer images are refused, not trained on as 0-255
             raise TypeError(f"{self.name}: convolution input must be a "
                             f"float tensor, got {x.dtype}")
-        x = _channels_first(_match_param_dtype(x, self.kernel),
+        int8 = hasattr(self, "kernel_q")     # int8 serving, weight-only
+        x = _channels_first(x if int8 else _match_param_dtype(x, self.kernel),
                             self.dim_ordering, self.spatial_rank)
         padding: Any = 0
         if self.padding == "SAME":
@@ -608,9 +625,16 @@ class _ConvND(Layer):
                 padding = tuple(lo for lo, _ in pads)
             else:
                 x = F.pad(x, _pad_arg(pads))
-        y = _CONV[self.spatial_rank](
-            x, self.kernel, self.bias if self.use_bias else None,
-            stride=self.strides, padding=padding, groups=self.groups)
+        conv = _CONV[self.spatial_rank]
+        if int8:
+            y = int8_conv(x, self.kernel_q, self.kernel_scale, conv,
+                          stride=self.strides, padding=padding,
+                          groups=self.groups)
+            if self.use_bias:       # f32, after the bf16 convolution
+                y = y + self.bias.reshape((-1,) + (1,) * self.spatial_rank)
+        else:
+            y = conv(x, self.kernel, self.bias if self.use_bias else None,
+                     stride=self.strides, padding=padding, groups=self.groups)
         # the activation runs channels-last, as in the JAX package (softmax
         # takes the last axis)
         y = self.activation(y.movedim(1, -1))

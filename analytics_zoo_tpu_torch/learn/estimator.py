@@ -3,8 +3,8 @@
 Port of `analytics_zoo_tpu/learn/estimator.py`: `Estimator.__init__`
 (L79), `from_keras` (L89), `fit` (L160) with its retry-and-restore loop
 (L244-292), `_restore_latest` and `_restore` (L294-310), `predict`,
-`evaluate` (without `_evaluate_quantized`, whose int8 path is ROADMAP.md
-queue 1, item 3), `get_model`, `save`, `load` (L312-449) and
+`evaluate` with `_evaluate_quantized` (L322-381) and its
+`QuantizationQualityError` (L47), `get_model`, `save`, `load` (L312-449) and
 `load_orca_checkpoint` (L451); and from `to_dataset` (L56) the in-memory
 forms `TPUDataset.from_ndarrays` takes: `{"x": ..., "y": ...}`, `(x, y)`
 or a bare x.
@@ -21,6 +21,11 @@ and the retry runs `fit_keras` with `seed + epoch_done`.
 
 `device`: where `fit`, `predict` and `evaluate` run; `None` is `cuda`, and
 asking for `cuda` without a GPU raises. The model is moved there in place.
+
+`evaluate(quantize="int8")` evaluates the int8 twin of the model
+(`serving/quantization.quantize_model_params`, a new module), so the f32
+model is untouched by construction where the JAX package swaps its
+parameters and restores them.
 """
 
 from __future__ import annotations
@@ -47,6 +52,13 @@ log = logging.getLogger("analytics_zoo_tpu_torch.estimator")
 _DEVICE_ERRORS = tuple(e for e in (torch.cuda.OutOfMemoryError,
                                    getattr(torch, "AcceleratorError", None))
                        if e is not None)
+
+
+class QuantizationQualityError(ValueError):
+    """The int8 model's metrics drifted past the tolerance from the f32
+    baseline: the quality gate of `Estimator.evaluate(...,
+    quantize="int8", quality_tolerance=...)` refusing to bless the
+    quantized model for serving."""
 
 
 @dataclass
@@ -206,24 +218,80 @@ class Estimator:
 
     def evaluate(self, data, batch_per_thread: int = 32, metrics=None,
                  feature_cols=None, label_cols=None,
-                 quantize: Optional[str] = None) -> Dict[str, float]:
+                 quantize: Optional[str] = None,
+                 quality_tolerance: Optional[float] = None,
+                 baseline_metrics: Optional[Dict[str, float]] = None
+                 ) -> Dict[str, float]:
         """The metrics (`metrics`, else the compiled ones, else the loss)
-        over `data`. `quantize="int8"` (the JAX package's quality-gated
-        int8 evaluation) waits for the int8 serving path."""
-        if quantize is not None:
-            from analytics_zoo_tpu_torch.serving.quantization import \
-                INT8_NOT_PORTED
-            raise NotImplementedError(INT8_NOT_PORTED)
+        over `data`. `quantize="int8"` evaluates the post-training-quantized
+        model instead and, with `quality_tolerance`, enforces the quality
+        gate: every metric within `quality_tolerance` (absolute) of the f32
+        baseline, or `QuantizationQualityError`. The baseline is evaluated
+        here unless `baseline_metrics` (an earlier f32 `evaluate()`) is
+        given; the result holds the int8 metrics and the baseline's as
+        `baseline_<name>`."""
         if feature_cols is not None or label_cols is not None:
             raise NotImplementedError(
                 "feature_cols/label_cols (DataFrame input) are not ported "
                 f"yet ({NOT_PORTED_QUEUE})")
+        if quantize is not None:
+            return self._evaluate_quantized(data, batch_per_thread, metrics,
+                                            quantize, quality_tolerance,
+                                            baseline_metrics)
+        self._on_device()
+        return self._evaluate(self.model, data, batch_per_thread, metrics)
+
+    @staticmethod
+    def _evaluate(model, data, batch_per_thread, metrics):
         from analytics_zoo_tpu_torch.ops import metrics as zmetrics
         ms = zmetrics.resolve(metrics) if metrics else None
         x, y = to_dataset(data)
+        return model.evaluate(x, y, batch_per_thread=batch_per_thread,
+                              metrics=ms)
+
+    def _evaluate_quantized(self, data, batch_per_thread, metrics, quantize,
+                            quality_tolerance, baseline_metrics
+                            ) -> Dict[str, float]:
+        """The f32 baseline (given or evaluated here), the same
+        evaluation of the int8 twin, then the tolerance gate."""
+        if quantize != "int8":
+            raise ValueError(
+                f"Unsupported quantize={quantize!r}; only 'int8'")
+        from analytics_zoo_tpu_torch.serving.quantization import \
+            quantize_model_params
+        base = baseline_metrics if baseline_metrics is not None else \
+            self.evaluate(data, batch_per_thread=batch_per_thread,
+                          metrics=metrics)
+        if not self.model.built:
+            raise ValueError("Model has no parameters; fit or load first")
         self._on_device()
-        return self.model.evaluate(x, y, batch_per_thread=batch_per_thread,
-                                   metrics=ms)
+        quantized = self._evaluate(quantize_model_params(self.model), data,
+                                   batch_per_thread, metrics)
+        if quality_tolerance is not None:
+            # `not (|d| <= tol)`: a NaN metric (an int8 rewrite that
+            # overflowed) compares False either way, and the gate refuses
+            # what it cannot prove within tolerance
+            drifted = {
+                name: (base[name], quantized[name])
+                for name in quantized
+                if name in base
+                and not (abs(quantized[name] - base[name])
+                         <= quality_tolerance)}
+            if drifted:
+                detail = ", ".join(
+                    f"{n}: f32={b:.6g} int8={q_:.6g} "
+                    f"(|Δ|={abs(q_ - b):.6g})"
+                    for n, (b, q_) in sorted(drifted.items()))
+                raise QuantizationQualityError(
+                    f"int8 quantization drifted {len(drifted)} metric(s) "
+                    f"past the quality gate (tolerance "
+                    f"{quality_tolerance:g}): {detail}. Refusing to "
+                    "bless the quantized model; raise the tolerance "
+                    "only if this accuracy loss is acceptable, or keep "
+                    "serving f32/bf16.")
+        out = dict(quantized)
+        out.update({f"baseline_{k}": v for k, v in base.items()})
+        return out
 
     # -- persistence (`orca` save/load + load_orca_checkpoint) ------------
     def get_model(self):

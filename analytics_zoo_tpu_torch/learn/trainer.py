@@ -78,7 +78,12 @@ epoch-boundary trigger (L1830-1840) and the emergency checkpoint
   the caller's device and stream. The `trainer.step` fault point fires
   before the step touches anything: the step updates the parameters in
   place, so a failure inside it leaves them half-updated, and the last
-  checkpoint is then the resume point.
+  checkpoint is then the resume point. `int8_sidecar=True` (L1013,
+  L1096-1102, L1651-1680) runs the post-training quantization pass
+  (`serving/quantization.write_int8_sidecar`) on the tree of every
+  checkpoint it saves, the emergency one included, before the publish
+  marker; a failed pass logs and leaves that version resumable but
+  unpublished.
 
 - The input pipeline. `batch_iter_factory(epoch)` yields `(xb, yb, real)`
   of numpy arrays in place of the in-memory batching. With `prefetch`
@@ -123,6 +128,7 @@ default.
 from __future__ import annotations
 
 import base64
+import itertools
 import logging
 import queue
 import threading
@@ -144,7 +150,6 @@ log = logging.getLogger("analytics_zoo_tpu_torch.learn")
 # Arguments of the JAX `fit_keras` that the port does not run yet, with
 # their defaults: a value other than the default raises.
 _NOT_PORTED_ARGS = {
-    "int8_sidecar": False,          # the int8 serving path (queue 1, item 3)
     "sharding_rules": None,         # distributed training (item 7)
     "compile_cache_dir": None,      # the CUDA-graph cache (item 1)
 }
@@ -756,8 +761,7 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
     `end_trigger`, `auto_resume`, `step_retries` and `step_timeout_s` are
     the JAX package's too."""
     given = dict(sharding_rules=sharding_rules,
-                 compile_cache_dir=compile_cache_dir,
-                 int8_sidecar=int8_sidecar)
+                 compile_cache_dir=compile_cache_dir)
     for name, default in _NOT_PORTED_ARGS.items():
         value = given[name]
         if (value is not None) if default is None else (value != default):
@@ -847,6 +851,8 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         from analytics_zoo_tpu_torch import convert
         from analytics_zoo_tpu_torch.learn.checkpoint import (
             CheckpointManager, write_publish_marker)
+        from analytics_zoo_tpu_torch.serving.quantization import \
+            write_int8_sidecar
         ckpt_mgr = CheckpointManager(ckpt_path)
         if checkpoint_trigger is None:
             checkpoint_trigger = tg.EveryEpoch()
@@ -916,14 +922,28 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
 
     def _ckpt_save(extra: Dict[str, Any]) -> None:
         """One commit funnel for every save site (mid-epoch trigger,
-        epoch boundary, emergency): the checkpoint set, then the publish
-        marker, the last act (a failure there leaves the version
-        resumable but unpublished)."""
-        ckpt_mgr.save(iteration, convert.state_to_jax(model.state_dict(),
-                                                      model),
+        epoch boundary, emergency): the checkpoint set; with
+        `int8_sidecar`, the post-training quantization pass on the same
+        tree (a failure there is one warning: serving quantizes at load,
+        and the version stays unpublished, since the version the fleet
+        would quantize at load is not the one meant to be published); then
+        the publish marker, the last act (a failure there leaves the
+        version resumable but unpublished)."""
+        tree = convert.state_to_jax(model.state_dict(), model)
+        ckpt_mgr.save(iteration, tree,
                       convert.opt_layout_to_jax(optimizer, opt_state, model,
                                                 lazy=bool(lazy_specs)),
                       extra=extra)
+        if int8_sidecar:
+            try:
+                write_int8_sidecar(ckpt_mgr.run_dir, iteration, model,
+                                   params=tree)
+            except Exception as e:  # noqa: BLE001 — the sidecar is optional
+                log.warning("int8 sidecar write failed at iteration %d "
+                            "(%s: %s); serving will quantize at load and "
+                            "the version stays unpublished", iteration,
+                            type(e).__name__, e)
+                return
         try:
             write_publish_marker(ckpt_mgr.run_dir, iteration, extra=extra)
         except Exception as e:  # noqa: BLE001 — resume still works
@@ -1062,7 +1082,9 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
 # evaluate / predict
 # ---------------------------------------------------------------------------
 def _model_device(model) -> torch.device:
-    return next(model.parameters()).device
+    """Where the model's tensors live (an int8 model may hold its weights
+    in buffers only)."""
+    return next(itertools.chain(model.parameters(), model.buffers())).device
 
 
 def build_eval_step(model, metrics) -> Callable:

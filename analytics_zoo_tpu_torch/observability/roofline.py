@@ -20,6 +20,12 @@ package its count, the port counts the operators a call really runs:
   (`kernels.kernel_region`); the meter adds it and skips the operators
   inside the region, so the count is the same on the card and on the CPU,
   where the region runs the kernel's plain version.
+- `torch.utils.flop_counter` has no formula for `aten._int_mm`, the int8
+  GEMM of the quantized serving path (`serving/quantization.py`): the
+  meter counts it as 2·M·N·K and keeps that share apart
+  (`ExecCost.int8_flops`), and the accountant charges it at the int8
+  rate, the rest at the bf16 one (a matmul's time at its own peak, both
+  from the session roofline), so int8 serving does not read near 0 MFU.
 
 The session roofline is the measured bound a caller installs
 (`set_session_roofline`), else the card's published peaks
@@ -46,20 +52,24 @@ log = logging.getLogger("analytics_zoo_tpu_torch.observability")
 class ExecCost:
     """FLOPs and HBM bytes one call performs: the model's work counted
     once (JAX L45). `kernel_flops` / `kernel_bytes` are the part the
-    kernel regions declared."""
+    kernel regions declared, `int8_flops` the part int8 GEMMs did."""
 
-    __slots__ = ("flops", "bytes", "kernel_flops", "kernel_bytes")
+    __slots__ = ("flops", "bytes", "kernel_flops", "kernel_bytes",
+                 "int8_flops")
 
     def __init__(self, flops: float, bytes_: float,
-                 kernel_flops: float = 0.0, kernel_bytes: float = 0.0):
+                 kernel_flops: float = 0.0, kernel_bytes: float = 0.0,
+                 int8_flops: float = 0.0):
         self.flops = float(flops)
         self.bytes = float(bytes_)
         self.kernel_flops = float(kernel_flops)
         self.kernel_bytes = float(kernel_bytes)
+        self.int8_flops = float(int8_flops)
 
     def __repr__(self):
         return (f"ExecCost(flops={self.flops:g}, bytes={self.bytes:g}, "
-                f"kernel_flops={self.kernel_flops:g})")
+                f"kernel_flops={self.kernel_flops:g}, "
+                f"int8_flops={self.int8_flops:g})")
 
 
 # operators that allocate without moving data
@@ -68,6 +78,7 @@ _NO_TRAFFIC = frozenset(
         "empty", "empty_like", "empty_strided", "new_empty",
         "new_empty_strided", "lift_fresh", "_local_scalar_dense")
     if hasattr(torch.ops.aten, n))
+_INT_MM = torch.ops.aten._int_mm
 
 
 def _tensor_bytes(tree) -> int:
@@ -95,6 +106,7 @@ class CostMeter(TorchDispatchMode, CostSink):
         self.op_bytes = 0.0
         self.kernel_flops = 0.0
         self.kernel_bytes = 0.0
+        self.int8_flops = 0.0
 
     def add_declared(self, flops: float, bytes_: float) -> None:
         with self._lock:
@@ -111,8 +123,12 @@ class CostMeter(TorchDispatchMode, CostSink):
     def _count(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
         flops = 0
+        int8 = packet is _INT_MM
         formula = self._formulas.get(packet)
-        if formula is not None:
+        if int8:
+            (m, k), n = args[0].shape, args[1].shape[1]
+            flops = 2 * m * n * k
+        elif formula is not None:
             try:
                 flops = formula(*args, **kwargs, out_val=out)
             except Exception as e:  # noqa: BLE001 — telemetry only
@@ -124,6 +140,8 @@ class CostMeter(TorchDispatchMode, CostSink):
         with self._lock:
             self.op_flops += flops
             self.op_bytes += nbytes
+            if int8:
+                self.int8_flops += flops
 
     def __enter__(self):
         add_sink(self)
@@ -143,7 +161,8 @@ class CostMeter(TorchDispatchMode, CostSink):
         with self._lock:
             return ExecCost(self.op_flops + self.kernel_flops,
                             self.op_bytes + self.kernel_bytes,
-                            self.kernel_flops, self.kernel_bytes)
+                            self.kernel_flops, self.kernel_bytes,
+                            self.int8_flops)
 
 
 def count_cost(fn, *args, **kwargs) -> Tuple[Any, ExecCost]:
@@ -215,7 +234,9 @@ class RooflineAccountant:
     """Per-kind (flops, bytes, busy-seconds) accumulation → registry.
 
     `account(kind, flops, bytes, seconds)` is the single entry point (the
-    trainer calls it once per epoch, with the epoch's device time).
+    trainer calls it once per epoch, with the epoch's device time; serving
+    once per materialized batch). `int8_flops`, the part of `flops` int8
+    GEMMs did, is charged at the int8 rate in MFU (`_mfu`).
     Counters accumulate forever; the derived gauges are computed from
     THIS call's window, so a cold first epoch depresses only its own
     reading. `snapshot(kind)` reports the accumulation since the last
@@ -226,7 +247,7 @@ class RooflineAccountant:
             get_registry
         self._registry = registry if registry is not None else get_registry()
         self._lock = threading.Lock()
-        # kind -> [flops, bytes, seconds, devices, stall seconds]
+        # kind -> [flops, bytes, seconds, devices, stall s, int8 flops]
         self._acc: Dict[str, list] = {}
 
     def _reg(self):
@@ -254,16 +275,18 @@ class RooflineAccountant:
         )
 
     def account(self, kind: str, flops: float, bytes_: float,
-                seconds: float, device=None, n_devices: int = 1) -> None:
+                seconds: float, device=None, n_devices: int = 1,
+                int8_flops: float = 0.0) -> None:
         try:
             if seconds <= 0.0 or (flops <= 0.0 and bytes_ <= 0.0):
                 return
             with self._lock:
-                acc = self._acc.setdefault(kind, [0.0, 0.0, 0.0, 1, 0.0])
+                acc = self._acc.setdefault(kind, _new_acc())
                 acc[0] += flops
                 acc[1] += bytes_
                 acc[2] += seconds
                 acc[3] = max(acc[3], max(1, int(n_devices)))
+                acc[5] += int8_flops
             (c_flops, c_bytes, c_secs, g_tflops, g_gbps, g_mfu,
              g_hbm) = self._reg()
             c_flops.inc(flops, kind=kind)
@@ -274,7 +297,8 @@ class RooflineAccountant:
             hbm_roof, flops_roof = session_roofline(device)
             n = max(1, int(n_devices))
             if flops_roof > 0:
-                g_mfu.set(flops / seconds / (flops_roof * n), kind=kind)
+                g_mfu.set(_mfu(flops, int8_flops, seconds, flops_roof, n,
+                               device), kind=kind)
             if hbm_roof > 0:
                 g_hbm.set(bytes_ / seconds / (hbm_roof * n), kind=kind)
         except Exception as e:  # noqa: BLE001 — telemetry must not raise
@@ -288,7 +312,7 @@ class RooflineAccountant:
             if stall_seconds <= 0.0:
                 return
             with self._lock:
-                acc = self._acc.setdefault(kind, [0.0, 0.0, 0.0, 1, 0.0])
+                acc = self._acc.setdefault(kind, _new_acc())
                 acc[4] += stall_seconds
         except Exception as e:  # noqa: BLE001 — telemetry must not raise
             log.debug("roofline stall accounting failed: %s: %s",
@@ -303,8 +327,7 @@ class RooflineAccountant:
 
     def snapshot(self, kind: str) -> Dict[str, float]:
         with self._lock:
-            f, b, s, n, stall = self._acc.get(kind,
-                                              (0.0, 0.0, 0.0, 1, 0.0))
+            f, b, s, n, stall, i8 = self._acc.get(kind, _new_acc())
         out: Dict[str, Any] = {"flops": f, "bytes": b, "seconds": s,
                                "devices": n, "input_stall_seconds": stall}
         if s > 0:
@@ -312,9 +335,26 @@ class RooflineAccountant:
             out["achieved_hbm_gbps"] = b / s / 1e9
             out["input_stall_fraction"] = min(1.0, stall / s)
             hbm_roof, flops_roof = session_roofline()
-            out["mfu"] = f / s / (flops_roof * n)
+            out["mfu"] = _mfu(f, i8, s, flops_roof, n)
             out["hbm_utilization"] = b / s / (hbm_roof * n)
         return out
+
+
+def _new_acc() -> list:
+    return [0.0, 0.0, 0.0, 1, 0.0, 0.0]
+
+
+def _mfu(flops: float, int8_flops: float, seconds: float,
+         flops_roof: float, n: int, device=None) -> float:
+    """Model FLOPs utilization over `n` devices against the session
+    roofline `flops_roof`: the time the work takes at peak over the time
+    it took. The int8 part runs at that roofline times the card's
+    published int8 : bf16 ratio (2 on the H100), so it counts as that
+    ratio's inverse in bf16 FLOPs, and a measured bound scales both."""
+    from analytics_zoo_tpu_torch.utils.roofline import peak_flops
+    ratio = peak_flops(device) / peak_flops(device, dtype=torch.int8)
+    return (flops - int8_flops + int8_flops * ratio) / seconds \
+        / (flops_roof * n)
 
 
 _default_accountant: Optional[RooflineAccountant] = None

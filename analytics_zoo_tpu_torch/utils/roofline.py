@@ -3,11 +3,12 @@
 The port's counterpart of `analytics_zoo_tpu/utils/roofline.py`, which
 lists TPU generations: this table lists NVIDIA cards only, keyed by a
 substring of `torch.cuda.get_device_name()`. The figures are the
-published dense peaks of the H100 SXM (NVIDIA's data sheet, at the full
-700 W power limit): 989 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s in
-float32 on the CUDA cores, 3.35 TB/s of HBM. An unknown card, the CPU
-included, takes the H100 figures, as the JAX table takes v5e's for an
-unknown TPU; a ratio read on such a device is against the H100.
+published dense peaks of the H100 SXM (NVIDIA's H100 data sheet, dense
+rates without sparsity, at the full 700 W power limit): 989 TFLOP/s in
+bf16 on the tensor cores, 1,979 TOP/s in int8 on the tensor cores, 67
+TFLOP/s in float32 on the CUDA cores, 3.35 TB/s of HBM. An unknown card,
+the CPU included, takes the H100 figures, as the JAX table takes v5e's for
+an unknown TPU; a ratio read on such a device is against the H100.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import Optional, Union
 
 import torch
 
-# name substring -> (bf16 FLOP/s, float32 FLOP/s, HBM bytes/s)
+# name substring -> (bf16 FLOP/s, float32 FLOP/s, HBM bytes/s, int8 OP/s)
 PEAKS = [
-    ("H100", 989e12, 67e12, 3.35e12),
+    ("H100", 989e12, 67e12, 3.35e12, 1979e12),
 ]
 _DEFAULT = PEAKS[0]
 
@@ -50,8 +51,10 @@ def peak_flops(device: DeviceLike = None,
                dtype: Optional[torch.dtype] = torch.bfloat16) -> float:
     """Peak FLOP/s: bf16 tensor-core rate by default (the MFU
     denominator, as in the JAX package), the float32 rate for
-    `dtype=torch.float32`."""
+    `dtype=torch.float32`, the dense int8 rate for `dtype=torch.int8`."""
     row = _row(device)
+    if dtype == torch.int8:
+        return row[4]
     return row[2] if dtype == torch.float32 else row[1]
 
 

@@ -53,7 +53,23 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    weights from the seed, warmed over buckets 1-32, answering requests of
    batch 1, 3, 8 and 32 in f32 and bf16; launches counted; a profiled
    window of batch-32 predicts (device time by kernel, idle share); logits
-   checked against the same weights served by the port on the CPU;
+   checked against the same weights served by the port on the CPU; then
+   the same BERT-base served int8 (`phase_int8_serving_lifecycle`): the
+   int8 GEMM (`torch._int_mm` through `quantization.int8_mm`) exact at
+   BERT's four GEMM shapes at batch 8, against the CPU's product; the int8
+   model warmed over buckets 1-32, p50 / p99 at batches 1, 8 and 32, 12
+   flash launches a forward, the serving roofline gauges in (0, 1]; its
+   forward against the port's int8 path on the CPU at every int8 GEMM,
+   teacher-forced (each product bitwise, each f32 stretch between GEMMs
+   within 1e-4 on the card's inputs), end to end beside the CPU path's
+   one-ulp spread, the same top-1; against f32 on the card (drift, top-1
+   agreement);
+   the int8 artifact's bytes against f32 and its save / load seconds;
+   `load_checkpoint(quantize="int8")` from a checkpoint's sidecar; a
+   same-structure `swap_params` (no kernel built, bitwise a fresh load);
+   two replicas on the card's streams (bitwise one replica; p50 and
+   pipelined ms at batch 8, in turns, and a profiled pipelined window)
+   and a fault on replica 1 that quarantines it, probes and revival;
 8. training: the same BERT-base (dropout 0.1 everywhere) through
    `Estimator.from_keras(..., optimizer=fused_adam(...)).fit(...,
    mixed_precision=True, fused_optimizer=True)` at seq 512, batch 32:
@@ -836,6 +852,475 @@ def phase_serving(card: str, seed: int):
     check_logits("card_bf16_vs_card_f32", outputs["bfloat16"],
                  outputs["float32"], LOGIT_TOL["bfloat16"])
     return counts
+
+
+# ---------------------------------------------------------------------------
+# int8 serving and the serving lifecycle
+# ---------------------------------------------------------------------------
+INT8_BATCHES = (1, 8, 32)
+INT8_REQUESTS = 20
+INT8_CHECK_BATCH = 3
+# The card's int8 path against the port's int8 path on the CPU (the CPU
+# tests hold that path to the JAX package at 1.5e-8 on a toy BERT). The
+# int8 products are exact on both; what differs is f32 rounding in
+# attention, LayerNorm, GELU and tanh (the card's order against the
+# CPU's). End to end that is not small: the next per-tensor quantizer
+# turns a last-bit difference into a whole quantum (max|x| / 127) for the
+# few values it moves across a rounding boundary, and within one block
+# the sub-quantum differences those leave move many more across at the
+# FFN's two quantizers. So the same run measures the CPU path's own spread
+# (half the position embeddings one ulp up, `nextafter`) and reports the
+# end-to-end error beside it, with the same top-1 on every row; and the
+# card is held at each int8 GEMM, teacher-forced: every product bitwise
+# the CPU's `int8_matmul` of the card's operands (an f32 product of the
+# same operands, the control, is not), and every f32 stretch between
+# GEMMs within INT8_SEGMENT_TOL of the CPU's on the card's inputs: five
+# times the flash kernel's own f32 tolerance (ATTN_TOL), ten times below
+# the 1e-3 asked of the logits.
+INT8_SEGMENT_TOL = 1e-4
+# int8 against f32 on the card: the JAX package's bound on BERT's logits,
+# max |int8 - f32| / max |f32| (`tests/test_quantization.py:156`).
+INT8_DRIFT_BOUND = 0.1
+# BERT's four GEMMs at batch 8, seq 512: (M, K, N) of qkv, out, ffn in,
+# ffn out.
+INT8_GEMMS = {"qkv": (8 * 512, 768, 2304), "out": (8 * 512, 768, 768),
+              "ffn_in": (8 * 512, 768, 3072), "ffn_out": (8 * 512, 3072, 768)}
+INT8_WINDOW = 4             # batches in flight in the pipelined timing
+
+
+def int8_gemm_checks(card: str, gen) -> dict:
+    """`_int_mm` through `quantization.int8_mm` at BERT's GEMM shapes, on
+    the card, against the CPU's exact product (f64 of int8 operands: every
+    partial sum is an integer below 2^53); device ms of `_int_mm` with the
+    weight row-major, as the wrapper passes it, and column-major, in
+    turns; and of a bf16 GEMM of the same shape."""
+    from analytics_zoo_tpu_torch.serving.quantization import int8_mm
+    rows = {}
+    for name, (M, K, N) in INT8_GEMMS.items():
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        got = int8_mm(a, w)
+        want = (a.cpu().double() @ w.cpu().double()).to(torch.int64)
+        exact = torch.equal(got.cpu().to(torch.int64), want)
+        w_col = w.t().contiguous().t()
+        layouts = {"row": [], "col": []}
+        for turn in ("row", "col", "col", "row"):
+            mat2 = w if turn == "row" else w_col
+            layouts[turn].append(time_ms(lambda: torch._int_mm(a, mat2), 20))
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        rows[name] = {"shape": [M, K, N], "exact": exact,
+                      "row_major_ms": layouts["row"],
+                      "col_major_ms": layouts["col"],
+                      "int8_ms": time_ms(lambda: int8_mm(a, w), 20),
+                      "bf16_ms": time_ms(lambda: ab @ wb, 20),
+                      "bound_ms": 2 * M * K * N / 1979e12 * 1e3}
+    emit({"phase": "int8_gemm", "cases": rows, "card": card})
+    bad = [n for n, r in rows.items() if not r["exact"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: int8 GEMM not exact at {bad}")
+    return rows
+
+
+@contextlib.contextmanager
+def int8_capture(replay=None):
+    """Record what the forwards run inside compute: each encoder block's
+    `(block, [h, mask], out)` and each int8 GEMM's `(x, w_q, w_scale, y)`,
+    as the served path calls them. With `replay`, an iterator of products,
+    each int8 GEMM returns the next of them instead of its own."""
+    from analytics_zoo_tpu_torch.keras import transformer as tfm
+    from analytics_zoo_tpu_torch.serving import quantization as quant
+    rec = {"blocks": [], "gemms": []}
+    int8_matmul = quant.int8_matmul
+    block_call = tfm.TransformerEncoderBlock.call
+
+    def gemm(x, w_q, w_scale):
+        y = int8_matmul(x, w_q, w_scale) if replay is None else next(replay)
+        rec["gemms"].append((x, w_q, w_scale, y))
+        return y
+
+    def block(self, x, **kw):
+        y = block_call(self, x, **kw)
+        rec["blocks"].append((self, x, y))
+        return y
+    quant.int8_matmul = gemm
+    tfm.TransformerEncoderBlock.call = block
+    try:
+        yield rec
+    finally:
+        quant.int8_matmul = int8_matmul
+        tfm.TransformerEncoderBlock.call = block_call
+
+
+def cpu_bert(state):
+    """The port's int8 BERT-base on the CPU (plain attention), from a
+    state dict."""
+    model = BERTClassifier(NUM_CLASSES, use_flash=True, device="cpu",
+                           **BERT_BASE)
+    model.load_state_dict(state)
+    return InferenceModel(max_batch=32, device="cpu").load_keras(
+        model, quantize="int8")
+
+
+def bert_head(net, h):
+    """BERTClassifier's logits from the encoder's last hidden state: the
+    pooler and the classifier, int8 in an int8 `net`."""
+    from analytics_zoo_tpu_torch.serving.quantization import \
+        maybe_int8_matmul
+    pooled = torch.tanh(maybe_int8_matmul(h[:, 0], net.bert, "pooler_kernel")
+                        + net.bert.pooler_bias)
+    return maybe_int8_matmul(pooled, net, "cls_kernel") + net.cls_bias
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def int8_stage_checks(im8, state, check, out8, seed: int) -> dict:
+    """The card's int8 forward of `check` held to the port's int8 path on
+    the CPU at every int8 GEMM, teacher-forced: each GEMM bitwise the CPU's
+    `int8_matmul` of the card's operands (with the f32 product of the same
+    operands beside it, the control the bitwise check refuses), and each
+    f32 stretch between GEMMs (the embeddings, attention, bias, residual,
+    LayerNorm, GELU, tanh) within INT8_SEGMENT_TOL of the CPU's, the CPU's
+    blocks and head run on the card's block inputs with the card's
+    products replayed. Then end to end against the CPU's forward, beside
+    that forward's own spread under a one-ulp nudge of its input."""
+    from analytics_zoo_tpu_torch.serving.quantization import int8_matmul
+    t0 = time.perf_counter()
+    with int8_capture() as card:
+        out_captured = im8.predict(check)
+    gemms = [tuple(t.cpu() for t in g) for g in card["gemms"]]
+    blocks = [(h.cpu(), mask.cpu(), y.cpu())
+              for _, (h, mask), y in card["blocks"]]
+    del card
+    bitwise, control = [], []
+    for x, w_q, w_scale, y in gemms:
+        bitwise.append(torch.equal(y, int8_matmul(x, w_q, w_scale)))
+        control.append(max_err(x @ (w_q.float() * w_scale), y))
+    cpu_im = cpu_bert(state)
+    q_net = cpu_im.current_params()
+    with int8_capture() as cpu:
+        cpu8 = cpu_im.predict(check)
+    segments = {"embeddings": max_err(blocks[0][0], cpu["blocks"][0][1][0])}
+    del cpu
+    with torch.inference_mode():
+        for i, (h, mask, y) in enumerate(blocks):
+            forced = gemms[4 * i:4 * i + 4]
+            with int8_capture(replay=iter(g[3] for g in forced)) as cpu:
+                out = q_net.bert.blocks[i].call([h, mask])
+            for name, (x, *_), (want_x, *_) in zip(
+                    ("attention", "ln1", "gelu"), cpu["gemms"][1:],
+                    forced[1:]):
+                segments[f"block{i}.{name}"] = max_err(x, want_x)
+            segments[f"block{i}.ln2"] = max_err(out, y)
+        forced = gemms[4 * len(blocks):]
+        with int8_capture(replay=iter(g[3] for g in forced)) as cpu:
+            logits = bert_head(q_net, blocks[-1][2])
+        segments["head.tanh"] = max_err(cpu["gemms"][1][0], forced[1][0])
+        segments["head.logits"] = max_err(
+            logits[:len(out8)], torch.from_numpy(out8))
+    del cpu, gemms, blocks
+    pos = state["bert.position_embeddings"]
+    up = torch.rand(pos.shape, generator=torch.Generator().manual_seed(
+        seed + 42)) < 0.5
+    nudged = torch.where(up, torch.nextafter(
+        pos, torch.full_like(pos, np.inf)), pos)
+    spread = float(np.abs(cpu_bert(dict(state, **{
+        "bert.position_embeddings": nudged})).predict(check) - cpu8).max())
+    out = {"gemms": len(bitwise), "gemms_bitwise": sum(bitwise),
+           "f32_product_err_min": min(control),
+           "f32_product_err_max": max(control),
+           "segments_max_err": max(segments.values()),
+           "segments": segments, "tol": INT8_SEGMENT_TOL,
+           "served_path_bitwise": bool(np.array_equal(out_captured, out8)),
+           "end_to_end_err": float(np.abs(out8 - cpu8).max()),
+           "cpu_one_ulp_spread": spread,
+           "top1_equal_rows": int((out8.argmax(-1)
+                                   == cpu8.argmax(-1)).sum()),
+           "rows": len(out8), "card_logits": out8.tolist(),
+           "cpu_logits": cpu8.tolist(),
+           "seconds": time.perf_counter() - t0}
+    emit(dict(out, phase="int8_vs_cpu"))
+    return out
+
+
+def latencies_ms(im, requests):
+    times = []
+    for x in requests:
+        t1 = time.perf_counter()
+        out = im.predict(x)
+        times.append((time.perf_counter() - t1) * 1e3)
+        if not np.isfinite(out).all():
+            raise SystemExit("chip_smoke: non-finite int8 output")
+    return times
+
+
+def pipelined_ms(im, requests, window: int = INT8_WINDOW) -> float:
+    """Wall ms a batch with `window` batches in flight: dispatch, and
+    materialize the oldest once the window is full."""
+    inflight = []
+    t0 = time.perf_counter()
+    for x in requests:
+        if len(inflight) == window:
+            inflight.pop(0).result()
+        inflight.append(im.predict_async(x))
+    for p in inflight:
+        p.result()
+    return (time.perf_counter() - t0) * 1e3 / len(requests)
+
+
+def profiled_pipelined(im, requests) -> dict:
+    """`pipelined_ms` under torch.profiler: wall ms a batch beside the
+    device's busy ms a batch (the union of its kernels' and copies'
+    intervals over every stream) and the idle share of the window; and
+    the kernels' summed ms a batch, above the busy time where streams
+    overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = pipelined_ms(im, requests)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, summed, end = 0.0, 0.0, -math.inf
+    for start, stop in spans:
+        summed += stop - start
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    busy, summed = (v / 1e3 / len(requests) for v in (busy, summed))
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "kernel_sum_ms": summed,
+            "idle_share": 1.0 - busy / wall if busy else None}
+
+
+def phase_int8_serving_lifecycle(card: str, seed: int):
+    """BERT-base served int8 through `InferenceModel` at seq 512, and the
+    rest of the serving path on it: the int8 GEMM, the artifact, the
+    checkpoint sidecar, hot swap, two replicas on the card's streams with
+    a quarantine, and the serving roofline."""
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.learn.checkpoint import save_pytree
+    from analytics_zoo_tpu_torch.serving import quantization as quant
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg, T = BERT_BASE, BERT_BASE["seq_len"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    gemms = int8_gemm_checks(card, gen)
+
+    state = convert.params_from_jax(
+        random_classifier_tree(cfg, NUM_CLASSES, seed))
+    model = BERTClassifier(NUM_CLASSES, use_flash=True, device="cuda", **cfg)
+    model.load_state_dict(state)
+    t0 = time.perf_counter()
+    im8 = InferenceModel(max_batch=32).load_keras(model, quantize="int8")
+    quantize_s = time.perf_counter() - t0
+    if im8.serving_dtype != "int8":
+        raise SystemExit(f"chip_smoke: serving {im8.serving_dtype}, "
+                         "expected int8")
+    sample = [np.zeros(T, np.int64), np.ones(T, np.int64)]
+    im8.warmup(sample)
+    emit({"phase": "int8_load", "quantize_and_load_s": quantize_s,
+          "warmup_s": im8.warmup_report,
+          "weight_bytes": im8.weight_bytes(),
+          "f32_weight_bytes": sum(t.numel() * t.element_size()
+                                  for t in model.state_dict().values())})
+
+    rs = np.random.default_rng(seed + 41)
+    requests = {b: [make_request(rs, b, cfg) for _ in range(INT8_REQUESTS)]
+                for b in INT8_BATCHES}
+    check = make_request(rs, INT8_CHECK_BATCH, cfg)
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    forwards = 0
+    lat = {}
+    for b in INT8_BATCHES:
+        lat[b] = latencies_ms(im8, requests[b])
+        forwards += len(requests[b])
+    out8 = im8.predict(check)
+    forwards += 1
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    reg = get_registry()
+    roofline = {"roofline_mfu": reg.get("roofline_mfu").value(
+                    kind="serving"),
+                "roofline_hbm_utilization": reg.get(
+                    "roofline_hbm_utilization").value(kind="serving"),
+                "snapshot": get_accountant().snapshot("serving")}
+    for b in INT8_BATCHES:
+        emit({"phase": "int8_serving", "batch": b, "seq_len": T,
+              "requests": len(lat[b]),
+              "p50_ms": float(np.percentile(lat[b], 50)),
+              "p99_ms": float(np.percentile(lat[b], 99)),
+              "mean_ms": float(np.mean(lat[b])), "card": card})
+    launches = counts.get(fa.KERNEL_NAME, 0)
+    emit({"phase": "int8_launches", "counts": counts, "forwards": forwards,
+          "flash_per_forward": launches / forwards})
+    if launches != cfg["n_block"] * forwards:
+        raise SystemExit(f"chip_smoke: {launches} flash launches over "
+                         f"{forwards} int8 forwards, expected "
+                         f"{cfg['n_block']} per forward")
+    emit(dict(roofline, phase="int8_roofline", card=card))
+    if not all(0.0 < roofline[k] <= 1.0 for k in (
+            "roofline_mfu", "roofline_hbm_utilization")):
+        raise SystemExit(f"chip_smoke: serving roofline out of (0, 1]: "
+                         f"{roofline}")
+
+    # against the port's int8 path on the CPU, GEMM by GEMM (checked at
+    # the end of the phase), and against f32 on the card
+    vs_cpu = int8_stage_checks(im8, state, check, out8, seed)
+    cpu_ok = (vs_cpu["served_path_bitwise"]
+              and vs_cpu["gemms"] == 4 * cfg["n_block"] + 2
+              and vs_cpu["gemms_bitwise"] == vs_cpu["gemms"]
+              and vs_cpu["f32_product_err_min"] > 0.0
+              and vs_cpu["segments_max_err"] <= INT8_SEGMENT_TOL
+              and vs_cpu["top1_equal_rows"] == vs_cpu["rows"])
+    f32 = InferenceModel(max_batch=32).load_keras(model)
+    drift_rows = [make_request(rs, 32, cfg) for _ in range(2)]
+    p32 = np.concatenate([f32.predict(x) for x in drift_rows + [check]])
+    p8 = np.concatenate([im8.predict(x) for x in drift_rows + [check]])
+    drift = float(np.abs(p8 - p32).max() / np.abs(p32).max())
+    top1 = float((p8.argmax(-1) == p32.argmax(-1)).mean())
+    emit({"phase": "int8_vs_f32", "rows": len(p8), "drift": drift,
+          "bound": INT8_DRIFT_BOUND, "top1_agreement": top1,
+          "f32_p50_ms_b8": float(np.percentile(
+              latencies_ms(f32, requests[8]), 50))})
+    del f32
+    if not drift < INT8_DRIFT_BOUND:
+        raise SystemExit(f"chip_smoke: int8 drifted {drift} from f32")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the int8 artifact onto a fresh instance
+        t1 = time.perf_counter()
+        quant.save_quantized(model, os.path.join(tmp, "bert_int8"))
+        save_s = time.perf_counter() - t1
+        fresh = BERTClassifier(NUM_CLASSES, use_flash=True, device="cuda",
+                               **cfg)
+        t1 = time.perf_counter()
+        art = InferenceModel(max_batch=32).load_quantized(
+            fresh, os.path.join(tmp, "bert_int8"))
+        load_s = time.perf_counter() - t1
+        art_bytes = os.path.getsize(os.path.join(tmp, "bert_int8.npz"))
+        f32_bytes = sum(t.numel() * 4 for t in state.values())
+        art_equal = np.array_equal(art.predict(check), out8)
+        emit({"phase": "int8_artifact", "bytes": art_bytes,
+              "f32_bytes": f32_bytes, "ratio": art_bytes / f32_bytes,
+              "save_s": save_s, "load_s": load_s, "bitwise": art_equal})
+        del art, fresh
+        # a checkpoint with its sidecar
+        tree = convert.state_to_jax(model.state_dict(), model)
+        save_pytree(os.path.join(tmp, "model.1"), tree)
+        quant.write_int8_sidecar(tmp, 1, model, params=tree)
+        del tree
+        t1 = time.perf_counter()
+        side = InferenceModel(max_batch=32).load_checkpoint(
+            model, tmp, version=1, quantize="int8")
+        side_s = time.perf_counter() - t1
+        side_equal = np.array_equal(side.predict(check), out8)
+        emit({"phase": "int8_sidecar", "load_s": side_s,
+              "bitwise_vs_quantize_at_load": side_equal})
+        del side
+    if not (art_equal and side_equal and art_bytes < 0.5 * f32_bytes):
+        raise SystemExit("chip_smoke: int8 artifact or sidecar check failed")
+
+    # hot swap: new weights of the same structure
+    state2 = convert.params_from_jax(
+        random_classifier_tree(cfg, NUM_CLASSES, seed + 7))
+    q2 = quant.quantize_model_params(model, params=state2)
+    builds = _build.build_events()
+    t1 = time.perf_counter()
+    how = im8.swap_params(q2.state_dict())
+    swap_s = time.perf_counter() - t1
+    swapped = im8.predict(check)
+    builds_after = _build.build_events()
+    fresh2 = InferenceModel(max_batch=32).load_keras(q2).predict(check)
+    swap_equal = np.array_equal(swapped, fresh2)
+    emit({"phase": "int8_swap", "result": how, "seconds": swap_s,
+          "builds": builds, "builds_after": builds_after,
+          "bitwise_vs_fresh_load": swap_equal,
+          "changed": not np.array_equal(swapped, out8)})
+    if how != "same" or builds_after != builds or not swap_equal:
+        raise SystemExit("chip_smoke: same-structure swap check failed")
+
+    # two replicas on the card's streams
+    one = im8
+    two = InferenceModel(max_batch=32, num_replicas=2,
+                         devices=["cuda:0", "cuda:0"]).load_keras(q2)
+    two.warmup(sample, buckets=[8, 32])
+    rep_equal = all(np.array_equal(two.predict(x), one.predict(x))
+                    for x in requests[8][:4] + [check])
+    streams = [r.stream for r in two._replicas]
+    distinct = len({id(s) for s in streams}) == 2 and all(
+        s != torch.cuda.default_stream() for s in streams)
+    timing = {}
+    for turn in ("one", "two", "two", "one"):
+        im = one if turn == "one" else two
+        timing.setdefault(turn, []).append({
+            "p50_ms": float(np.percentile(latencies_ms(im, requests[8]),
+                                          50)),
+            "pipelined_ms": pipelined_ms(im, requests[8])})
+    profiled = {name: profiled_pipelined(im, requests[8][:8])
+                for name, im in (("one", one), ("two", two))}
+    emit({"phase": "replicas", "bitwise_vs_one": rep_equal,
+          "own_streams": distinct, "batch": 8, "timing": timing,
+          "profiled_pipelined": profiled,
+          "stats": two.replica_stats(), "placement": two.placement_info(),
+          "card": card})
+
+    # a fault on replica 1: the supervisor's rule (quarantine on failure)
+    # as a callback; a failed request is sent again, as the serving plane
+    # redelivers it
+    two._on_replica_event = lambda idx, ok, _s: ok or \
+        two.quarantine_replica(idx)
+    answered, failures = [], 0
+    sent = requests[8][:10]
+    with faults.injected("replica.dispatch", faults.Fault(
+            mode="raise", match=lambda c: c["replica"] == 1)):
+        for x in sent:
+            for _ in range(2):
+                p = two.predict_async(x)
+                try:
+                    p.result()
+                except faults.FaultError:
+                    failures += 1
+                    # the worker reports after failing the batch
+                    deadline = time.monotonic() + 5.0
+                    while not two.quarantined_replicas() \
+                            and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                    continue
+                answered.append(p.replica)
+                break
+        quarantined = two.quarantined_replicas()
+        probe_sick = two.probe_replica(1)
+    probe_well = two.probe_replica(1)
+    revived = two.revive_replica(1)
+    after = [two.predict_async(x) for x in requests[8][:4]]
+    after_replicas = sorted(p.replica for p in after)
+    after_equal = all(np.array_equal(p.result(), one.predict(x))
+                      for p, x in zip(after, requests[8][:4]))
+    emit({"phase": "quarantine", "answered_by": answered,
+          "failures": failures, "quarantined": quarantined,
+          "probe_while_faulty": probe_sick, "probe_after": probe_well,
+          "revived": revived, "replicas_after": after_replicas,
+          "bitwise_after": after_equal})
+    two.close()
+    ok = (rep_equal and distinct and len(answered) == len(sent)
+          and set(answered) == {0} and failures >= 1
+          and quarantined == [1] and not probe_sick
+          and probe_well and revived and set(after_replicas) == {0, 1}
+          and after_equal)
+    if not ok:
+        raise SystemExit("chip_smoke: replica or quarantine check failed")
+    if not cpu_ok:
+        raise SystemExit(f"chip_smoke: the card's int8 path against the "
+                         f"CPU's failed: {vs_cpu}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "int8_serving_lifecycle", "seconds": seconds})
+    return {"counts": counts, "gemms": gemms, "seconds": seconds}
 
 
 
@@ -5483,6 +5968,7 @@ def main(argv=None) -> int:
     drop = phase_dropout(card, args.seed)
     adam = phase_fused_adam(card, args.seed)
     serve_counts = phase_serving(card, args.seed)
+    int8 = phase_int8_serving_lifecycle(card, args.seed)
     train_counts = phase_training(card, args.seed)
     segs = phase_segment_adam(card, args.seed)
     ncf_counts = phase_ncf(card, args.seed)
@@ -5536,7 +6022,8 @@ def main(argv=None) -> int:
             launches_squad_remat=squad["counts_remat"].get(name, 0),
             launches_ner=ner["counts"].get(name, 0))
     entries[fa.KERNEL_NAME].update(
-        launches_ner_serving=ner["serve_counts"].get(fa.KERNEL_NAME, 0))
+        launches_ner_serving=ner["serve_counts"].get(fa.KERNEL_NAME, 0),
+        launches_int8_serving=int8["counts"].get(fa.KERNEL_NAME, 0))
     entries[fad.KERNEL_NAME].update(
         launches_prefetch_ab=prefetch["counts"].get(fad.KERNEL_NAME, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)

@@ -326,12 +326,16 @@ def test_convert_keeps_qkv_column_order():
 
 
 def test_int8_trees_are_not_ported():
+    """int8 trees are ported now (`tests/test_torch_quantization.py`):
+    their leaves cross `convert` as they are, and `quantize="int8"`
+    serves the int8 twin, leaving the f32 model as it is."""
     tree = {"cls_kernel_q": np.zeros((4, 2), np.int8)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        convert.params_from_jax(tree)
+    sd = convert.params_from_jax(tree)
+    assert sd["cls_kernel_q"].dtype == torch.int8
     _, _, tm = _classifier_pair(False, seed=10)
-    with pytest.raises(NotImplementedError, match="int8"):
-        InferenceModel(device="cpu").load_keras(tm, quantize="int8")
+    im = InferenceModel(device="cpu").load_keras(tm, quantize="int8")
+    assert im.serving_dtype == "int8"
+    assert all(t.dtype == torch.float32 for t in tm.state_dict().values())
 
 
 def test_training_dropout_is_not_ported():

@@ -871,8 +871,11 @@ def test_estimator_surface(tmp_path):
     ev_acc = est.evaluate((x, y), metrics=["accuracy"])
     assert sorted(ev) == ["sparse_categorical_accuracy"]
     assert list(ev_acc.values()) == list(ev.values())
-    with pytest.raises(NotImplementedError, match="int8"):
-        est.evaluate((x, y), quantize="int8")
+    ev8 = est.evaluate((x, y), quantize="int8")
+    assert sorted(ev8) == ["baseline_sparse_categorical_accuracy",
+                           "sparse_categorical_accuracy"]
+    assert ev8["baseline_sparse_categorical_accuracy"] == list(
+        ev.values())[0]
     est.save(str(tmp_path / "w"))
     other, _ = _classifier_pair("adagrad", seed=9)
     Estimator(other, device="cpu").load(str(tmp_path / "w"))

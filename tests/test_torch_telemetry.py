@@ -449,8 +449,9 @@ def test_batch_iter_factory_feeds_the_fit():
 # Gauges and the counted roofline
 # ---------------------------------------------------------------------------
 def test_peak_table_is_the_h100s_for_every_device():
-    assert H100[1:] == (989e12, 67e12, 3.35e12)
+    assert H100[1:] == (989e12, 67e12, 3.35e12, 1979e12)
     assert peaks.peak_flops("cpu") == 989e12
+    assert peaks.peak_flops("cpu", torch.int8) == 1979e12
     assert peaks.peak_flops("NVIDIA H100 80GB HBM3", torch.float32) == 67e12
     assert peaks.peak_hbm("Some Other Card") == 3.35e12
 

@@ -326,7 +326,7 @@ def test_optimizer_state_round_trips(kind):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"int8_sidecar": True}, {"sharding_rules": True},
+    {"sharding_rules": True},
     {"device_cache": True}, {"compile_cache_dir": "cache"},
 ])
 def test_unported_fit_arguments_raise(kwargs):
