@@ -22,9 +22,9 @@ its whole observability story. This module gives them ONE API:
 All three support labels (bounded-cardinality key=value pairs → one
 child series per distinct label set) and are thread-safe. `snapshot()`
 returns a plain-dict view; `delta(prev)` subtracts counter/histogram
-accumulation so reporters can log rates. Prometheus text exposition is
-`observability/prometheus.py`; span tracing (`tracing.py` in the JAX
-package) waits for the serving plane (ROADMAP.md queue 1, item 4).
+accumulation so reporters can log rates. Prometheus text exposition
+lives in `observability/prometheus.py`; span tracing in
+`observability/tracing.py`.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Periodic one-line metrics digest — the "is it healthy" glance.
 
 Copied from `analytics_zoo_tpu/observability/reporter.py` (`digest`,
-`MetricsReporter`). The `slo` argument takes any object with an
-`evaluate()` method; the SLO tracker itself (`observability/slo.py`) is
-not ported yet.
+`MetricsReporter`). The `slo` argument takes an
+`observability.slo.SLOTracker` (or any object with an `evaluate()`
+method).
 
 `MetricsReporter` wakes every `interval_s`, snapshots the registry, and
 logs one INFO line: counters as value with rate-since-last-report,

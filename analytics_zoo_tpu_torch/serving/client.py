@@ -1,21 +1,31 @@
 """Serving client — `InputQueue` / `OutputQueue`.
 
-Copied from `analytics_zoo_tpu/serving/client.py`: `STREAM` (L40), the
-reconnect harness `_Reconnecting` (L44), `InputQueue` (L79: `enqueue`)
-and `OutputQueue` (L340: `query`, `query_many`, `stream_tokens`).
-`enqueue` XADDs a b64-encoded ndarray to the serving stream (routed by
-uri hash when `partitions > 1`); results arrive in the
-``result:<stream>`` hash as b64 ndarrays, the literal "NaN" for a
-per-record failure or "SHED" for an admission shed. A generative request's
-streamed tokens are ``<uri>#<index>`` rows beside its final row, which
-`stream_tokens` reads incrementally. Every broker op retries through a
-jittered exponential backoff when the connection drops.
+Copied from `analytics_zoo_tpu/serving/client.py` (L1-568) as it is, with
+`engines_key` (the fleet's, `serving/fleet.py:54`) and `token_row_field`
+(the decode engine's, `serving/decode.py:133`) kept here so that neither
+module is needed. Image payloads (`_encode_image`, L170) need the data
+layer's image loader (ROADMAP.md queue 1, item 6) and raise
+NotImplementedError until it is ported.
 
-Not ported yet (ROADMAP.md queue 1, item 4): batched ingest
-(`enqueue_batch`), `dequeue`, trace-context stamping and per-hop timings,
-image payloads, the synchronous `predict` / `predict_batch` and
-`StreamingSession`.
-"""
+Protocol preserved from the reference: `enqueue` XADDs a b64-encoded ndarray
+to the serving stream (`client.py:114`), `predict` is the
+sync round-trip (`client.py:199` via the HTTP frontend there; here it polls
+the result hash), `OutputQueue.query/dequeue` read results back
+(`client.py:203`). Results arrive as b64 ndarrays, the literal "NaN" for
+per-record failures (`ClusterServingInference.scala:71-79` degradation) or
+"SHED" for an admission shed.
+
+Wire-speed ingest: with `partitions > 1` every record routes to
+the partition stream its uri hashes to (serving/partitions.py — the same
+map every gateway and engine computes); results still land in the ONE
+``result:<stream>`` hash, so polling is unchanged. The sync paths fuse
+their RESP round trips the way the engine fuses its sink commit: a
+`predict_batch` burst is ONE pipelined multi-XADD in, ONE `HMGET` per poll
+sweep out (`pipelined=False` keeps the per-record wire pattern as the
+bench A/B baseline). `StreamingSession` holds the pattern open across
+bursts on one persistent connection. Every broker op retries through a
+jittered exponential backoff when the connection drops (a restarted
+broker costs the in-flight request a reconnect, not a failure)."""
 
 from __future__ import annotations
 
@@ -39,6 +49,9 @@ log = logging.getLogger("analytics_zoo_tpu_torch.serving.client")
 STREAM = "serving_stream"          # reference stream name
 RESULT_KEY = "result:serving_stream"
 ENGINES_KEY_PREFIX = "engines:"
+IMAGES_NOT_PORTED = (
+    "image payloads need the data layer's image loader, which is not "
+    "ported yet (ROADMAP.md queue 1, item 6)")
 
 
 def engines_key(stream: str) -> str:
@@ -90,18 +103,43 @@ class _Reconnecting:
                 time.sleep(delay)
 
 
-
 class InputQueue(_Reconnecting):
     def __init__(self, broker: Union[Broker, str, None] = None,
                  stream: str = STREAM, partitions: int = 1,
-                 reconnect_attempts: int = 8):
+                 pipelined: bool = True,
+                 reconnect_attempts: int = 8,
+                 trace_sample: float = 0.0,
+                 trace_parent: Optional[str] = None):
         """`partitions` must match the serving fleet's count — both
-        sides compute the same uri hash."""
+        sides compute the same uri hash, so a mismatch strands records
+        on streams nobody reads (the engine's lease-table meta guard
+        exists to catch exactly that drift at engine startup).
+        `pipelined=False` restores the per-record XADD + per-uri HGET
+        wire pattern — kept ONLY as the bench_serving ingest A/B
+        baseline.
+
+        `trace_sample` > 0 turns on trace-context propagation:
+        every record is stamped with its ingest wall timestamp
+        (the record uri IS the trace id), so engines can continue the
+        trace with a "wire" span and export it for fleet assembly.
+        Sampling itself is decided deterministically from the uri in
+        every process — the stamp carries context, not the decision.
+        `trace_parent` names the span the engine-side trace should hang
+        under (the gateway sets "gateway_request")."""
         super().__init__(reconnect_attempts=reconnect_attempts)
         self.broker = broker if isinstance(broker, Broker) \
             else connect_broker(broker)
         self.stream = stream
         self.partitions = validate_partitions(partitions)
+        self.pipelined = pipelined
+        if not 0.0 <= float(trace_sample) <= 1.0:
+            raise ValueError(
+                f"trace_sample must be in [0, 1], got {trace_sample}")
+        self.trace_sample = float(trace_sample)
+        self.trace_parent = trace_parent
+        # per-hop engine timing summaries from the most recent
+        # predict_batch (uri -> hop dict), populated by the OutputQueue
+        self.last_hops: Dict[str, Dict] = {}
 
     def _record(self, uri: Optional[str], tier: Optional[str],
                 data: Dict) -> tuple:
@@ -111,14 +149,17 @@ class InputQueue(_Reconnecting):
             if isinstance(value, np.ndarray):
                 payload[name] = encode_ndarray(value)
             elif name == "image":
-                raise NotImplementedError(
-                    "image payloads are not ported yet (ROADMAP.md queue "
-                    "1, item 4: serving plane)")
+                payload[name] = self._encode_image(value)
             else:
                 payload[name] = value
         record = {"uri": uri, "data": payload}
         if tier is not None:
             record["tier"] = str(tier)
+        if self.trace_sample > 0:
+            ctx: Dict = {"ts": time.time()}
+            if self.trace_parent:
+                ctx["parent"] = self.trace_parent
+            record["trace"] = ctx
         return uri, stream_for(self.stream, uri, self.partitions), record
 
     def enqueue(self, uri: Optional[str] = None, tier: Optional[str] = None,
@@ -132,8 +173,196 @@ class InputQueue(_Reconnecting):
         self._call(self.broker.xadd, stream, record)
         return uri
 
+    def enqueue_batch(self, samples, tier: Optional[str] = None,
+                      uris: Optional[List[str]] = None) -> List[str]:
+        """Batched ingest: the whole burst goes out as ONE pipelined
+        multi-XADD (entries spanning partition streams), so N records
+        cost one round trip instead of N. Falls back to per-record XADDs when
+        the queue was built `pipelined=False`."""
+        entries, out = [], []
+        for i, s in enumerate(samples):
+            uri, stream, record = self._record(
+                uris[i] if uris else None, tier, {"t": np.asarray(s)})
+            entries.append((stream, record))
+            out.append(uri)
+        if self.pipelined:
+            self._call(self.broker.xadd_many, entries)
+        else:
+            for stream, record in entries:
+                self._call(self.broker.xadd, stream, record)
+        return out
+
+    @staticmethod
+    def _encode_image(value) -> Dict:
+        """Image path/bytes -> decoded float ndarray record (the reference
+        ships b64 JPEG and decodes OpenCV-side)."""
+        raise NotImplementedError(IMAGES_NOT_PORTED)
+
+    def predict(self, data: np.ndarray, timeout_s: float = 30.0,
+                tier: Optional[str] = None,
+                uri: Optional[str] = None) -> np.ndarray:
+        """Sync path (`client.py:199`): enqueue then poll the result."""
+        return self.predict_batch([np.asarray(data)], timeout_s,
+                                  tier=tier,
+                                  uris=[uri] if uri else None)[0]
+
+    def predict_batch(self, samples, timeout_s: float = 30.0,
+                      tier: Optional[str] = None,
+                      uris: Optional[List[str]] = None) -> list:
+        """Sync multi-record path: each sample is ONE serving record (the
+        per-instance contract of the reference frontend — records batch up
+        inside the serving loop, not inside one record). Results return in
+        input order; a failed record yields float('nan').
+
+        Deadlines use `time.monotonic()` (a wall-clock step — NTP slew,
+        suspend/resume — must not shrink or blow the budget), and idle
+        polls back off exponentially from 1 ms to a 50 ms cap instead of
+        hammering the broker at a fixed tight interval; any progress
+        resets the backoff so a streaming burst is drained promptly.
+
+        Pipelined (default), the burst enqueues as one multi-XADD and
+        each poll sweep reads EVERY outstanding uri in one HMGET — the
+        round-trip count per poll is 1, not len(missing). The legacy
+        per-record pattern survives under `pipelined=False` for the
+        bench A/B."""
+        deadline = time.monotonic() + timeout_s
+        out = OutputQueue(self.broker, self.stream,
+                          reconnect_attempts=self.reconnect_attempts)
+        if self.pipelined:
+            uris = self.enqueue_batch(samples, tier=tier, uris=uris)
+        else:
+            uris = [self.enqueue(uris[i] if uris else None, tier=tier,
+                                 t=np.asarray(s))
+                    for i, s in enumerate(samples)]
+        results: dict = {}
+        backoff = 0.001
+        while len(results) < len(uris):
+            # deadline checked every pass, progress or not: trickling
+            # results must tighten the remaining budget, not renew it
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            progress = False
+            missing = [u for u in uris if u not in results]
+            if self.pipelined:
+                found = out.query_many(missing, delete=True,
+                                       deadline=deadline)
+                if found:
+                    results.update(found)
+                    progress = True
+            else:
+                for uri in missing:
+                    res = out.query(uri, delete=True)
+                    if res is not None:
+                        results[uri] = res
+                        progress = True
+            if progress:
+                backoff = 0.001
+                continue
+            time.sleep(min(backoff, max(0.0, remaining)))
+            backoff = min(backoff * 2, 0.05)
+        missing = [u for u in uris if u not in results]
+        if missing:
+            raise TimeoutError(
+                f"No prediction for {len(missing)}/{len(uris)} records "
+                f"within {timeout_s}s")
+        self.last_hops = dict(out.last_hops)
+        return [results[u] for u in uris]
+
+    def stream_session(self, max_inflight: int = 256) -> "StreamingSession":
+        """A persistent-connection streaming mode over this queue."""
+        return StreamingSession(self, max_inflight=max_inflight)
+
+
+class StreamingSession:
+    """Persistent-connection streaming client: many requests
+    in flight over ONE broker connection, with the fused wire pattern
+    held open across bursts — `submit()` buffers locally, `flush()`
+    ships everything buffered as one multi-XADD, `drain()` collects
+    outstanding results with one HMGET per poll sweep. Usable as a
+    context manager; exiting drains what was submitted.
+
+        with inq.stream_session() as s:
+            for x in arrays:
+                s.submit(x)
+            results = s.drain()          # {uri: ndarray}
+
+    `max_inflight` bounds the unflushed + unanswered window: submit
+    past it triggers an implicit flush (backpressure lives at the
+    broker, not in this buffer)."""
+
+    def __init__(self, inq: InputQueue, max_inflight: int = 256):
+        self.inq = inq
+        self.out = OutputQueue(inq.broker, inq.stream,
+                               reconnect_attempts=inq.reconnect_attempts)
+        self.max_inflight = max(1, int(max_inflight))
+        self._buffered: List[tuple] = []     # (stream, record)
+        self._outstanding: List[str] = []    # uris awaiting results
+        self._order: List[str] = []          # submission order (stable)
+
+    def __enter__(self) -> "StreamingSession":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.drain()
+        return False
+
+    def submit(self, data, uri: Optional[str] = None,
+               tier: Optional[str] = None) -> str:
+        uri, stream, record = self.inq._record(
+            uri, tier, {"t": np.asarray(data)})
+        self._buffered.append((stream, record))
+        self._outstanding.append(uri)
+        self._order.append(uri)
+        if len(self._buffered) >= self.max_inflight:
+            self.flush()
+        return uri
+
+    def flush(self):
+        """Ship the buffered records: one pipelined multi-XADD no
+        matter how many partitions the burst fans out across."""
+        if not self._buffered:
+            return
+        entries, self._buffered = self._buffered, []
+        self.inq._call(self.inq.broker.xadd_many, entries)
+
+    def drain(self, timeout_s: float = 30.0) -> Dict[str, object]:
+        """Flush, then collect every outstanding result (submission
+        order). One HMGET round trip per poll sweep regardless of how
+        many records are outstanding."""
+        self.flush()
+        deadline = time.monotonic() + timeout_s
+        results: dict = {}
+        backoff = 0.001
+        while len(results) < len(self._outstanding):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            missing = [u for u in self._outstanding if u not in results]
+            found = self.out.query_many(missing, delete=True,
+                                        deadline=deadline)
+            if found:
+                results.update(found)
+                backoff = 0.001
+                continue
+            time.sleep(min(backoff, max(0.0, remaining)))
+            backoff = min(backoff * 2, 0.05)
+        missing = [u for u in self._outstanding if u not in results]
+        if missing:
+            raise TimeoutError(
+                f"No prediction for {len(missing)}/"
+                f"{len(self._outstanding)} streamed records within "
+                f"{timeout_s}s")
+        ordered = {u: results[u] for u in self._order if u in results}
+        self._outstanding = []
+        self._order = []
+        return ordered
+
 
 class OutputQueue(_Reconnecting):
+    _MAX_HOPS = 1024
+
     def __init__(self, broker: Union[Broker, str, None] = None,
                  stream: str = STREAM, reconnect_attempts: int = 8):
         super().__init__(reconnect_attempts=reconnect_attempts)
@@ -141,6 +370,12 @@ class OutputQueue(_Reconnecting):
             else connect_broker(broker)
         self.stream = stream
         self.result_key = f"result:{stream}"
+        # per-hop engine timing summaries: when tracing is
+        # on, each writeback row carries a compact "hops" dict —
+        # stripped from the decoded result and kept here (bounded,
+        # most-recent window) so the client can attribute its own e2e
+        # latency: e2e minus hops["engine_ms"] = wire + broker time
+        self.last_hops: Dict[str, Dict] = {}
 
     @staticmethod
     def _token_row_fields(uri: str, raw: str) -> List[str]:
@@ -164,7 +399,7 @@ class OutputQueue(_Reconnecting):
         if delete:
             self._call(self.broker.hdel_many, self.result_key,
                        [uri] + self._token_row_fields(uri, raw))
-        return self._decode(raw)
+        return self._decode(raw, uri=uri)
 
     def query_many(self, uris, delete: bool = False,
                    deadline: Optional[float] = None) -> Dict[str, object]:
@@ -184,7 +419,31 @@ class OutputQueue(_Reconnecting):
                 fields += self._token_row_fields(u, raw)
             self._call(self.broker.hdel_many, self.result_key,
                        fields, deadline=deadline)
-        return {u: self._decode(raw) for u, raw in found.items()}
+        return {u: self._decode(raw, uri=u) for u, raw in found.items()}
+
+    def dequeue(self) -> Dict[str, np.ndarray]:
+        """Drain all COMPLETED results (`client.py:203` semantics): one
+        read plus one batched delete, not one round trip per field.
+
+        Generative streaming writes extra ``<uri>#<index>``
+        token rows before the final ``uri`` row lands; a result exists
+        only once its exact uri field does. Token rows whose final row
+        is present are consumed (deleted) with it; token rows of a
+        STILL-DECODING sequence are left in place — draining them would
+        misread a partial stream as a completed result."""
+        allr = self._call(self.broker.hgetall, self.result_key)
+        out, drop = {}, []
+        for uri, raw in allr.items():
+            if "#" in uri:
+                base = uri.rsplit("#", 1)[0]
+                if base in allr:      # finished: consumed with its final
+                    drop.append(uri)
+                continue
+            out[uri] = self._decode(raw, uri=uri)
+            drop.append(uri)
+        if drop:
+            self._call(self.broker.hdel_many, self.result_key, drop)
+        return out
 
     def stream_tokens(self, uri: str, timeout_s: float = 30.0,
                       delete: bool = True, start: int = 0,
@@ -275,6 +534,7 @@ class OutputQueue(_Reconnecting):
                         self.broker.hdel_many, self.result_key,
                         [uri] + [token_row_field(uri, i)
                                  for i in range(total)])
+                blob.pop("hops", None)
                 yield {"done": True, "tokens": decode_ndarray(blob),
                        "gen": gen}
                 return
@@ -311,12 +571,18 @@ class OutputQueue(_Reconnecting):
             time.sleep(min(backoff, remaining))
             backoff = min(backoff * 2, 0.05)
 
-    @staticmethod
-    def _decode(raw: str):
+    def _decode(self, raw: str, uri: Optional[str] = None):
         if raw == "NaN":   # per-record failure marker
             return float("nan")
         if raw == "SHED":  # admission shed: an answered
             return raw     # rejection — distinguishable from a failure
         if raw.startswith("["):  # filtered result string, e.g. topN(5)
             return raw
-        return decode_ndarray(json.loads(raw))
+        blob = json.loads(raw)
+        if isinstance(blob, dict) and "hops" in blob:
+            hops = blob.pop("hops")
+            if uri is not None and isinstance(hops, dict):
+                if len(self.last_hops) >= self._MAX_HOPS:
+                    self.last_hops.pop(next(iter(self.last_hops)))
+                self.last_hops[uri] = hops
+        return decode_ndarray(blob)

@@ -15,7 +15,7 @@ watchdog and the writeback buffer. What differs in the port:
   step at 32 slots of a 50257-token vocabulary); `torch.argmax` takes the
   first of tied maxima, as numpy's does;
 - `heartbeat_interval_s` raises NotImplementedError: the fleet's heartbeat
-  publisher waits for the serving plane (ROADMAP.md queue 1, item 4);
+  publisher waits for the fleet plane (ROADMAP.md queue 1, item 4b);
 - the JAX engine's "0 XLA compiles on the request path" becomes "0 kernel
   builds on the request path": `warmup_generative` builds and loads the
   decode-attention kernels before the engine starts.
@@ -483,7 +483,7 @@ class DecodeServing:
         if heartbeat_interval_s:
             raise NotImplementedError(
                 "heartbeat_interval_s: the fleet's heartbeat publisher is "
-                "not ported yet (ROADMAP.md queue 1, item 4: serving plane)")
+                "not ported yet (ROADMAP.md queue 1, item 4b: fleet plane)")
         self.registry = registry
         labels = {"engine": self.engine_id}
         self.paged = bool(paged)

@@ -70,6 +70,18 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    two replicas on the card's streams (bitwise one replica; p50 and
    pipelined ms at batch 8, in turns, and a profiled pipelined window)
    and a fault on replica 1 that quarantines it, probes and revival;
+   then the same f32 BERT-base behind a queue (`phase_cluster_serving`):
+   the port's `ClusterServing` (pipelined, batch 32) over a `MemoryBroker`,
+   the port's TCP broker server and its RESP2 `MiniRedisServer` on
+   127.0.0.1:0, records of 512 int64 ids in the b64 codec; 50 requests
+   with one in flight over each broker (p50 / p99), a malformed record
+   among good ones in one burst ("NaN", its batch-mates answered), 8
+   closed-loop client threads on their own RESP2 connections, 400
+   requests (records/s, p50 / p99, the dispatched batch sizes, the card's
+   busy share in a profiled window); every answer against the direct
+   forward of its row (5e-4, same argmax), 12 flash launches a dispatched
+   forward, no kernel built after warmup, each `stop()` under 10 s, every
+   record answered once and the thread count back where it began;
 8. training: the same BERT-base (dropout 0.1 everywhere) through
    `Estimator.from_keras(..., optimizer=fused_adam(...)).fit(...,
    mixed_precision=True, fused_optimizer=True)` at seq 512, batch 32:
@@ -1398,6 +1410,312 @@ def random_attention_inputs(shape, dtype, masked: bool, gen):
         lengths = torch.randint(1, T + 1, (B,), device="cuda", generator=gen)
         mask = padding_mask(lengths, T)
     return q, k, v, do, mask
+
+
+# the Cluster Serving phase: BERT-base behind the port's RESP2 server
+CS_BATCH = 32               # the engine's batch_size and the model's max
+CS_SINGLE = 50              # requests with one in flight, per broker
+CS_CLIENTS = 8              # closed-loop client threads, one request each
+CS_REQUESTS = 400           # closed-loop requests in all
+CS_ROWS = 64                # distinct id rows the requests cycle through
+CS_POISON_MATES = 7         # good records sent in one burst with the poison
+CS_STOP_S = 10.0            # stop() must return within this
+
+
+def _close(broker):
+    if hasattr(broker, "close"):
+        broker.close()
+
+
+def _stop_timed(engine) -> float:
+    t0 = time.perf_counter()
+    engine.stop()
+    _close(engine.broker)
+    return time.perf_counter() - t0
+
+
+def _answers(name, got, rows, want, tol):
+    """Each answered row against the direct forward of its id row: an
+    ndarray (no "NaN", no "SHED"), finite, within `tol`, same argmax."""
+    err = 0.0
+    for y, r in zip(got, rows):
+        if not isinstance(y, np.ndarray) or y.shape != want[r].shape \
+                or not np.isfinite(y).all():
+            raise SystemExit(f"chip_smoke: {name}: a clean record was "
+                             f"answered {y!r}")
+        err = max(err, float(np.abs(y - want[r]).max()))
+        if int(np.argmax(y)) != int(np.argmax(want[r])):
+            raise SystemExit(f"chip_smoke: {name}: argmax differs")
+    if err > tol:
+        raise SystemExit(f"chip_smoke: {name}: {err} above {tol}")
+    return err
+
+
+def _engine_checks(name, engine, sent: int, reset_dispatches: int) -> dict:
+    """Every accepted uri answered exactly once: as many read and served
+    as were sent, no duplicate writeback. `reset_dispatches`: the
+    dispatches counted before the stage timers were reset."""
+    dup = engine._records_total.value(outcome="duplicate")
+    if engine.records_read != sent or engine.records_served != sent \
+            or dup:
+        raise SystemExit(
+            f"chip_smoke: {name}: read {engine.records_read}, served "
+            f"{engine.records_served}, duplicates {dup} of {sent} sent")
+    return {"read": engine.records_read, "served": engine.records_served,
+            "dispatches": engine.dispatch_timer.count + reset_dispatches}
+
+
+def _single_in_flight(url, broker, rows, n_rows):
+    """CS_SINGLE requests through `InputQueue.predict`, one in flight, on a
+    connection of this thread's own (a `TCPBroker` keeps one socket per
+    thread, closed when the thread ends): (latencies ms, answers)."""
+    import threading
+    from analytics_zoo_tpu_torch.serving.broker import connect_broker
+    lat, got, errors = [], [], []
+
+    def run():
+        br = broker if url is None else connect_broker(url)
+        try:
+            q = InputQueue(br)
+            for k in range(CS_SINGLE):
+                t1 = time.perf_counter()
+                got.append(q.predict(rows[k % n_rows], timeout_s=60))
+                lat.append((time.perf_counter() - t1) * 1e3)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+        finally:
+            if br is not broker:
+                _close(br)
+
+    t = threading.Thread(target=run, name="cs-single")
+    t.start()
+    t.join(timeout=300)
+    if errors or t.is_alive():
+        raise SystemExit(f"chip_smoke: single-request client failed: "
+                         f"{errors[:1]}")
+    return lat, got
+
+
+def _closed_loop(url, rows, n_rows):
+    """CS_CLIENTS threads, each on its own RedisBroker connection with one
+    request in flight, CS_REQUESTS in all: (latencies ms, answers and
+    their rows, wall s)."""
+    import threading
+    from analytics_zoo_tpu_torch.serving.broker import connect_broker
+    per = CS_REQUESTS // CS_CLIENTS
+    lat = [[] for _ in range(CS_CLIENTS)]
+    got = [[] for _ in range(CS_CLIENTS)]
+    errors = []
+
+    def client(c):
+        br = connect_broker(url)
+        try:
+            q = InputQueue(br)
+            for k in range(per):
+                r = (c * per + k) % n_rows
+                t1 = time.perf_counter()
+                y = q.predict(rows[r], timeout_s=60)
+                lat[c].append((time.perf_counter() - t1) * 1e3)
+                got[c].append((y, r))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+        finally:
+            br.close()
+
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"cs-client-{c}")
+               for c in range(CS_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"chip_smoke: closed-loop clients failed: "
+                         f"{errors[:3]}")
+    flat = [x for c in got for x in c]
+    return [x for c in lat for x in c], flat, wall
+
+
+def _busy_share(prof, wall_s: float) -> float:
+    """The union of the card's kernel and copy intervals over the window's
+    wall time (as `profiled_pipelined` reads it)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e6 / wall_s
+
+
+def phase_cluster_serving(card: str, seed: int):
+    """BERT-base (f32, TF32 off, seq 512, `use_flash=True`) served by the
+    port's `ClusterServing` from a queue: 50 requests with one in flight
+    over each of the memory, TCP and RESP2 brokers, a poison record among
+    good ones, then 8 closed-loop clients on their own RESP2 connections
+    to the port's `MiniRedisServer`, with a profiled window. Each answer
+    is held against the direct forward of its row."""
+    import collections
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from analytics_zoo_tpu_torch.serving.broker import (TCPBrokerServer,
+                                                        encode_ndarray)
+    from analytics_zoo_tpu_torch.serving.client import STREAM
+    from analytics_zoo_tpu_torch.serving.redis_server import MiniRedisServer
+    from analytics_zoo_tpu_torch.serving.server import ClusterServing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    threads0 = set(threading.enumerate())
+    cfg, T = BERT_BASE, BERT_BASE["seq_len"]
+    model = BERTClassifier(NUM_CLASSES, use_flash=True, device="cuda", **cfg)
+    model.load_state_dict(convert.params_from_jax(
+        random_classifier_tree(cfg, NUM_CLASSES, seed)))
+    im = InferenceModel(max_batch=CS_BATCH).load_keras(model)
+    im.warmup(np.zeros(T, np.int64))          # ids-only rows, every bucket
+    rs = np.random.default_rng(seed + 60)
+    rows = rs.integers(0, cfg["vocab"], (CS_ROWS, T), dtype=np.int64)
+    want = im.predict(rows)                   # the direct forward
+    tol = LOGIT_TOL["float32"]
+    # count the forwards the engines dispatch (valid rows of each)
+    dispatched = []
+    predict_async = im.predict_async
+
+    def counted(x, valid_n=None):
+        dispatched.append(valid_n if valid_n is not None else len(x))
+        return predict_async(x, valid_n=valid_n)
+
+    im.predict_async = counted
+    redis = MiniRedisServer().start()
+    tcp = TCPBrokerServer().start()
+    urls = {"memory": None, "tcp": f"tcp://{tcp.host}:{tcp.port}",
+            "redis": redis.url}
+    builds = _build.build_events()
+    legs, checks, stops, errs = {}, {}, {}, {}
+
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    for name, url in urls.items():
+        broker = MemoryBroker() if url is None else url
+        engine = ClusterServing(im, broker=broker, batch_size=CS_BATCH)
+        engine.start()
+        try:
+            lat, got = _single_in_flight(url, engine.broker, rows, CS_ROWS)
+            sent = CS_SINGLE
+            if name == "redis":
+                # a malformed b64 payload among good records, in one burst
+                good = [(STREAM, {"uri": f"mate{i}", "data": {
+                    "t": encode_ndarray(rows[i])}})
+                    for i in range(CS_POISON_MATES)]
+                poison = (STREAM, {"uri": "poison", "data": {"t": {
+                    "b64": "%%%not-base64", "dtype": "int64",
+                    "shape": [T]}}})
+                engine.broker.xadd_many(good[:3] + [poison] + good[3:])
+                out = OutputQueue(engine.broker)
+                uris = [f"mate{i}" for i in range(CS_POISON_MATES)]
+                res = {}
+                deadline = time.monotonic() + 60
+                while len(res) < len(uris) + 1 and \
+                        time.monotonic() < deadline:
+                    res.update(out.query_many(
+                        [u for u in uris + ["poison"] if u not in res],
+                        delete=True))
+                    time.sleep(0.01)
+                p = res.get("poison")
+                if not (isinstance(p, float) and np.isnan(p)):
+                    raise SystemExit(f"chip_smoke: poison answered {p!r}")
+                errs["poison_mates"] = _answers(
+                    "poison mates", [res.get(u) for u in uris],
+                    range(CS_POISON_MATES), want, tol)
+                sent += CS_POISON_MATES + 1
+                # the engine's stage timers read the closed loop alone
+                timers = {"batch": engine.batch_timer,
+                          "decode": engine.decode_timer,
+                          "dispatch": engine.dispatch_timer,
+                          "sink": engine.sink_timer, "predict": im.timer}
+                dispatches_before = engine.dispatch_timer.count
+                for tm in timers.values():
+                    tm.reset()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t_w = time.perf_counter()
+                    n_before = len(dispatched)
+                    cl_lat, cl_got, cl_wall = _closed_loop(url, rows,
+                                                           CS_ROWS)
+                    window_s = time.perf_counter() - t_w
+                cl_sizes = dispatched[n_before:]
+                stages = {k: {f: tm.snapshot()[f] for f in (
+                    "count", "avg_ms", "p50_ms", "p99_ms")}
+                    for k, tm in timers.items()}
+                sent += CS_REQUESTS
+                errs["closed_loop"] = _answers(
+                    "closed loop", [y for y, _ in cl_got],
+                    [r for _, r in cl_got], want, tol)
+            errs[name] = _answers(f"{name} single", got,
+                                  [k % CS_ROWS for k in range(CS_SINGLE)],
+                                  want, tol)
+        finally:
+            stops[name] = _stop_timed(engine)
+        checks[name] = _engine_checks(
+            name, engine, sent,
+            dispatches_before if name == "redis" else 0)
+        legs[name] = lat
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    builds_after = _build.build_events()
+    im.predict_async = predict_async
+    redis.stop()
+    tcp.stop()
+    for name, lat in legs.items():
+        emit({"phase": "cluster_serving_single", "broker": name,
+              "requests": len(lat), "in_flight": 1,
+              "p50_ms": float(np.percentile(lat, 50)),
+              "p99_ms": float(np.percentile(lat, 99)),
+              "mean_ms": float(np.mean(lat)), "stop_s": stops[name],
+              "max_abs_err": errs[name], "card": card})
+    busy = _busy_share(prof, window_s)
+    emit({"phase": "cluster_serving_closed_loop", "broker": "redis",
+          "clients": CS_CLIENTS, "requests": CS_REQUESTS,
+          "records_per_s": CS_REQUESTS / cl_wall,
+          "p50_ms": float(np.percentile(cl_lat, 50)),
+          "p99_ms": float(np.percentile(cl_lat, 99)),
+          "mean_ms": float(np.mean(cl_lat)),
+          "dispatched_batch_sizes": dict(sorted(collections.Counter(
+              cl_sizes).items())),
+          "device_busy_share": busy, "window_s": window_s,
+          "max_abs_err": errs["closed_loop"], "card": card})
+    # the closed loop's batches: read → written back ("batch"), and each
+    # stage's share of it; "predict" is dispatch + the wait for the card
+    emit({"phase": "cluster_serving_stages", "window": "closed_loop",
+          "stages_ms": stages, "card": card})
+    forwards = len(dispatched)
+    launches = counts.get(fa.KERNEL_NAME, 0)
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - threads0 and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(t.name for t in set(threading.enumerate()) - threads0)
+    engine_dispatches = sum(c["dispatches"] for c in checks.values())
+    ok = (launches == cfg["n_block"] * forwards
+          and forwards == engine_dispatches and builds_after == builds
+          and max(stops.values()) < CS_STOP_S and not left)
+    emit({"phase": "cluster_serving_checks", "counts": counts,
+          "forwards": forwards, "engine_dispatches": engine_dispatches,
+          "flash_per_forward": launches / max(forwards, 1),
+          "builds": builds, "builds_after": builds_after,
+          "stop_s": stops, "threads_start": len(threads0),
+          "threads_left": left, "engines": checks,
+          "poison_mates_max_abs_err": errs["poison_mates"], "tol": tol,
+          "ok": ok, "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    if not ok:
+        raise SystemExit("chip_smoke: cluster serving checks failed")
+    del im, model
+    torch.cuda.empty_cache()
+    return {"counts": counts}
 
 
 def phase_backward(card: str, seed: int):
@@ -5969,6 +6287,7 @@ def main(argv=None) -> int:
     adam = phase_fused_adam(card, args.seed)
     serve_counts = phase_serving(card, args.seed)
     int8 = phase_int8_serving_lifecycle(card, args.seed)
+    cluster = phase_cluster_serving(card, args.seed)
     train_counts = phase_training(card, args.seed)
     segs = phase_segment_adam(card, args.seed)
     ncf_counts = phase_ncf(card, args.seed)
@@ -6023,7 +6342,8 @@ def main(argv=None) -> int:
             launches_ner=ner["counts"].get(name, 0))
     entries[fa.KERNEL_NAME].update(
         launches_ner_serving=ner["serve_counts"].get(fa.KERNEL_NAME, 0),
-        launches_int8_serving=int8["counts"].get(fa.KERNEL_NAME, 0))
+        launches_int8_serving=int8["counts"].get(fa.KERNEL_NAME, 0),
+        launches_cluster_serving=cluster["counts"].get(fa.KERNEL_NAME, 0))
     entries[fad.KERNEL_NAME].update(
         launches_prefetch_ab=prefetch["counts"].get(fad.KERNEL_NAME, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)

@@ -311,7 +311,8 @@ def test_port_never_imports_jax_or_the_jax_package():
             "observability/reporter.py", "observability/capture.py",
             "observability/roofline.py", "utils/crc.py",
             "utils/tensorboard.py", "utils/roofline.py",
-            "utils/tf_checkpoint.py"} <= {
+            "utils/tf_checkpoint.py", "observability/tracing.py",
+            "observability/slo.py", "serving/redis_server.py"} <= {
         p.relative_to(PORT).as_posix() for p in _package_sources()}
     bad = [(str(p.relative_to(REPO)), root) for p in sources
            for root in _imported_roots(p) if root in _FORBIDDEN_ROOTS]

@@ -37,7 +37,6 @@ from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build
 from analytics_zoo_tpu_torch.models.generative import TinyDecoder
 from analytics_zoo_tpu_torch.observability.registry import MetricsRegistry
 from analytics_zoo_tpu_torch.serving.broker import (MemoryBroker,
-                                                    connect_broker,
                                                     encode_ndarray)
 from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
 from analytics_zoo_tpu_torch.serving.decode import (GROUP, STREAM,
@@ -255,9 +254,9 @@ def test_entry_points_default_to_cuda():
 
 
 def test_serving_plane_transports_wait_for_their_item():
-    for url in ("tcp://127.0.0.1:6379", "redis://localhost:6379"):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            connect_broker(url)
+    # the transports are ported (tests/test_torch_serving_transports.py:
+    # connect_broker of port-0 servers); the fleet heartbeat still waits
+    # for ROADMAP.md queue 1, item 4b
     im = InferenceModel(device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1"):
         DecodeServing(im, tdec().init_kv, broker=MemoryBroker(),
