@@ -1,9 +1,7 @@
 """Inference service layer — the Cluster Serving analogue.
 
 Copied from `analytics_zoo_tpu/serving/__init__.py` (L1-52): the lazy
-`_EXPORTS` table (PEP 562), limited to what the port has. `FrontEnd`,
-`ServingConfig`, `FleetTracker` and `HeartbeatPublisher` wait for
-ROADMAP.md queue 1, item 4b.
+`_EXPORTS` table (PEP 562), every name the JAX package exports.
 
 A host-side serving loop batches queue records into shape-bucketed
 forwards on the card. The client protocol surface (`InputQueue` /
@@ -25,11 +23,15 @@ _EXPORTS = {
     "RedisBroker": "analytics_zoo_tpu_torch.serving.broker",
     "MiniRedisServer": "analytics_zoo_tpu_torch.serving.redis_server",
     "Timer": "analytics_zoo_tpu_torch.serving.timer",
+    "FrontEnd": "analytics_zoo_tpu_torch.serving.http_frontend",
+    "ServingConfig": "analytics_zoo_tpu_torch.serving.config",
     "BackoffPolicy": "analytics_zoo_tpu_torch.serving.breaker",
     "CircuitBreaker": "analytics_zoo_tpu_torch.serving.breaker",
     "ResilientBroker": "analytics_zoo_tpu_torch.serving.breaker",
     "ReplicaSupervisor": "analytics_zoo_tpu_torch.serving.supervisor",
-    "engines_key": "analytics_zoo_tpu_torch.serving.client",
+    "FleetTracker": "analytics_zoo_tpu_torch.serving.fleet",
+    "HeartbeatPublisher": "analytics_zoo_tpu_torch.serving.fleet",
+    "engines_key": "analytics_zoo_tpu_torch.serving.fleet",
 }
 
 __all__ = list(_EXPORTS)

@@ -1,11 +1,11 @@
 """Serving client — `InputQueue` / `OutputQueue`.
 
 Copied from `analytics_zoo_tpu/serving/client.py` (L1-568) as it is, with
-`engines_key` (the fleet's, `serving/fleet.py:54`) and `token_row_field`
-(the decode engine's, `serving/decode.py:133`) kept here so that neither
-module is needed. Image payloads (`_encode_image`, L170) need the data
-layer's image loader (ROADMAP.md queue 1, item 6) and raise
-NotImplementedError until it is ported.
+`token_row_field` (the decode engine's, `serving/decode.py:133`) kept here
+so that the client needs no decode module; `engines_key` comes from
+`serving/fleet.py`, as in the JAX client. Image payloads (`_encode_image`,
+L170) need the data layer's image loader (ROADMAP.md queue 1, item 6) and
+raise NotImplementedError until it is ported.
 
 Protocol preserved from the reference: `enqueue` XADDs a b64-encoded ndarray
 to the serving stream (`client.py:114`), `predict` is the
@@ -48,16 +48,9 @@ log = logging.getLogger("analytics_zoo_tpu_torch.serving.client")
 
 STREAM = "serving_stream"          # reference stream name
 RESULT_KEY = "result:serving_stream"
-ENGINES_KEY_PREFIX = "engines:"
 IMAGES_NOT_PORTED = (
     "image payloads need the data layer's image loader, which is not "
     "ported yet (ROADMAP.md queue 1, item 6)")
-
-
-def engines_key(stream: str) -> str:
-    """The broker hash that holds one heartbeat row per engine (the fleet's
-    `engines_key`, `serving/fleet.py:54` of the JAX package)."""
-    return ENGINES_KEY_PREFIX + stream
 
 
 def token_row_field(uri: str, index: int) -> str:
@@ -481,6 +474,7 @@ class OutputQueue(_Reconnecting):
         "error": "engine-dead"}`` instead of hanging until the
         deadline — a live-but-slow engine keeps beating and is given
         the full `timeout_s`."""
+        from analytics_zoo_tpu_torch.serving.fleet import engines_key
         deadline = time.monotonic() + timeout_s
         nxt = max(0, int(start))
         backoff = 0.001

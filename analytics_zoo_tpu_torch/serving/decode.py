@@ -14,8 +14,6 @@ watchdog and the writeback buffer. What differs in the port:
   copied to the host (the JAX engine copies the whole logits, 6.4 MB a
   step at 32 slots of a 50257-token vocabulary); `torch.argmax` takes the
   first of tied maxima, as numpy's does;
-- `heartbeat_interval_s` raises NotImplementedError: the fleet's heartbeat
-  publisher waits for the fleet plane (ROADMAP.md queue 1, item 4b);
 - the JAX engine's "0 XLA compiles on the request path" becomes "0 kernel
   builds on the request path": `warmup_generative` builds and loads the
   decode-attention kernels before the engine starts.
@@ -480,10 +478,8 @@ class DecodeServing:
             else float(max_seq_wall_s)
         self.preempt_max = max(0, int(preempt_max))
         self.writeback_buffer_rows = max(1, int(writeback_buffer_rows))
-        if heartbeat_interval_s:
-            raise NotImplementedError(
-                "heartbeat_interval_s: the fleet's heartbeat publisher is "
-                "not ported yet (ROADMAP.md queue 1, item 4b: fleet plane)")
+        self.heartbeat_interval_s = heartbeat_interval_s
+        self._heartbeat = None
         self.registry = registry
         labels = {"engine": self.engine_id}
         self.paged = bool(paged)
@@ -613,6 +609,21 @@ class DecodeServing:
     def start(self) -> "DecodeServing":
         self._stop.clear()
         self._drain_deadline = None
+        if self.heartbeat_interval_s and self._heartbeat is None:
+            # own broker connection: the engine loop may sit in an
+            # XREADGROUP block window; a heartbeat must never queue
+            # behind it (a stalled beat reads fleet-wide as a death)
+            from analytics_zoo_tpu_torch.serving.fleet import \
+                HeartbeatPublisher
+            self._heartbeat = HeartbeatPublisher(
+                self.broker.clone(), self.stream, self.engine_id,
+                payload_fn=lambda: {
+                    "ready": True, "role": "decode",
+                    "records_served": self.stats["finished"],
+                    "tokens": self.stats["tokens"]},
+                interval_s=self.heartbeat_interval_s,
+                registry=self.registry)
+            self._heartbeat.start()
         self._thread = threading.Thread(target=self.run,
                                         name="decode-engine", daemon=True)
         self._thread.start()
@@ -629,6 +640,9 @@ class DecodeServing:
         if t is not None:
             t.join(timeout=self.drain_timeout_s + 10.0)
         self._thread = None
+        if self._heartbeat is not None:
+            self._heartbeat.stop(deregister=True)
+            self._heartbeat = None
 
     def is_alive(self) -> bool:
         t = self._thread

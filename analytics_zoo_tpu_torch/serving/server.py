@@ -15,13 +15,14 @@ partition leases. What differs in the port:
   `result()` in the sink waits on the batch's event. A record's dtype is
   kept from the codec header to the device (int64 ids stay int64). There
   is no CPU fallback: a failed launch degrades its batch to "NaN" and the
-  error counters, as in the JAX package;
-- the fleet plane's knobs (`engine_id` with ``heartbeat_interval_s > 0``
-  or ``fleet_metrics_interval_s > 0``, and ``trace_sample > 0``) raise
-  NotImplementedError at construction until ROADMAP.md queue 1, item 4b
-  ports `serving/fleet.py`, `serving/fleet_metrics.py` and
-  `serving/trace_plane.py`. `engine_id` with both intervals at 0 names the
-  consumer and labels the series, as in the JAX package.
+  error counters, as in the JAX package.
+
+The fleet plane is the JAX package's: with `engine_id` set, a
+`HeartbeatPublisher` (`serving/fleet.py`) beats into `engines:<stream>`
+and a `FleetMetricsPublisher` (`serving/fleet_metrics.py`) publishes the
+registry into `metrics:<stream>`; `trace_sample > 0` starts a
+`SpanExporter` (`serving/trace_plane.py`) into `traces:<stream>`. Each
+runs on a broker connection of its own.
 
 Reference: Flink job `RedisSource -> inference map -> RedisSink`
 (`ClusterServing.scala:55-68`), batching up to core count
@@ -133,32 +134,6 @@ class _Batch:
         self.bucket = None        # dispatched bucket (cost-model key)
         self.t_dispatch = None    # dispatch timestamp (cost-model base)
         self.stream = stream      # source partition stream (None = base)
-
-
-def _refuse_fleet_plane(engine_id, heartbeat_interval_s,
-                        fleet_metrics_interval_s, trace_sample):
-    """The fleet plane's three knobs, refused at construction (before any
-    broker connection or gauge is made): the heartbeat publisher and the
-    fleet metrics publisher (`serving/fleet.py`, `serving/fleet_metrics.py`
-    of the JAX package) and the span exporter (`serving/trace_plane.py`)
-    wait for ROADMAP.md queue 1, item 4b. `engine_id` with both intervals at
-    0 names the consumer and labels the series, as in the JAX package."""
-    if not 0.0 <= float(trace_sample) <= 1.0:
-        raise ValueError(
-            f"trace_sample must be in [0, 1], got {trace_sample}")
-    wanted = []
-    if engine_id is not None and float(heartbeat_interval_s) > 0:
-        wanted.append("heartbeat_interval_s > 0 (HeartbeatPublisher)")
-    if engine_id is not None and float(fleet_metrics_interval_s) > 0:
-        wanted.append("fleet_metrics_interval_s > 0 "
-                      "(FleetMetricsPublisher)")
-    if float(trace_sample) > 0:
-        wanted.append("trace_sample > 0 (SpanExporter)")
-    if wanted:
-        raise NotImplementedError(
-            "; ".join(wanted) + ": the fleet plane is not ported yet "
-            "(ROADMAP.md queue 1, item 4b); pass engine_id with "
-            "heartbeat_interval_s=0 and fleet_metrics_interval_s=0")
 
 
 class ClusterServing:
@@ -284,8 +259,6 @@ class ClusterServing:
         snapshot into `metrics:<stream>` every
         `fleet_metrics_interval_s` (0 disables) so a gateway scrape
         aggregates the whole fleet."""
-        _refuse_fleet_plane(engine_id, heartbeat_interval_s,
-                            fleet_metrics_interval_s, trace_sample)
         self.model = model
         self.broker = broker if isinstance(broker, Broker) \
             else connect_broker(broker)
@@ -469,12 +442,53 @@ class ClusterServing:
                 latency_floor_ms=latency_floor_ms,
                 probe_interval_s=probe_interval_s,
                 registry=self.registry)
-        # the fleet plane (heartbeats, the span exporter, fleet metrics)
-        # is refused by _refuse_fleet_plane before anything is built
+        # fleet heartbeat: its own broker connection — the
+        # reader sits in XREADGROUP block windows and the sink may be
+        # mid-writeback; membership must never queue behind either
         self.heartbeat = None
+        if engine_id is not None and self.heartbeat_interval_s > 0:
+            from analytics_zoo_tpu_torch.serving.fleet import \
+                HeartbeatPublisher
+            base = self.broker.inner \
+                if isinstance(self.broker, ResilientBroker) else self.broker
+            self.heartbeat = HeartbeatPublisher(
+                base.clone(), self.stream, engine_id,
+                self._heartbeat_payload,
+                interval_s=self.heartbeat_interval_s,
+                registry=self.registry)
+        # fleet observability plane: span exporter + fleet
+        # metrics publisher, each on its OWN broker connection — the
+        # reader blocks in XREADGROUP windows and the sink may be
+        # mid-writeback; telemetry must never queue behind either
+        if not 0.0 <= float(trace_sample) <= 1.0:
+            raise ValueError(
+                f"trace_sample must be in [0, 1], got {trace_sample}")
         self.trace_sample = float(trace_sample)
         self.trace_exporter = None
         self.fleet_metrics = None
+        obs_base = self.broker.inner \
+            if isinstance(self.broker, ResilientBroker) else self.broker
+        if self.trace_sample > 0:
+            if self.tracer is None:
+                self.tracer = Tracer(max_spans=int(trace_buffer_spans),
+                                     registry=self.registry,
+                                     engine=self.consumer)
+            elif self.tracer.engine is None:
+                self.tracer.engine = self.consumer
+            from analytics_zoo_tpu_torch.serving.trace_plane import \
+                SpanExporter
+            self.trace_exporter = SpanExporter(
+                obs_base.clone(), self.stream, self.consumer,
+                self.tracer, sample=self.trace_sample,
+                interval_s=float(trace_export_interval_s),
+                buffer_spans=int(trace_buffer_spans),
+                registry=self.registry)
+        if engine_id is not None and float(fleet_metrics_interval_s) > 0:
+            from analytics_zoo_tpu_torch.serving.fleet_metrics import \
+                FleetMetricsPublisher
+            self.fleet_metrics = FleetMetricsPublisher(
+                obs_base.clone(), self.stream, engine_id, self.registry,
+                interval_s=float(fleet_metrics_interval_s))
 
     def _heartbeat_payload(self) -> dict:
         """What each beat tells the gateway: readiness (the same

@@ -12,8 +12,10 @@ normalisation, Inception-v1 nested as a layer) and WideAndDeep at
 MovieLens-1M widths (saved and reloaded), train with checkpoints and
 resume, fine-tune BERT-base for SQuAD and NER (with and without remat,
 watched by the trainer's own MFU and roofline gauges and its profiler
-window), time the prefetch thread on ResNet-50, and print what it
-measured.
+window), time the prefetch thread on ResNet-50, serve a fleet of BERT-base
+engines started by the serving CLI behind its HTTP gateway (heartbeats,
+fleet metrics, merged traces, a live rollout, a killed engine) and a
+generative engine streaming by SSE, and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -73,15 +75,38 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    then the same f32 BERT-base behind a queue (`phase_cluster_serving`):
    the port's `ClusterServing` (pipelined, batch 32) over a `MemoryBroker`,
    the port's TCP broker server and its RESP2 `MiniRedisServer` on
-   127.0.0.1:0, records of 512 int64 ids in the b64 codec; 50 requests
-   with one in flight over each broker (p50 / p99), a malformed record
+   127.0.0.1:0, records of 512 int64 ids in the b64 codec; 25 requests
+   with one in flight over the memory and TCP brokers and 50 over RESP2
+   (p50 / p99), a malformed record
    among good ones in one burst ("NaN", its batch-mates answered), 8
    closed-loop client threads on their own RESP2 connections, 400
    requests (records/s, p50 / p99, the dispatched batch sizes, the card's
    busy share in a profiled window); every answer against the direct
    forward of its row (5e-4, same argmax), 12 flash launches a dispatched
    forward, no kernel built after warmup, each `stop()` under 10 s, every
-   record answered once and the thread count back where it began;
+   record answered once and the thread count back where it began; then
+   the fleet (`phase_fleet_serving`), as a user starts it: a `cli
+   gateway` and two `cli start` engines of the same BERT-base in
+   processes of their own over the port's `MiniRedisServer`, heartbeats
+   every 0.5 s, fleet metrics, every request traced, rollout from a
+   `CheckpointManager` run dir: 50 `POST /predict` with one in flight
+   through the gateway (p50 / p99, each answer against the direct
+   forward), `/healthz` with two engines alive, the fleet `/metrics`
+   summing `serving_records_total` to the requests sent, a merged
+   `/trace/<request_id>` with the gateway's and an engine's spans; a
+   second version published while a client keeps sending, converged one
+   engine at a time (every answer v1's or v2's, v2's after convergence,
+   both heartbeats on v2; seconds to converge); one engine SIGKILLed
+   holding records (the other frozen while the burst lands), every
+   request answered by the survivor's claim sweep, `/healthz` down to
+   one engine after the TTL; the survivor's flash launches 12 a forward
+   (its dispatches and two a swap); the engine built in this process as
+   `cmd_start` builds it under `leak_check` (12 flash launches a
+   dispatched forward, no build, `device_memory_snapshot` against the
+   allocator); a generative `cli start` (TinyDecoder at GPT-2 small's
+   widths) streaming 8 requests by SSE, its tokens equal to an
+   in-process `DecodeServing`'s, 12 decode launches a step in both, its
+   heartbeat row; every child out with code 0 on SIGTERM;
 8. training: the same BERT-base (dropout 0.1 everywhere) through
    `Estimator.from_keras(..., optimizer=fused_adam(...)).fit(...,
    mixed_precision=True, fused_optimizer=True)` at seq 512, batch 32:
@@ -1414,7 +1439,10 @@ def random_attention_inputs(shape, dtype, masked: bool, gen):
 
 # the Cluster Serving phase: BERT-base behind the port's RESP2 server
 CS_BATCH = 32               # the engine's batch_size and the model's max
-CS_SINGLE = 50              # requests with one in flight, per broker
+# requests with one in flight, per broker: RESP2 is the cell's wire; the
+# memory and TCP legs were cut from 50 to 25 to leave time for the fleet
+# phase
+CS_SINGLE = {"memory": 25, "tcp": 25, "redis": 50}
 CS_CLIENTS = 8              # closed-loop client threads, one request each
 CS_REQUESTS = 400           # closed-loop requests in all
 CS_ROWS = 64                # distinct id rows the requests cycle through
@@ -1465,8 +1493,8 @@ def _engine_checks(name, engine, sent: int, reset_dispatches: int) -> dict:
             "dispatches": engine.dispatch_timer.count + reset_dispatches}
 
 
-def _single_in_flight(url, broker, rows, n_rows):
-    """CS_SINGLE requests through `InputQueue.predict`, one in flight, on a
+def _single_in_flight(url, broker, rows, n_rows, n):
+    """`n` requests through `InputQueue.predict`, one in flight, on a
     connection of this thread's own (a `TCPBroker` keeps one socket per
     thread, closed when the thread ends): (latencies ms, answers)."""
     import threading
@@ -1477,7 +1505,7 @@ def _single_in_flight(url, broker, rows, n_rows):
         br = broker if url is None else connect_broker(url)
         try:
             q = InputQueue(br)
-            for k in range(CS_SINGLE):
+            for k in range(n):
                 t1 = time.perf_counter()
                 got.append(q.predict(rows[k % n_rows], timeout_s=60))
                 lat.append((time.perf_counter() - t1) * 1e3)
@@ -1554,8 +1582,9 @@ def _busy_share(prof, wall_s: float) -> float:
 
 def phase_cluster_serving(card: str, seed: int):
     """BERT-base (f32, TF32 off, seq 512, `use_flash=True`) served by the
-    port's `ClusterServing` from a queue: 50 requests with one in flight
-    over each of the memory, TCP and RESP2 brokers, a poison record among
+    port's `ClusterServing` from a queue: 25 requests with one in flight
+    over each of the memory and TCP brokers and 50 over RESP2, a poison
+    record among
     good ones, then 8 closed-loop clients on their own RESP2 connections
     to the port's `MiniRedisServer`, with a profiled window. Each answer
     is held against the direct forward of its row."""
@@ -1604,8 +1633,9 @@ def phase_cluster_serving(card: str, seed: int):
         engine = ClusterServing(im, broker=broker, batch_size=CS_BATCH)
         engine.start()
         try:
-            lat, got = _single_in_flight(url, engine.broker, rows, CS_ROWS)
-            sent = CS_SINGLE
+            lat, got = _single_in_flight(url, engine.broker, rows, CS_ROWS,
+                                         CS_SINGLE[name])
+            sent = CS_SINGLE[name]
             if name == "redis":
                 # a malformed b64 payload among good records, in one burst
                 good = [(STREAM, {"uri": f"mate{i}", "data": {
@@ -1655,7 +1685,8 @@ def phase_cluster_serving(card: str, seed: int):
                     "closed loop", [y for y, _ in cl_got],
                     [r for _, r in cl_got], want, tol)
             errs[name] = _answers(f"{name} single", got,
-                                  [k % CS_ROWS for k in range(CS_SINGLE)],
+                                  [k % CS_ROWS
+                                   for k in range(CS_SINGLE[name])],
                                   want, tol)
         finally:
             stops[name] = _stop_timed(engine)
@@ -1716,6 +1747,765 @@ def phase_cluster_serving(card: str, seed: int):
     del im, model
     torch.cuda.empty_cache()
     return {"counts": counts}
+
+
+FS_ROWS = 32                # distinct id rows (each held against v1 and v2)
+FS_SINGLE = 50              # gateway requests with one in flight
+FS_BURST = 24               # requests in flight when an engine is killed
+FS_INPROC = 8               # HTTP requests in the in-process leg
+FS_TTL_S = 3.0              # engine_ttl_s; heartbeats every 0.5 s
+FS_CLAIM_IDLE_S = 2.0       # a dead engine's records are claimable after
+FS_START_S = 300.0          # children up and converged on v1 within this
+FS_STOP_S = 30.0            # a child exits on SIGTERM within this
+FS_LEAK_TOL = 64 << 20      # a few cuBLAS workspaces; BERT-base is 438 MB
+FS_GEN = dict(slots=8, max_kv_len=256, max_new_tokens=32)
+FS_GEN_REQUESTS = 8
+FS_STREAM = "serving_stream"
+
+
+class _Child:
+    """One `python -m analytics_zoo_tpu_torch.serving.cli ...` process,
+    its output (stdout and stderr) collected on a daemon thread."""
+
+    def __init__(self, name, args):
+        import threading
+        self.name = name
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.cli",
+             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name=f"fleet-child-{name}")
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def find(self, prefix):
+        return next((ln for ln in list(self.lines)
+                     if ln.startswith(prefix)), None)
+
+    def json_lines(self, key):
+        out = []
+        for ln in list(self.lines):
+            if ln.startswith("{") and f'"{key}"' in ln:
+                try:
+                    out.append(json.loads(ln))
+                except ValueError:
+                    pass
+        return out
+
+    def wait_line(self, prefix, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            line = self.find(prefix)
+            if line is not None:
+                return line
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise SystemExit(f"chip_smoke: {self.name} printed no {prefix!r} "
+                         f"(exit {self.proc.poll()}): {self.lines[-30:]}")
+
+    def terminate(self, timeout_s=FS_STOP_S):
+        """SIGTERM, then (exit code, seconds to exit); a child still up
+        after `timeout_s` is killed and reads (None, timeout_s)."""
+        import signal
+        t0 = time.perf_counter()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            code = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+            code = None
+        self._reader.join(timeout=10)
+        return code, time.perf_counter() - t0
+
+
+def _http_json(url, body=None, timeout=60):
+    """(status, parsed body) of one request; an HTTP error's body too."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, json.loads(e.read())
+        except ValueError:
+            return e.code, None
+
+
+def _http_text(url, timeout=30):
+    import urllib.request
+    req = urllib.request.Request(url, headers={"Accept": "text/plain"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _wait_for(pred, timeout_s, what, interval=0.1):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(interval)
+    raise SystemExit(f"chip_smoke: timed out waiting for {what}")
+
+
+def _predict(base, row):
+    """One `POST /predict` of one id row: (ms, status, logits or None,
+    request id or None)."""
+    t0 = time.perf_counter()
+    code, body = _http_json(base + "/predict",
+                            {"instances": [row.tolist()]})
+    ms = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        return ms, code, None, None
+    y = np.asarray(body["predictions"][0], np.float32)
+    rid = (body.get("request_ids") or [None])[0]
+    return ms, code, y, rid
+
+
+def _check_answer(name, y, want, tol):
+    """An answer against the direct forward of its row: finite, within
+    `tol`, the same argmax; its error."""
+    if y is None or y.shape != want.shape or not np.isfinite(y).all():
+        raise SystemExit(f"chip_smoke: {name}: answered {y!r}")
+    err = float(np.abs(y - want).max())
+    if err > tol or int(np.argmax(y)) != int(np.argmax(want)):
+        raise SystemExit(f"chip_smoke: {name}: error {err} (tol {tol}) or "
+                         "argmax differs")
+    return err
+
+
+def _fleet_records(text, outcome="served"):
+    """serving_records_total{outcome} from a fleet Prometheus scrape: the
+    scope="fleet" rollup and the sum of the per-engine series."""
+    fleet, engines = 0.0, 0.0
+    for line in text.splitlines():
+        if not line.startswith("serving_records_total{"):
+            continue
+        labels, _, value = line.rpartition(" ")
+        if f'outcome="{outcome}"' not in labels:
+            continue
+        if 'scope="fleet"' in labels:
+            fleet += float(value)
+        elif 'engine="' in labels:
+            engines += float(value)
+    return fleet, engines
+
+
+def _bert_config(path, model_dir, url, rollout_dir, cfg):
+    """The engines' serving config: the BERT-base classifier by class, its
+    weights at `<model_dir>/weights`, the fleet plane on, rollout from
+    `rollout_dir`."""
+    conf = "".join(f"    {k}: {v}\n" for k, v in cfg.items())
+    with open(path, "w") as fh:
+        fh.write(
+            "model:\n  class: BERTClassifier\n"
+            f"  path: {model_dir}\n  config:\n"
+            f"    num_classes: {NUM_CLASSES}\n    use_flash: true\n{conf}"
+            f"broker: {url}\n"
+            "params:\n"
+            f"  batch_size: {CS_BATCH}\n"
+            f"  warmup_shapes: \"{cfg['seq_len']}\"\n"
+            "  warmup_dtype: int64\n"
+            "  heartbeat_interval_s: 0.5\n"
+            f"  engine_ttl_s: {FS_TTL_S}\n"
+            f"  claim_min_idle_s: {FS_CLAIM_IDLE_S}\n"
+            "  claim_interval_s: 0.5\n"
+            "  trace_sample: 1.0\n"
+            "  trace_export_interval_s: 0.5\n"
+            "  fleet_metrics_interval_s: 0.5\n"
+            "  rollout:\n"
+            f"    model_dir: {rollout_dir}\n"
+            "    poll_interval_s: 0.5\n")
+
+
+def _converged(base, version, n_engines):
+    """The gateway's rollout status once every alive engine serves
+    `version` and the controller is idle on it; else None."""
+    code, st = _http_json(base + "/rollout/status")
+    if code != 200:
+        return None
+    versions = st.get("fleet_versions") or {}
+    if st["state"] == "idle" and st["active_version"] == version and \
+            len(versions) == n_engines and \
+            all(v == version for v in versions.values()):
+        return st
+    return None
+
+
+def _fleet_alive(base):
+    code, h = _http_json(base + "/healthz")
+    return (h or {}).get("fleet", {}).get("alive") if h else None
+
+
+def _fleet_claims(base):
+    """serving_claimed_records_total's scope="fleet" rollup."""
+    return sum(float(ln.rpartition(" ")[2])
+               for ln in _http_text(base + "/metrics").splitlines()
+               if ln.startswith("serving_claimed_records_total{")
+               and 'scope="fleet"' in ln)
+
+
+def _beat_rows(url):
+    from analytics_zoo_tpu_torch.serving.broker import connect_broker
+    from analytics_zoo_tpu_torch.serving.fleet import engines_key
+    br = connect_broker(url)
+    try:
+        return [json.loads(v) for v in
+                br.hgetall(engines_key(FS_STREAM)).values()]
+    finally:
+        br.close()
+
+
+def _gen_config(path, url):
+    conf = "".join(f"    {k}: {v}\n" for k, v in GEN_CFG.items())
+    gen = "".join(f"    {k}: {v}\n" for k, v in FS_GEN.items())
+    with open(path, "w") as fh:
+        fh.write("model:\n  class: TinyDecoder\n  config:\n" + conf
+                 + f"broker: {url}\nhttp_port: 0\nparams:\n"
+                 "  heartbeat_interval_s: 0.5\n"
+                 f"  engine_ttl_s: {FS_TTL_S}\n"
+                 "  generative:\n" + gen)
+
+
+def _sse_tokens(base, prompt, max_new):
+    """One `POST /predict?stream=1`: (token frames seen, final tokens)."""
+    import urllib.request
+    body = json.dumps({"prompt": prompt.tolist(),
+                       "max_new": int(max_new)}).encode()
+    req = urllib.request.Request(base + "/predict?stream=1", data=body)
+    frames, done, event = 0, None, None
+    with urllib.request.urlopen(req, timeout=120) as r:
+        for raw in r:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                payload = json.loads(line[len("data: "):])
+                if event == "done":
+                    done = payload
+                elif event == "error":
+                    raise SystemExit(f"chip_smoke: SSE error {payload}")
+                else:
+                    frames += 1
+                event = None
+    if done is None or "tokens" not in done:
+        raise SystemExit(f"chip_smoke: SSE stream ended without tokens: "
+                         f"{done!r}")
+    return frames, [int(t) for t in done["tokens"]]
+
+
+def _reference_tokens(prompts, max_new):
+    """The same prompts through an in-process `DecodeServing` on the same
+    weights (TinyDecoder's seed-0 `init_params`), one request at a time
+    as the SSE leg sends them: (tokens, decode-kernel launches, steps)."""
+    from analytics_zoo_tpu_torch.serving.decode import _pow2_ladder
+    dec = TinyDecoder(**GEN_CFG, device="cuda")
+    im = InferenceModel(device="cuda").load_generative(
+        dec.prefill_fn, dec.step_fn, dec.init_params())
+    kv_b = _pow2_ladder(8, FS_GEN["max_kv_len"])
+    pr_b = _pow2_ladder(4, max(4, FS_GEN["max_kv_len"] // 2))
+    im.warmup_generative(dec.init_kv, slots=FS_GEN["slots"],
+                         max_kv_len=FS_GEN["max_kv_len"],
+                         prompt_buckets=pr_b, kv_buckets=kv_b)
+    broker = MemoryBroker()
+    engine = DecodeServing(im, dec.init_kv, broker=broker,
+                           slots=FS_GEN["slots"],
+                           max_kv_len=FS_GEN["max_kv_len"],
+                           kv_buckets=kv_b, prompt_buckets=pr_b,
+                           max_new_default=FS_GEN["max_new_tokens"],
+                           registry=MetricsRegistry())
+    engine.start()
+    tokens = []
+    try:
+        LAUNCHES.reset()
+        inq, outq = InputQueue(broker), OutputQueue(broker)
+        for i, p in enumerate(prompts):
+            uri = inq.enqueue(uri=f"ref{i}", t=p, max_new=int(max_new))
+            got = None
+            deadline = time.monotonic() + 120
+            while got is None and time.monotonic() < deadline:
+                got = outq.query(uri, delete=True)
+                if got is None:
+                    time.sleep(0.002)
+            if got is None:
+                raise SystemExit("chip_smoke: reference decode timed out")
+            tokens.append([int(t) for t in np.asarray(got).reshape(-1)])
+        counts = LAUNCHES.snapshot()
+        steps = engine.stats["steps"]
+    finally:
+        engine.stop(drain=False)
+    del engine, im, dec
+    torch.cuda.empty_cache()
+    return tokens, counts, steps
+
+
+def _inprocess_leg(cfg_path, url, rows, want, tol, card):
+    """The engine built as `cmd_start` builds it (`ServingConfig.load`,
+    `build_model`, the warmup of every reachable bucket, `ClusterServing`,
+    `FrontEnd`), in this process, under `leak_check`: flash launches per
+    dispatched forward, no kernel built after warmup,
+    `device_memory_snapshot` against the allocator."""
+    import gc
+    from analytics_zoo_tpu_torch.observability import (
+        device_memory_snapshot, leak_check)
+    from analytics_zoo_tpu_torch.serving.broker import connect_broker
+    from analytics_zoo_tpu_torch.serving.config import ServingConfig
+    from analytics_zoo_tpu_torch.serving.http_frontend import FrontEnd
+    from analytics_zoo_tpu_torch.serving.server import ClusterServing
+    T = rows.shape[1]
+    with leak_check(tolerance_bytes=FS_LEAK_TOL) as lc:
+        cfg = ServingConfig.load(cfg_path)
+        cfg.engine_id = "inprocess"      # the fleet has stopped by now
+        # registries of their own: the process-wide one would keep the
+        # engine's gauge closures (and the model) past this leg
+        registry = MetricsRegistry()
+        broker = connect_broker(cfg.broker_url)
+        model = cfg.build_model(broker=broker)
+        cap = _next_bucket(cfg.batch_size, model.buckets)
+        model.warmup(np.zeros(T, np.int64),
+                     buckets=[b for b in model.buckets if b <= cap])
+        dispatched = []
+        predict_async = model.predict_async
+
+        def counted(x, valid_n=None):
+            dispatched.append(valid_n if valid_n is not None else len(x))
+            return predict_async(x, valid_n=valid_n)
+
+        model.predict_async = counted
+        builds = _build.build_events()
+        serving = ClusterServing(
+            model, broker, stream=cfg.stream, batch_size=cfg.batch_size,
+            batch_timeout_ms=cfg.batch_timeout_ms, engine_id=cfg.engine_id,
+            heartbeat_interval_s=cfg.heartbeat_interval_s,
+            claim_min_idle_s=cfg.claim_min_idle_s,
+            trace_sample=cfg.trace_sample,
+            trace_export_interval_s=cfg.trace_export_interval_s,
+            fleet_metrics_interval_s=cfg.fleet_metrics_interval_s,
+            registry=registry).start()
+        fe = FrontEnd(broker, None, host="127.0.0.1", port=0,
+                      fleet_stream=cfg.stream, engine_ttl_s=cfg.engine_ttl_s,
+                      trace_sample=cfg.trace_sample,
+                      registry=MetricsRegistry()).start()
+        fe._srv.serving = serving
+        base = f"http://127.0.0.1:{fe.port}"
+        try:
+            # -- the main path: every count is 0 just before -------------
+            LAUNCHES.reset()
+            errs = [_check_answer("in-process", _predict(base, rows[k])[2],
+                                  want[k], tol) for k in range(FS_INPROC)]
+            counts = LAUNCHES.snapshot()
+            # ---------------------------------------------------------------
+            builds_after = _build.build_events()
+            snap = device_memory_snapshot()
+            allocated = torch.cuda.memory_allocated(0)
+        finally:
+            fe.stop()
+            serving.stop()
+            broker.close()
+        forwards = len(dispatched)
+        del model, serving, fe, counted, predict_async, registry
+        gc.collect()
+    launches = counts.get(fa.KERNEL_NAME, 0)
+    live = snap["cuda:0"]["live_bytes"]
+    ok = (launches == BERT_BASE["n_block"] * forwards and forwards >= 1
+          and builds_after == builds and live == allocated
+          and snap["cuda:0"]["source"] == "memory_stats")
+    out = {"phase": "fleet_inprocess", "requests": FS_INPROC,
+           "forwards": forwards, "counts": counts,
+           "flash_per_forward": launches / max(forwards, 1),
+           "builds": builds, "builds_after": builds_after,
+           "snapshot_live_bytes": live, "memory_allocated": allocated,
+           "leak_grew_bytes": lc.grew, "leak_tol_bytes": FS_LEAK_TOL,
+           "max_abs_err": max(errs), "tol": tol, "ok": ok, "card": card}
+    emit(out)
+    if not ok:
+        raise SystemExit("chip_smoke: in-process fleet leg failed")
+    return counts
+
+
+def phase_fleet_serving(card: str, seed: int):
+    """The fleet plane, the HTTP front end and the serving CLI, as a user
+    runs them: a `cli gateway` and two `cli start` BERT-base engines
+    (f32, seq 512, flash forward) over the port's `MiniRedisServer`, with
+    heartbeats, fleet metrics, merged traces and a live rollout from a
+    `CheckpointManager` run dir; a SIGKILLed engine; the engine built in
+    this process as `cmd_start` builds it; a generative `cli start`
+    (TinyDecoder at GPT-2 small's widths) streaming SSE; SIGTERM to every
+    child."""
+    import shutil
+    import signal
+    import threading
+    from analytics_zoo_tpu_torch.learn.checkpoint import (
+        CheckpointManager, write_publish_marker)
+    from analytics_zoo_tpu_torch.serving.broker import connect_broker
+    from analytics_zoo_tpu_torch.serving.redis_server import MiniRedisServer
+    from analytics_zoo_tpu_torch.serving.server import GROUP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    threads0 = set(threading.enumerate())
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    emit({"phase": "fleet_setup", "compute_mode": mode, "card": card})
+    if "Exclusive_Process" in mode:
+        raise SystemExit("chip_smoke: the card is in Exclusive_Process "
+                         "compute mode; two engine processes cannot share "
+                         "it")
+    cfg, T = BERT_BASE, BERT_BASE["seq_len"]
+    tol = LOGIT_TOL["float32"]
+    tmp = tempfile.mkdtemp(prefix="fleet_smoke_")
+    children, codes = {}, {}
+    redis = MiniRedisServer().start()
+    redis_gen = None
+    try:
+        # -- setup: weights v1 (the model dir) and v2, the direct forwards
+        tree1 = random_classifier_tree(cfg, NUM_CLASSES, seed)
+        tree2 = random_classifier_tree(cfg, NUM_CLASSES, seed + 1)
+        model = BERTClassifier(NUM_CLASSES, use_flash=True, device="cuda",
+                               **cfg)
+        model.load_state_dict(convert.params_from_jax(tree1))
+        model_dir = os.path.join(tmp, "model")
+        os.makedirs(model_dir)
+        model.save_weights(os.path.join(model_dir, "weights"))
+        im = InferenceModel(max_batch=CS_BATCH).load_keras(model)
+        rows = np.random.default_rng(seed + 70).integers(
+            0, cfg["vocab"], (FS_ROWS, T), dtype=np.int64)
+        want1 = im.predict(rows)
+        im.swap_params(convert.params_from_jax(tree2))
+        want2 = im.predict(rows)
+        del im, model
+        torch.cuda.empty_cache()
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        mgr.save(1, tree1)
+        write_publish_marker(mgr.run_dir, 1)
+        cfg_path = os.path.join(tmp, "bert.yaml")
+        _bert_config(cfg_path, model_dir, redis.url, mgr.root, cfg)
+        t_setup = time.perf_counter() - t_phase
+
+        # -- the fleet: a gateway and two engines, as a user starts them --
+        children["gateway"] = _Child("gateway", [
+            "gateway", "--broker", redis.url, "--host", "127.0.0.1",
+            "--port", "0", "--engine-ttl", str(FS_TTL_S),
+            "--rollout-dir", mgr.root, "--rollout-interval", "0.5",
+            "--trace-sample", "1.0", "--engine-config", cfg_path])
+        for name in ("engine_a", "engine_b"):
+            children[name] = _Child(name, [
+                "start", "--config", cfg_path, "--engine-id", "auto"])
+        t_spawn = time.perf_counter()
+        port = children["gateway"].wait_line(
+            "fleet gateway on :", 120).split(":")[1].split()[0]
+        base = f"http://127.0.0.1:{port}"
+        _wait_for(lambda: _fleet_alive(base) == 2, FS_START_S,
+                  "two engines alive by heartbeat")
+        first_ms, code, y, _ = _predict(base, rows[0])
+        t_first = time.perf_counter() - t_spawn
+        _check_answer("first answer", y, want1[0], tol)
+        _wait_for(lambda: _converged(base, 1, 2), FS_START_S,
+                  "the fleet on version 1")
+        eids = {}
+        for name in ("engine_a", "engine_b"):
+            line = children[name].wait_line("engine id ", 60)
+            eids[name] = line.split()[2]
+        sent = 1
+
+        # -- leg 1: serving through the gateway, one in flight ------------
+        lat, errs, rids = [], [], []
+        for k in range(FS_SINGLE):
+            ms, code, y, rid = _predict(base, rows[k % FS_ROWS])
+            errs.append(_check_answer("gateway", y, want1[k % FS_ROWS],
+                                      tol))
+            lat.append(ms)
+            rids.append(rid)
+        sent += FS_SINGLE
+        alive = _fleet_alive(base)
+        fleet_served = _wait_for(
+            lambda: (lambda f: f if f[0] == sent and f[1] == sent else None)(
+                _fleet_records(_http_text(base + "/metrics"))), 30,
+            "the fleet served rollup")
+
+        def merged_trace():
+            code, doc = _http_json(base + f"/trace/{rids[-1]}")
+            if code != 200:
+                return None
+            engines = set(doc["engines"])
+            if not any(e.startswith("gateway") for e in engines) or \
+                    not engines & set(eids.values()):
+                return None
+            return doc
+        doc = _wait_for(merged_trace, 30, "a merged trace")
+        gw_name = next(e for e in doc["engines"] if e.startswith("gateway"))
+        names = sorted({e["name"] for e in doc["traceEvents"]})
+        # where a request's time goes, from the merged traces of the last
+        # ten: the medians of the critical path's parts and of coverage
+        summaries = [b for c, b in (_http_json(
+            base + f"/trace/{rid}/summary") for rid in rids[-10:])
+            if c == 200 and any(e.startswith("gateway")
+                                for e in b["engines"])]
+        path_ms = {k: float(np.median([sm["critical_path_ms"][k]
+                                       for sm in summaries]))
+                   for k in summaries[0]["critical_path_ms"]} \
+            if summaries else None
+        emit({"phase": "fleet_gateway", "requests": FS_SINGLE,
+              "in_flight": 1, "p50_ms": float(np.percentile(lat, 50)),
+              "p99_ms": float(np.percentile(lat, 99)),
+              "mean_ms": float(np.mean(lat)),
+              "start_to_first_answer_s": t_first,
+              "first_answer_ms": first_ms, "engines_alive": alive,
+              "fleet_served": fleet_served[0],
+              "engines_served_sum": fleet_served[1], "sent": sent,
+              "trace_engines": doc["engines"], "trace_gateway": gw_name,
+              "trace_span_names": names, "traces_summarised": len(summaries),
+              "trace_e2e_ms_median": float(np.median(
+                  [sm["e2e_ms"] for sm in summaries])) if summaries else None,
+              "critical_path_ms_median": path_ms,
+              "trace_coverage_median": float(np.median(
+                  [sm["coverage"] for sm in summaries])) if summaries
+              else None, "max_abs_err": max(errs),
+              "tol": tol, "setup_s": t_setup, "card": card})
+        if alive != 2 or not {"gateway_request", "wire", "decode",
+                              "writeback"} <= set(names):
+            raise SystemExit("chip_smoke: gateway leg checks failed")
+
+        # -- leg 2: a live rollout to v2 with traffic flowing --------------
+        flow, stop_flow, flow_err = [], threading.Event(), []
+
+        def client():
+            k = 0
+            try:
+                while not stop_flow.is_set():
+                    r = k % FS_ROWS
+                    t_sent = time.perf_counter()
+                    _, code, y, _ = _predict(base, rows[r])
+                    flow.append((r, t_sent, code, y))
+                    k += 1
+            except Exception as e:  # noqa: BLE001 — raised below
+                flow_err.append(repr(e))
+
+        flow_thread = threading.Thread(target=client, name="fleet-flow")
+        flow_thread.start()
+        try:
+            time.sleep(0.5)
+            t_pub = time.perf_counter()
+            mgr.save(2, tree2)
+            write_publish_marker(mgr.run_dir, 2)
+            t_published = time.perf_counter()
+            status = _wait_for(lambda: _converged(base, 2, 2), 240,
+                               "the fleet on version 2")
+            t_conv = time.perf_counter()
+            time.sleep(1.0)
+        finally:
+            stop_flow.set()
+            flow_thread.join(timeout=120)
+        if flow_err or flow_thread.is_alive():
+            raise SystemExit(f"chip_smoke: rollout client failed: "
+                             f"{flow_err[:1]}")
+        h = _http_json(base + "/healthz")[1]
+        beat_versions = sorted(row.get("model_version") for row in
+                               h["fleet"]["engines"].values()
+                               if row.get("alive"))
+        v1_n = v2_n = 0
+        roll_err = 0.0
+        for r, t_sent, code, y in flow:
+            if code != 200 or y is None or not np.isfinite(y).all():
+                raise SystemExit(f"chip_smoke: rollout lost a request "
+                                 f"({code}, {y!r})")
+            e1 = float(np.abs(y - want1[r]).max())
+            e2 = float(np.abs(y - want2[r]).max())
+            if t_sent >= t_conv:
+                e1 = math.inf          # after convergence: v2 only
+            if min(e1, e2) > tol:
+                raise SystemExit(f"chip_smoke: a rollout answer matched "
+                                 f"neither version ({e1}, {e2})")
+            v1_n += e1 <= e2
+            v2_n += e2 < e1
+            roll_err = max(roll_err, min(e1, e2))
+        sent += len(flow)
+        emit({"phase": "fleet_rollout", "requests": len(flow),
+              "answered_v1": int(v1_n), "answered_v2": int(v2_n),
+              "publish_s": t_published - t_pub,
+              "convergence_s": t_conv - t_pub,
+              "convergence_after_publish_s": t_conv - t_published,
+              "heartbeat_versions": beat_versions,
+              "status": {k: status[k] for k in (
+                  "state", "active_version", "fleet_versions",
+                  "quarantined")},
+              "max_abs_err": roll_err, "tol": tol, "card": card})
+        if beat_versions != [2, 2] or not v2_n:
+            raise SystemExit("chip_smoke: rollout checks failed")
+
+        # -- leg 3: SIGKILL an engine with requests in flight --------------
+        # engine_b is frozen while the burst lands, so engine_a reads it;
+        # engine_a is killed as soon as it holds records, then engine_b
+        # thaws and its claim sweep answers them
+        b_pid = children["engine_b"].proc.pid
+        poll = connect_broker(redis.url)
+        os.kill(b_pid, signal.SIGSTOP)
+        burst, burst_threads = {}, []
+        try:
+            pending0 = poll.pending_count(FS_STREAM, GROUP)
+
+            def one(k):
+                burst[k] = _predict(base, rows[k % FS_ROWS])
+
+            for k in range(FS_BURST):
+                burst_threads.append(threading.Thread(
+                    target=one, args=(k,), name=f"fleet-burst-{k}"))
+                burst_threads[-1].start()
+            _wait_for(lambda: poll.pending_count(FS_STREAM, GROUP)
+                      > pending0, 30, "engine_a holding records",
+                      interval=0.002)
+            children["engine_a"].proc.kill()
+            t_kill = time.perf_counter()
+            held = poll.pending_count(FS_STREAM, GROUP) - pending0
+        finally:
+            os.kill(b_pid, signal.SIGCONT)
+            poll.close()
+        for t in burst_threads:
+            t.join(timeout=120)
+        t_last = time.perf_counter()
+        kill_err = max(_check_answer("after kill", burst[k][2],
+                                     want2[k % FS_ROWS], tol)
+                       for k in range(FS_BURST))
+        sent += FS_BURST
+        t_one = _wait_for(lambda: _fleet_alive(base) == 1 and
+                          time.perf_counter(), FS_TTL_S * 10,
+                          "the gateway dropping the killed engine")
+        claims = _wait_for(lambda: _fleet_claims(base), 15,
+                           "a record claimed from the killed engine")
+        emit({"phase": "fleet_kill", "burst": FS_BURST,
+              "pending_at_kill": held, "claimed_by_peer": claims,
+              "kill_to_last_answer_s": t_last - t_kill,
+              "kill_to_one_engine_s": t_one - t_kill,
+              "engine_ttl_s": FS_TTL_S, "claim_min_idle_s": FS_CLAIM_IDLE_S,
+              "exit_code_killed": children["engine_a"].proc.wait(timeout=30),
+              "max_abs_err": kill_err, "tol": tol, "card": card})
+
+        # -- the BERT fleet stops on SIGTERM --------------------------------
+        for name in ("engine_b", "gateway"):
+            codes[name] = children[name].terminate()
+        # the surviving engine's own counts, from its output: its flash
+        # launches between "started" and "stopped" are 12 a forward, the
+        # forwards being its dispatches and the two a rollout swap runs
+        # (the old version's and the canary's answer to the golden input)
+        served_b = children["engine_b"].json_lines("stages")
+        kc_b = children["engine_b"].json_lines("kernel_counts")
+        swaps_b = sum("now serves model version" in ln
+                      for ln in children["engine_b"].lines)
+        child_launch = None
+        if served_b and len(kc_b) == 2:
+            child_launch = {
+                "dispatches": served_b[-1]["stages"]["dispatch"]["count"],
+                "swaps": swaps_b,
+                "flash_launches": kc_b[1]["launches"].get(fa.KERNEL_NAME, 0)
+                - kc_b[0]["launches"].get(fa.KERNEL_NAME, 0),
+                "builds_start": kc_b[0]["builds"],
+                "builds_stop": kc_b[1]["builds"]}
+        emit({"phase": "fleet_engine_b_counts", "counts": child_launch,
+              "card": card})
+        if child_launch is None or child_launch["flash_launches"] != \
+                BERT_BASE["n_block"] * (child_launch["dispatches"]
+                                        + 2 * swaps_b) or \
+                child_launch["builds_start"]["compiles"] != \
+                child_launch["builds_stop"]["compiles"]:
+            raise SystemExit("chip_smoke: the surviving engine's launch "
+                             "counts do not show the flash kernel path")
+
+        # -- leg 4: the engine in this process, launches and memory --------
+        inproc_counts = _inprocess_leg(cfg_path, redis.url, rows, want1, tol,
+                                       card)
+
+        # -- leg 5: generative through the CLI, SSE ------------------------
+        redis_gen = MiniRedisServer().start()
+        gen_path = os.path.join(tmp, "gen.yaml")
+        _gen_config(gen_path, redis_gen.url)
+        rs = np.random.default_rng(seed + 80)
+        prompts = [rs.integers(0, GEN_CFG["vocab"], int(n), dtype=np.int64)
+                   for n in rs.integers(8, 100, FS_GEN_REQUESTS)]
+        max_new = FS_GEN["max_new_tokens"]
+        children["generative"] = _Child("generative", [
+            "start", "--config", gen_path, "--engine-id", "auto"])
+        t_gen = time.perf_counter()
+        gport = children["generative"].wait_line(
+            "http frontend on :", FS_START_S).split(":")[1].split()[0]
+        children["generative"].wait_line("cluster serving started",
+                                         FS_START_S)
+        t_started = time.perf_counter()
+        gbase = f"http://127.0.0.1:{gport}"
+        beat = _wait_for(lambda: _beat_rows(redis_gen.url), 30,
+                         "the decode engine's heartbeat row")
+        sse, frames = [], 0
+        t_sse = time.perf_counter()
+        for p in prompts:
+            n, toks = _sse_tokens(gbase, p, max_new)
+            frames += n
+            sse.append(toks)
+        sse_s = time.perf_counter() - t_sse
+        codes["generative"] = children["generative"].terminate()
+        kc_g = children["generative"].json_lines("kernel_counts")
+        stats_g = children["generative"].json_lines("steps")
+        ref, gen_counts, ref_steps = _reference_tokens(prompts, max_new)
+        child_steps = stats_g[-1]["steps"] if stats_g else None
+        child_dec = (kc_g[1]["launches"].get(da.KERNEL_NAME, 0)
+                     - kc_g[0]["launches"].get(da.KERNEL_NAME, 0)) \
+            if len(kc_g) == 2 else None
+        gen_ok = (sse == ref and beat and beat[0].get("role") == "decode"
+                  and gen_counts.get(da.KERNEL_NAME, 0)
+                  == GEN_CFG["n_layers"] * ref_steps
+                  and child_steps is not None
+                  and child_dec == GEN_CFG["n_layers"] * child_steps)
+        emit({"phase": "fleet_generative", "requests": FS_GEN_REQUESTS,
+              "max_new": max_new, "tokens_equal_in_process": sse == ref,
+              "sse_token_frames": frames, "sse_seconds": sse_s,
+              "start_to_serving_s": t_started - t_gen,
+              "heartbeat_row": beat[0], "launches_in_process": gen_counts,
+              "steps_in_process": ref_steps,
+              "child_decode_launches": child_dec,
+              "child_steps": child_steps, "ok": bool(gen_ok),
+              "card": card})
+        if not gen_ok:
+            raise SystemExit("chip_smoke: generative CLI leg failed")
+    finally:
+        for name, child in children.items():
+            if name not in codes and name != "engine_a":
+                codes[name] = child.terminate()
+            elif name == "engine_a" and child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(timeout=30)
+        redis.stop()
+        if redis_gen is not None:
+            redis_gen.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # -- leg 6: every child exited 0 on SIGTERM, nothing left behind --------
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - threads0 and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(t.name for t in set(threading.enumerate()) - threads0
+                  if not t.daemon)
+    alive = [n for n, c in children.items() if c.proc.poll() is None]
+    ok = (all(code == 0 and s < FS_STOP_S for code, s in codes.values())
+          and not left and not alive)
+    emit({"phase": "fleet_shutdown",
+          "exit_codes": {n: c for n, (c, _) in codes.items()},
+          "exit_s": {n: s for n, (_, s) in codes.items()},
+          "stop_bound_s": FS_STOP_S, "threads_left": left,
+          "children_alive": alive, "ok": ok,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if not ok:
+        raise SystemExit("chip_smoke: fleet shutdown checks failed")
+    return {"counts": inproc_counts, "gen_counts": gen_counts}
 
 
 def phase_backward(card: str, seed: int):
@@ -6288,6 +7078,7 @@ def main(argv=None) -> int:
     serve_counts = phase_serving(card, args.seed)
     int8 = phase_int8_serving_lifecycle(card, args.seed)
     cluster = phase_cluster_serving(card, args.seed)
+    fleet = phase_fleet_serving(card, args.seed)
     train_counts = phase_training(card, args.seed)
     segs = phase_segment_adam(card, args.seed)
     ncf_counts = phase_ncf(card, args.seed)
@@ -6343,7 +7134,11 @@ def main(argv=None) -> int:
     entries[fa.KERNEL_NAME].update(
         launches_ner_serving=ner["serve_counts"].get(fa.KERNEL_NAME, 0),
         launches_int8_serving=int8["counts"].get(fa.KERNEL_NAME, 0),
-        launches_cluster_serving=cluster["counts"].get(fa.KERNEL_NAME, 0))
+        launches_cluster_serving=cluster["counts"].get(fa.KERNEL_NAME, 0),
+        launches_fleet_serving=fleet["counts"].get(fa.KERNEL_NAME, 0))
+    entries[da.KERNEL_NAME].update(
+        launches_fleet_generative=fleet["gen_counts"].get(da.KERNEL_NAME,
+                                                          0))
     entries[fad.KERNEL_NAME].update(
         launches_prefetch_ab=prefetch["counts"].get(fad.KERNEL_NAME, 0))
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)

@@ -13,6 +13,7 @@ a `finally`.
 
 import base64
 import io
+import json
 import logging
 import threading
 import time
@@ -611,21 +612,62 @@ def test_slo_auto_evaluator_and_engine_drive(m, caplog):
 
 
 # ---------------------------------------------------------------------------
-# the port's own refusals: the fleet plane waits for queue 1, item 4b
+# the fleet plane's knobs, each doing its work (once refused by the port)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("kw", [
-    dict(engine_id="e1", heartbeat_interval_s=1.0,
-         fleet_metrics_interval_s=0),
-    dict(engine_id="e1", heartbeat_interval_s=0,
-         fleet_metrics_interval_s=1.0),
-    dict(engine_id="e1"),
-    dict(trace_sample=0.5)])
-def test_fleet_plane_knobs_raise_naming_the_queue(kw):
-    before = set(threading.enumerate())
-    im = InferenceModel(device="cpu").load_fn(lambda p, x: x, nn.Module())
-    with pytest.raises(NotImplementedError, match="queue 1, item 4b"):
-        tserver.ClusterServing(im, MemoryBroker(), **kw)
-    assert not set(threading.enumerate()) - before
+FLEET_KNOBS = {
+    "heartbeat": dict(engine_id="e1", heartbeat_interval_s=0.05,
+                      fleet_metrics_interval_s=0),
+    "fleet_metrics": dict(engine_id="e1", heartbeat_interval_s=0,
+                          fleet_metrics_interval_s=0.05),
+    "defaults": dict(engine_id="e1"),
+    "trace_sample": dict(trace_sample=0.5, trace_export_interval_s=0.05)}
+
+
+@pytest.mark.parametrize("knobs", sorted(FLEET_KNOBS))
+def test_fleet_plane_knobs_do_their_work(m, knobs):
+    """Each knob starts its publisher on a broker connection of its own
+    and the broker shows its work: a heartbeat row in `engines:<stream>`,
+    a registry blob in `metrics:<stream>`, sampled spans in
+    `traces:<stream>`. A clean stop deregisters the heartbeat row."""
+    kw = FLEET_KNOBS[knobs]
+    im = m.fn_model("double")
+    br = m.broker.MemoryBroker()
+    cs = m.server.ClusterServing(im, br, registry=m.registry.MetricsRegistry(),
+                                 batch_timeout_ms=2, **kw).start()
+    beats = f"engines:{STREAM}"
+    blobs = f"metrics:{STREAM}"
+    traces = f"traces:{STREAM}"
+    try:
+        # a uri the 0.5 head sample keeps (the sampler is deterministic)
+        uri = next(f"u{i}" for i in range(64)
+                   if m.trace_plane.should_sample(f"u{i}", 0.5))
+        q = m.client.InputQueue(br, trace_sample=kw.get("trace_sample",
+                                                        0.0))
+        q.enqueue(uri=uri, t=np.ones(2, np.float32))
+        assert wait_results(m, br, [uri], timeout_s=20)
+        if cs.heartbeat is not None:
+            wait_for(lambda: br.hget(beats, "e1") is not None,
+                     msg="heartbeat row")
+            assert json.loads(br.hget(beats, "e1"))["ready"] is True
+        if kw.get("fleet_metrics_interval_s"):
+            wait_for(lambda: br.hget(blobs, "e1") is not None,
+                     msg="registry blob")
+            assert "serving_records_total" in json.loads(
+                br.hget(blobs, "e1"))["counters"]
+        if cs.trace_exporter is not None:
+            wait_for(lambda: any(
+                sp.get("id") == uri or uri in sp.get("ids", ())
+                for blob in br.hgetall(traces).values()
+                for sp in json.loads(blob)["spans"]),
+                msg="sampled spans")
+    finally:
+        cs.stop()
+    assert (cs.heartbeat is not None) == (knobs in ("heartbeat",
+                                                    "defaults"))
+    assert (cs.fleet_metrics is not None) == (knobs in ("fleet_metrics",
+                                                        "defaults"))
+    assert (cs.trace_exporter is not None) == (knobs == "trace_sample")
+    assert br.hget(beats, "e1") is None
 
 
 def test_engine_id_without_the_fleet_plane_names_the_consumer():

@@ -8,9 +8,10 @@ own tests: tests/test_serving_fleet.py (`TestEngineClaimSweep`,
 `TestGatewayLeaderLease`), tests/test_serving_multidevice.py
 (`TestServingEngineMultiDevice`) and tests/test_fault_tolerance.py (the
 engine's outage and quarantine cases). Every case runs on both packages.
-The fleet's heartbeats are not in the port yet (ROADMAP.md queue 1, item
-4b), so engines with an `engine_id` run with both fleet intervals at 0 in
-both packages.
+Engines with an `engine_id` run with both fleet intervals at 0 (no
+heartbeat, no registry blob), so that the broker holds only what each case
+checks; `test_dead_peer_records_served_with_heartbeats_on` runs the claim
+sweep with the fleet plane on, beside a gateway's `FleetTracker`.
 """
 
 import json
@@ -72,6 +73,40 @@ def test_dead_peer_records_served_zero_loss(m):
     finally:
         s.stop()
     assert broker.pending_count(STREAM, m.server.GROUP) == 0
+
+
+def test_dead_peer_records_served_with_heartbeats_on(m):
+    """The claim sweep with the fleet plane on: the live engine beats
+    into `engines:<stream>` and publishes its registry while it adopts a
+    dead consumer's records, and a gateway's tracker sees it alive."""
+    broker = m.broker.MemoryBroker(redeliver_after_s=60.0)
+    inq = m.client.InputQueue(broker)
+    for i in range(6):
+        inq.enqueue(uri=f"h{i}", t=np.full(3, float(i), np.float32))
+    assert len(broker.read_group(STREAM, m.server.GROUP, "dead-engine", 6,
+                                 block_ms=50)) == 6
+    tracker = m.fleet.FleetTracker(broker, STREAM, ttl_s=5.0,
+                                   registry=m.registry.MetricsRegistry(),
+                                   poll_min_interval_s=0.0)
+    s = _engine(m, broker, engine_id="e-live", claim_min_idle_s=0.05,
+                claim_interval_s=0.05, heartbeat_interval_s=0.05,
+                fleet_metrics_interval_s=0.05).start()
+    try:
+        res = _hash_at_least(broker, 6)
+        assert sorted(res) == [f"h{i}" for i in range(6)]
+        wait_for(lambda: s.records_served == 6, msg="served count")
+        assert s.metrics()["claimed_records"] == 6
+        wait_for(lambda: tracker.alive_count() == 1, msg="alive by beat")
+        wait_for(lambda: tracker.poll(force=True)["e-live"].get(
+            "records_served") == 6, msg="served count in the beat")
+        assert tracker.poll(force=True)["e-live"]["ready"]
+        wait_for(lambda: broker.hget(f"metrics:{STREAM}", "e-live")
+                 is not None, msg="registry blob")
+    finally:
+        s.stop()
+        tracker.close()
+    assert broker.pending_count(STREAM, m.server.GROUP) == 0
+    assert tracker.poll(force=True) == {}
 
 
 def test_sweep_never_reclaims_own_inflight(m):

@@ -312,7 +312,11 @@ def test_port_never_imports_jax_or_the_jax_package():
             "observability/roofline.py", "utils/crc.py",
             "utils/tensorboard.py", "utils/roofline.py",
             "utils/tf_checkpoint.py", "observability/tracing.py",
-            "observability/slo.py", "serving/redis_server.py"} <= {
+            "observability/slo.py", "serving/redis_server.py",
+            "observability/memwatch.py", "serving/fleet.py",
+            "serving/fleet_metrics.py", "serving/trace_plane.py",
+            "serving/http_frontend.py", "serving/rollout.py",
+            "serving/config.py", "serving/cli.py"} <= {
         p.relative_to(PORT).as_posix() for p in _package_sources()}
     bad = [(str(p.relative_to(REPO)), root) for p in sources
            for root in _imported_roots(p) if root in _FORBIDDEN_ROOTS]

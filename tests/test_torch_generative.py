@@ -253,14 +253,32 @@ def test_entry_points_default_to_cuda():
         InferenceModel()
 
 
-def test_serving_plane_transports_wait_for_their_item():
-    # the transports are ported (tests/test_torch_serving_transports.py:
-    # connect_broker of port-0 servers); the fleet heartbeat still waits
-    # for ROADMAP.md queue 1, item 4b
-    im = InferenceModel(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        DecodeServing(im, tdec().init_kv, broker=MemoryBroker(),
-                      registry=MetricsRegistry(), heartbeat_interval_s=1.0)
+def test_decode_engine_heartbeat_row():
+    """`heartbeat_interval_s` starts the fleet's heartbeat publisher on the
+    decode engine (once refused by the port): a row with the JAX engine's
+    fields in `engines:<stream>`, deregistered by a clean stop."""
+    rows = {}
+    for name, (engine_cls, broker, dec, registry, im) in {
+            "jax": (JServing, JBroker(), jdec(), JRegistry(),
+                    JModel()),
+            "port": (DecodeServing, MemoryBroker(), tdec(),
+                     MetricsRegistry(),
+                     InferenceModel(device="cpu"))}.items():
+        eng = engine_cls(im, dec.init_kv, broker=broker, registry=registry,
+                         engine_id=f"dec-{name}", heartbeat_interval_s=0.05)
+        eng.start()
+        key = f"engines:{STREAM}"
+        try:
+            deadline = time.monotonic() + 20
+            while broker.hget(key, f"dec-{name}") is None and \
+                    time.monotonic() < deadline:
+                time.sleep(0.02)
+            rows[name] = json.loads(broker.hget(key, f"dec-{name}"))
+        finally:
+            eng.stop(drain=False)
+        assert broker.hget(key, f"dec-{name}") is None
+    assert rows["port"]["role"] == "decode" and rows["port"]["ready"]
+    assert sorted(rows["port"]) == sorted(rows["jax"])
 
 
 # ---------------------------------------------------------------------------
