@@ -24,21 +24,50 @@ active a region costs one list test.
 from __future__ import annotations
 
 import contextlib
+import re
 import threading
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Iterator, List
 
 
 class LaunchCounter:
     """Per-kernel launch counts (plain integers), safe to bump from the
-    serving threads."""
+    serving threads. A wrapper called while its thread captures a CUDA
+    graph (`capturing()`) launches nothing: its count goes to the capture's
+    record only. Each replay of the graph then adds the kernel nodes the
+    graph holds (`add_counts`, with what `compile_cache.graphs` reads from
+    the captured graph), so a replayed forward counts as an eager one."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = {}
+        self._local = threading.local()
 
     def add(self, name: str) -> None:
+        stack = getattr(self._local, "stack", None)
+        if stack:
+            for rec in stack:
+                rec[name] = rec.get(name, 0) + 1
+            return
+        self.add_counts({name: 1})
+
+    def add_counts(self, counts: Dict[str, int]) -> None:
         with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + 1
+            for name, n in counts.items():
+                self._counts[name] = self._counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def capturing(self) -> Iterator[Dict[str, int]]:
+        """The wrapper calls this thread makes inside the block, by name,
+        kept out of the counts (a capture launches nothing)."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        rec: Dict[str, int] = {}
+        stack.append(rec)
+        try:
+            yield rec
+        finally:
+            stack.remove(rec)
 
     def get(self, name: str) -> int:
         with self._lock:
@@ -51,6 +80,40 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._counts = {}
+
+
+# The CUDA symbol of each count's kernel (`csrc/*.cu`), as libcuda names
+# a captured graph's kernel nodes (mangled; the demangled form matches
+# too): one wrapper call launches one such kernel. The decode kernel's
+# second template argument is `paged`.
+KERNEL_SYMBOLS: Dict[str, "re.Pattern"] = {
+    name: re.compile(pattern) for name, pattern in {
+        "flash_attention_fwd": r"flash_fwd_(?:mma_)?kernel",
+        "flash_attention_bwd_dkv": r"flash_bwd_dkv_(?:mma_)?kernel",
+        "flash_attention_bwd_dq": r"flash_bwd_dq_(?:mma_)?kernel",
+        "flash_attention_keep_scale": r"keep_scale_kernel",
+        "dropout": r"dropout_kernel",
+        "fused_adam": r"fused_adam_multi_kernel",
+        "segment_adam": r"segment_adam_kernel",
+        "segment_sum": r"segment_sum_kernel",
+        "decode_attention":
+            r"decode_attention_kernel(?:I[^L]*Lb0E|<[^<>]*,\s*false>)",
+        "paged_decode_attention":
+            r"decode_attention_kernel(?:I[^L]*Lb1E|<[^<>]*,\s*true>)",
+    }.items()}
+
+
+def kernel_counts(symbols) -> Dict[str, int]:
+    """How many of `symbols` (kernel symbols, a graph's kernel nodes) each
+    count's kernel is; other kernels (PyTorch's, cuBLAS's) are not
+    counted."""
+    out: Dict[str, int] = {}
+    for sym in symbols:
+        for name, pattern in KERNEL_SYMBOLS.items():
+            if pattern.search(sym):
+                out[name] = out.get(name, 0) + 1
+                break
+    return out
 
 
 LAUNCHES = LaunchCounter()

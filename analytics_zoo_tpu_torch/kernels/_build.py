@@ -12,13 +12,28 @@ a name keyed on a hash of the source, the headers it includes from `csrc/`
 source or header rebuilds and an unchanged one loads at once. ptxas's
 report (registers, shared memory, spills per kernel) is kept beside each
 library as `.log`.
+
+With a persistent compile cache (`compile_cache.CompileCache`, given to
+`load` or made the process's with `library_cache`), each library is also
+an entry of the cache: its key is the library's name (the hash above),
+the nvcc version and the card (`compile_cache.key.make_key`, which adds
+the compute capability, the card's name and the torch and CUDA runtime
+versions), its payload the `.so` and its ptxas `.log`. A library missing
+from the build directory is then written from the cache and loaded with
+no nvcc run; one that is built is put. `build_events` counts both, so a
+warm restart shows `compiles` 0. The build directory is
+`analytics_zoo_tpu_torch/_build/`, or `$AZT_KERNEL_BUILD_DIR` where that
+is set (a second process with an empty build directory of its own).
 Nothing here runs at import: this module imports on hosts without nvcc.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import json
+import logging
 import os
 import re
 import shutil
@@ -27,20 +42,25 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR = Path(os.environ.get("AZT_KERNEL_BUILD_DIR")
+                 or PACKAGE_DIR / "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
+_log = logging.getLogger("analytics_zoo_tpu_torch.kernels")
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _compiles = 0        # nvcc runs that produced a library, in this process
+_cache_loads = 0     # libraries written from the compile cache instead
+_cache = None        # the process's library cache (`library_cache`)
+_put_checked: Set[tuple] = set()   # (cache dir, source) known stored
 
 
 class KernelBuildError(RuntimeError):
@@ -87,16 +107,120 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build(sources: Sequence[str]) -> Dict[str, float]:
+_nvcc_version: Optional[str] = None
+
+
+def nvcc_version() -> str:
+    """The toolkit's nvcc version, from its `version.json` (no nvcc run),
+    else from `nvcc --version`."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        nvcc = Path(nvcc_path()).resolve()
+        info = nvcc.parent.parent / "version.json"
+        try:
+            _nvcc_version = json.loads(info.read_text())["cuda_nvcc"][
+                "version"]
+        except (OSError, ValueError, KeyError, TypeError):
+            out = subprocess.run([str(nvcc), "--version"], check=True,
+                                 capture_output=True, text=True).stdout
+            _nvcc_version = out.strip().splitlines()[-1]
+    return _nvcc_version
+
+
+def library_key(source: str):
+    """The compile-cache key of `source`'s library: its name (the hash of
+    the source, its headers and the flags), the nvcc version and, through
+    `make_key`, the current card's compute capability and name."""
+    from analytics_zoo_tpu_torch.compile_cache.key import make_key
+    return make_key("kernel",
+                    f"{library_path(source).name} nvcc {nvcc_version()}",
+                    (source, ()))
+
+
+def _pack_library(out: Path) -> bytes:
+    so = out.read_bytes()
+    log = out.with_suffix(".log")
+    return (len(so).to_bytes(8, "little") + so
+            + (log.read_bytes() if log.exists() else b""))
+
+
+def _unpack_library(payload: bytes, out: Path) -> None:
+    """Write a cached library (and its ptxas log) to `out`, atomically."""
+    n = int.from_bytes(payload[:8], "little")
+    if len(payload) < 8 + n:
+        raise ValueError("truncated library payload")
+    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so.tmp")
+    with os.fdopen(fd, "wb") as fh:
+        fh.write(payload[8:8 + n])
+    out.with_suffix(".log").write_bytes(payload[8 + n:])
+    os.replace(tmp, out)
+
+
+def _fetch(sources: Sequence[str], cache) -> None:
+    """Write the libraries of `sources` from `cache` where it holds them."""
+    global _cache_loads
+    for src in sources:
+        out = library_path(src)
+        t0 = time.perf_counter()
+        payload = cache.load(library_key(src))
+        if payload is None:
+            continue
+        try:
+            _unpack_library(payload, out)
+        except (OSError, ValueError) as e:
+            _log.warning("cached library of %s unusable (%s); building "
+                         "it", src, e)
+            continue
+        _cache_loads += 1
+        _put_checked.add((cache.path, src))
+        _log.info("%s: library from the compile cache in %.3fs", src,
+                  time.perf_counter() - t0)
+
+
+def _store(sources: Sequence[str], cache, seconds: Dict[str, float]) -> None:
+    """Put the built libraries of `sources` that `cache` lacks."""
+    for src in sources:
+        if (cache.path, src) in _put_checked:
+            continue
+        out = library_path(src)
+        key = library_key(src)
+        if out.exists() and not cache.contains(key):
+            cache.put(key, _pack_library(out),
+                      compile_ms=seconds.get(src, 0.0) * 1e3 or None)
+        _put_checked.add((cache.path, src))
+
+
+@contextlib.contextmanager
+def library_cache(cache) -> Iterator[None]:
+    """Make `cache` the process's library cache for the block (None: no
+    cache), whichever thread loads a library meanwhile."""
+    global _cache
+    with _lock:
+        prev, _cache = _cache, cache
+    try:
+        yield
+    finally:
+        with _lock:
+            _cache = prev
+
+
+def build(sources: Sequence[str], cache=None) -> Dict[str, float]:
     """Compile every source not yet built, one nvcc per source, all started
-    together. Returns the seconds each build took (0.0 if it was cached).
-    Raises KernelBuildError with nvcc's output if any build fails."""
+    together, after taking what `cache` (default: the process's library
+    cache) holds. Returns the seconds each build took (0.0 if it was
+    already built or came from the cache). Raises KernelBuildError with
+    nvcc's output if any build fails."""
     global _compiles
+    cache = _cache if cache is None else cache
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {s: 0.0 for s in sources}
+    if cache is not None:
+        _fetch([s for s in sources if not library_path(s).exists()], cache)
     todo = {s: library_path(s) for s in sources}
     todo = {s: p for s, p in todo.items() if not p.exists()}
-    seconds = {s: 0.0 for s in sources}
     if not todo:
+        if cache is not None:
+            _store(sources, cache, seconds)
         return seconds
     nvcc = nvcc_path()
     procs = {}
@@ -121,15 +245,20 @@ def build(sources: Sequence[str]) -> Dict[str, float]:
         _compiles += 1
     if failures:
         raise KernelBuildError("CUDA build failed:\n" + "\n".join(failures))
+    if cache is not None:
+        _store(sources, cache, seconds)
     return seconds
 
 
 def build_events() -> Dict[str, int]:
-    """How many sources this process compiled with nvcc and how many
-    libraries it has loaded: a serving run reads these before and after
-    its request path to show that no kernel was built there."""
+    """How many sources this process compiled with nvcc, how many
+    libraries it wrote from the compile cache instead and how many it has
+    loaded: a serving run reads these before and after its request path
+    to show that no kernel was built there, and a warm restart reads
+    `compiles` 0."""
     with _lock:
-        return {"compiles": _compiles, "loaded": len(_libs)}
+        return {"compiles": _compiles, "cached": _cache_loads,
+                "loaded": len(_libs)}
 
 
 def build_log(source: str) -> str:
@@ -138,14 +267,19 @@ def build_log(source: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of `source`, building it first if needed."""
+def load(source: str, cache=None) -> ctypes.CDLL:
+    """The loaded library of `source`, taken from `cache` (default: the
+    process's library cache) or built first if needed; with a cache, a
+    library loaded before it was set is put in it too."""
     with _lock:
+        cache = _cache if cache is None else cache
         lib = _libs.get(source)
         if lib is None:
-            build([source])
+            build([source], cache)
             lib = ctypes.CDLL(str(library_path(source)))
             _libs[source] = lib
+        elif cache is not None and (cache.path, source) not in _put_checked:
+            _store([source], cache, {})
         return lib
 
 

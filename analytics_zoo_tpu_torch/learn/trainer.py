@@ -148,10 +148,14 @@ from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE, as_fused
 log = logging.getLogger("analytics_zoo_tpu_torch.learn")
 
 # Arguments of the JAX `fit_keras` that the port does not run yet, with
-# their defaults: a value other than the default raises.
+# their defaults and the work that ports them: a value other than the
+# default raises.
+_GRAPHS_1B = ("ROADMAP.md queue 1, item 1b: the training step as a CUDA "
+              "graph; the per-step host scalars must become device tensors "
+              "first")
 _NOT_PORTED_ARGS = {
-    "sharding_rules": None,         # distributed training (item 7)
-    "compile_cache_dir": None,      # the CUDA-graph cache (item 1)
+    "sharding_rules": (None, NOT_PORTED_QUEUE),   # distributed (item 7)
+    "compile_cache_dir": (None, _GRAPHS_1B),
 }
 
 # The meta key of the step-seed generator's state (the JAX package keeps
@@ -762,16 +766,14 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
     the JAX package's too."""
     given = dict(sharding_rules=sharding_rules,
                  compile_cache_dir=compile_cache_dir)
-    for name, default in _NOT_PORTED_ARGS.items():
+    for name, (default, where) in _NOT_PORTED_ARGS.items():
         value = given[name]
         if (value is not None) if default is None else (value != default):
             raise NotImplementedError(
-                f"fit_keras({name}=...) is not ported yet "
-                f"({NOT_PORTED_QUEUE})")
+                f"fit_keras({name}=...) is not ported yet ({where})")
     if device_cache:
         raise NotImplementedError(
-            f"fit_keras(device_cache=True) is not ported yet "
-            f"({NOT_PORTED_QUEUE})")
+            f"fit_keras(device_cache=True) is not ported yet ({_GRAPHS_1B})")
     if flat_optimizer:
         raise ValueError("flat_optimizer was retired in the JAX package; "
                          "use fused_optimizer=True")

@@ -41,6 +41,16 @@ with that row's own values, so the shapes stay static and nothing is read
 back to the host. Prefill attention stays plain `torch` (the JAX prefill is
 a plain einsum, no Pallas kernel); only the decode steps run the kernels,
 once per layer, when ``use_pallas`` is set.
+
+Every program is capture-safe: the per-call integers (``length``,
+``slot``, ``pre_len``, ``chunk_len``) may be host integers or int tensors
+of one element on the device, and are used only as tensors (indices of
+`index_put_` / `index_select`, operands of comparisons), never read back;
+tokens, positions and tables may be device tensors. There is no host sync
+and no allocation whose size depends on a value, so
+`InferenceModel.warmup_generative*` can capture each program as a CUDA
+graph over static device buffers, and the KV writes stay in place in the
+pool the graph was captured on.
 """
 
 from __future__ import annotations
@@ -80,6 +90,15 @@ def _ids(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+
+def _scalar(x, device) -> torch.Tensor:
+    """A per-call integer as an int64 tensor of one element on `device`: a
+    host integer, or an int tensor of one element (a graph's static
+    buffer), never read back."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.tensor([int(x)], dtype=torch.int64, device=device)
 
 
 def _mlp(x, lp):
@@ -162,9 +181,10 @@ class TinyDecoder:
         return torch.einsum("hqk,khd->qhd", w, v).reshape(q.shape[0], -1)
 
     def prefill_fn(self, params, kv, tokens, length, slot):
-        """tokens: int [P] (bucket-padded prompt); length, slot: host
-        integers. Writes the prompt's KV into pool rows [slot, :, :P] and
-        returns (kv, logits[vocab]) at the last real prompt position."""
+        """tokens: int [P] (bucket-padded prompt); length, slot: integers
+        (host, or one-element device tensors). Writes the prompt's KV into
+        pool rows [slot, :, :P] and returns (kv, logits[vocab]) at the last
+        real prompt position."""
         dev = params["embed"].device
         tok = _ids(tokens, dev)
         P = tok.shape[0]
@@ -172,7 +192,7 @@ class TinyDecoder:
         x = params["embed"][tok] + params["pos"][:P]        # [P, E]
         mask = _causal_mask(P, dev)
         # dynamic_update_slice clamps its start so the update fits
-        slot = min(max(int(slot), 0), kv[0]["k"].shape[0] - 1)
+        slot = _scalar(slot, dev).clamp(0, kv[0]["k"].shape[0] - 1)
         for lp, lkv in zip(params["layers"], kv):
             h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
             q = (h @ lp["wq"]).reshape(P, H, D)
@@ -182,10 +202,11 @@ class TinyDecoder:
             x = x + att @ lp["wo"]
             x = _mlp(x, lp)
             # park this prompt's KV into the pool rows of `slot`
-            lkv["k"][slot, :, :P] = k.transpose(0, 1)
-            lkv["v"][slot, :, :P] = v.transpose(0, 1)
-        last = min(max(int(length) - 1, 0), P - 1)
-        x_last = _layer_norm(x[last], params["lnf_g"], params["lnf_b"])
+            lkv["k"][slot, :, :P] = k.transpose(0, 1)[None]
+            lkv["v"][slot, :, :P] = v.transpose(0, 1)[None]
+        last = (_scalar(length, dev) - 1).clamp(0, P - 1)
+        x_last = _layer_norm(x.index_select(0, last)[0], params["lnf_g"],
+                             params["lnf_b"])
         return kv, x_last @ params["head"]
 
     # -- decode step -------------------------------------------------------
@@ -237,9 +258,9 @@ class TinyDecoder:
         tokens: int [Cb] — this chunk, padded to a chunk bucket. table:
         int [T] — the sequence's block table (covers at least
         ``pre_len + chunk_len`` logical positions). pre_len, chunk_len:
-        host integers — tokens already in KV, and real tokens in this
-        chunk (>= 1). kv_bucket: the context window covering ``pre_len``
-        (0 on a fresh first chunk).
+        integers (host, or one-element device tensors) — tokens already
+        in KV, and real tokens in this chunk (>= 1). kv_bucket: the
+        context window covering ``pre_len`` (0 on a fresh first chunk).
 
         Returns (kv, logits[vocab]) at chunk position ``chunk_len - 1`` —
         the first generated token on the final chunk.
@@ -253,7 +274,7 @@ class TinyDecoder:
         Cb = tok.shape[0]
         H, D = self.n_heads, self.head_dim
         bl = kv[0]["k"].shape[2]
-        pre_len, chunk_len = int(pre_len), int(chunk_len)
+        pre_len, chunk_len = _scalar(pre_len, dev), _scalar(chunk_len, dev)
         heads = torch.arange(H, device=dev)[None, :]         # [1, H]
         idx = torch.arange(Cb, device=dev)
         logical = pre_len + idx                              # [Cb]
@@ -269,7 +290,7 @@ class TinyDecoder:
         # of bounds and drops them; here each pad row writes the last real
         # row's values to that row's own place — the same bytes twice —
         # so a padded chunk never touches another position.
-        src = idx.clamp(max=max(chunk_len, 1) - 1)
+        src = torch.minimum(idx, chunk_len.clamp(min=1) - 1)
         dst = logical[src]
         blk = table[(dst // bl).clamp(0, table.shape[0] - 1)][:, None]
         off = (dst % bl)[:, None]
@@ -303,8 +324,9 @@ class TinyDecoder:
             x = _mlp(x, lp)
             lkv["k"][blk, heads, off] = k[src]
             lkv["v"][blk, heads, off] = v[src]
-        last = min(max(chunk_len - 1, 0), Cb - 1)
-        x_last = _layer_norm(x[last], params["lnf_g"], params["lnf_b"])
+        last = (chunk_len - 1).clamp(0, Cb - 1)
+        x_last = _layer_norm(x.index_select(0, last)[0], params["lnf_g"],
+                             params["lnf_b"])
         return kv, x_last @ params["head"]
 
     def paged_step_fn(self, params, kv, tokens, positions, tables,

@@ -35,6 +35,7 @@ from __future__ import annotations
 import gc
 import logging
 import threading
+from contextlib import nullcontext as _nullcontext
 from typing import Dict, Optional
 
 import torch
@@ -69,6 +70,25 @@ def _live_cpu_bytes() -> float:
             except (RuntimeError, NotImplementedError):
                 continue           # meta or wrapper tensors own no bytes
     return float(sum(seen.values()))
+
+
+def graph_pool_bytes(pool, device=None) -> Optional[int]:
+    """Device bytes the caching allocator holds for one CUDA graph memory
+    pool (`torch.cuda.graph_pool_handle()`): the segments it reserved for
+    the captures of one replica's stream. None when this PyTorch's
+    snapshot does not name the pools."""
+    pool = tuple(pool)
+    with torch.cuda.device(device) if device is not None \
+            else _nullcontext():
+        try:
+            segs = torch.cuda.memory_snapshot(mempool_id=pool)
+        except TypeError:              # a PyTorch without the argument
+            segs = [s for s in torch.cuda.memory_snapshot()
+                    if tuple(s.get("segment_pool_id", ())) == pool]
+            if not segs and not any("segment_pool_id" in s for s in
+                                    torch.cuda.memory_snapshot()):
+                return None
+    return int(sum(s.get("total_size", 0) for s in segs))
 
 
 def device_memory_snapshot(devices=None) -> Dict[str, Dict[str, float]]:

@@ -150,6 +150,9 @@ def cmd_start(args) -> int:
             model.warmup(np.zeros(tuple(shape), dtype), buckets=buckets)
         print(f"warmed {len(model.warmed_buckets)} shape buckets: "
               f"{json.dumps(model.warmup_report)}", flush=True)
+        # "cached" / "compiled" / "warm" per bucket with a compile cache
+        print(f"warmup source: {json.dumps(model.warmup_source)}",
+              flush=True)
     tracer = None
     if cfg.trace or cfg.trace_path or cfg.trace_sample > 0:
         from analytics_zoo_tpu_torch.observability import Tracer, get_registry
@@ -301,6 +304,7 @@ def _start_generative(cfg, broker, frontend) -> int:
                                 kv_buckets=kv_buckets)
     print(f"generative warmup: {json.dumps(model.warmup_report)}",
           flush=True)
+    print(f"warmup source: {json.dumps(model.warmup_source)}", flush=True)
     serving = DecodeServing(
         model, inst.init_kv, broker=broker, stream=cfg.stream,
         slots=cfg.decode_slots, max_kv_len=cfg.decode_max_kv_len,
@@ -640,8 +644,9 @@ def main(argv=None) -> int:
                          '"data=1,fsdp=2,tensor=4" (not ported: raises '
                          "naming ROADMAP.md queue 1, item 7)")
     ps.add_argument("--compile-cache-dir", default=None,
-                    help="override params.compile_cache_dir (not ported: "
-                         "raises naming ROADMAP.md queue 1, item 1)")
+                    help="override params.compile_cache_dir: the "
+                         "persistent compile cache (kernel libraries and "
+                         "capture records) warmup reads and writes")
     ps.add_argument("--device", default=None,
                     help="override params.device: where the engine "
                          "serves (cuda, cuda:<n> or cpu; default cuda)")

@@ -20,10 +20,13 @@ the port:
   copy on the host;
 - `placement: sharded` and `params.mesh` raise NotImplementedError naming
   ROADMAP.md queue 1, item 7 (the mesh spellings still parse and
-  validate); `params.compile_cache_dir` raises naming item 1 (the port's
-  stand-in for the compile cache is CUDA graphs); `secure.model_encrypted`
+  validate); `secure.model_encrypted`
   raises naming item 8 (`learn/encrypted.py`), though `POST
   /model-secure` and `wait_model_secret` are ported;
+- `params.compile_cache_dir` (and `compile_cache_max_bytes`) name the
+  port's persistent compile cache (`compile_cache/`): the kernel libraries
+  nvcc built and a capture record per warmed program, never a CUDA graph
+  (a graph cannot be written to disk), so a warm restart runs no nvcc;
 - `build_model` also serves a Keras-style net that is not a `ZooModel`
   (the BERT task models): `model.class` names it, `model.config` holds
   its constructor arguments and `<path>/weights` its artifact
@@ -40,10 +43,6 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-COMPILE_CACHE_NOT_PORTED = (
-    "params.compile_cache_dir: the persistent compile cache is not ported; "
-    "its stand-in, CUDA graphs captured at warmup, is ROADMAP.md queue 1, "
-    "item 1")
 ENCRYPTED_NOT_PORTED = (
     "secure.model_encrypted needs learn/encrypted.py, which is not ported "
     "yet (ROADMAP.md queue 1, item 8)")
@@ -203,9 +202,9 @@ class ServingConfig:
     # kernel build or first-call cost lands on the request path
     warmup_shapes: Optional[list] = None
     warmup_dtype: str = "float32"
-    # persistent compilation cache (`compile_cache/`): warmup consults a
-    # disk-backed AOT executable cache per (replica, bucket) before
-    # compiling, so a restart warms from disk in ~ms per bucket.
+    # persistent compile cache (`compile_cache/`): warmup keys every
+    # (replica, bucket) program there — its capture record and the kernel
+    # libraries it launches — so a restart runs no nvcc.
     # compile_cache_max_bytes (int, or "512M"/"2G") bounds the dir with
     # LRU eviction.
     compile_cache_dir: Optional[str] = None
@@ -876,8 +875,6 @@ class ServingConfig:
                     "params.compile_cache_max_bytes is set but "
                     "params.compile_cache_dir is not; the budget bounds "
                     "the cache directory")
-        if d is not None:
-            raise NotImplementedError(COMPILE_CACHE_NOT_PORTED)
 
     def build_slo(self):
         """The `SLOObjectives` this config declares, validated (None
@@ -894,11 +891,14 @@ class ServingConfig:
 
     def build_compile_cache(self, registry=None):
         """The `CompileCache` this config names (None when caching is
-        off). The port has none yet: a configured directory raises
-        (ROADMAP.md queue 1, item 1)."""
+        off); `build_model` and `build_generative_model` wire it into the
+        InferenceModel."""
         if not self.compile_cache_dir:
             return None
-        raise NotImplementedError(COMPILE_CACHE_NOT_PORTED)
+        from analytics_zoo_tpu_torch.compile_cache import CompileCache
+        return CompileCache(self.compile_cache_dir,
+                            max_bytes=self.compile_cache_max_bytes,
+                            registry=registry)
 
     def build_generative_model(self):
         """Decode-mode model resolution: `model.class` must name a class
@@ -927,9 +927,9 @@ class ServingConfig:
                 f"model.class={self.model_class} lacks the "
                 f"{'paged ' if self.decode_paged else ''}generative "
                 f"contract: missing {', '.join(missing)}")
-        self.build_compile_cache()
         im = InferenceModel(placement="replicated", num_replicas=1,
-                            device=self.device)
+                            device=self.device,
+                            compile_cache=self.build_compile_cache())
         im.load_generative(
             inst.prefill_fn, inst.step_fn, inst.init_params(),
             paged_prefill_fn=getattr(inst, "paged_prefill_fn", None)
@@ -958,7 +958,6 @@ class ServingConfig:
         self._validate_placement()
         if self.model_encrypted:
             raise NotImplementedError(ENCRYPTED_NOT_PORTED)
-        self.build_compile_cache()
         try:
             n = int(self.num_replicas)   # accepts YAML-quoted "4" too
         except (TypeError, ValueError):
@@ -971,7 +970,8 @@ class ServingConfig:
             devices = ["cpu"] * (n if n != "auto" else 1)
         im = InferenceModel(concurrent_num=self.concurrent_num,
                             num_replicas=n, placement=self.placement,
-                            device=self.device, devices=devices)
+                            device=self.device, devices=devices,
+                            compile_cache=self.build_compile_cache())
 
         cfg_json = os.path.join(self.model_path, "config.json")
         if os.path.exists(cfg_json):

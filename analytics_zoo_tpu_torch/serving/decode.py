@@ -16,7 +16,15 @@ watchdog and the writeback buffer. What differs in the port:
   first of tied maxima, as numpy's does;
 - the JAX engine's "0 XLA compiles on the request path" becomes "0 kernel
   builds on the request path": `warmup_generative` builds and loads the
-  decode-attention kernels before the engine starts.
+  decode-attention kernels before the engine starts, and captures every
+  prefill and step program as a CUDA graph, which the engine's calls
+  replay (`_run_step`, `_run_paged_step`, `_prefill_chunk_step`, and the
+  crash-resume prefills of `_recover_record`'s sequences, through the same
+  calls). The graphs write into the KV pool warmup allocated, so the
+  engine serves from that pool (`InferenceModel.serving_kv`) where the
+  JAX engine allocates its own: one engine at a time, from its
+  construction (or `start`) to its `stop`; another engine on the same
+  model meanwhile gets a pool of its own and runs eagerly.
 
 `ClusterServing` serves fixed-shape forwards: plan ONE dispatch, run it,
 write it back. Autoregressive generation breaks that shape — a request
@@ -506,7 +514,8 @@ class DecodeServing:
             self._free_lanes = list(range(self.lanes - 1, -1, -1))
             self.pool = None
             self.block_pool = KVBlockPool(
-                init_kv_blocks, self.kv_blocks, self.block_len,
+                model.serving_kv(init_kv_blocks, self, paged=True),
+                self.kv_blocks, self.block_len,
                 registry=registry, labels=labels)
             self.prefix_cache = PrefixCache(
                 self.block_pool, registry=registry, labels=labels,
@@ -524,8 +533,9 @@ class DecodeServing:
                                  self.chunk_buckets[-1],
                                  self.chunk_buckets[-1])
         else:
-            self.pool = KVSlotPool(init_kv, slots, self.max_kv_len,
-                                   registry=registry, labels=labels)
+            self.pool = KVSlotPool(model.serving_kv(init_kv, self), slots,
+                                   self.max_kv_len, registry=registry,
+                                   labels=labels)
             self.block_pool = None
             self.prefix_cache = None
             self.chunk_buckets = list(self.prompt_buckets)
@@ -607,6 +617,11 @@ class DecodeServing:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "DecodeServing":
+        kv = self.block_pool.kv if self.paged else self.pool.kv
+        if not self.model.claim_kv(self, self.paged, kv):
+            raise RuntimeError(
+                f"engine {self.engine_id}: another engine serves from the "
+                "model's warmed KV pool")
         self._stop.clear()
         self._drain_deadline = None
         if self.heartbeat_interval_s and self._heartbeat is None:
@@ -643,6 +658,7 @@ class DecodeServing:
         if self._heartbeat is not None:
             self._heartbeat.stop(deregister=True)
             self._heartbeat = None
+        self.model.release_kv(self)
 
     def is_alive(self) -> bool:
         t = self._thread

@@ -17,12 +17,15 @@ L656-715), the replica pool (`_replica_loop` L802 with the
 `probe_replica_async` / `probe_replica` L1022-1060, `replica_inflight`,
 `replica_stats` L1070), `weight_bytes` (L1083), `placement_info` (L1098),
 `load_torch` (L1123), `predict` (L1135), `predict_async` (L1140) and
-`warmup` (L1231, with the replica fan-out of L1293); and the generative
-decode half (L1353-1671): `load_generative`, `warmup_generative`,
+`warmup` (L1231, with the replica fan-out of L1293); the persistent
+compile cache (`compile_cache=` L312, `_exec_sig` L717, `_cache_key`
+L723, `_aot_call` L749, `_warm_executable` L759-800, `warmup_source`,
+`compile_cache_size` L1673); and the generative decode half
+(L1353-1671): `load_generative`, `warmup_generative`,
 `warmup_generative_paged`, `generative_prefill`, `generative_step`,
 `generative_prefill_paged`, `generative_step_paged` and
-`account_generative` (L1656), with the `_gen_cost` harvest of `_warm_gen`
-(L1459).
+`account_generative` (L1656), with the `_gen_cost` harvest and the
+program table of `_warm_gen` (L1459-1500).
 
 - A batch is padded to a power-of-two bucket by repeating its last row on
   the device, in its own dtype (a uint8 image batch is uploaded and padded
@@ -35,8 +38,11 @@ decode half (L1353-1671): `load_generative`, `warmup_generative`,
   the `predict` Timer.
 - `warmup` runs every bucket once at load time, so the kernel build (nvcc),
   each kernel's first launch and the cuBLAS set-up never land on the
-  request path. (The JAX package warms to compile one XLA program per
-  bucket; PyTorch runs eagerly, so there is nothing to compile per shape.)
+  request path, and captures one program per (replica, bucket): on the
+  card a CUDA graph (`compile_cache/graphs.py`), on the CPU the same
+  static-buffer protocol run eagerly. Where the JAX package dispatches a
+  warmed bucket to its AOT executable, the port replays the bucket's
+  graph; an unwarmed bucket still serves, eagerly.
 
 Replicas (`num_replicas` above 1, or `"auto"`: one per visible GPU): each
 holds its own copy of the weights (`common/modules.copy_module`), its own
@@ -54,13 +60,23 @@ jobs, permits and all, to healthy replicas; probes run a canary batch on a
 quarantined replica. A replica that fails surfaces its error in `result()`
 and in `_on_replica_event`; nothing carries the batch on the CPU.
 
-Hot swap: `swap_params` of a state with the live structure builds the new
-weights and swaps each replica's module reference, so a batch already
-dispatched (in a pool, picked up by its worker) finishes on the old module
-and the next uses the new one
-(`"same"`: no warmup, no kernel build); another structure (f32 ⇄ int8)
-reloads through `load_fn` and re-warms the warm buckets
-(`"restructured"`).
+Hot swap: `swap_params` of a state with the live structure copies the new
+weights into the live module's own tensors — the storage the captured
+graphs read — on each replica's stream, ordered after the forwards
+already dispatched there, so a batch already dispatched (in a pool,
+picked up by its worker) finishes on the old weights and the next reads
+the new ones (`"same"`: no warmup, no kernel build, no capture); another
+structure (f32 ⇄ int8) reloads through `load_fn` and re-warms, and so
+recaptures, the warm buckets (`"restructured"`).
+
+Persistent compile cache (`compile_cache=`, a `compile_cache.CompileCache`):
+warmup keys each (replica, bucket) program as the JAX package keys its
+executable (`make_key("serving", ...)`, `serving_dtype` an explicit
+field) and reports it in `warmup_source` as "warm" (already in this
+process's table), "cached" (its capture record was in the store and
+nvcc ran 0 times for it: its kernel libraries came from the store or were
+loaded already) or "compiled"; without a cache, "uncached". A graph itself
+is never persisted.
 
 Roofline: `warmup` counts each bucket's forward once
 (`observability.roofline.CostMeter`, the kernels' declared costs and the
@@ -78,8 +94,7 @@ built and loaded and cuBLAS is set up before any request: the request path
 builds no kernel (`kernels._build.build_events` shows it).
 
 Not ported yet: sharded placement (`placement="sharded"`, ROADMAP.md queue
-1, item 7), the persistent compile cache (item 1) and
-`load_keras_encrypted` (item 8).
+1, item 7) and `load_keras_encrypted` (item 8).
 """
 
 from __future__ import annotations
@@ -89,6 +104,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -99,6 +115,12 @@ from analytics_zoo_tpu_torch.common import faults
 from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
 from analytics_zoo_tpu_torch.common.modules import copy_module
 from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.compile_cache.graphs import (ProgramTable,
+                                                          capture_program)
+from analytics_zoo_tpu_torch.compile_cache.key import (abstract_signature,
+                                                       make_key,
+                                                       model_fingerprint)
+from analytics_zoo_tpu_torch.kernels import _build
 from analytics_zoo_tpu_torch.observability.roofline import (CostMeter,
                                                             count_cost,
                                                             get_accountant)
@@ -143,6 +165,28 @@ def _keras_forward(model, x):
 
 def _torch_forward(module, x):
     return module(*x) if isinstance(x, (list, tuple)) else module(x)
+
+
+def _unflatten(template, leaves):
+    """`template`'s tree with `leaves` in its leaf order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+class _Spec:
+    """A leaf's shape and dtype: what a program is keyed on."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+
+def _bucket_spec(x, bucket: int):
+    """The shapes and dtypes of `x` padded to `bucket` rows."""
+    return tree_map(lambda a: _Spec((bucket,) + tuple(a.shape[1:]), a.dtype),
+                    x)
 
 
 def _host_rows(out, n: int, ready: Optional[torch.cuda.Event]):
@@ -316,7 +360,7 @@ class _Replica:
     router condition variable."""
 
     __slots__ = ("index", "device", "params", "stream", "inflight",
-                 "batches", "work_q", "thread", "quarantined")
+                 "batches", "work_q", "thread", "quarantined", "lock")
 
     def __init__(self, index: int, device: torch.device, params: nn.Module,
                  stream: Optional[torch.cuda.Stream]):
@@ -329,6 +373,9 @@ class _Replica:
         self.quarantined = False   # supervisor pulled it from the router
         self.work_q: "queue.Queue" = queue.Queue()
         self.thread: Optional[threading.Thread] = None
+        # held while a forward is dispatched and while a swap writes the
+        # weights: a batch reads one version of them
+        self.lock = threading.Lock()
 
 
 class _JoinedPending:
@@ -362,7 +409,7 @@ class InferenceModel:
                  max_batch: int = 512, device: DeviceLike = None,
                  num_replicas=1, devices: Optional[List] = None,
                  max_inflight_per_replica: int = 2,
-                 placement: str = "replicated"):
+                 placement: str = "replicated", compile_cache=None):
         """`device`: where the model serves; `None` is `cuda`, and asking
         for `cuda` without a GPU raises. `concurrent_num` permits bound the
         predict calls dispatching at once (`auto_scaling` grows them on
@@ -374,7 +421,12 @@ class InferenceModel:
         `devices` names the replicas' devices (a card may repeat: its
         replicas run on streams of their own); replica i takes
         `devices[i]`. `max_inflight_per_replica` bounds routed but
-        unmaterialized batches per replica: the router's backpressure."""
+        unmaterialized batches per replica: the router's backpressure.
+
+        `compile_cache`: a `compile_cache.CompileCache` — warmup then keys
+        every (replica, bucket) program there: its capture record and the
+        kernel libraries its warmup loads are read from it (no nvcc on a
+        warm restart) or written to it."""
         if placement not in PLACEMENTS:
             raise ValueError(f"placement={placement!r} not in {PLACEMENTS}")
         if placement == "sharded":
@@ -429,7 +481,23 @@ class InferenceModel:
                         if b <= max_batch] or [max_batch]
         self.timer = Timer("predict")
         self.warmup_report: Dict[str, float] = {}
+        self.warmup_source: Dict[str, str] = {}
         self.warmed_buckets: set = set()
+        self.compile_cache = compile_cache
+        # the program table, (replica, input signature) -> GraphProgram,
+        # filled by warmup; replica 0 is the single-device model, which
+        # replays on a stream of its own (`_stream0`) under `_lock0`
+        self._programs = ProgramTable()
+        self._model_fp: Optional[str] = None
+        self._stream0: Optional[torch.cuda.Stream] = None
+        self._lock0 = threading.Lock()
+        self._gen_kv = None
+        self._gen_kv_blocks = None
+        # who serves from each warmed pool (a weak reference; by `paged`)
+        # and the generative calls that ran eagerly on another pool
+        self._kv_owner: Dict[bool, Any] = {False: None, True: None}
+        self._kv_lock = threading.Lock()
+        self.gen_eager_calls: Dict[str, int] = {}
         # the record the last warmup() ran with: what a restructuring
         # swap_params re-warms
         self._warmup_sample = None
@@ -451,9 +519,9 @@ class InferenceModel:
         included, or a `ZooModel`, served through its `model`). `params`, a
         state dict, is loaded into it first; an int8 state (a quantized
         model's) is served on a structural copy of it. `quantize="int8"`
-        serves the int8 twin (`serving/quantization.quantize_model_params`)
-        and leaves `model` as it is; otherwise the model moves to the
-        device in place and is put in eval mode."""
+        serves the int8 twin (`serving/quantization.quantize_model_params`).
+        The model serves a copy of `model` (`load_fn`): `model` stays where
+        it is."""
         from analytics_zoo_tpu_torch.models.common import ZooModel
         from analytics_zoo_tpu_torch.serving import quantization
         if isinstance(model, ZooModel):
@@ -539,13 +607,20 @@ class InferenceModel:
 
     def load_fn(self, fn: Callable, params: nn.Module) -> "InferenceModel":
         """Forward `fn(params, x)`; `params` is the module holding the
-        weights. Single device: it moves to the device in place and goes
-        to eval mode. A pool: each replica serves a copy of it on its own
-        device and stream (`params` itself is left where it is)."""
+        weights. The model serves a copy of it in eval mode, its own (one
+        on the device; in a pool, one per replica on the replica's device
+        and stream): `params` itself is left as it is, and a `"same"` swap,
+        which writes into the served tensors, never reaches it."""
         self.close()               # reload: retire any old replica pool
         self._fn = fn
         self.serving_dtype = self._infer_serving_dtype(
             params.state_dict().values())
+        self._programs.clear()
+        self._model_fp = None
+        if self.compile_cache is not None:
+            # fingerprint before placement: the key must be the same in
+            # every process
+            self._model_fp = model_fingerprint(fn, params)
         if self.num_replicas > 1:
             self._params = None
             reps = []
@@ -561,8 +636,11 @@ class InferenceModel:
                 reps.append(rep)
             self._replicas = reps
         else:
-            self._params = params.to(self.device).eval()
+            self._params = self._place(params, self.device, None)
+            if self.device.type == "cuda" and self._stream0 is None:
+                self._stream0 = torch.cuda.Stream(self.device)
         self.warmup_report = {}
+        self.warmup_source = {}
         self.warmed_buckets = set()
         self._warmup_sample = None
         self._reset_roofline()
@@ -603,8 +681,10 @@ class InferenceModel:
 
     # -- hot swap ----------------------------------------------------------
     def current_params(self):
-        """The live module (replica 0's copy in a pool; None until a model
-        loads): what a rollout snapshots before `swap_params`."""
+        """The served module, the model's own copy (replica 0's in a pool;
+        None until a model loads). A `"same"` swap writes into its tensors,
+        so a rollout that may roll back snapshots a copy of its state
+        first."""
         if self._replicas:
             return self._replicas[0].params
         return self._params
@@ -626,10 +706,12 @@ class InferenceModel:
         dict (or a module, for its state dict). Returns:
 
         - ``"same"``: the structure, shapes and dtypes are the live ones.
-          Each replica's new module is built beside the live one and its
-          reference swapped: a batch already dispatched (in a pool: picked
-          up by its replica's worker) finishes on the old weights, the
-          next reads the new ones. No warmup and no kernel build.
+          The new values are copied into each replica's live tensors (the
+          storage its captured graphs read), on its stream, after the
+          forwards already dispatched there and before the next: a batch
+          already dispatched (in a pool: picked up by its replica's
+          worker) finishes on the old weights, the next reads the new
+          ones. No warmup, no capture and no kernel build.
         - ``"restructured"``: the structure changed (int8 ⇄ f32, a dtype,
           a layer): the model reloads through `load_fn` on a structural
           copy of the live module and re-warms the buckets that were warm.
@@ -659,12 +741,42 @@ class InferenceModel:
                     raise RuntimeError(
                         "replica pool closed mid-swap; reload the model")
             for rep in reps:
-                rep.params = self._place(rep.params, rep.device, rep.stream,
-                                         state)
+                with rep.lock:
+                    self._write_state(rep.params, state, rep.device,
+                                      rep.stream)
         else:
-            self._params = self._place(self._params, self.device, None,
-                                       state)
+            with self._lock0:
+                self._write_state(self._params, state, self.device, None)
         return "same"
+
+    @staticmethod
+    def _write_state(module: nn.Module, state, device: torch.device,
+                     stream: Optional[torch.cuda.Stream]) -> None:
+        """Copy `state`'s values into `module`'s own tensors, and refresh
+        the padded int8 GEMM operands built from them. On a replica's
+        stream the copies queue behind its forwards; the single-device
+        model's forwards run on other streams, so the card is
+        synchronized before and after."""
+        from analytics_zoo_tpu_torch.serving.quantization import \
+            refresh_int8_operands
+        live = module.state_dict(keep_vars=True)
+        cuda = device.type == "cuda"
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.inference_mode())
+        if cuda:
+            ctx.enter_context(torch.cuda.device(device))
+            if stream is not None:
+                ctx.enter_context(torch.cuda.stream(stream))
+            else:
+                torch.cuda.synchronize(device)
+        with ctx:
+            for k, t in live.items():
+                v = state[k]
+                t.copy_(v if isinstance(v, torch.Tensor)
+                        else torch.from_numpy(np.asarray(v)))
+            refresh_int8_operands(live.values())
+        if cuda and stream is None:
+            torch.cuda.synchronize(device)
 
     # -- roofline accounting (observability/roofline.py) -------------------
     @staticmethod
@@ -716,29 +828,45 @@ class InferenceModel:
         with torch.inference_mode():
             return self._fn(params, x)
 
+    def _program(self, replica: int, spec):
+        """The warmed program of (`replica`, `spec`'s signature), or
+        None."""
+        if not len(self._programs):
+            return None
+        return self._programs.get((replica, abstract_signature(spec)))
+
     def _run_on_replica(self, rep: _Replica, x, uploaded):
         """One forward on the replica's module, on its stream when it has
-        one: `(output, ready event or None)`."""
-        params = rep.params        # one read: a swap takes the next batch
-        if rep.stream is None:
-            return self._forward_on(params, tree_map(
-                lambda a: a.to(rep.device), x)), None
-        stream = rep.stream
-        with torch.cuda.device(rep.device), torch.cuda.stream(stream):
-            if uploaded is not None:
-                stream.wait_event(uploaded)
-            else:                  # a probe's or a moved job's batch
-                stream.wait_stream(torch.cuda.current_stream(rep.device))
+        one — the bucket's program when warmup made one, else eagerly:
+        `(output, ready event or None)`."""
+        program = self._program(rep.index, x)
+        with rep.lock:
+            params = rep.params
+            if rep.stream is None:
+                x = tree_map(lambda a: a.to(rep.device), x)
+                if program is not None:
+                    return program(*tree_leaves(x)), None
+                return self._forward_on(params, x), None
+            stream = rep.stream
+            with torch.cuda.device(rep.device), torch.cuda.stream(stream):
+                if uploaded is not None:
+                    stream.wait_event(uploaded)
+                else:              # a probe's or a moved job's batch
+                    stream.wait_stream(torch.cuda.current_stream(rep.device))
 
-            def on_stream(a):
-                a = a.to(rep.device, non_blocking=True)
-                a.record_stream(stream)
-                return a
+                def on_stream(a):
+                    a = a.to(rep.device, non_blocking=True)
+                    a.record_stream(stream)
+                    return a
 
-            out = self._forward_on(params, tree_map(on_stream, x))
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        return out, ready
+                xd = tree_map(on_stream, x)
+                if program is not None:
+                    out = program(*tree_leaves(xd))
+                else:
+                    out = self._forward_on(params, xd)
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            return out, ready
 
     def _replica_loop(self, rep: _Replica):
         """Per-replica dispatcher. `t0` is the router hand-off time, so
@@ -798,6 +926,8 @@ class InferenceModel:
             for rep in reps:
                 if rep.thread is not None:
                     rep.thread.join(timeout=5)
+            # the replicas' graphs and their pools go with them
+            self._programs.clear()
             if self._params is None:
                 self._fn = None
 
@@ -1071,12 +1201,20 @@ class InferenceModel:
             if params is None:
                 raise RuntimeError(
                     "model closed mid-predict; reload before predicting")
-            xd, _ = self._upload(x, self.device, n, bucket)
-            out = self._forward_on(params, xd)
-            ready = None
-            if self.device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self.device))
+            spec = _bucket_spec(x, bucket)
+            program = self._program(0, spec)
+            with self._lock0:
+                if program is not None:
+                    # the raw batch goes straight into the program's
+                    # static input, padded there on the device
+                    out = program(*tree_leaves(x))
+                else:
+                    xd, _ = self._upload(x, self.device, n, bucket)
+                    out = self._forward_on(params, xd)
+                ready = None
+                if self.device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
         finally:
             # the permit bounds dispatch admission, not result lifetime
             if acquired:
@@ -1084,7 +1222,7 @@ class InferenceModel:
         return PendingPrediction(out, valid_n, timer=self.timer,
                                  dispatch_s=time.perf_counter() - t0,
                                  ready=ready,
-                                 roofline_cb=self._roofline_cb(xd))
+                                 roofline_cb=self._roofline_cb(spec))
 
     # -- warmup ----------------------------------------------------------
     @staticmethod
@@ -1095,30 +1233,78 @@ class InferenceModel:
     def warmup(self, sample, buckets: Optional[List[int]] = None
                ) -> "InferenceModel":
         """Run every shape bucket once at load time, counting each
-        bucket's cost for the roofline. `sample` is ONE record (no batch
-        dim), or a list/dict of records for multi-input models.
+        bucket's cost for the roofline, and capture its program (a CUDA
+        graph on the card), largest bucket first. `sample` is ONE record
+        (no batch dim), or a list/dict of records for multi-input models.
         Per-bucket seconds land in `warmup_report`, keyed
-        `"{record shape}:b{bucket}"` (`"r{i}:..."` per replica of a pool);
-        warmed buckets in `warmed_buckets`. Warmup bypasses `predict`, so
-        the serving Timer stays clean."""
+        `"{record shape}:b{bucket}"` (`"r{i}:..."` per replica of a pool),
+        and where each program came from in `warmup_source` under the same
+        keys; warmed buckets in `warmed_buckets`. Warmup bypasses
+        `predict`, so the serving Timer stays clean."""
         if self._fn is None:
             raise RuntimeError("No model loaded")
         buckets = list(buckets) if buckets is not None else list(self.buckets)
         sample = tree_map(np.asarray, sample)
         self._warmup_sample = sample
         tag = "x".join(map(str, tree_leaves(sample)[0].shape)) or "scalar"
-        if self._replicas is not None:
-            return self._warmup_replicas(sample, buckets, tag)
-        for b in buckets:
+        with self._library_cache():
+            if self._replicas is not None:
+                return self._warmup_replicas(sample, buckets, tag)
+            return self._warmup_single(sample, buckets, tag)
+
+    def _library_cache(self):
+        """The kernel libraries a warmup loads come from (and go to) the
+        compile cache, whichever call loads them first."""
+        if self.compile_cache is None:
+            return contextlib.nullcontext()
+        return _build.library_cache(self.compile_cache)
+
+    def _warmup_single(self, sample, buckets, tag) -> "InferenceModel":
+        # the largest bucket first: the smaller captures reuse its pool
+        for b in sorted(buckets, reverse=True):
             batch = self._sample_batch(sample, b, self.device)
             t0 = time.perf_counter()
+            since = _build.build_events()["compiles"]
             _, cost = self._counted_forward(self._params, batch)
+            src = self._warm_program(0, self._params, batch, self._stream0,
+                                     since)
             self._sync()
-            self.warmup_report[f"{tag}:b{b}"] = round(
-                time.perf_counter() - t0, 4)
+            rkey = f"{tag}:b{b}"
+            self.warmup_report[rkey] = round(time.perf_counter() - t0, 4)
+            self.warmup_source[rkey] = src
             self.warmed_buckets.add(b)
             self._record_cost(batch, cost)
         return self
+
+    def _cache_key(self, sig):
+        """The persistent key of a serving program (JAX `_cache_key`
+        L723): `serving_dtype` an explicit field, absent for float32."""
+        return make_key("serving", self._model_fp or "", sig,
+                        placement=self.placement,
+                        dtype=self.serving_dtype
+                        if self.serving_dtype != "float32" else "",
+                        device=self.device)
+
+    def _warm_program(self, replica: int, params, batch, stream,
+                      compiles_since: int) -> str:
+        """Capture the program of one (replica, bucket) (JAX
+        `_warm_executable` L759): "warm" when this process holds it, else
+        what `capture_program` reports, counting the kernel builds since
+        `compiles_since`."""
+        sig = abstract_signature(batch)
+        if self._programs.get((replica, sig)) is not None:
+            return "warm"
+        leaves = tree_leaves(batch)
+        bucket = leaves[0].shape[0] if leaves[0].dim() else 1
+        program, src = capture_program(
+            f"predict r{replica} b{bucket}",
+            lambda *xs: self._forward_on(params, _unflatten(batch, xs)),
+            leaves, leaves[0].device, stream, self._programs.pool(stream),
+            self.compile_cache,
+            self._cache_key(sig) if self.compile_cache is not None
+            else None, compiles_since)
+        self._programs.put((replica, sig), program)
+        return src
 
     def _warmup_replicas(self, sample, buckets, tag) -> "InferenceModel":
         """Fan warmup out across the pool: every replica's worker runs its
@@ -1126,6 +1312,7 @@ class InferenceModel:
         carry no timer. Then one count per bucket on the calling thread
         (every replica runs the same program), when nothing else runs: a
         kernel's declared cost reaches every active counter."""
+        since = _build.build_events()["compiles"]
         jobs = []
         for b in buckets:
             for rep in self._replicas:
@@ -1140,6 +1327,22 @@ class InferenceModel:
             self.warmup_report[f"r{idx}:{tag}:b{b}"] = round(
                 pending.busy_s, 4)
             self.warmed_buckets.add(b)
+        # then one program per (replica, bucket), the largest bucket
+        # first, captured on the replica's stream (one capture at a time
+        # in a process); each replica's first capture of a bucket reads
+        # the record replica 0's wrote, as the JAX pool loads the one
+        # entry per bucket it persisted
+        for b in sorted(buckets, reverse=True):
+            for rep in self._replicas:
+                t0 = time.perf_counter()
+                batch = self._sample_batch(sample, b, rep.device)
+                with rep.lock:
+                    src = self._warm_program(rep.index, rep.params, batch,
+                                             rep.stream, since)
+                rkey = f"r{rep.index}:{tag}:b{b}"
+                self.warmup_report[rkey] = round(
+                    self.warmup_report[rkey] + time.perf_counter() - t0, 4)
+                self.warmup_source[rkey] = src
         rep0 = self._replicas[0]
         for b in buckets:
             self._harvest_cost(rep0.params,
@@ -1157,6 +1360,12 @@ class InferenceModel:
     # calling contract. Every call runs under `torch.inference_mode` with
     # the model's device current, entered here because the engine calls
     # from its own thread and both are thread-local.
+    #
+    # Warmup captures every program against the KV pool it allocates and
+    # keeps that pool; `serving_kv` hands it to one `DecodeServing` at a
+    # time, so the graphs write where that engine reads. A call on another
+    # pool has no program and runs eagerly, as an unwarmed bucket does; it
+    # is counted in `gen_eager_calls` and logged.
 
     def load_generative(self, prefill_fn: Callable, step_fn: Callable,
                         params, paged_prefill_fn: Optional[Callable] = None,
@@ -1172,11 +1381,26 @@ class InferenceModel:
         self._gen_step_fn = step_fn
         self._gen_paged_prefill_fn = paged_prefill_fn
         self._gen_paged_step_fn = paged_step_fn
+        self._programs.clear()
+        self._gen_kv = self._gen_kv_blocks = None
+        self._kv_owner = {False: None, True: None}
+        self.gen_eager_calls = {}
+        self._model_fp = None
+        if self.compile_cache is not None:
+            # the paged pair joins the fingerprint only when supplied, as
+            # in the JAX package
+            fns = (prefill_fn, step_fn)
+            if paged_prefill_fn is not None or paged_step_fn is not None:
+                fns = fns + (paged_prefill_fn, paged_step_fn)
+            self._model_fp = model_fingerprint(fns, params)
         self._params = tree_map(
             lambda a: _as_host_tensor(a).to(self.device), params)
+        if self.device.type == "cuda" and self._stream0 is None:
+            self._stream0 = torch.cuda.Stream(self.device)
         self.serving_dtype = self._infer_serving_dtype(
             tree_leaves(self._params))
         self.warmup_report = {}
+        self.warmup_source = {}
         self.warmed_buckets = set()
         self._reset_roofline()
         return self
@@ -1218,29 +1442,172 @@ class InferenceModel:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _warm_gen_program(self, kind: str, bucket, fn: Callable,
+                          inputs, report_key: str,
+                          compiles_since: int) -> None:
+        """Capture one generative program (JAX `_warm_gen` L1459) over
+        static buffers shaped like `inputs`; `fn(*inputs)` returns its
+        logits. Keyed as the JAX package keys its executable: the model's
+        fingerprint, the inputs' signature, the dtype, and `("decode",
+        kind, bucket)` as `extra`. Kernel builds count from
+        `compiles_since`."""
+        bkey = self._gen_bucket_key(bucket)
+        tkey = (0, (kind, bkey))
+        t0 = time.perf_counter()
+        if self._programs.get(tkey) is not None:
+            src = "warm"
+        else:
+            key = None
+            if self.compile_cache is not None:
+                key = make_key(
+                    "serving", self._model_fp or "",
+                    abstract_signature(list(inputs)),
+                    placement=self.placement,
+                    dtype=self.serving_dtype
+                    if self.serving_dtype != "float32" else "",
+                    extra=("decode", kind) + (bkey if isinstance(
+                        bkey, tuple) else (bkey,)),
+                    device=self.device)
+
+            def run(*xs):
+                with self._gen_context():
+                    return fn(*xs)
+
+            program, src = capture_program(
+                f"{kind} {bkey}", run, inputs, self.device, self._stream0,
+                self._programs.pool(self._stream0), self.compile_cache, key,
+                compiles_since)
+            self._programs.put(tkey, program)
+        self.warmup_report[report_key] = round(
+            self.warmup_report.get(report_key, 0.0)
+            + time.perf_counter() - t0, 4)
+        self.warmup_source[report_key] = src
+
+    def _gen_pool(self, held, init: Callable, args, kinds):
+        """The KV pool of a warmup: the one an earlier warmup captured
+        `kinds`' programs on when its shape is the same (they stay valid),
+        else a new one, and those programs are dropped."""
+        args = tuple(int(a) for a in args)
+        if held is not None and held[0] == args:
+            return held
+        for k, _ in self._programs.items():
+            if k[1][0] in kinds:
+                self._programs.drop(k)
+        with self._kv_lock:            # a new pool: no one serves from it
+            self._kv_owner[kinds[0].startswith("paged")] = None
+        return args, init(*args)
+
+    def serving_kv(self, init_kv: Callable, owner, paged: bool = False
+                   ) -> Callable:
+        """The pool factory a `DecodeServing` (`owner`) allocates its KV
+        through. The pool warmup captured the programs on serves one owner
+        at a time: the first that asks for its shape, until
+        `release_kv(owner)` (the engine's `stop`) or until the owner is
+        collected. Any other owner, or another shape, gets a pool of its
+        own from `init_kv`, on which every call runs eagerly."""
+        def make(*args):
+            held = self._gen_kv_blocks if paged else self._gen_kv
+            if held is not None and held[0] == tuple(int(a) for a in args) \
+                    and self.claim_kv(owner, paged):
+                return held[1]
+            if held is not None:
+                log.warning("a KV pool %s of its own for %r (the warmed "
+                            "one, %s, is held or of another shape): its "
+                            "calls run eagerly", tuple(args), owner,
+                            held[0])
+            return init_kv(*args)
+        return make
+
+    def claim_kv(self, owner, paged: bool = False, kv=None) -> bool:
+        """Make `owner` the one that serves from the warmed pool (`paged`
+        or contiguous), or with `kv`, from `kv` when it is that pool: True
+        when the pool is free or `owner`'s already (or `kv` is another
+        pool), False while another owner serves from it."""
+        with self._kv_lock:
+            held = self._gen_kv_blocks if paged else self._gen_kv
+            if kv is not None and (held is None or kv is not held[1]):
+                return True
+            ref = self._kv_owner[paged]
+            other = ref() if ref is not None else None
+            if other is not None and other is not owner:
+                return False
+            self._kv_owner[paged] = weakref.ref(owner)
+            return True
+
+    def release_kv(self, owner) -> None:
+        """`owner` no longer serves from the warmed pools it claimed."""
+        with self._kv_lock:
+            for paged, ref in self._kv_owner.items():
+                if ref is not None and ref() is owner:
+                    self._kv_owner[paged] = None
+
+    def _gen_program(self, kind: str, bucket, kv):
+        """The warmed program of (`kind`, `bucket`) when `kv` is the pool
+        it was captured on, else None (a call on another pool is counted
+        in `gen_eager_calls`)."""
+        program = self._programs.get((0, (kind, self._gen_bucket_key(
+            bucket))))
+        if program is None:
+            return None
+        held = self._gen_kv_blocks if kind.startswith("paged") \
+            else self._gen_kv
+        pool = tree_leaves(held[1])
+        leaves = tree_leaves(kv)
+        if len(leaves) != len(pool) or any(
+                a is not b for a, b in zip(leaves, pool)):
+            with self._kv_lock:
+                self.gen_eager_calls[kind] = \
+                    self.gen_eager_calls.get(kind, 0) + 1
+            return None
+        return program
+
+    def program_replays(self) -> Dict[str, int]:
+        """Runs of each warmed program by name (on the card, replays of
+        its CUDA graph): what shows that a path went through them."""
+        return {p.name: p.replays for _, p in self._programs.items()}
+
     def warmup_generative(self, init_kv: Callable, slots: int,
                           max_kv_len: int, prompt_buckets: List[int],
                           kv_buckets: List[int]) -> "InferenceModel":
-        """Run the whole decode program ladder once: one prefill per
-        prompt bucket, one step per kv bucket, on a warmup-only KV pool
-        (the engine allocates its own with identical shapes). Per-program
-        seconds land in `warmup_report` (`gen-prefill:p{P}`,
-        `gen-step:kv{B}`), and each program's count is kept for
+        """Run the whole decode program ladder once and capture it: one
+        prefill per prompt bucket, one step per kv bucket, on the KV pool
+        this warmup allocates and keeps for the engine
+        (`serving_kv`). Per-program seconds land in `warmup_report`
+        (`gen-prefill:p{P}`, `gen-step:kv{B}`), where each came from in
+        `warmup_source`, and each program's count is kept for
         `account_generative`."""
         if self._gen_prefill_fn is None:
             raise RuntimeError("load_generative() first")
         prefill, step = self._gen_prefill_fn, self._gen_step_fn
-        kv = init_kv(int(slots), int(max_kv_len))
-        for P in sorted({int(p) for p in prompt_buckets}):
-            with self._warm_gen("prefill", P, f"gen-prefill:p{P}"):
-                prefill(self._params, kv, np.zeros(P, np.int32), 1, 0)
-        for b in sorted({int(b) for b in kv_buckets}):
-            if b > max_kv_len:
+        for b in kv_buckets:
+            if int(b) > max_kv_len:
                 raise ValueError(f"kv bucket {b} exceeds max_kv_len "
                                  f"{max_kv_len}")
-            zeros = np.zeros(int(slots), np.int32)
-            with self._warm_gen("step", b, f"gen-step:kv{b}"):
-                step(self._params, kv, zeros, zeros, kv_bucket=b)
+        self._gen_kv = self._gen_pool(self._gen_kv, init_kv,
+                                      (slots, max_kv_len),
+                                      ("prefill", "step"))
+        kv, params = self._gen_kv[1], self._params
+        one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+        with self._library_cache():
+            for P in sorted({int(p) for p in prompt_buckets}, reverse=True):
+                tokens = np.zeros(P, np.int32)
+                since = _build.build_events()["compiles"]
+                with self._warm_gen("prefill", P, f"gen-prefill:p{P}"):
+                    prefill(params, kv, tokens, 1, 0)
+                self._warm_gen_program(
+                    "prefill", P,
+                    lambda t, n, s: prefill(params, kv, t, n, s)[1],
+                    [tokens, one, zero], f"gen-prefill:p{P}", since)
+            for b in sorted({int(b) for b in kv_buckets}, reverse=True):
+                zeros = np.zeros(int(slots), np.int32)
+                since = _build.build_events()["compiles"]
+                with self._warm_gen("step", b, f"gen-step:kv{b}"):
+                    step(params, kv, zeros, zeros, kv_bucket=b)
+                self._warm_gen_program(
+                    "step", b,
+                    lambda t, p, _b=b: step(params, kv, t, p,
+                                            kv_bucket=_b)[1],
+                    [zeros, zeros], f"gen-step:kv{b}", since)
         return self
 
     def warmup_generative_paged(self, init_kv_blocks: Callable,
@@ -1248,72 +1615,117 @@ class InferenceModel:
                                 lanes: int, table_len: int,
                                 chunk_buckets: List[int],
                                 kv_buckets: List[int]) -> "InferenceModel":
-        """Run the paged ladder once: one chunked prefill per (chunk bucket
-        × context bucket) — the context window is 0 on a fresh first chunk
-        and a kv bucket otherwise — and one paged step per kv bucket, on a
-        warmup-only block pool with all-zero (scratch) tables."""
+        """Run the paged ladder once and capture it: one chunked prefill
+        per (chunk bucket × context bucket) — the context window is 0 on a
+        fresh first chunk and a kv bucket otherwise — and one paged step
+        per kv bucket, on the block pool this warmup allocates and keeps
+        for the engine (`serving_kv(..., paged=True)`), with all-zero
+        (scratch) tables."""
         if self._gen_paged_prefill_fn is None:
             raise RuntimeError("load_generative(..., paged_prefill_fn=, "
                                "paged_step_fn=) first")
         prefill, step = self._gen_paged_prefill_fn, self._gen_paged_step_fn
-        kv = init_kv_blocks(int(num_blocks), int(block_len))
-        ctx_buckets = [0] + sorted({int(b) for b in kv_buckets})
-        table = np.zeros(int(table_len), np.int32)
-        for Cb in sorted({int(c) for c in chunk_buckets}):
-            for kvb in ctx_buckets:
-                with self._warm_gen("paged_prefill", (Cb, kvb),
-                                    f"gen-paged-prefill:c{Cb}:kv{kvb}"):
-                    prefill(self._params, kv, np.zeros(Cb, np.int32), table,
-                            0, 1, kv_bucket=kvb)
-        for b in sorted({int(b) for b in kv_buckets}):
-            if b % int(block_len):
+        for b in kv_buckets:
+            if int(b) % int(block_len):
                 raise ValueError(f"kv bucket {b} not a multiple of "
                                  f"block_len {block_len}")
-            zeros = np.zeros(int(lanes), np.int32)
-            with self._warm_gen("paged_step", b, f"gen-paged-step:kv{b}"):
-                step(self._params, kv, zeros, zeros,
-                     np.zeros((int(lanes), int(table_len)), np.int32),
-                     kv_bucket=b)
+        self._gen_kv_blocks = self._gen_pool(
+            self._gen_kv_blocks, init_kv_blocks, (num_blocks, block_len),
+            ("paged_prefill", "paged_step"))
+        kv, params = self._gen_kv_blocks[1], self._params
+        ctx_buckets = [0] + sorted({int(b) for b in kv_buckets})
+        table = np.zeros(int(table_len), np.int32)
+        one, zero = np.ones(1, np.int32), np.zeros(1, np.int32)
+        with self._library_cache():
+            for Cb in sorted({int(c) for c in chunk_buckets}, reverse=True):
+                for kvb in reversed(ctx_buckets):
+                    tokens = np.zeros(Cb, np.int32)
+                    rkey = f"gen-paged-prefill:c{Cb}:kv{kvb}"
+                    since = _build.build_events()["compiles"]
+                    with self._warm_gen("paged_prefill", (Cb, kvb), rkey):
+                        prefill(params, kv, tokens, table, 0, 1,
+                                kv_bucket=kvb)
+                    self._warm_gen_program(
+                        "paged_prefill", (Cb, kvb),
+                        lambda t, tb, pre, n, _k=kvb: prefill(
+                            params, kv, t, tb, pre, n, kv_bucket=_k)[1],
+                        [tokens, table, zero, one], rkey, since)
+            for b in sorted({int(b) for b in kv_buckets}, reverse=True):
+                zeros = np.zeros(int(lanes), np.int32)
+                tables = np.zeros((int(lanes), int(table_len)), np.int32)
+                since = _build.build_events()["compiles"]
+                with self._warm_gen("paged_step", b,
+                                    f"gen-paged-step:kv{b}"):
+                    step(params, kv, zeros, zeros, tables, kv_bucket=b)
+                self._warm_gen_program(
+                    "paged_step", b,
+                    lambda t, p, tb, _b=b: step(params, kv, t, p, tb,
+                                                kv_bucket=_b)[1],
+                    [zeros, zeros, tables], f"gen-paged-step:kv{b}", since)
         return self
 
     @staticmethod
     def _ids(a) -> np.ndarray:
-        """Ids, positions and tables as the programs take them: int32
-        arrays (the model moves them onto its device)."""
+        """Ids, positions, tables and per-call integers as the programs
+        take them: int32 arrays (the model moves them onto its device, a
+        program copies them into its static buffers)."""
         return np.ascontiguousarray(a, np.int32)
+
+    # Each call replays the warmed program of its bucket (its ids and
+    # integers copied into the program's static buffers through pinned
+    # staging), or runs the program eagerly when warmup did not make it.
 
     def generative_prefill(self, kv, tokens, length, slot):
         """One prompt (padded to a prompt bucket) through the prefill
         program. Returns (kv, logits[vocab]) on the device."""
+        tokens = self._ids(tokens)
+        program = self._gen_program("prefill", tokens.shape[-1], kv)
+        if program is not None:
+            return kv, program(tokens, self._ids([length]),
+                               self._ids([slot]))
         with self._gen_context():
-            return self._gen_prefill_fn(self._params, kv, self._ids(tokens),
+            return self._gen_prefill_fn(self._params, kv, tokens,
                                         int(length), int(slot))
 
     def generative_step(self, kv, tokens, positions, kv_bucket: int):
         """One decode step for every slot under the serving bucket.
         Returns (kv, logits[slots, vocab]) on the device."""
+        tokens, positions = self._ids(tokens), self._ids(positions)
+        program = self._gen_program("step", kv_bucket, kv)
+        if program is not None:
+            return kv, program(tokens, positions)
         with self._gen_context():
-            return self._gen_step_fn(self._params, kv, self._ids(tokens),
-                                     self._ids(positions),
+            return self._gen_step_fn(self._params, kv, tokens, positions,
                                      kv_bucket=int(kv_bucket))
 
     def generative_prefill_paged(self, kv, tokens, table, pre_len,
                                  chunk_len, kv_bucket: int):
         """One prompt chunk through the paged prefill for its (chunk
         bucket, context bucket). Returns (kv, logits[vocab])."""
+        tokens, table = self._ids(tokens), self._ids(table)
+        program = self._gen_program(
+            "paged_prefill", (tokens.shape[-1], kv_bucket), kv)
+        if program is not None:
+            return kv, program(tokens, table, self._ids([pre_len]),
+                               self._ids([chunk_len]))
         with self._gen_context():
             return self._gen_paged_prefill_fn(
-                self._params, kv, self._ids(tokens), self._ids(table),
-                int(pre_len), int(chunk_len), kv_bucket=int(kv_bucket))
+                self._params, kv, tokens, table, int(pre_len),
+                int(chunk_len), kv_bucket=int(kv_bucket))
 
     def generative_step_paged(self, kv, tokens, positions, tables,
                               kv_bucket: int):
         """One decode step for every lane through the block tables.
         Returns (kv, logits[lanes, vocab])."""
+        tokens, positions = self._ids(tokens), self._ids(positions)
+        tables = self._ids(tables)
+        program = self._gen_program("paged_step", kv_bucket, kv)
+        if program is not None:
+            return kv, program(tokens, positions, tables)
         with self._gen_context():
             return self._gen_paged_step_fn(
-                self._params, kv, self._ids(tokens), self._ids(positions),
-                self._ids(tables), kv_bucket=int(kv_bucket))
+                self._params, kv, tokens, positions, tables,
+                kv_bucket=int(kv_bucket))
 
     def account_generative(self, kind: str, bucket, secs: float):
         """Charge one generative call (`kind` "prefill", "step",
@@ -1329,3 +1741,15 @@ class InferenceModel:
             return
         self._roofline.account("serving", cost.flops, cost.bytes, secs,
                                n_devices=1, int8_flops=cost.int8_flops)
+
+    def compile_cache_size(self) -> int:
+        """Programs this model holds (JAX L1673): one per warmed
+        (replica, bucket) and per warmed generative program — on the card
+        each a captured CUDA graph — summed over replicas."""
+        return len(self._programs)
+
+    def graph_pool_bytes(self) -> Dict[Any, Optional[int]]:
+        """Device bytes of each replica's graph memory pool (replica 0 is
+        the single-device model), from `observability.memwatch`; empty on
+        the CPU."""
+        return self._programs.pool_bytes()

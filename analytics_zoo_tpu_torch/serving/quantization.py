@@ -98,6 +98,21 @@ def _mm_operand(w_q: Tensor) -> Tensor:
     return w
 
 
+def refresh_int8_operands(tensors) -> None:
+    """After int8 weights were written in place (a `"same"` hot swap),
+    rewrite the padded operand `_mm_operand` keeps on each of `tensors` in
+    its own storage, which a captured CUDA graph reads; its zero padding
+    stays."""
+    for w_q in tensors:
+        cached = getattr(w_q, "_int8_operand", None)
+        if cached is None:
+            continue
+        K, N = w_q.shape
+        cached[1][:K, :N].copy_(w_q)
+        version = -1 if w_q.is_inference() else w_q._version
+        w_q._int8_operand = (version, cached[1])
+
+
 def int8_mm(a: Tensor, w_q: Tensor) -> Tensor:
     """`a @ w_q` for int8 `a` `[M, K]` and `w_q` `[K, N]`, int32, through
     `torch._int_mm`: rows padded to 32 when there are 16 or fewer, K and N

@@ -45,8 +45,10 @@ Two halves over the broker that already carries the data plane:
   a directive targets this engine it drains dispatch
   (`pause_intake()` + `quiesce()` — no mixed-version batches), calls
   `InferenceModel.swap_params` (same tree structure ⇒ the new weights
-  are placed beside the live ones — **zero kernel builds**; changed
-  structure ⇒ honest re-warmup through the existing bucket path),
+  are written into the live tensors, which the captured CUDA graphs read
+  — **zero kernel builds, zero captures**; changed structure ⇒ honest
+  re-warmup, and recapture, through the existing bucket path; the agent
+  keeps a copy of the old state for the rollback),
   canaries the new version with the supervisor's existing
   `probe_replica` machinery plus a golden-output delta gate, and only then reports the new version in
   its heartbeat. A failed canary swaps the old params back and VETOES
@@ -370,7 +372,11 @@ class EngineRolloutAgent:
                     old_out = self._out_leaves(model.predict(x))
                 except Exception:  # noqa: BLE001 — no golden baseline
                     old_out = None
-            old_params = model.current_params()
+            # a copy: a same-structure swap writes the new version into
+            # the live module's tensors (where the captured graphs read),
+            # so the rollback needs the old values of its own
+            old_params = {k: v.detach().clone() for k, v in
+                          model.current_params().state_dict().items()}
             # kernel builds across the swap+canary: the 0-builds
             # contract is about THIS window (a same-structure swap
             # keeps every loaded kernel and warmed bucket), not about

@@ -1948,9 +1948,14 @@ class ClusterServing:
                 m["slo"] = None
         size_fn = getattr(self.model, "compile_cache_size", None)
         if size_fn is not None:
-            # per-(replica, bucket) executable count, plus persistent-
-            # cache traffic when the model is cache-backed
+            # per-(replica, bucket) program count (captured CUDA graphs on
+            # the card), plus persistent-cache traffic when the model is
+            # cache-backed, and each replica's graph pool bytes
             cc_info = {"executables": size_fn()}
+            pools = getattr(self.model, "graph_pool_bytes", dict)()
+            if pools:
+                cc_info["graph_pool_bytes"] = {
+                    f"r{r}": b for r, b in sorted(pools.items())}
             cache = getattr(self.model, "compile_cache", None)
             if cache is not None:
                 s = cache.stats()

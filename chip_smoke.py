@@ -84,8 +84,26 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    busy share in a profiled window); every answer against the direct
    forward of its row (5e-4, same argmax), 12 flash launches a dispatched
    forward, no kernel built after warmup, each `stop()` under 10 s, every
-   record answered once and the thread count back where it began; then
-   the fleet (`phase_fleet_serving`), as a user starts it: a `cli
+   record answered once and the thread count back where it began, every
+   dispatch a replay of the bucket's CUDA graph; then the compile cache
+   for serving (`phase_graphs`): the same BERT-base in f32, bf16 and int8
+   warmed over buckets 1, 8 and 32 (one CUDA graph a bucket, captured at
+   warmup) against the eager forward on the same module (bitwise), 12
+   flash launches and one replay a forward (a replay adds the kernel
+   nodes its graph holds, read from the captured graph through
+   libcuda, and the profiler counts the flash kernels replays run), p50 /
+   p99 eager and graphed in turns, the
+   graph pool's bytes (and with every bucket up to 512), a "same" swap
+   (a batch dispatched before it answers with the old weights, the next
+   as an eager forward with the new, no capture, no build) and a
+   "restructured" one to int8, two graphed replicas on one card against
+   one, eager and graphed, pipelined at 8, and `cli start` with an empty
+   `--compile-cache-dir` and build directory (nvcc builds, every bucket
+   "compiled", seconds to the first answer); then
+   the fleet (`phase_fleet_serving`), as a user starts it, its engines
+   restarting warm from that cache (nvcc 0 times, every bucket "cached")
+   and its generative engine rebuilding the one entry whose byte was
+   flipped: a `cli
    gateway` and two `cli start` engines of the same BERT-base in
    processes of their own over the port's `MiniRedisServer`, heartbeats
    every 0.5 s, fleet metrics, every request traced, rollout from a
@@ -147,9 +165,14 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    sharing a 256-token prefix, Poisson arrivals 2 ms apart, every stream
    read back; tokens/s, TTFT and ITL p50/p99, slot utilization, peak
    memory; exactly 12 decode-attention launches a decode step and no
-   kernel built after warmup; the paged streams against the contiguous
-   ones; a profiled decode step and prefill (device time by kernel, idle
-   share) and a summary of tokens/s, TTFT and ITL beside
+   kernel built after warmup, every prefill, chunk and step a replay of
+   its CUDA graph; the paged streams against the contiguous ones; a paged
+   run with neither chunking nor the prefix cache, bitwise the contiguous
+   streams; an eager engine's streams against the graphed ones; a
+   crash-resumed stream bitwise the uninterrupted one, every call of the
+   engine that resumes it a replay; profiled decode steps and prefills,
+   graphed and eager (device time by kernel, idle share, 12 decode
+   kernels of the step's mode by the profiler's count) and a summary of tokens/s, TTFT and ITL beside
    `decode_attention`'s device ms in the profiled step; teacher-forced
    logits against the port's CPU run and against the plain path;
 13. image serving: ResNet-50 v1.5 (224×224×3, 1000 classes) through
@@ -184,7 +207,8 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
 18. the recurrence's yardstick: the port's LSTM and GRU layers beside
    `torch.nn.LSTM` / `torch.nn.GRU` (cuDNN: sigmoid gates, reset-after, a
    different function the port never calls) at B 128, T 500, E 200, H
-   256, forward and forward + backward, with the FLOP bound;
+   256, forward and forward + backward, with the FLOP bound (the port's
+   device time over one profiled call each, cut from two for time);
 19. AnomalyDetector at the JAX defaults on (50, 3) windows, batch 1024,
    "adam", "mse", f32: `unroll` of a seeded series with injected spikes,
    `fit` (six dropout and one fused-Adam launch a step), `InferenceModel`
@@ -251,8 +275,9 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    copy's device ms a step, its streams and the share of it under
    compute kernels (the fit's own profiler window), bytes a step;
    losses and parameters bitwise equal;
-29. a `kernels` line listing every kernel of the port;
-30. the last line, `{"ok": true, "device": {...}}`.
+29. the seconds of every phase, and the run's;
+30. a `kernels` line listing every kernel of the port;
+31. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1026,8 +1051,13 @@ def int8_stage_checks(im8, state, check, out8, seed: int) -> dict:
     that forward's own spread under a one-ulp nudge of its input."""
     from analytics_zoo_tpu_torch.serving.quantization import int8_matmul
     t0 = time.perf_counter()
+    # the hooks see Python calls: an unwarmed model on the same module
+    # runs the forward eagerly (a warmed bucket replays its CUDA graph)
+    eager8 = InferenceModel(max_batch=32).load_fn(im8._fn,
+                                                  im8.current_params())
     with int8_capture() as card:
-        out_captured = im8.predict(check)
+        out_captured = eager8.predict(check)
+    del eager8
     gemms = [tuple(t.cpu() for t in g) for g in card["gemms"]]
     blocks = [(h.cpu(), mask.cpu(), y.cpu())
               for _, (h, mask), y in card["blocks"]]
@@ -1441,8 +1471,8 @@ def random_attention_inputs(shape, dtype, masked: bool, gen):
 CS_BATCH = 32               # the engine's batch_size and the model's max
 # requests with one in flight, per broker: RESP2 is the cell's wire; the
 # memory and TCP legs were cut from 50 to 25 to leave time for the fleet
-# phase
-CS_SINGLE = {"memory": 25, "tcp": 25, "redis": 50}
+# phase, and to 10 for the graph phase
+CS_SINGLE = {"memory": 10, "tcp": 10, "redis": 50}
 CS_CLIENTS = 8              # closed-loop client threads, one request each
 CS_REQUESTS = 400           # closed-loop requests in all
 CS_ROWS = 64                # distinct id rows the requests cycle through
@@ -1625,6 +1655,7 @@ def phase_cluster_serving(card: str, seed: int):
             "redis": redis.url}
     builds = _build.build_events()
     legs, checks, stops, errs = {}, {}, {}, {}
+    replays0 = sum(im.program_replays().values())
 
     # -- the main path: every count is 0 just before, read just after -----
     LAUNCHES.reset()
@@ -1696,6 +1727,7 @@ def phase_cluster_serving(card: str, seed: int):
         legs[name] = lat
     counts = LAUNCHES.snapshot()
     # -------------------------------------------------------------------------
+    replays = sum(im.program_replays().values()) - replays0
     builds_after = _build.build_events()
     im.predict_async = predict_async
     redis.stop()
@@ -1708,6 +1740,16 @@ def phase_cluster_serving(card: str, seed: int):
               "mean_ms": float(np.mean(lat)), "stop_s": stops[name],
               "max_abs_err": errs[name], "card": card})
     busy = _busy_share(prof, window_s)
+    # the closed loop's forwards replay their graphs: the flash kernels the
+    # profiler recorded there, beside 12 a forward. Printed, not checked:
+    # a window of ~10^5 kernel records loses one now and then (1,920 of
+    # 1,944 in one run); the check holds `launches`, which each replay adds
+    # from the kernel nodes its graph holds, and the graph phase checks
+    # the profiler's count over short windows
+    from torch.autograd import DeviceType
+    cl_flash = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "flash_fwd" in e.name)
     emit({"phase": "cluster_serving_closed_loop", "broker": "redis",
           "clients": CS_CLIENTS, "requests": CS_REQUESTS,
           "records_per_s": CS_REQUESTS / cl_wall,
@@ -1717,6 +1759,7 @@ def phase_cluster_serving(card: str, seed: int):
           "dispatched_batch_sizes": dict(sorted(collections.Counter(
               cl_sizes).items())),
           "device_busy_share": busy, "window_s": window_s,
+          "forwards": len(cl_sizes), "profiler_flash_kernels": cl_flash,
           "max_abs_err": errs["closed_loop"], "card": card})
     # the closed loop's batches: read → written back ("batch"), and each
     # stage's share of it; "predict" is dispatch + the wait for the card
@@ -1732,10 +1775,14 @@ def phase_cluster_serving(card: str, seed: int):
     engine_dispatches = sum(c["dispatches"] for c in checks.values())
     ok = (launches == cfg["n_block"] * forwards
           and forwards == engine_dispatches and builds_after == builds
+          and replays == forwards
           and max(stops.values()) < CS_STOP_S and not left)
     emit({"phase": "cluster_serving_checks", "counts": counts,
           "forwards": forwards, "engine_dispatches": engine_dispatches,
+          "graph_replays": replays,
           "flash_per_forward": launches / max(forwards, 1),
+          "closed_loop_profiler_flash_per_forward":
+              cl_flash / max(len(cl_sizes), 1),
           "builds": builds, "builds_after": builds_after,
           "stop_s": stops, "threads_start": len(threads0),
           "threads_left": left, "engines": checks,
@@ -1746,7 +1793,413 @@ def phase_cluster_serving(card: str, seed: int):
         raise SystemExit("chip_smoke: cluster serving checks failed")
     del im, model
     torch.cuda.empty_cache()
-    return {"counts": counts}
+    return {"counts": counts, "profiler": {
+        "flash_kernels": cl_flash, "forwards": len(cl_sizes)}}
+
+
+# ---------------------------------------------------------------------------
+# the compile cache for serving: CUDA graphs captured at warmup
+# ---------------------------------------------------------------------------
+GR_BUCKETS = (1, 8, 32)
+GR_REQUESTS = 12            # requests a turn per bucket, in the timed turns
+GR_TURNS = ("eager", "graph", "graph", "eager")
+GR_PROFILE_REPLAYS = 4
+GR_PROFILE_WINDOWS = 5       # a run of windows may record nothing
+GR_CHECK_ROWS = 3
+GR_PIPE_REQUESTS = 24       # pipelined batches of 8 a turn (replicas)
+# Graph against eager on the same module and inputs: a CUDA graph replays
+# the kernels its capture recorded with the arguments the eager run
+# passes, and cuBLAS picked the same algorithms under capture in every
+# run on the card (PERF.md), so the checks require the outputs bitwise
+# equal, in f32, bf16 and int8.
+GR_CLI_START_S = 300.0
+GR_RESUME_STEPS = 6         # decode steps before the first engine dies
+GR_RESUME_NEW = 24
+
+
+def _flash_events(im, x, reps: int, want: int,
+                  windows: int = GR_PROFILE_WINDOWS):
+    """Flash-forward kernels the profiler records over `reps` predicts (a
+    replay's kernels are traced one by one), after one untraced warm-up
+    step of the profiler's schedule: window after window until one counts
+    `want`, at most `windows`. A window that records no device activity
+    counts None, and fails like a wrong count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for n in (1, reps):
+                for _ in range(n):
+                    im.predict(x)
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        seen.append(int(sum(e.count for e in rows if "flash_fwd" in e.key))
+                    if rows else None)
+        if seen[-1] == want:
+            break
+    return seen
+
+
+def _graph_leg(card, dtype_name, net, requests, check, cc, quantize=None):
+    """One BERT-base precision: a graphed model (warmup captures buckets
+    1, 8 and 32) and an eager model on the same module; outputs, launches
+    and replays, a profiler window, p50 / p99 of both in turns, the graph
+    pools' bytes."""
+    sample = [np.zeros(BERT_BASE["seq_len"], np.int64),
+              np.ones(BERT_BASE["seq_len"], np.int64)]
+    g = InferenceModel(max_batch=32, compile_cache=cc).load_keras(
+        net, quantize=quantize)
+    t0 = time.perf_counter()
+    g.warmup(sample, buckets=list(GR_BUCKETS))
+    warm_s = time.perf_counter() - t0
+    e = InferenceModel(max_batch=32).load_fn(g._fn, g.current_params())
+    if g.serving_dtype != dtype_name:
+        raise SystemExit(f"chip_smoke: serving {g.serving_dtype}, "
+                         f"expected {dtype_name}")
+    errs, bitwise, top1 = {}, True, True
+    for b in GR_BUCKETS:
+        x = requests[b][0]
+        og, oe = g.predict(x), e.predict(x)
+        errs[b] = float(np.abs(og - oe).max())
+        bitwise = bitwise and bool(np.array_equal(og, oe))
+        top1 = top1 and bool((og.argmax(-1) == oe.argmax(-1)).all())
+    # -- replays: launches and program runs over predicts of every bucket
+    replays0 = g.program_replays()
+    LAUNCHES.reset()
+    forwards = 0
+    for b in GR_BUCKETS:
+        for x in requests[b][:4]:
+            g.predict(x)
+            forwards += 1
+    counts = LAUNCHES.snapshot()
+    replays = {k: v - replays0.get(k, 0)
+               for k, v in g.program_replays().items()}
+    flash_want = BERT_BASE["n_block"] * GR_PROFILE_REPLAYS
+    flash_seen = _flash_events(g, requests[32][0], GR_PROFILE_REPLAYS,
+                               flash_want)
+    # -- p50 / p99, eager and graphed in turns
+    lat = {}
+    for mode in GR_TURNS:
+        im = g if mode == "graph" else e
+        for b in GR_BUCKETS:
+            lat.setdefault((mode, b), []).extend(
+                latencies_ms(im, requests[b][:GR_REQUESTS]))
+    timing = {f"{mode}_b{b}": {
+        "p50_ms": float(np.percentile(v, 50)),
+        "p99_ms": float(np.percentile(v, 99)), "requests": len(v)}
+        for (mode, b), v in sorted(lat.items())}
+    pools = g.graph_pool_bytes()
+    row = {"phase": "graph_serving", "dtype": dtype_name,
+           "buckets": list(GR_BUCKETS), "warmup_s": warm_s,
+           "warmup_report": g.warmup_report,
+           "warmup_source": g.warmup_source,
+           "graph_vs_eager_max_abs_err": errs, "bitwise": bitwise,
+           "top1_equal": top1,
+           "forwards": forwards, "launches": counts,
+           "flash_per_forward": counts.get(fa.KERNEL_NAME, 0) / forwards,
+           "replays": replays,
+           "profiler_flash_kernels": flash_seen,
+           "profiler_replays": GR_PROFILE_REPLAYS,
+           "timing": timing,
+           "graph_pool_bytes": {f"r{k}": v for k, v in pools.items()},
+           "programs": g.compile_cache_size(), "card": card}
+    emit(row)
+    ok = (bitwise and top1
+          and counts.get(fa.KERNEL_NAME, 0) == BERT_BASE["n_block"]
+          * forwards
+          and sum(replays.values()) == forwards
+          and all(v in ("compiled", "cached")
+                  for v in g.warmup_source.values())
+          and flash_want in flash_seen)
+    if not ok:
+        raise SystemExit(f"chip_smoke: graph serving check failed "
+                         f"({dtype_name})")
+    return g, e, row
+
+
+def _graph_pool_ladder(card, net):
+    """The graph pool of BERT-base f32 with every bucket up to 512
+    captured (largest first), one replica: its bytes, the warmup's
+    seconds, and the allocator's peak beside the weights."""
+    sample = [np.zeros(BERT_BASE["seq_len"], np.int64),
+              np.ones(BERT_BASE["seq_len"], np.int64)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    im = InferenceModel(max_batch=512).load_keras(net)
+    t0 = time.perf_counter()
+    im.warmup(sample)
+    warm_s = time.perf_counter() - t0
+    pools = im.graph_pool_bytes()
+    row = {"phase": "graph_pool_ladder", "dtype": "float32",
+           "buckets": sorted(im.warmed_buckets), "warmup_s": warm_s,
+           "warmup_report": im.warmup_report,
+           "graph_pool_bytes": {f"r{k}": v for k, v in pools.items()},
+           "weight_bytes": im.weight_bytes(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "card": card}
+    emit(row)
+    del im
+    torch.cuda.empty_cache()
+    if not pools or not all(pools.values()):
+        raise SystemExit("chip_smoke: no graph pool bytes for the ladder")
+    return row
+
+
+def _graph_swaps(card, g, base_state, requests, check, seed):
+    """On the f32 graphed model: a batch dispatched before a "same" swap
+    answers with the old weights, the next as an eager forward with the
+    new ones, with no capture and no build; a "restructured" swap to int8
+    recaptures and answers as eager int8."""
+    from analytics_zoo_tpu_torch.serving import quantization as quant
+    cfg = BERT_BASE
+    x = requests[8][0]
+    old = g.predict(x)
+    state2 = convert.params_from_jax(
+        random_classifier_tree(cfg, NUM_CLASSES, seed + 5))
+    net2 = BERTClassifier(NUM_CLASSES, use_flash=True, device="cuda", **cfg)
+    net2.load_state_dict(state2)
+    eager2 = InferenceModel(max_batch=32).load_keras(net2)
+    want2 = eager2.predict(x)
+    builds, programs = _build.build_events(), g.compile_cache_size()
+    pending = g.predict_async(x)
+    t0 = time.perf_counter()
+    how = g.swap_params(state2)
+    same_s = time.perf_counter() - t0
+    before = pending.result()
+    got2 = g.predict(x)
+    same = {"result": how, "seconds": same_s,
+            "dispatched_before_is_old": bool(np.array_equal(before, old)),
+            "next_vs_eager_new_max_abs_err": float(
+                np.abs(got2 - want2).max()),
+            "next_bitwise_eager_new": bool(np.array_equal(got2, want2)),
+            "changed": not np.array_equal(got2, old),
+            "builds_unchanged": _build.build_events() == builds,
+            "programs_unchanged": g.compile_cache_size() == programs}
+    q2 = quant.quantize_model_params(net2)
+    want8 = InferenceModel(max_batch=32).load_keras(q2).predict(x)
+    t0 = time.perf_counter()
+    how8 = g.swap_params(q2.state_dict())
+    re_s = time.perf_counter() - t0
+    got8 = g.predict(x)
+    restructured = {"result": how8, "seconds": re_s,
+                    "serving_dtype": g.serving_dtype,
+                    "warmup_source": g.warmup_source,
+                    "vs_eager_int8_max_abs_err": float(
+                        np.abs(got8 - want8).max()),
+                    "bitwise_eager_int8": bool(np.array_equal(got8, want8)),
+                    "programs": g.compile_cache_size(),
+                    "builds_unchanged": _build.build_events() == builds}
+    emit({"phase": "graph_swaps", "same": same,
+          "restructured": restructured, "card": card})
+    ok = (how == "same" and same["dispatched_before_is_old"]
+          and same["changed"] and same["builds_unchanged"]
+          and same["programs_unchanged"]
+          and same["next_bitwise_eager_new"]
+          and how8 == "restructured" and g.serving_dtype == "int8"
+          and restructured["bitwise_eager_int8"]
+          and restructured["programs"] == programs)
+    del eager2, net2, q2
+    if not ok:
+        raise SystemExit("chip_smoke: graph swap checks failed")
+    return {"same": same, "restructured": restructured}
+
+
+def _graph_replicas(card, net, e_one, g_one, requests, cc):
+    """Two replicas on one card's streams, graphed, against one replica,
+    eager and graphed, at a pipelined batch of 8, in turns."""
+    sample = [np.zeros(BERT_BASE["seq_len"], np.int64),
+              np.ones(BERT_BASE["seq_len"], np.int64)]
+    devs = ["cuda:0", "cuda:0"]
+    two_g = InferenceModel(max_batch=32, num_replicas=2, devices=devs,
+                           compile_cache=cc).load_keras(net)
+    two_g.warmup(sample, buckets=[8])
+    two_e = InferenceModel(max_batch=32, num_replicas=2,
+                           devices=devs).load_keras(net)
+    reqs = (requests[8] * 4)[:GR_PIPE_REQUESTS]
+    models = {"one_eager": e_one, "one_graph": g_one, "two_eager": two_e,
+              "two_graph": two_g}
+    for im in models.values():          # eager replicas' first calls
+        pipelined_ms(im, reqs[:4])
+    order = list(models) + list(reversed(list(models)))
+    timing = {}
+    for name in order:
+        timing.setdefault(name, []).append(pipelined_ms(models[name], reqs))
+    agree = all(np.array_equal(two_g.predict(x), g_one.predict(x))
+                for x in requests[8][:4])
+    pools = two_g.graph_pool_bytes()
+    row = {"phase": "graph_replicas", "batch": 8, "window": INT8_WINDOW,
+           "pipelined_ms": timing,
+           "pipelined_ms_mean": {k: float(np.mean(v))
+                                 for k, v in timing.items()},
+           "two_graph_bitwise_one_graph": agree,
+           "warmup_source": two_g.warmup_source,
+           "graph_pool_bytes": {f"r{k}": v for k, v in pools.items()},
+           "card": card}
+    emit(row)
+    two_g.close()
+    two_e.close()
+    if not agree or len(pools) != 2:
+        raise SystemExit("chip_smoke: graphed replicas check failed")
+    return row
+
+
+def build_dir_env(root, name):
+    """The environment of a child with an empty kernel build directory of
+    its own (`$AZT_KERNEL_BUILD_DIR`): what it does not find in its
+    compile cache, it builds."""
+    path = os.path.join(root, f"build_{name}")
+    os.makedirs(path)
+    return dict(os.environ, AZT_KERNEL_BUILD_DIR=path)
+
+
+def _graph_cold_start(card, model_dir, want_row, row, root):
+    """`cli start` as a user runs it, with `--compile-cache-dir` naming an
+    empty cache and an empty build directory of its own: seconds from the
+    spawn to the first answer, the model built and the buckets warmed, the
+    buckets' sources and the builds (nvcc builds the flash library, every
+    bucket "compiled"). The cache it leaves is the fleet phase's: its two
+    engines restart warm from it. The decode library is put in it from
+    this process, one payload byte flipped: the fleet's generative
+    `cli start` must rebuild that entry and still answer correctly."""
+    from analytics_zoo_tpu_torch.compile_cache import CompileCache
+    from analytics_zoo_tpu_torch.compile_cache import store as ccstore
+    from analytics_zoo_tpu_torch.serving.broker import connect_broker
+    from analytics_zoo_tpu_torch.serving.redis_server import MiniRedisServer
+    cfg = BERT_BASE
+    conf = "".join(f"    {k}: {v}\n" for k, v in cfg.items())
+    redis = MiniRedisServer().start()
+    cfg_path = os.path.join(root, "bert_cold.yaml")
+    with open(cfg_path, "w") as fh:
+        fh.write("model:\n  class: BERTClassifier\n"
+                 f"  path: {model_dir}\n  config:\n"
+                 f"    num_classes: {NUM_CLASSES}\n    use_flash: true\n"
+                 f"{conf}broker: {redis.url}\nparams:\n"
+                 f"  batch_size: {CS_BATCH}\n"
+                 f"  warmup_shapes: \"{cfg['seq_len']}\"\n"
+                 "  warmup_dtype: int64\n")
+    cache_dir = os.path.join(root, "cli_cache")
+    tol = LOGIT_TOL["float32"]
+    try:
+        t0 = time.perf_counter()
+        child = _Child("cold_start", ["start", "--config", cfg_path,
+                                      "--compile-cache-dir", cache_dir],
+                       env=build_dir_env(root, "cold_start"))
+        try:
+            br = connect_broker(redis.url)
+            try:
+                y = InputQueue(br).predict(row, timeout_s=GR_CLI_START_S)
+            finally:
+                br.close()
+            first_s = time.perf_counter() - t0
+            source = json.loads(child.wait_line("warmup source: ", 30)[
+                len("warmup source: "):])
+            started = child.json_lines("kernel_counts")
+        finally:
+            code, stop_s = child.terminate()
+    finally:
+        redis.stop()
+    builds = started[0]["builds"] if started else None
+    err = float(np.abs(np.asarray(y) - want_row).max())
+    libs = [e for e in ccstore.scan_dir(cache_dir)
+            if e.get("header", {}).get("kind") == "kernel"]
+    # the decode library beside the flash one, then one byte flipped
+    _build.load(da.SOURCE, cache=CompileCache(cache_dir,
+                                              registry=MetricsRegistry()))
+    decode = [e for e in ccstore.scan_dir(cache_dir)
+              if e.get("header", {}).get("kind") == "kernel"
+              and e["header"]["signature"]["tree"] == da.SOURCE]
+    if decode:
+        victim = os.path.join(cache_dir, decode[0]["file"])
+        blob = bytearray(open(victim, "rb").read())
+        blob[-100] ^= 0xFF
+        open(victim, "wb").write(bytes(blob))
+    out = {"phase": "graph_cold_start", "first_answer_s": first_s,
+           "model_built_s": child.seconds_to("placement=", t0),
+           "warmed_s": child.seconds_to("warmed ", t0),
+           "warmup_report": json.loads(child.find("warmed ").split(
+               ": ", 1)[1]) if child.find("warmed ") else None,
+           "warmup_source": source, "builds": builds, "exit": code,
+           "stop_s": stop_s, "max_abs_err": err, "tol": tol,
+           "kernel_entries": len(libs), "decode_entry_flipped":
+               bool(decode), "card": card}
+    emit(out)
+    ok = (code == 0 and err <= tol and builds is not None
+          and builds["compiles"] >= 1 and len(libs) == 1 and decode
+          and set(source.values()) == {"compiled"})
+    if not ok:
+        raise SystemExit(f"chip_smoke: cold start checks failed: "
+                         f"{child.lines[-20:]}")
+    return dict(out, cache_dir=cache_dir)
+
+
+def phase_graphs(card: str, seed: int):
+    """The compile cache for serving: BERT-base at seq 512 served from
+    CUDA graphs captured at warmup (f32, bf16, int8; buckets 1, 8, 32)
+    against the eager forward on the same module, swaps, two graphed
+    replicas, and the warm restart of `cli start` through
+    `compile_cache_dir`."""
+    from analytics_zoo_tpu_torch.compile_cache import CompileCache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = BERT_BASE
+    state = convert.params_from_jax(
+        random_classifier_tree(cfg, NUM_CLASSES, seed))
+    base = BERTClassifier(NUM_CLASSES, use_flash=True, device="cuda", **cfg)
+    base.load_state_dict(state)
+    rs = np.random.default_rng(seed + 80)
+    requests = {b: [make_request(rs, b, cfg) for _ in range(GR_REQUESTS)]
+                for b in GR_BUCKETS}
+    check = make_request(rs, GR_CHECK_ROWS, cfg)
+    tmp = tempfile.mkdtemp(prefix="graph_smoke_")
+    ok = False
+    try:
+        # the weights `cli start` serves
+        model_dir = os.path.join(tmp, "model")
+        os.makedirs(model_dir)
+        base.save_weights(os.path.join(model_dir, "weights"))
+        cc = CompileCache(os.path.join(tmp, "cc"),
+                          registry=MetricsRegistry())
+        legs = {}
+        g32, e32, legs["float32"] = _graph_leg(card, "float32", base,
+                                               requests, check, cc)
+        ladder = _graph_pool_ladder(card, base)
+        bf16 = copy.deepcopy(base).to(torch.bfloat16)
+        g16, _, legs["bfloat16"] = _graph_leg(card, "bfloat16", bf16,
+                                              requests, check, cc)
+        del g16, bf16
+        g8, _, legs["int8"] = _graph_leg(card, "int8", base, requests,
+                                         check, cc, quantize="int8")
+        del g8
+        torch.cuda.empty_cache()
+        replicas = _graph_replicas(card, base, e32, g32, requests, cc)
+        # `cli start` serves ids-only rows, as the Cluster Serving phase
+        want_row = e32.predict(check[0][:1])[0]
+        swaps = _graph_swaps(card, g32, state, requests, check, seed)
+        del g32, e32
+        torch.cuda.empty_cache()
+        cold = _graph_cold_start(card, model_dir, want_row, check[0][0],
+                                 tmp)
+        ok = True
+    finally:
+        # the cache stays for the fleet phase, which removes it
+        if not ok:
+            shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "graphs", "seconds": seconds,
+          "cache_stats": {"entries": cc.stats()["entries"],
+                          "bytes": cc.stats()["bytes"]}, "card": card})
+    del base
+    torch.cuda.empty_cache()
+    return {"legs": legs, "replicas": replicas, "swaps": swaps,
+            "cold": cold, "ladder": ladder, "seconds": seconds,
+            "cache_root": tmp, "cache_dir": cold["cache_dir"]}
 
 
 FS_ROWS = 32                # distinct id rows (each held against v1 and v2)
@@ -1767,21 +2220,31 @@ class _Child:
     """One `python -m analytics_zoo_tpu_torch.serving.cli ...` process,
     its output (stdout and stderr) collected on a daemon thread."""
 
-    def __init__(self, name, args):
+    def __init__(self, name, args, env=None):
         import threading
         self.name = name
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.cli",
              *args], cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env)
         self.lines = []
+        self.times = []             # perf_counter() at each line's arrival
         self._reader = threading.Thread(target=self._read, daemon=True,
                                         name=f"fleet-child-{name}")
         self._reader.start()
 
     def _read(self):
         for line in self.proc.stdout:
+            self.times.append(time.perf_counter())
             self.lines.append(line.rstrip("\n"))
+
+    def seconds_to(self, prefix, t0):
+        """Seconds from `t0` to the first line starting with `prefix`."""
+        for t, line in zip(list(self.times), list(self.lines)):
+            if line.startswith(prefix):
+                return t - t0
+        return None
 
     def find(self, prefix):
         return next((ln for ln in list(self.lines)
@@ -2134,7 +2597,7 @@ def _inprocess_leg(cfg_path, url, rows, want, tol, card):
     return counts
 
 
-def phase_fleet_serving(card: str, seed: int):
+def phase_fleet_serving(card: str, seed: int, graphs=None):
     """The fleet plane, the HTTP front end and the serving CLI, as a user
     runs them: a `cli gateway` and two `cli start` BERT-base engines
     (f32, seq 512, flash forward) over the port's `MiniRedisServer`, with
@@ -2200,9 +2663,14 @@ def phase_fleet_serving(card: str, seed: int):
             "--port", "0", "--engine-ttl", str(FS_TTL_S),
             "--rollout-dir", mgr.root, "--rollout-interval", "0.5",
             "--trace-sample", "1.0", "--engine-config", cfg_path])
+        # each engine restarts warm from the graph phase's compile cache,
+        # with an empty build directory of its own: nvcc runs 0 times
+        cache_args = ["--compile-cache-dir", graphs["cache_dir"]] \
+            if graphs else []
         for name in ("engine_a", "engine_b"):
             children[name] = _Child(name, [
-                "start", "--config", cfg_path, "--engine-id", "auto"])
+                "start", "--config", cfg_path, "--engine-id", "auto",
+                *cache_args], env=build_dir_env(tmp, name))
         t_spawn = time.perf_counter()
         port = children["gateway"].wait_line(
             "fleet gateway on :", 120).split(":")[1].split()[0]
@@ -2214,10 +2682,26 @@ def phase_fleet_serving(card: str, seed: int):
         _check_answer("first answer", y, want1[0], tol)
         _wait_for(lambda: _converged(base, 1, 2), FS_START_S,
                   "the fleet on version 1")
-        eids = {}
+        eids, warm = {}, {}
         for name in ("engine_a", "engine_b"):
             line = children[name].wait_line("engine id ", 60)
             eids[name] = line.split()[2]
+            src = children[name].wait_line("warmup source: ", 30)
+            started = children[name].json_lines("kernel_counts")
+            warm[name] = {
+                "warmup_source": json.loads(src[len("warmup source: "):]),
+                "builds": started[0]["builds"] if started else None,
+                "warmed_s": children[name].seconds_to("warmed ", t_spawn)}
+        emit({"phase": "fleet_warm_restart", "engines": warm,
+              "start_to_first_answer_s": t_first,
+              "cache": bool(graphs), "card": card})
+        if graphs and not all(
+                w["builds"] and w["builds"]["compiles"] == 0
+                and w["builds"]["cached"] >= 1
+                and set(w["warmup_source"].values()) == {"cached"}
+                for w in warm.values()):
+            raise SystemExit("chip_smoke: the fleet engines' warm restart "
+                             "built a kernel or missed the cache")
         sent = 1
 
         # -- leg 1: serving through the gateway, one in flight ------------
@@ -2434,8 +2918,11 @@ def phase_fleet_serving(card: str, seed: int):
         prompts = [rs.integers(0, GEN_CFG["vocab"], int(n), dtype=np.int64)
                    for n in rs.integers(8, 100, FS_GEN_REQUESTS)]
         max_new = FS_GEN["max_new_tokens"]
+        # its compile cache holds the decode library with one payload byte
+        # flipped (the graph phase): that entry rebuilds
         children["generative"] = _Child("generative", [
-            "start", "--config", gen_path, "--engine-id", "auto"])
+            "start", "--config", gen_path, "--engine-id", "auto",
+            *cache_args], env=build_dir_env(tmp, "generative"))
         t_gen = time.perf_counter()
         gport = children["generative"].wait_line(
             "http frontend on :", FS_START_S).split(":")[1].split()[0]
@@ -2460,11 +2947,14 @@ def phase_fleet_serving(card: str, seed: int):
         child_dec = (kc_g[1]["launches"].get(da.KERNEL_NAME, 0)
                      - kc_g[0]["launches"].get(da.KERNEL_NAME, 0)) \
             if len(kc_g) == 2 else None
+        gen_builds = kc_g[0]["builds"] if kc_g else None
         gen_ok = (sse == ref and beat and beat[0].get("role") == "decode"
                   and gen_counts.get(da.KERNEL_NAME, 0)
                   == GEN_CFG["n_layers"] * ref_steps
                   and child_steps is not None
-                  and child_dec == GEN_CFG["n_layers"] * child_steps)
+                  and child_dec == GEN_CFG["n_layers"] * child_steps
+                  and (not graphs or (gen_builds is not None
+                                      and gen_builds["compiles"] == 1)))
         emit({"phase": "fleet_generative", "requests": FS_GEN_REQUESTS,
               "max_new": max_new, "tokens_equal_in_process": sse == ref,
               "sse_token_frames": frames, "sse_seconds": sse_s,
@@ -2472,7 +2962,9 @@ def phase_fleet_serving(card: str, seed: int):
               "heartbeat_row": beat[0], "launches_in_process": gen_counts,
               "steps_in_process": ref_steps,
               "child_decode_launches": child_dec,
-              "child_steps": child_steps, "ok": bool(gen_ok),
+              "child_steps": child_steps,
+              "child_builds_flipped_entry": gen_builds,
+              "ok": bool(gen_ok),
               "card": card})
         if not gen_ok:
             raise SystemExit("chip_smoke: generative CLI leg failed")
@@ -2487,6 +2979,8 @@ def phase_fleet_serving(card: str, seed: int):
         if redis_gen is not None:
             redis_gen.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+        if graphs:
+            shutil.rmtree(graphs["cache_root"], ignore_errors=True)
     # -- leg 6: every child exited 0 on SIGTERM, nothing left behind --------
     deadline = time.monotonic() + 10
     while set(threading.enumerate()) - threads0 and \
@@ -3999,21 +4493,26 @@ def bucket_ms(registry, phase: str):
     return out
 
 
-def serve_generative(im, dec, paged: bool, traffic, card: str):
+def serve_generative(im, dec, paged: bool, traffic, card: str,
+                     label: str = "", **engine_kw):
     """One engine over a MemoryBroker: the traffic enqueued at its arrival
     times from this thread while the engine steps in its own, every stream
-    read back. Launch counts are reset just before and read just after."""
+    read back. Launch counts are reset just before and read just after.
+    On a warmed model every prefill, chunk and step replays its program
+    (its CUDA graph); `engine_kw` overrides the engine's settings."""
     prompts, max_new, arrivals = traffic
     kw = dict(GEN_ENGINE, max_new_default=GEN_MAX_NEW_CAP,
               registry=MetricsRegistry())
     if paged:
         kw.update(GEN_PAGED, paged=True, init_kv_blocks=dec.init_kv_blocks)
+    kw.update(engine_kw)
     broker = MemoryBroker()
     srv = DecodeServing(im, dec.init_kv, broker=broker, **kw)
     inq, outq = InputQueue(broker), OutputQueue(broker)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     builds = _build.build_events()
+    replays0 = sum(im.program_replays().values())
     # -- the main path: every count is 0 just before, read just after -----
     LAUNCHES.reset()
     srv.start()
@@ -4034,6 +4533,7 @@ def serve_generative(im, dec, paged: bool, traffic, card: str):
     srv.stop()
     counts = LAUNCHES.snapshot()
     # -------------------------------------------------------------------------
+    replays = sum(im.program_replays().values()) - replays0
     peak = torch.cuda.max_memory_allocated()
     builds_after = _build.build_events()
     streams, ttft, itl = {}, [], []
@@ -4050,8 +4550,15 @@ def serve_generative(im, dec, paged: bool, traffic, card: str):
     kernel = da.PAGED_NAME if paged else da.KERNEL_NAME
     other = da.KERNEL_NAME if paged else da.PAGED_NAME
     tokens = sum(len(s) for s in streams.values())
+    prefills = srv.stats["prefill_chunks"] if paged \
+        else srv.stats["prefills"]
+    graphed = im.compile_cache_size() > 0
     row = {"phase": "generative_serving", "mode": "paged" if paged
-           else "contiguous", "config": GEN_CFG, "engine": GEN_ENGINE,
+           else "contiguous", "label": label, "graphs": graphed,
+           "graph_replays": replays,
+           "calls": steps + prefills, "config": GEN_CFG,
+           "engine": GEN_ENGINE, "engine_overrides": {
+               k: v for k, v in engine_kw.items()},
            "paged": GEN_PAGED if paged else None,
            "requests": len(prompts), "tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -4075,6 +4582,10 @@ def serve_generative(im, dec, paged: bool, traffic, card: str):
     if builds_after != builds:
         raise SystemExit(f"chip_smoke: kernels built on the request path: "
                          f"{builds} -> {builds_after}")
+    if replays != (steps + prefills if graphed else 0):
+        raise SystemExit(f"chip_smoke: {replays} program replays over "
+                         f"{steps} steps and {prefills} prefills "
+                         f"(graphs: {graphed})")
     if srv.stats["finished"] != len(prompts) or srv.stats["failed"]:
         raise SystemExit(f"chip_smoke: engine stats {srv.stats}")
     for uri, n in zip(uris, max_new):
@@ -4083,6 +4594,80 @@ def serve_generative(im, dec, paged: bool, traffic, card: str):
             raise SystemExit(f"chip_smoke: stream {uri} has "
                              f"{len(streams[uri])} tokens, expected {n}")
     return [streams[u] for u in uris], row
+
+
+def _drive_inline(srv, until, max_iters=2000):
+    """The engine loop inline (watchdog, intake, step, flush), as `run()`
+    iterates it, until `until()`."""
+    step = srv._run_paged_step if srv.paged else srv._run_step
+    for _ in range(max_iters):
+        srv._watchdog()
+        srv._intake()
+        step()
+        srv._flush_pending()
+        if until():
+            return
+    raise SystemExit(f"chip_smoke: inline engine did not finish: "
+                     f"{srv.stats}")
+
+
+def decode_resume(im, dec, card: str, seed: int):
+    """A paged engine that dies after GR_RESUME_STEPS steps of one
+    streamed request, and a second engine that claims the record and
+    resumes it from its durable token rows: the resumed stream against the
+    same request decoded uninterrupted, both on the warmed (graphed)
+    model."""
+    rs = np.random.default_rng(seed + 95)
+    prompt = rs.integers(0, GEN_CFG["vocab"], 40).astype(np.int32)
+    kw = dict(GEN_ENGINE, **GEN_PAGED, paged=True,
+              init_kv_blocks=dec.init_kv_blocks,
+              max_new_default=GR_RESUME_NEW)
+
+    def engine(broker, name, **extra):
+        return DecodeServing(im, dec.init_kv, broker=broker,
+                             registry=MetricsRegistry(), engine_id=name,
+                             **dict(kw, **extra))
+
+    import gc
+    b0 = MemoryBroker()
+    e0 = engine(b0, "uninterrupted")
+    uri0 = InputQueue(b0).enqueue(t=prompt, max_new=GR_RESUME_NEW, stream=1)
+    _drive_inline(e0, lambda: e0.stats["finished"] >= 1)
+    e0.stop(drain=False)            # gives the warmed pool back
+    want = [int(t) for t in np.asarray(OutputQueue(b0).query(uri0))]
+    b1 = MemoryBroker()
+    e1 = engine(b1, "dies")
+    uri = InputQueue(b1).enqueue(t=prompt, max_new=GR_RESUME_NEW, stream=1)
+    e1._intake()
+    for _ in range(GR_RESUME_STEPS):
+        e1._run_paged_step()
+    emitted = e1.stats["tokens"]
+    del e1                          # the engine dies, and its hold on the
+    gc.collect()                    # pool with it
+    time.sleep(0.1)
+    replays0 = sum(im.program_replays().values())
+    eager0 = dict(im.gen_eager_calls)
+    e2 = engine(b1, "resumes", claim_min_idle_s=0.05, claim_interval_s=0.0)
+    _drive_inline(e2, lambda: e2.stats["finished"] >= 1)
+    e2.stop(drain=False)
+    replays = sum(im.program_replays().values()) - replays0
+    got = [int(t) for t in np.asarray(OutputQueue(b1).query(uri))]
+    row = {"phase": "generative_resume", "prompt_len": len(prompt),
+           "max_new": GR_RESUME_NEW, "tokens_before_death": emitted,
+           "resumed": e2.stats["resumed"],
+           "recovered_tokens": e2.stats["recovered_tokens"],
+           "resumed_engine_replays": replays,
+           "resumed_engine_calls": e2.stats["steps"]
+           + e2.stats["prefill_chunks"],
+           "eager_calls": {k: v - eager0.get(k, 0)
+                           for k, v in im.gen_eager_calls.items()},
+           "bitwise_uninterrupted": got == want, "card": card}
+    emit(row)
+    if not (0 < emitted < GR_RESUME_NEW and e2.stats["resumed"] == 1
+            and got == want and im.gen_eager_calls == eager0
+            and replays == row["resumed_engine_calls"]):
+        raise SystemExit(f"chip_smoke: decode resume check failed: {row}")
+    return row
 
 
 def top2_gap(im, dec, context) -> float:
@@ -4209,8 +4794,78 @@ def phase_generative(card: str, seed: int):
         raise SystemExit("chip_smoke: paged streams differ from contiguous "
                          "beyond a near-tie")
 
+    # -- the graphs: paged with neither chunking nor prefix adoption (each
+    # prompt one fresh chunk, op for op the contiguous prefill) against the
+    # contiguous streams, bit for bit; the eager engine's streams against
+    # the graphed ones; a crash-resumed stream
+    t_g = time.perf_counter()
+    im.warmup_generative_paged(
+        dec.init_kv_blocks, num_blocks=e["slots"] * table_len + 1,
+        block_len=GEN_PAGED["block_len"], lanes=e["slots"],
+        table_len=table_len, chunk_buckets=list(e["prompt_buckets"]),
+        kv_buckets=e["kv_buckets"])
+    exact, x_row = serve_generative(
+        im, dec, True, traffic, card, label="paged_exact",
+        prefill_chunk=None, prefix_cache=False,
+        chunk_buckets=list(e["prompt_buckets"]))
+    exact_equal = sum(a == b for a, b in zip(contiguous, exact))
+    eager_im = InferenceModel().load_generative(
+        dec.prefill_fn, dec.step_fn, im._params,
+        paged_prefill_fn=dec.paged_prefill_fn,
+        paged_step_fn=dec.paged_step_fn)
+    eager, e_row = serve_generative(eager_im, dec, False, traffic, card,
+                                    label="eager")
+    eager_diffs = []
+    for i, (a, b) in enumerate(zip(contiguous, eager)):
+        if a != b:
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            eager_diffs.append({"request": i, "first_diff": j,
+                                "top2_gap": top2_gap(eager_im, dec,
+                                    np.concatenate([prompts[i], np.asarray(
+                                        a[:j], np.int32)]))})
+    resume = decode_resume(im, dec, card, seed)
+    eager_profiles = {m: profile_decode_step(eager_im, dec, m == "paged",
+                                             card)
+                      for m in ("contiguous", "paged")}
+    del eager_im
+    torch.cuda.empty_cache()
     profiles = {m: profile_decode_step(im, dec, m == "paged", card)
                 for m in ("contiguous", "paged")}
+    graphs_row = {
+        "phase": "generative_graphs", "programs": im.compile_cache_size(),
+        "paged_exact_equal_streams": exact_equal,
+        "requests": len(prompts),
+        "eager_equal_streams": len(prompts) - len(eager_diffs),
+        "eager_differ": eager_diffs, "tie_gap_tol": GEN_TIE_GAP,
+        "resume_bitwise": resume["bitwise_uninterrupted"],
+        "graph_pool_bytes": {f"r{k}": v for k, v in
+                             im.graph_pool_bytes().items()},
+        "kv512_step_ms": {m: {"graph": profiles[m]["step_ms"],
+                              "eager": eager_profiles[m]["step_ms"]}
+                          for m in profiles},
+        "kv512_device_ms": {m: {"graph": profiles[m]["device_ms_per_step"],
+                                "eager": eager_profiles[m][
+                                    "device_ms_per_step"]}
+                            for m in profiles},
+        "tokens_per_s": {"graph_contiguous": c_row["tokens_per_s"],
+                         "graph_paged": p_row["tokens_per_s"],
+                         "graph_paged_exact": x_row["tokens_per_s"],
+                         "eager_contiguous": e_row["tokens_per_s"]},
+        "ttft_p50_ms": {"graph_contiguous": c_row["ttft_p50_ms"],
+                        "graph_paged": p_row["ttft_p50_ms"],
+                        "eager_contiguous": e_row["ttft_p50_ms"]},
+        "itl_p50_ms": {"graph_contiguous": c_row["itl_p50_ms"],
+                       "graph_paged": p_row["itl_p50_ms"],
+                       "eager_contiguous": e_row["itl_p50_ms"]},
+        "itl_p99_ms": {"graph_contiguous": c_row["itl_p99_ms"],
+                       "graph_paged": p_row["itl_p99_ms"],
+                       "eager_contiguous": e_row["itl_p99_ms"]},
+        "seconds": time.perf_counter() - t_g, "card": card}
+    emit(graphs_row)
+    if exact_equal != len(prompts) or any(
+            d["top2_gap"] >= GEN_TIE_GAP for d in eager_diffs):
+        raise SystemExit("chip_smoke: graphed decode streams differ")
     emit({"phase": "generative_summary", "card": card, **{
         mode: {"tokens_per_s": row["tokens_per_s"],
                "ttft_p50_ms": row["ttft_p50_ms"],
@@ -4268,15 +4923,20 @@ def phase_generative(card: str, seed: int):
           "f64_seconds": time.perf_counter() - t4 - cpu_s, "ok": ok})
     if not ok:
         raise SystemExit("chip_smoke: generative logits check failed")
-    return {"contiguous": c_row, "paged": p_row, "profile": profiles}
+    return {"contiguous": c_row, "paged": p_row, "profile": profiles,
+            "graphs": graphs_row}
 
 
-def host_and_device_ms(fn, reps: int):
+def host_and_device_ms(fn, reps: int, calls=None, want=None,
+                       windows: int = GR_PROFILE_WINDOWS):
     """`fn`'s mean time on the host's clock (unprofiled, after three warm
     calls, each call ending in a copy to the host), then its device time
-    by kernel under torch.profiler: (host ms, device ms, top kernels)."""
+    by kernel under torch.profiler after one untraced warm-up step: (host
+    ms, device ms, top kernels). With `calls` (top rows -> calls a call of
+    `fn`) and `want`, windows are taken until one reads `want`, at most
+    `windows`; a window that recorded nothing is taken again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -4285,22 +4945,31 @@ def host_and_device_ms(fn, reps: int):
         fn()
     host = (time.perf_counter() - t0) * 1e3 / reps
     rows = []
-    for _ in range(3):      # a window that recorded nothing is run again
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for n in (1, reps):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the schedule's step ranges ("ProfilerStep#N") are device rows
+        # too: not kernels
         rows = [(ev.key, ev.self_device_time_total / 1e3 / reps,
                  ev.count / reps) for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA
-                and ev.self_device_time_total > 0]
-        if rows:
+                and ev.self_device_time_total > 0
+                and not ev.key.startswith("ProfilerStep")]
+        seen = [{"kernel": name[:96], "ms": ms, "calls": k}
+                for name, ms, k in rows]
+        if rows and (calls is None or calls(seen) == want):
             break
     rows.sort(key=lambda r: -r[1])
     dev = sum(r[1] for r in rows)
-    top = [{"kernel": name[:96], "ms": ms, "share": ms / dev, "calls": calls}
-           for name, ms, calls in rows]
+    top = [{"kernel": name[:96], "ms": ms, "share": ms / dev, "calls": k}
+           for name, ms, k in rows]
     return host, dev or None, top
 
 
@@ -4316,8 +4985,12 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
     bucket = e["max_kv_len"] // 2
     tokens = np.arange(S, dtype=np.int32) % GEN_CFG["vocab"]
     pos = np.full(S, bucket - 1, np.int32)
+    # the pools warmup captured the programs on (no engine holds them
+    # now): the calls replay them
+    owner = _PoolOwner()
     if paged:
-        kv = dec.init_kv_blocks(S * table_len + 1, bl)
+        kv = im.serving_kv(dec.init_kv_blocks, owner, paged=True)(
+            S * table_len + 1, bl)
         tables = (1 + np.arange(S * table_len, dtype=np.int32)).reshape(
             S, table_len)
         chunk = tokens[:1].repeat(bucket // 2)
@@ -4332,7 +5005,7 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
                 kv, chunk, tables[0], bucket // 2, bucket // 2, bucket // 2)
             return int(torch.argmax(logits))
     else:
-        kv = dec.init_kv(S, e["max_kv_len"])
+        kv = im.serving_kv(dec.init_kv, owner)(S, e["max_kv_len"])
         prompt = tokens[:1].repeat(bucket)
 
         def step():
@@ -4342,8 +5015,23 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
         def prefill():
             _, logits = im.generative_prefill(kv, prompt, bucket, 0)
             return int(torch.argmax(logits))
-    step_ms, dev_ms, top = host_and_device_ms(step, reps)
+    def mode_calls(top):
+        """Decode kernels of this mode a step (None if another mode's
+        ran)."""
+        attn = [r for r in top if "decode_attention" in r["kernel"]]
+        if any((", true>" in r["kernel"]) != paged for r in attn):
+            return None
+        return sum(r["calls"] for r in attn)
+
+    eager0 = dict(im.gen_eager_calls)
+    step_ms, dev_ms, top = host_and_device_ms(
+        step, reps, mode_calls, float(GEN_CFG["n_layers"]))
     pre_ms, pre_dev_ms, pre_top = host_and_device_ms(prefill, reps)
+    im.release_kv(owner)
+    graphed = im.compile_cache_size() > 0
+    if graphed and im.gen_eager_calls != eager0:
+        raise SystemExit(f"chip_smoke: profiled decode calls ran eagerly: "
+                         f"{eager0} -> {im.gen_eager_calls}")
     attn = [r for r in top if "decode_attention" in r["kernel"]]
     row = {"phase": "generative_profile",
            "mode": "paged" if paged else "contiguous", "kv_bucket": bucket,
@@ -4352,6 +5040,7 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
            "idle_share": 1.0 - dev_ms / step_ms if dev_ms else None,
            "decode_attention_device_ms": sum(r["ms"] for r in attn),
            "decode_attention_calls": sum(r["calls"] for r in attn),
+           "graphed": graphed,
            "top": top[:10], "prefill_ms": pre_ms,
            "prefill_device_ms": pre_dev_ms,
            "prefill_idle_share":
@@ -4360,7 +5049,16 @@ def profile_decode_step(im, dec, paged: bool, card: str, reps: int = 5):
     emit(row)
     del kv
     torch.cuda.empty_cache()
+    # the decode kernel of this mode, 12 a step by the profiler's count
+    if mode_calls(top) != GEN_CFG["n_layers"]:
+        raise SystemExit(f"chip_smoke: the profiler saw {attn} decode "
+                         f"kernels a {row['mode']} step, expected "
+                         f"{GEN_CFG['n_layers']} of this mode")
     return row
+
+
+class _PoolOwner:
+    """What holds a model's warmed KV pool outside an engine."""
 
 
 # ---------------------------------------------------------------------------
@@ -5259,9 +5957,9 @@ def recurrent_yardstick(card: str, seed: int):
                    RNN_YARDSTICK_LABEL, "cell": cell,
                    "dtype": str(dtype)[6:], "shape": [B, T, E, H],
                    "port_fwd_ms": time_ms(port_fwd, 3),
-                   "port_fwd_device_ms": device_ms(port_fwd, 2)[0],
+                   "port_fwd_device_ms": device_ms(port_fwd, 1)[0],
                    "port_fwd_bwd_ms": time_ms(port_fwd_bwd, 3),
-                   "port_fwd_bwd_device_ms": device_ms(port_fwd_bwd, 2)[0],
+                   "port_fwd_bwd_device_ms": device_ms(port_fwd_bwd, 1)[0],
                    "library": f"torch.nn.{lib_cls.__name__}",
                    "library_on_cudnn": torch.backends.cudnn.is_acceptable(x),
                    "library_fwd_ms": time_ms(lib_fwd, 10),
@@ -6430,7 +7128,8 @@ NER_SERVE_BATCHES = (1, 8, 32)
 NER_REQUESTS = 20
 # the prefetcher on the image step: ResNet-50 at batch 256, bf16
 PF_STEPS = 6
-PF_TURNS = 3                 # without, with: three times, in turns
+PF_TURNS = 2                 # without, with: twice each, in turns (3
+                             # until the graph phase came)
 PF_PROFILE = (1, 3)          # profiled iterations [1, 3)
 BERT_TRACE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
                       "flash_bwd_dq_mma_kernel", "dropout_kernel",
@@ -7024,7 +7723,8 @@ def decode_entries(decs, gen):
             ms=main["kernel_ms"], wall_ms=main["kernel_wall_ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
-            **common),
+            profiler_calls_per_step=gen["profile"]["contiguous"][
+                "decode_attention_calls"], **common),
         da.PAGED_NAME: dict(
             launches=gen["paged"]["launches"].get(da.PAGED_NAME, 0),
             n_split=main["n_split"],
@@ -7037,7 +7737,9 @@ def decode_entries(decs, gen):
             bound_by=main["paged_bound_by"],
             library_ms=main["paged_library_ms"],
             bitwise_contiguous=all(r["paged_bitwise_contiguous"]
-                                   for r in decs.values()), **common),
+                                   for r in decs.values()),
+            profiler_calls_per_step=gen["profile"]["paged"][
+                "decode_attention_calls"], **common),
     }
 
 
@@ -7069,38 +7771,52 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
-    card = phase_device_and_build()
-    attn = phase_kernels(card, args.seed)
-    bwd = phase_backward(card, args.seed)
-    adrop = phase_attention_dropout(card, args.seed)
-    drop = phase_dropout(card, args.seed)
-    adam = phase_fused_adam(card, args.seed)
-    serve_counts = phase_serving(card, args.seed)
-    int8 = phase_int8_serving_lifecycle(card, args.seed)
-    cluster = phase_cluster_serving(card, args.seed)
-    fleet = phase_fleet_serving(card, args.seed)
-    train_counts = phase_training(card, args.seed)
-    segs = phase_segment_adam(card, args.seed)
-    ncf_counts = phase_ncf(card, args.seed)
-    decs = phase_decode_kernels(card, args.seed)
-    gen = phase_generative(card, args.seed)
-    phase_image_serving(card, args.seed)
-    img_counts = phase_image_training(card, args.seed)
-    inception_counts = phase_image_dropout(card, args.seed)
-    text = {enc: phase_text_training(card, args.seed, enc)
+    seconds = {}
+
+    def timed(fn, *a):
+        """`fn(*a)`, its seconds kept under its name (and a string
+        argument's, for a phase run twice)."""
+        t1 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            name = "_".join([fn.__name__] + [x for x in a[2:]
+                                             if isinstance(x, str)])
+            seconds[name] = time.perf_counter() - t1
+
+    card = timed(phase_device_and_build)
+    attn = timed(phase_kernels, card, args.seed)
+    bwd = timed(phase_backward, card, args.seed)
+    adrop = timed(phase_attention_dropout, card, args.seed)
+    drop = timed(phase_dropout, card, args.seed)
+    adam = timed(phase_fused_adam, card, args.seed)
+    serve_counts = timed(phase_serving, card, args.seed)
+    int8 = timed(phase_int8_serving_lifecycle, card, args.seed)
+    cluster = timed(phase_cluster_serving, card, args.seed)
+    graphs = timed(phase_graphs, card, args.seed)
+    fleet = timed(phase_fleet_serving, card, args.seed, graphs)
+    train_counts = timed(phase_training, card, args.seed)
+    segs = timed(phase_segment_adam, card, args.seed)
+    ncf_counts = timed(phase_ncf, card, args.seed)
+    decs = timed(phase_decode_kernels, card, args.seed)
+    gen = timed(phase_generative, card, args.seed)
+    timed(phase_image_serving, card, args.seed)
+    img_counts = timed(phase_image_training, card, args.seed)
+    inception_counts = timed(phase_image_dropout, card, args.seed)
+    text = {enc: timed(phase_text_training, card, args.seed, enc)
             for enc in ("lstm", "gru")}
-    phase_text_serving(card, args.seed)
-    recurrent_yardstick(card, args.seed)
-    anomaly = phase_anomaly(card, args.seed)
-    phase_session_check(card, args.seed)
-    inception = phase_inception_imagenet(card, args.seed)
-    wide = phase_wide_and_deep(card, args.seed)
-    phase_autograd_checks(card, args.seed)
-    text_adagrad = phase_text_adagrad(card, args.seed)
-    resume = phase_resume(card, args.seed)
-    squad = phase_bert_squad(card, args.seed)
-    ner = phase_bert_ner(card, args.seed)
-    prefetch = phase_prefetch_ab(card, args.seed)
+    timed(phase_text_serving, card, args.seed)
+    timed(recurrent_yardstick, card, args.seed)
+    anomaly = timed(phase_anomaly, card, args.seed)
+    timed(phase_session_check, card, args.seed)
+    inception = timed(phase_inception_imagenet, card, args.seed)
+    wide = timed(phase_wide_and_deep, card, args.seed)
+    timed(phase_autograd_checks, card, args.seed)
+    text_adagrad = timed(phase_text_adagrad, card, args.seed)
+    resume = timed(phase_resume, card, args.seed)
+    squad = timed(phase_bert_squad, card, args.seed)
+    ner = timed(phase_bert_ner, card, args.seed)
+    prefetch = timed(phase_prefetch_ab, card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -7135,6 +7851,16 @@ def main(argv=None) -> int:
         launches_ner_serving=ner["serve_counts"].get(fa.KERNEL_NAME, 0),
         launches_int8_serving=int8["counts"].get(fa.KERNEL_NAME, 0),
         launches_cluster_serving=cluster["counts"].get(fa.KERNEL_NAME, 0),
+        launches_graph_serving={
+            dtype: leg["launches"].get(fa.KERNEL_NAME, 0)
+            for dtype, leg in graphs["legs"].items()},
+        # the profiler's count of the kernels replays ran, beside
+        # `launches` (which replays add from their graphs' kernel nodes)
+        profiler_graph_serving={
+            dtype: {"kernels": leg["profiler_flash_kernels"][-1],
+                    "forwards": leg["profiler_replays"]}
+            for dtype, leg in graphs["legs"].items()},
+        profiler_cluster_closed_loop=cluster["profiler"],
         launches_fleet_serving=fleet["counts"].get(fa.KERNEL_NAME, 0))
     entries[da.KERNEL_NAME].update(
         launches_fleet_generative=fleet["gen_counts"].get(da.KERNEL_NAME,
@@ -7147,6 +7873,7 @@ def main(argv=None) -> int:
     bad = [k["name"] for k in kernels if k["verdict"] != "ok"]
     if bad:
         raise SystemExit(f"chip_smoke: kernels failed their checks: {bad}")
+    emit({"phase": "phase_seconds", "seconds": seconds})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

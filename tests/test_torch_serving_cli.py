@@ -229,12 +229,23 @@ def test_slo_block_and_profile_knobs(m, tmp_path):
 @pytest.mark.parametrize("body,match", [
     ("params:\n  placement: sharded\n", "item 7"),
     ("params:\n  placement: sharded\n  mesh: data=1,fsdp=2\n", "item 7"),
-    ("params:\n  compile_cache_dir: /tmp/cc\n", "item 1"),
     ("secure:\n  model_encrypted: true\n", "item 8")])
 def test_port_refusals_name_their_item(tmp_path, body, match):
     from analytics_zoo_tpu_torch.serving.config import ServingConfig
     with pytest.raises(NotImplementedError, match=match):
         ServingConfig.load(_write(tmp_path, "model:\n  path: /m\n" + body))
+
+
+def test_port_accepts_compile_cache_dir(tmp_path):
+    from analytics_zoo_tpu_torch.compile_cache import CompileCache
+    from analytics_zoo_tpu_torch.serving.config import ServingConfig
+    cc = tmp_path / "cc"
+    cfg = ServingConfig.load(_write(
+        tmp_path, "model:\n  path: /m\nparams:\n"
+        f"  compile_cache_dir: {cc}\n  compile_cache_max_bytes: 64M\n"))
+    cache = cfg.build_compile_cache()
+    assert isinstance(cache, CompileCache)
+    assert cache.path == str(cc) and cache.max_bytes == 64 << 20
 
 
 def test_port_refuses_jax_only_classes_and_unknown_names():

@@ -293,12 +293,31 @@ def test_swap_same_structure(n, closing):
     fresh.load_state_dict(new)
     want = InferenceModel(device="cpu").load_keras(fresh).predict(x)
     np.testing.assert_array_equal(im.predict(x), want)
-    assert im.current_params() is not live
+    # the new values land in the live module's own tensors, the storage a
+    # captured graph reads
+    assert im.current_params() is live
+    for k, v in live.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), new[k].numpy())
     assert im.warmup_report == report and _build.build_events() == builds
     # float64 host weights land as the live float32 structure
     assert im.swap_params({k: v.double().numpy() for k, v in new.items()}
                           ) == "same"
     np.testing.assert_array_equal(im.predict(x), want)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_swap_leaves_the_loaded_module_unchanged(n, closing):
+    # the model serves its own copy: a "same" swap, which writes into the
+    # served tensors, never reaches the module the caller loaded
+    m = make_model()
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    im = (pool(n) if n > 1 else InferenceModel(device="cpu")).load_keras(m)
+    closing(im)
+    im.warmup(np.zeros((4,), np.float32), buckets=[4])
+    assert im.current_params() is not m
+    assert im.swap_params(_new_weights(m, 3)) == "same"
+    for k, v in m.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 @pytest.mark.parametrize("n", [1, 2])
