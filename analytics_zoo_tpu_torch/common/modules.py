@@ -48,6 +48,13 @@ def copy_module(module: nn.Module,
     `requires_grad`), or is removed when that returns None. Everything else
     is deep-copied as usual."""
     memo = {}
+    # what a fit keeps on the model (its captured programs, its
+    # device-resident data) belongs to that module: the copy starts
+    # without it
+    for name in ("_train_cache", "_device_data"):
+        held = module.__dict__.get(name)
+        if held is not None:
+            memo[id(held)] = None
     dropped = []
     for key, t in module.state_dict(keep_vars=True).items():
         new = tensor_for(key, t)

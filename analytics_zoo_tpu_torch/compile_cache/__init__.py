@@ -1,4 +1,4 @@
-"""Persistent compile cache for serving.
+"""Persistent compile cache for serving and training.
 
 Port of `analytics_zoo_tpu/compile_cache/` (`__init__.py`, `key.py`,
 `store.py`, `aot_fn.py`, `serialization.py`) and
@@ -27,7 +27,10 @@ anew (milliseconds a bucket) and reports each bucket "cached".
   dtype.
 - `GraphProgram` / `ProgramTable` / `capture_program` (`graphs.py`) — the
   programs themselves: captured on the card, the same static-buffer
-  protocol run eagerly on the CPU.
+  protocol run eagerly on the CPU; `TrainProgram`, a fit's program of one
+  or more training steps (`learn/trainer.py` writes its capture records
+  under `compile_cache_dir`), and `eager_programs()`, which runs them
+  eagerly for a check.
 - `tool.py` — `python -m analytics_zoo_tpu_torch.compile_cache.tool
   ls|stats|prune|clear --dir DIR`.
 """
@@ -35,7 +38,9 @@ anew (milliseconds a bucket) and reports each bucket "cached".
 from analytics_zoo_tpu_torch.compile_cache.graphs import (CaptureError,
                                                           GraphProgram,
                                                           ProgramTable,
-                                                          capture_program)
+                                                          TrainProgram,
+                                                          capture_program,
+                                                          eager_programs)
 from analytics_zoo_tpu_torch.compile_cache.key import (CacheKey,
                                                        abstract_signature,
                                                        cheap_signature,
@@ -47,7 +52,8 @@ from analytics_zoo_tpu_torch.compile_cache.store import (CompileCache,
 
 __all__ = [
     "CacheKey", "CaptureError", "CompileCache", "GraphProgram",
-    "ProgramTable", "abstract_signature", "capture_program",
+    "ProgramTable", "TrainProgram", "abstract_signature",
+    "capture_program", "eager_programs",
     "cheap_signature", "fingerprint", "get_cache", "make_key",
     "model_fingerprint", "structure_signature",
 ]

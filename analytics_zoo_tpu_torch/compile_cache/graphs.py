@@ -46,12 +46,25 @@ with `capture_error_mode="thread_local"`, so that serving threads keep
 running while a swap recaptures. One memory pool per stream: the
 programs of one replica replay in order on its stream, never at once, so
 they may share one pool; capture the largest bucket first.
+
+`TrainProgram` is the training twin, the counterpart of the JAX fit's
+jitted step (`build_train_step`) and k-step run (`build_train_run`): one
+program of one or more training steps over buffers its caller owns (the
+static batch or the device-resident data and its cursor, the step's
+scalar table, the model's parameters and buffers, the optimizer state
+and a loss buffer). Its first run is eager, on the program's stream;
+the second captures it, with the calls of every thread recorded (the
+backward runs on autograd's device thread), and replays; every later run
+replays. Nothing a step reads may be a host value that changes from step
+to step: the seeds and optimizer scalars come from the table, which the
+caller writes before each run.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -130,6 +143,21 @@ def graph_kernel_symbols(graph: int) -> List[str]:
     return out
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """No garbage collection inside a capture: a collection could destroy
+    a dead program's graph (a model and its programs form a reference
+    cycle), which the capturing thread may not do, and the capture would
+    be invalidated. `torch.cuda.graph` collects just before it begins."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def _as_tensor(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
@@ -184,7 +212,8 @@ class GraphProgram:
                 self._fn(*self.static_in)
             stream.synchronize()
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with LAUNCHES.capturing() as called, torch.cuda.device(dev):
+            with LAUNCHES.capturing() as called, torch.cuda.device(dev), \
+                    _no_collection():
                 with torch.cuda.graph(graph, pool=self.pool, stream=stream,
                                       capture_error_mode="thread_local"):
                     out = self._fn(*self.static_in)
@@ -327,6 +356,103 @@ class ProgramTable:
             if prog.pool is not None and key[0] not in out:
                 out[key[0]] = graph_pool_bytes(prog.pool, prog.device)
         return out
+
+
+_eager_only = threading.Event()
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Run every `TrainProgram` eagerly inside the block, on the card
+    too: the eager leg of a check that holds a graphed fit against an
+    eager one."""
+    _eager_only.set()
+    try:
+        yield
+    finally:
+        _eager_only.clear()
+
+
+class TrainProgram:
+    """One training program `fn(capturing)` on `device`. `fn` runs the
+    program's steps on its caller's buffers and returns what its caller
+    keeps from an eager run (`capturing` is True while it is captured, and
+    its result is then dropped). On the card a call runs `fn` eagerly on
+    the program's stream until `capture()` has captured it into a CUDA
+    graph in its own memory pool, and replays the graph from then on; the
+    caller's stream waits for the program. On the CPU every call runs `fn`
+    eagerly and `capture()` does nothing. `launches`: the repo's kernel
+    nodes of the graph, which each replay adds to `LAUNCHES`."""
+
+    def __init__(self, name: str, fn: Callable[[bool], Any],
+                 device: torch.device):
+        self.name = name
+        self.device = torch.device(device)
+        self._fn = fn
+        self.launches: Dict[str, int] = {}
+        self.graph = None
+        self.stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The block on the program's stream, after the caller's stream's
+        work; the caller's stream then waits for it."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        try:
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.stream):
+                yield
+        finally:
+            cur.wait_stream(self.stream)
+
+    def __call__(self) -> Tuple[Any, bool]:
+        """One run: `(fn's result, False)` for an eager run, `(None,
+        True)` for a replay."""
+        if self.stream is None:
+            return self._fn(False), False
+        if self.graph is None or _eager_only.is_set():
+            with self._on_stream():
+                return self._fn(False), False
+        with self._on_stream():
+            self.graph.replay()
+        LAUNCHES.add_counts(self.launches)
+        return None, True
+
+    def capture(self) -> None:
+        """Capture the program (on the card, once, after an eager run has
+        built and loaded its kernels; not inside `eager_programs()`)."""
+        if self.stream is None or self.graph is not None \
+                or _eager_only.is_set():
+            return
+        with self._on_stream():
+            self._capture()
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with _CAPTURE_LOCK, _no_collection():
+            try:
+                with LAUNCHES.capturing(all_threads=True) as called, \
+                        torch.cuda.device(self.device):
+                    with torch.cuda.graph(graph, stream=self.stream,
+                                          capture_error_mode="thread_local"):
+                        self._fn(True)
+                self.stream.synchronize()
+                nodes = kernel_counts(graph_kernel_symbols(
+                    graph.raw_cuda_graph()))
+                graph.instantiate()
+            except Exception as e:  # noqa: BLE001 — re-raised, named
+                raise CaptureError(
+                    f"CUDA graph capture of {self.name} failed: "
+                    f"{type(e).__name__}: {e}") from e
+        if nodes != called:
+            raise CaptureError(
+                f"CUDA graph capture of {self.name}: the graph holds the "
+                f"kernel nodes {nodes}, its kernel wrappers were called "
+                f"{called}")
+        self.graph = graph
+        self.launches = nodes
 
 
 def capture_program(name: str, fn: Callable[..., Any], inputs: Sequence,

@@ -111,6 +111,18 @@ struct AdamScalars {
   float a, b, lrwd, b1, b2, one_minus_b1, one_minus_b2;
 };
 
+// (a, b, lrwd) change every step: they are read from device memory (the
+// step's row of the scalar table, `folded`), so a captured CUDA graph
+// reads each replay's values. b1, b2 and their complements are constants
+// of the optimizer and come by value.
+__device__ __forceinline__ AdamScalars with_folded(AdamScalars s,
+                                                   const float* folded) {
+  s.a = __ldg(folded);
+  s.b = __ldg(folded + 1);
+  s.lrwd = __ldg(folded + 2);
+  return s;
+}
+
 __device__ __forceinline__ void adam_update(float& p, float& m, float& v,
                                             float g, const AdamScalars& s) {
   m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.one_minus_b1, g));

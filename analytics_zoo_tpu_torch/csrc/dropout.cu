@@ -6,7 +6,8 @@
 // same seed; here too, so no mask is ever stored.
 //
 // What it computes, for element i of a contiguous tensor viewed flat:
-//   bits_i = word i%4 of Philox-4x32-10 at counter (i/4, 0, 1), key seed
+//   bits_i = word i%4 of Philox-4x32-10 at counter (i/4, 0, 1), key seed,
+//            the seed read from device memory (`SeedPath`, `philox.cuh`)
 //   out_i  = bits_i >= threshold ? x_i * scale : 0
 // threshold = min(floor(rate * 2^32), 2^32 - 1) and scale = 1 / (1 - rate)
 // rounded to the tensor's dtype: the uint32 rule of `_dropout_threshold`
@@ -41,7 +42,11 @@ constexpr int kThreads = 256;
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
-               uint32_t k0, uint32_t k1, uint32_t threshold, float scale) {
+               const __grid_constant__ azt::SeedPath seed, uint32_t threshold,
+               float scale) {
+  const unsigned long long z = azt::path_seed(seed);
+  const uint32_t k0 = static_cast<uint32_t>(z);
+  const uint32_t k1 = static_cast<uint32_t>(z >> 32);
   const long long groups = (n + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long g = static_cast<long long>(blockIdx.x) * kThreads +
@@ -70,7 +75,7 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
 }
 
 template <typename T>
-void launch(const void* x, void* out, long long n, uint32_t k0, uint32_t k1,
+void launch(const void* x, void* out, long long n, const azt::SeedPath& seed,
             uint32_t threshold, float scale, bool vec, cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
@@ -79,10 +84,10 @@ void launch(const void* x, void* out, long long n, uint32_t k0, uint32_t k1,
   T* op = static_cast<T*>(out);
   if (vec) {
     dropout_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(xp, op, n, k0, k1, threshold, scale);
+                              stream>>>(xp, op, n, seed, threshold, scale);
   } else {
     dropout_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               stream>>>(xp, op, n, k0, k1, threshold, scale);
+                               stream>>>(xp, op, n, seed, threshold, scale);
   }
 }
 
@@ -92,21 +97,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: contiguous, n elements (n > 0),
 // `vec` only when n % 4 == 0 and both pointers are 16-byte aligned; `scale`
-// is 1 / (1 - rate) already rounded to the dtype. Returns the cudaError_t
-// of the launch (0 on success).
-int azt_dropout(const void* x, void* out, long long n,
-                unsigned long long seed, unsigned int threshold, float scale,
-                int dtype, int vec, void* stream) {
-  if (n <= 0 || (dtype != 0 && dtype != 1)) {
+// is 1 / (1 - rate) already rounded to the dtype. The seed: the int64 at
+// `seed_base` (device memory) taken through the `seed_depth` site indices
+// of `seed_sites` (a host array, depth <= 8). Returns the cudaError_t of
+// the launch (0 on success).
+int azt_dropout(const void* x, void* out, long long n, const void* seed_base,
+                int seed_depth, const long long* seed_sites,
+                unsigned int threshold, float scale, int dtype, int vec,
+                void* stream) {
+  if (n <= 0 || (dtype != 0 && dtype != 1) || seed_base == nullptr ||
+      seed_depth < 0 || seed_depth > azt::kMaxSeedDepth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const uint32_t k0 = static_cast<uint32_t>(seed);
-  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  const azt::SeedPath seed =
+      azt::make_seed_path(seed_base, seed_depth, seed_sites);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(x, out, n, k0, k1, threshold, scale, vec != 0, s);
+    launch<float>(x, out, n, seed, threshold, scale, vec != 0, s);
   } else {
-    launch<__nv_bfloat16>(x, out, n, k0, k1, threshold, scale, vec != 0, s);
+    launch<__nv_bfloat16>(x, out, n, seed, threshold, scale, vec != 0, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

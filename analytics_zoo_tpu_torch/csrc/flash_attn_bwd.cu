@@ -145,7 +145,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int heads, int seq, int dim,
-                     float scale, azt::AttnDropout drop) {
+                     float scale,
+                     const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<kDrop>(drop_arg);
   constexpr int kDMax = 32 * TPR;
   constexpr int kRowGroups = kDMax / 4;
   constexpr int kKeysPerBlock = kThreads / TPR;
@@ -265,7 +267,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int heads, int seq, int dim, float scale,
-                    azt::AttnDropout drop) {
+                    const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<kDrop>(drop_arg);
   constexpr int kDMax = 32 * TPR;
   constexpr int kRowGroups = kDMax / 4;
   constexpr int kRows = kThreads / TPR;  // query rows per block
@@ -387,7 +390,9 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int heads, int seq,
-                         int dim, float scale, azt::AttnDropout drop) {
+                         int dim, float scale,
+                         const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<kDrop>(drop_arg);
   using namespace azt::mma;
   constexpr int kElems = tile_elems<DP>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -564,7 +569,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int heads, int seq,
-                        int dim, float scale, azt::AttnDropout drop) {
+                        int dim, float scale,
+                        const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<kDrop>(drop_arg);
   using namespace azt::mma;
   constexpr int kElems = tile_elems<DP>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -681,8 +688,10 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-__global__ void keep_scale_kernel(float* __restrict__ out, int bh_count,
-                                  int seq, azt::AttnDropout drop) {
+__global__ void keep_scale_kernel(
+    float* __restrict__ out, int bh_count, int seq,
+    const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<true>(drop_arg);
   const int n16 = (seq + kChunk - 1) / kChunk;
   const long long total = (long long)bh_count * seq * n16;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -709,7 +718,7 @@ struct Args {
   void *dq, *dk, *dv;
   int bh, heads, seq, dim;
   float scale;
-  azt::AttnDropout drop;
+  azt::AttnDropoutArg drop;
   cudaStream_t stream;
 };
 
@@ -855,16 +864,18 @@ cudaError_t dq_mma_by_dim(const Args& a) {
   return a.dim <= 64 ? dq_mma_by_drop<64>(a) : dq_mma_by_drop<128>(a);
 }
 
-bool valid(int bh, int heads, int seq, int dim, int dtype, int t) {
+bool valid(int bh, int heads, int seq, int dim, int dtype, int t,
+           const void* seed_base, int seed_depth) {
   return bh > 0 && bh <= 65535 && heads > 0 && bh % heads == 0 && seq > 0 &&
          dim > 0 && dim <= 128 && (dtype == 0 || dtype == 1) && t >= 0 &&
-         t <= 255;
+         t <= 255 && seed_depth >= 0 && seed_depth <= azt::kMaxSeedDepth &&
+         (t == 0 || seed_base != nullptr);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* mask,
                const void* dout, const void* lse, const void* delta,
                void* dq, void* dk, void* dv, int bh, int heads, int seq,
-               int dim, float scale, unsigned long long seed,
+               int dim, float scale, const azt::SeedPath& seed,
                int keep_threshold, float keep_scale, void* stream) {
   Args a;
   a.q = q;
@@ -882,8 +893,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* mask,
   a.seq = seq;
   a.dim = dim;
   a.scale = scale;
-  a.drop = {static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-            static_cast<uint32_t>(keep_threshold), keep_scale};
+  a.drop = {static_cast<uint32_t>(keep_threshold), keep_scale, seed};
   a.stream = static_cast<cudaStream_t>(stream);
   return a;
 }
@@ -896,20 +906,26 @@ extern "C" {
 // [bh, seq, dim], 16-byte aligned, dim <= 128; mask: contiguous f32
 // [bh / heads, seq] or null; lse, delta: f32 [bh, seq]. keep_threshold:
 // the byte rule's t in [1, 255], or 0 for no dropout; keep_scale = 256 / t.
-// Returns the cudaError_t of the launch (0 on success).
+// The seed: the int64 at `seed_base` (device memory) taken through the
+// `seed_depth` (<= 8) site indices of the host array `seed_sites`, as in
+// `azt_flash_attn_fwd`. Returns the cudaError_t of the launch (0 on
+// success).
 int azt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                            const void* mask, const void* dout,
                            const void* lse, const void* delta, void* dk,
                            void* dv, int bh, int heads, int seq, int dim,
-                           float scale, int dtype, unsigned long long seed,
+                           float scale, int dtype, const void* seed_base,
+                           int seed_depth, const long long* seed_sites,
                            int keep_threshold, float keep_scale,
                            void* stream) {
-  if (!valid(bh, heads, seq, dim, dtype, keep_threshold)) {
+  if (!valid(bh, heads, seq, dim, dtype, keep_threshold, seed_base,
+             seed_depth)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a = make_args(q, k, v, mask, dout, lse, delta, nullptr, dk, dv,
-                           bh, heads, seq, dim, scale, seed, keep_threshold,
-                           keep_scale, stream);
+  const Args a = make_args(
+      q, k, v, mask, dout, lse, delta, nullptr, dk, dv, bh, heads, seq, dim,
+      scale, azt::make_seed_path(seed_base, seed_depth, seed_sites),
+      keep_threshold, keep_scale, stream);
   if (dtype == 0) {
     dkv_by_dim<float>(a);
   } else {
@@ -926,14 +942,17 @@ int azt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                           const void* mask, const void* dout, const void* lse,
                           const void* delta, void* dq, int bh, int heads,
                           int seq, int dim, float scale, int dtype,
-                          unsigned long long seed, int keep_threshold,
+                          const void* seed_base, int seed_depth,
+                          const long long* seed_sites, int keep_threshold,
                           float keep_scale, void* stream) {
-  if (!valid(bh, heads, seq, dim, dtype, keep_threshold)) {
+  if (!valid(bh, heads, seq, dim, dtype, keep_threshold, seed_base,
+             seed_depth)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a = make_args(q, k, v, mask, dout, lse, delta, dq, nullptr,
-                           nullptr, bh, heads, seq, dim, scale, seed,
-                           keep_threshold, keep_scale, stream);
+  const Args a = make_args(
+      q, k, v, mask, dout, lse, delta, dq, nullptr, nullptr, bh, heads, seq,
+      dim, scale, azt::make_seed_path(seed_base, seed_depth, seed_sites),
+      keep_threshold, keep_scale, stream);
   if (dtype == 0) {
     dq_by_dim<float>(a);
   } else {
@@ -947,17 +966,20 @@ int azt_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
 
 // The attention dropout's keep-scale matrix: out f32 [bh, seq, seq] gets
 // keep_scale where the byte of (seed, b*h, row, column) is below
-// keep_threshold (in [1, 255]), else 0. A test aid: the checks hand it to
-// the plain version as an injected mask.
-int azt_attn_keep_scale(void* out, int bh, int seq, unsigned long long seed,
+// keep_threshold (in [1, 255]), else 0; the seed as in
+// `azt_flash_attn_fwd`. A test aid: the checks hand it to the plain
+// version as an injected mask.
+int azt_attn_keep_scale(void* out, int bh, int seq, const void* seed_base,
+                        int seed_depth, const long long* seed_sites,
                         int keep_threshold, float keep_scale, void* stream) {
-  if (bh <= 0 || seq <= 0 || keep_threshold < 1 || keep_threshold > 255) {
+  if (bh <= 0 || seq <= 0 || keep_threshold < 1 || keep_threshold > 255 ||
+      seed_base == nullptr || seed_depth < 0 ||
+      seed_depth > azt::kMaxSeedDepth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const azt::AttnDropout drop = {static_cast<uint32_t>(seed),
-                                 static_cast<uint32_t>(seed >> 32),
-                                 static_cast<uint32_t>(keep_threshold),
-                                 keep_scale};
+  const azt::AttnDropoutArg drop = {
+      static_cast<uint32_t>(keep_threshold), keep_scale,
+      azt::make_seed_path(seed_base, seed_depth, seed_sites)};
   const long long total =
       (long long)bh * seq * ((seq + kChunk - 1) / kChunk);
   long long blocks = (total + 255) / 256;

@@ -108,7 +108,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, int heads,
-                 int seq, int dim, float scale, azt::AttnDropout drop) {
+                 int seq, int dim, float scale,
+                 const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<kDrop>(drop_arg);
   constexpr int kDMax = kDimsPerThread * TPR;
   constexpr int kRows = kThreads / TPR;   // query rows per block
   constexpr int kKeys = 4096 / kDMax;     // keys per tile: K+V = 32 KB f32
@@ -252,7 +254,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ mask,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int heads, int seq, int dim, float scale,
-                     azt::AttnDropout drop) {
+                     const __grid_constant__ azt::AttnDropoutArg drop_arg) {
+  const azt::AttnDropout drop = azt::resolve<kDrop>(drop_arg);
   using namespace azt::mma;
   constexpr int kElems = tile_elems<DP>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -419,7 +422,7 @@ template <int DP, bool kDrop>
 cudaError_t launch_mma_drop(const void* q, const void* k, const void* v,
                             const void* mask, void* o, void* lse, int bh,
                             int heads, int seq, int dim, float scale,
-                            azt::AttnDropout drop, cudaStream_t stream) {
+                            azt::AttnDropoutArg drop, cudaStream_t stream) {
   constexpr int kBytes = mma_smem_bytes<DP>();
   auto kernel = flash_fwd_mma_kernel<DP, kDrop>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -441,7 +444,7 @@ template <int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* mask, void* o, void* lse, int bh,
                        int heads, int seq, int dim, float scale,
-                       azt::AttnDropout drop, cudaStream_t stream) {
+                       azt::AttnDropoutArg drop, cudaStream_t stream) {
   if (drop.t != 0) {
     return launch_mma_drop<DP, true>(q, k, v, mask, o, lse, bh, heads, seq,
                                      dim, scale, drop, stream);
@@ -453,7 +456,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 template <typename T, int TPR>
 void launch(const void* q, const void* k, const void* v, const void* mask,
             void* o, void* lse, int bh, int heads, int seq, int dim,
-            float scale, azt::AttnDropout drop, cudaStream_t stream) {
+            float scale, azt::AttnDropoutArg drop, cudaStream_t stream) {
   constexpr int kRows = kThreads / TPR;
   const dim3 grid((seq + kRows - 1) / kRows, bh);
   const T* qp = static_cast<const T*>(q);
@@ -478,21 +481,26 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous [bh, seq, dim],
 // 16-byte aligned, dim <= 128; mask: contiguous f32 [bh / heads, seq] or
 // null; lse: f32 [bh, seq]. keep_threshold: the byte rule's t in [1, 255],
-// or 0 for no dropout; keep_scale = 256 / t. Returns the cudaError_t of the
-// launch (0 on success).
+// or 0 for no dropout; keep_scale = 256 / t. The dropout seed: the int64 at
+// `seed_base` (device memory; unread without dropout) taken through the
+// `seed_depth` (<= 8) site indices of the host array `seed_sites`. Returns
+// the cudaError_t of the launch (0 on success).
 int azt_flash_attn_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* o, void* lse, int bh,
                        int heads, int seq, int dim, float scale, int dtype,
-                       unsigned long long seed, int keep_threshold,
+                       const void* seed_base, int seed_depth,
+                       const long long* seed_sites, int keep_threshold,
                        float keep_scale, void* stream) {
   if (bh <= 0 || bh > 65535 || heads <= 0 || bh % heads != 0 || seq <= 0 ||
       dim <= 0 || dim > 128 || (dtype != 0 && dtype != 1) ||
-      keep_threshold < 0 || keep_threshold > 255) {
+      keep_threshold < 0 || keep_threshold > 255 || seed_depth < 0 ||
+      seed_depth > azt::kMaxSeedDepth ||
+      (keep_threshold != 0 && seed_base == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const azt::AttnDropout drop = {static_cast<uint32_t>(seed),
-                        static_cast<uint32_t>(seed >> 32),
-                        static_cast<uint32_t>(keep_threshold), keep_scale};
+  const azt::AttnDropoutArg drop = {
+      static_cast<uint32_t>(keep_threshold), keep_scale,
+      azt::make_seed_path(seed_base, seed_depth, seed_sites)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (dtype == 0) {

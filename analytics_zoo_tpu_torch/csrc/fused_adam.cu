@@ -165,7 +165,9 @@ __device__ __forceinline__ void run_leaf_chunk(const LeafTable& t, int leaf,
 // One block a chunk: block c steps chunk c of the table.
 __global__ void __launch_bounds__(kThreads)
 fused_adam_multi_kernel(const __grid_constant__ LeafTable t,
-                        const azt::AdamScalars s) {
+                        const float* __restrict__ folded,
+                        const azt::AdamScalars consts) {
+  const azt::AdamScalars s = azt::with_folded(consts, folded);
   __shared__ int start[kMaxLeaves + 1];
   const int count = t.count;
   for (int i = threadIdx.x; i <= count; i += kThreads) {
@@ -239,16 +241,18 @@ int azt_fused_adam_config(long long* out) {
 // chunk_start: count + 1 prefix sums of ceil(numel / kChunk), from 0; kind:
 // bit 0 p bf16, bit 1 g bf16, bit 2 the four pointers 16-byte aligned.
 // Every leaf is contiguous in one memory format shared by its four tensors;
-// m and v are float32; no two leaves overlap. one_minus_b1 / one_minus_b2
-// are (1 - b1), (1 - b2) formed in double and rounded to f32, as Python
-// forms them. Returns the cudaError_t of the launch (0 on success);
+// m and v are float32; no two leaves overlap. folded: the step's (a, b,
+// lrwd), three f32 in device memory. one_minus_b1 / one_minus_b2 are
+// (1 - b1), (1 - b2) formed in double and rounded to f32, as Python forms
+// them. Returns the cudaError_t of the launch (0 on success);
 // cudaErrorInvalidValue for a table that breaks these rules.
 int azt_fused_adam_multi(const long long* ptrs, const long long* numel,
                          const int* chunk_start, const unsigned char* kind,
-                         int count, float a, float b, float lrwd, float b1,
-                         float b2, float one_minus_b1, float one_minus_b2,
+                         int count, const float* folded, float b1, float b2,
+                         float one_minus_b1, float one_minus_b2,
                          void* stream) {
-  if (count < 1 || count > kMaxLeaves || chunk_start[0] != 0) {
+  if (count < 1 || count > kMaxLeaves || chunk_start[0] != 0 ||
+      folded == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static thread_local LeafTable t;
@@ -269,9 +273,10 @@ int azt_fused_adam_multi(const long long* ptrs, const long long* numel,
   }
   t.chunk_start[count] = chunk_start[count];
   t.count = count;
-  const azt::AdamScalars s{a, b, lrwd, b1, b2, one_minus_b1, one_minus_b2};
+  const azt::AdamScalars s{0.f, 0.f, 0.f, b1, b2, one_minus_b1, one_minus_b2};
   fused_adam_multi_kernel<<<chunk_start[count], kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(t, s);
+                            static_cast<cudaStream_t>(stream)>>>(t, folded,
+                                                                 s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,14 @@
 //                      scaled by 1 / (1 - rate) (`_dropout_threshold`)
 // The key is the 64-bit seed (low word, high word). The last counter word
 // keeps the two rules' streams apart for one seed.
+//
+// Seeds lie in device memory. A training step's seed is one int64 in the
+// step's row of the scalar table, which the host writes before each step,
+// so a captured CUDA graph reads a new seed at every replay. A dropout site
+// names it by `SeedPath`: the address of the step seed and the static path
+// of site indices under it. The kernel derives the site's seed with
+// `site_seed` along the path, bit for bit as `kernels/philox.py`
+// `site_seed` derives it on the host.
 
 #pragma once
 
@@ -32,13 +40,82 @@ struct Philox4 {
   uint32_t w[4];
 };
 
-// The attention dropout of one call: the seed's two words and the byte
+constexpr int kMaxSeedDepth = 8;
+
+// Where a dropout site's seed comes from: the 64-bit seed at `base` (device
+// memory), then `site_seed` once for each of the first `depth` sites.
+struct SeedPath {
+  const unsigned long long* base;
+  unsigned long long sites[kMaxSeedDepth];
+  int depth;
+};
+
+// splitmix64 of (seed, site), as a non-negative 63-bit value: the rule of
+// `kernels/philox.py` `site_seed`.
+__host__ __device__ __forceinline__ unsigned long long site_seed(
+    unsigned long long seed, unsigned long long site) {
+  unsigned long long z = seed * 0x9E3779B97F4A7C15ull + site + 1ull;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return (z ^ (z >> 31)) >> 1;
+}
+
+// The seed a path names, read from device memory. The sites are indexed
+// with compile-time indices (the loop is unrolled to kMaxSeedDepth and the
+// path's depth, the same in every thread, predicates it), so the path is
+// read where it lies, in the kernel's parameters, and no thread copies it.
+__device__ __forceinline__ unsigned long long path_seed(const SeedPath& s) {
+  unsigned long long z = __ldg(s.base);
+#pragma unroll
+  for (int i = 0; i < kMaxSeedDepth; ++i) {
+    if (i < s.depth) {
+      z = site_seed(z, s.sites[i]);
+    }
+  }
+  return z;
+}
+
+// The attention dropout inside a kernel: the seed's two words and the byte
 // rule's threshold t (0: no dropout) and keep scale 256 / t.
 struct AttnDropout {
   uint32_t k0, k1;
   uint32_t t;
   float keep_scale;
 };
+
+// The attention dropout as a kernel takes it: t, the keep scale and the
+// seed's path; `resolve` reads the seed on the device.
+struct AttnDropoutArg {
+  uint32_t t;
+  float keep_scale;
+  SeedPath seed;
+};
+
+// A kernel instantiated without dropout (kDrop false) compiles no seed
+// read at all.
+template <bool kDrop>
+__device__ __forceinline__ AttnDropout resolve(const AttnDropoutArg& a) {
+  AttnDropout d = {0u, 0u, a.t, a.keep_scale};
+  if constexpr (kDrop) {
+    const unsigned long long z = path_seed(a.seed);
+    d.k0 = static_cast<uint32_t>(z);
+    d.k1 = static_cast<uint32_t>(z >> 32);
+  }
+  return d;
+}
+
+// A path from the C entry points' arguments: `base` a device address,
+// `sites` a host array of `depth` (<= kMaxSeedDepth) site indices.
+inline SeedPath make_seed_path(const void* base, int depth,
+                               const long long* sites) {
+  SeedPath p;
+  p.base = static_cast<const unsigned long long*>(base);
+  p.depth = depth;
+  for (int i = 0; i < kMaxSeedDepth; ++i) {
+    p.sites[i] = i < depth ? static_cast<unsigned long long>(sites[i]) : 0ull;
+  }
+  return p;
+}
 
 __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
                                                  uint32_t c2, uint32_t c3,

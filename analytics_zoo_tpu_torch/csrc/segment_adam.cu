@@ -90,7 +90,10 @@ segment_adam_kernel(P* __restrict__ p, float* __restrict__ m,
                     const int* __restrict__ valid,
                     const float* __restrict__ g_slots, int n_slots, int dim,
                     long long n_rows, int groups, bool vec,
-                    azt::AdamScalars s) {
+                    const float* __restrict__ folded,
+                    azt::AdamScalars consts) {
+  // the step's scalars first: their loads overlap the slot's
+  const azt::AdamScalars s = azt::with_folded(consts, folded);
   const long long t =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const int j = static_cast<int>(t / groups);
@@ -148,21 +151,21 @@ int azt_segment_sum(const void* d_rows, const void* sids, const void* order,
 
 // p [n_rows, dim] f32 (p_dtype 0) or bf16 (1), m and v [n_rows, dim] f32,
 // updated in place; uids, valid [n_slots] int32; g_slots [n_slots, dim]
-// f32. (a, b, lrwd): the folded scalars of this step (`_fold_scalars`;
-// lrwd is 0 on the segment path); one_minus_b1 /
+// f32. folded: the step's (a, b, lrwd) (`_fold_scalars`; lrwd is 0 on the
+// segment path), three f32 in device memory; one_minus_b1 /
 // one_minus_b2 formed in double and rounded to f32, as Python forms them.
 // `vec`: dim % 4 == 0 and every row aligned for vector access. Returns the
 // cudaError_t of the launch (0 on success).
 int azt_segment_adam(void* p, void* m, void* v, const void* uids,
                      const void* valid, const void* g_slots, int n_slots,
-                     int dim, long long n_rows, float a, float b, float lrwd,
+                     int dim, long long n_rows, const float* folded,
                      float b1, float b2, float one_minus_b1,
                      float one_minus_b2, int p_dtype, int vec, void* stream) {
   if (n_slots <= 0 || dim <= 0 || n_rows <= 0 || p_dtype < 0 ||
-      p_dtype > 1) {
+      p_dtype > 1 || folded == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const azt::AdamScalars s{a, b, lrwd, b1, b2, one_minus_b1, one_minus_b2};
+  const azt::AdamScalars s{0.f, 0.f, 0.f, b1, b2, one_minus_b1, one_minus_b2};
   const int groups = (dim + 3) / 4;
   const unsigned blocks = blocks_for(static_cast<long long>(n_slots) * groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -174,11 +177,11 @@ int azt_segment_adam(void* p, void* m, void* v, const void* uids,
   if (p_dtype == 0) {
     segment_adam_kernel<float><<<blocks, kThreads, 0, st>>>(
         static_cast<float*>(p), mm, vv, u, ok, g, n_slots, dim, n_rows,
-        groups, vec != 0, s);
+        groups, vec != 0, folded, s);
   } else {
     segment_adam_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
         static_cast<__nv_bfloat16*>(p), mm, vv, u, ok, g, n_slots, dim,
-        n_rows, groups, vec != 0, s);
+        n_rows, groups, vec != 0, folded, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

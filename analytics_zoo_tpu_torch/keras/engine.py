@@ -348,8 +348,10 @@ class KerasNet(_GraphCall, nn.Module):
             self.loss = objectives.get(loss)
         self.optimizer = optimizers.get(optimizer)
         self.metrics = zmetrics.resolve(metrics, loss_str)
-        # step costs counted for the old loss and optimizer
+        # step costs counted, and training programs captured, for the old
+        # loss and optimizer
         self.__dict__.pop("_roofline_cost_memo", None)
+        self.__dict__.pop("_train_cache", None)
 
     def set_tensorboard(self, log_dir: str, app_name: str):
         """`Topology.scala:208`: `fit` writes its summaries (loss,

@@ -282,7 +282,8 @@ class Activation(Layer):
 class Dropout(Layer):
     """`keras/layers/Dropout.scala`: inverted dropout, active only in
     training, on the dropout kernel (`kernels/dropout.py`). The seed is the
-    one its `Model` hands this node."""
+    one its `Model` hands this node: an int, or in a training step a
+    `kernels.philox.DeviceSeed`, which the kernel reads on the card."""
 
     def __init__(self, p: float, name: Optional[str] = None):
         super().__init__(name=name)

@@ -24,21 +24,25 @@ weights (inside the flash kernels with `use_flash`), on the attention
 output and after the FFN of every block. Each site's seed derives from its
 parent's by a fixed rule (`kernels.philox.site_seed(seed, site index)`),
 the port's stand-in for splitting a `jax.random` key, so one integer
-reproduces a whole step.
+reproduces a whole step. In a training step the seed is a
+`philox.DeviceSeed` (the step seed in the trainer's scalar table on the
+device): a site's seed is then the step seed and its static path of site
+indices, which the kernels follow on the card, so a step captured as a
+CUDA graph draws new masks at every replay.
 
 `BERT(remat=True)` (JAX L272-279, the unstacked loop L395-402) recomputes
 each block in the backward instead of keeping its activations:
 `torch.utils.checkpoint` (non-reentrant) around every block. The JAX
 policy, `dots_with_no_batch_dims_saveable`, saves nothing inside a block
-(every product carries the batch), which is what a whole-block
-checkpoint does. The block's parameters enter the checkpointed function
-as arguments, so the recompute reads the tensors the forward read (the
-bf16 casts of a mixed-precision step, not the f32 masters). The dropout
-masks come from integer seeds, so the recompute draws the same ones: a
-remat step computes bitwise what a plain step computes. It launches the
-forward kernels of a block twice a step (flash attention and the
-block's two dropout sites), and keeps none of a block's activations, the
-flash forward's O and lse included, past the block.
+(every product carries the batch), which is what a whole-block checkpoint
+does. The block's parameters enter the checkpointed function as arguments,
+so the recompute reads the tensors the forward read (the bf16 casts of a
+mixed-precision step, not the f32 masters). The dropout masks come from
+seeds, not generator state, so the recompute draws the same ones: a remat
+step computes bitwise what a plain step computes. It launches the forward
+kernels of a block twice a step (flash attention and the block's two
+dropout sites), and keeps none of a block's activations, the flash
+forward's O and lse included, past the block.
 """
 
 from __future__ import annotations
@@ -60,16 +64,16 @@ from analytics_zoo_tpu_torch.keras.layers import (LayerNormalization, fill_,
 from analytics_zoo_tpu_torch.kernels.dropout import fused_dropout
 from analytics_zoo_tpu_torch.kernels.flash_attention import (
     _reference_attention, flash_attention)
-from analytics_zoo_tpu_torch.kernels.philox import site_seed
+from analytics_zoo_tpu_torch.kernels.philox import Seed, site_seed
 from analytics_zoo_tpu_torch.serving.quantization import maybe_int8_matmul
 
 
-def _dropout(seed: int, rate: float, x):
+def _dropout(seed: Seed, rate: float, x):
     """Shared inverted dropout: the dropout kernel on the card."""
     return fused_dropout(x, rate, seed=seed)
 
 
-def _site_seeds(training: bool, seed: Optional[int], n: int):
+def _site_seeds(training: bool, seed: Optional[Seed], n: int):
     """The seeds of a layer's `n` dropout sites, or Nones when the layer
     runs without dropout (not training, or no seed — as the JAX layers do
     without an `rng`)."""

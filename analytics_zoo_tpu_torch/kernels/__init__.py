@@ -33,14 +33,19 @@ class LaunchCounter:
     """Per-kernel launch counts (plain integers), safe to bump from the
     serving threads. A wrapper called while its thread captures a CUDA
     graph (`capturing()`) launches nothing: its count goes to the capture's
-    record only. Each replay of the graph then adds the kernel nodes the
-    graph holds (`add_counts`, with what `compile_cache.graphs` reads from
-    the captured graph), so a replayed forward counts as an eager one."""
+    record only. A training step's backward runs on autograd's device
+    thread, so a training capture records the calls of every thread
+    (`capturing(all_threads=True)`; nothing else launches the repo's
+    kernels while a fit captures). Each replay of the graph then adds the
+    kernel nodes the graph holds (`add_counts`, with what
+    `compile_cache.graphs` reads from the captured graph), so a replayed
+    forward counts as an eager one."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = {}
         self._local = threading.local()
+        self._shared: List[Dict[str, int]] = []
 
     def add(self, name: str) -> None:
         stack = getattr(self._local, "stack", None)
@@ -48,6 +53,11 @@ class LaunchCounter:
             for rec in stack:
                 rec[name] = rec.get(name, 0) + 1
             return
+        with self._lock:
+            if self._shared:
+                for rec in self._shared:
+                    rec[name] = rec.get(name, 0) + 1
+                return
         self.add_counts({name: 1})
 
     def add_counts(self, counts: Dict[str, int]) -> None:
@@ -56,9 +66,21 @@ class LaunchCounter:
                 self._counts[name] = self._counts.get(name, 0) + n
 
     @contextlib.contextmanager
-    def capturing(self) -> Iterator[Dict[str, int]]:
-        """The wrapper calls this thread makes inside the block, by name,
-        kept out of the counts (a capture launches nothing)."""
+    def capturing(self, all_threads: bool = False
+                  ) -> Iterator[Dict[str, int]]:
+        """The wrapper calls this thread (with `all_threads`, any thread)
+        makes inside the block, by name, kept out of the counts (a capture
+        launches nothing)."""
+        if all_threads:
+            rec: Dict[str, int] = {}
+            with self._lock:
+                self._shared.append(rec)
+            try:
+                yield rec
+            finally:
+                with self._lock:
+                    self._shared.remove(rec)
+            return
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []

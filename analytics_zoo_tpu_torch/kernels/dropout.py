@@ -13,8 +13,12 @@ the kernel's uint32 rule (keep iff bits >= `_dropout_threshold(rate)`,
 scale 1/(1-rate)), on bits from Philox (`kernels/philox.py`). Routing is
 static: a CPU tensor takes the plain version (`_reference_dropout`, with the
 same Philox bits, so it drops the same elements), a CUDA tensor launches
-the kernel or raises. Its declared cost (`kernels.kernel_region`) is the
-JAX kernel's (L143): one read and one write of x, 3 FLOPs an element.
+the kernel or raises. The seed is an int or a `philox.DeviceSeed`; the
+kernel reads it from device memory (an int is written there first), so a
+training step captured as a CUDA graph takes each replay's seed from the
+step's row of the scalar table. Its declared cost
+(`kernels.kernel_region`) is the JAX kernel's (L143): one read and one
+write of x, 3 FLOPs an element.
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ from typing import Optional
 import torch
 
 from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
-from analytics_zoo_tpu_torch.kernels.philox import dropout_bits
+from analytics_zoo_tpu_torch.kernels.philox import (MAX_SEED_DEPTH,
+                                                    DeviceSeed, Seed,
+                                                    as_device_seed,
+                                                    dropout_bits)
 
 KERNEL_NAME = "dropout"
 SOURCE = "dropout.cu"
@@ -50,7 +57,24 @@ def _scale(rate: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(1.0 / (1.0 - rate), dtype=dtype)
 
 
-def dropout_keep(shape, seed: int, rate: float, device=None) -> torch.Tensor:
+SEED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,
+                 ctypes.POINTER(ctypes.c_longlong)]
+"""How a kernel's C entry takes a seed: the address of the int64 step seed
+on the card, the path's depth and a host array of its sites."""
+
+
+def seed_args(seed: Seed, device) -> tuple:
+    """The three `SEED_ARGTYPES` arguments of `seed` for a launch on
+    `device`."""
+    dev = as_device_seed(seed, device)
+    if dev.base.device.type != torch.device(device).type:
+        raise ValueError(f"dropout seed on {dev.base.device}, tensor on "
+                         f"{device}")
+    sites = (ctypes.c_longlong * MAX_SEED_DEPTH)(*dev.path)
+    return dev.base.data_ptr(), len(dev.path), sites
+
+
+def dropout_keep(shape, seed: Seed, rate: float, device=None) -> torch.Tensor:
     """The kernel's keep mask (bool, `shape`) for `seed` at `rate`."""
     n = 1
     for s in shape:
@@ -63,7 +87,10 @@ def _reference_dropout(x: torch.Tensor, rate: float,
                        keep: torch.Tensor) -> torch.Tensor:
     """The plain version, with the keep mask injected: x * scale where
     kept, else 0 (JAX `_kernel` L116-120)."""
-    scale = _scale(rate, x.dtype).to(x.device)
+    # made on the device (a fill, no host copy), so a step captured as a
+    # CUDA graph can run the plain version too
+    scale = torch.full((), 1.0 / (1.0 - rate), dtype=x.dtype,
+                       device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 
@@ -76,12 +103,12 @@ def _check_kernel_input(x: torch.Tensor) -> None:
         raise ValueError("dropout kernel needs a contiguous tensor")
 
 
-def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _launch(x: torch.Tensor, rate: float, seed: Seed) -> torch.Tensor:
     _check_kernel_input(x)
     fn = _build.bind(SOURCE, "azt_dropout", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + SEED_ARGTYPES
+        + [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
     out = torch.empty_like(x)
     n = x.numel()
     if n == 0:
@@ -89,7 +116,7 @@ def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     vec = n % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), n, seed,
+        rc = fn(x.data_ptr(), out.data_ptr(), n, *seed_args(seed, x.device),
                 _dropout_threshold(rate), float(_scale(rate, x.dtype)),
                 _DTYPE_CODES[x.dtype], int(vec), stream)
     _build.check_launch(SOURCE, rc, "dropout")
@@ -104,7 +131,7 @@ def dropout_cost(x: torch.Tensor):
     return 3.0 * n, float(2 * n * x.element_size())
 
 
-def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout_apply(x: torch.Tensor, rate: float, seed: Seed) -> torch.Tensor:
     """One pass of the rule over `x` (0 < rate < 1): CPU tensors take the
     plain version, CUDA tensors launch the kernel."""
     with kernel_region(dropout_cost, x):
@@ -121,7 +148,7 @@ class _Dropout(torch.autograd.Function):
     pass over dout with the same seed (JAX `_fused_bwd`, L162)."""
 
     @staticmethod
-    def forward(ctx, x, rate: float, seed: int):
+    def forward(ctx, x, rate: float, seed: Seed):
         ctx.rate, ctx.seed = rate, seed
         return dropout_apply(x, rate, seed)
 
@@ -131,15 +158,22 @@ class _Dropout(torch.autograd.Function):
 
 
 def fused_dropout(x: torch.Tensor, rate: float, *,
-                  seed: Optional[int] = None) -> torch.Tensor:
-    """Inverted dropout over `x` at `rate`, reproducible from the integer
-    `seed`. Differentiable. rate >= 1 zeroes the tensor."""
+                  seed: Optional[Seed] = None) -> torch.Tensor:
+    """Inverted dropout over `x` at `rate`, reproducible from `seed` (an
+    integer or a `DeviceSeed`). Differentiable. rate >= 1 zeroes the
+    tensor."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     if seed is None:
         raise ValueError("fused_dropout needs a `seed`")
+    seed = _as_seed(seed)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Dropout.apply(x, float(rate), int(seed))
-    return dropout_apply(x, float(rate), int(seed))
+        return _Dropout.apply(x, float(rate), seed)
+    return dropout_apply(x, float(rate), seed)
+
+
+def _as_seed(seed) -> Seed:
+    """An int (numpy's too) as an int; a `DeviceSeed` as it is."""
+    return seed if isinstance(seed, DeviceSeed) else int(seed)

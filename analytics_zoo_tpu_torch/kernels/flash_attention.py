@@ -14,7 +14,10 @@ on an H100 and how its design answers that.
 Attention dropout runs inside the kernels, as on the TPU: the keep rule is
 the byte rule of `_keep_scale` (L189; keep iff byte < t, scale 256/t) on
 Philox bits keyed on (seed, b·h, query row, key column) (`csrc/philox.cuh`).
-The backward regenerates the same bits; nothing is stored. The plain
+The backward regenerates the same bits; nothing is stored. The seed (an
+int or a `philox.DeviceSeed`) reaches the kernels as the address of the
+step seed on the card and the site path under it, so a captured training
+step draws each replay's masks from that replay's seed. The plain
 versions take the same bits from `kernels/philox.py`, so the CPU route and
 the card drop the same weights.
 
@@ -46,8 +49,12 @@ from typing import Optional, Tuple
 import torch
 
 from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
-from analytics_zoo_tpu_torch.kernels.dropout import _byte_threshold
-from analytics_zoo_tpu_torch.kernels.philox import attention_keep_scale
+from analytics_zoo_tpu_torch.kernels.dropout import (SEED_ARGTYPES,
+                                                     _as_seed,
+                                                     _byte_threshold,
+                                                     seed_args)
+from analytics_zoo_tpu_torch.kernels.philox import (MAX_SEED_DEPTH, Seed,
+                                                    attention_keep_scale)
 
 KERNEL_NAME = "flash_attention_fwd"
 BWD_DKV_NAME = "flash_attention_bwd_dkv"
@@ -139,20 +146,22 @@ def _bwd_cost(q):
     return dq[0] + dkv[0], dq[1] + dkv[1]
 
 
-def _dropout_args(dropout_rate: float, dropout_seed: Optional[int]):
-    """(seed, t, keep scale) for the kernels; t = 0 means no dropout."""
+def _dropout_args(dropout_rate: float, dropout_seed: Optional[Seed],
+                  device):
+    """(the three seed arguments, t, keep scale) for the kernels; t = 0
+    means no dropout, and the seed is then not read."""
     if dropout_rate <= 0.0:
-        return 0, 0, 1.0
+        return None, 0, (ctypes.c_longlong * MAX_SEED_DEPTH)(), 0, 1.0
     t = _byte_threshold(dropout_rate)
-    return int(dropout_seed), t, 256.0 / t
+    return (*seed_args(dropout_seed, device), t, 256.0 / t)
 
 
-def _keep_scale(q, dropout_rate: float, dropout_seed: Optional[int]):
+def _keep_scale(q, dropout_rate: float, dropout_seed: Optional[Seed]):
     """The plain versions' keep-scale matrix `[B,H,T,T]`, or None."""
     if dropout_rate <= 0.0:
         return None
     B, H, T, _ = q.shape
-    return attention_keep_scale(B * H, T, int(dropout_seed),
+    return attention_keep_scale(B * H, T, dropout_seed,
                                 _byte_threshold(dropout_rate),
                                 q.device).view(B, H, T, T)
 
@@ -203,15 +212,11 @@ def _check_bwd_inputs(q, o, lse, do):
                          f"float32 {(B, H, T)}")
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p]
-_BWD_DKV_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p]
-_BWD_DQ_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p]
+_TAIL_ARGS = [ctypes.c_float, ctypes.c_int] + SEED_ARGTYPES + [
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _TAIL_ARGS
+_BWD_DKV_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + _TAIL_ARGS
+_BWD_DQ_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + _TAIL_ARGS
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -223,15 +228,14 @@ def _launch(q, k, v, mask, dropout_rate=0.0, dropout_seed=None
     _check_kernel_inputs(q, k, v, mask)
     B, H, T, D = q.shape
     fn = _build.bind(SOURCE, "azt_flash_attn_fwd", _FWD_ARGS)
-    seed, t, keep = _dropout_args(dropout_rate, dropout_seed)
+    drop = _dropout_args(dropout_rate, dropout_seed, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 mask.data_ptr() if mask is not None else None,
                 out.data_ptr(), lse.data_ptr(), B * H, H, T, D,
-                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], seed, t, keep,
-                _stream(q))
+                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], *drop, _stream(q))
     _build.check_launch(SOURCE, rc, "flash_attention")
     LAUNCHES.add(KERNEL_NAME)
     return out, lse
@@ -239,9 +243,8 @@ def _launch(q, k, v, mask, dropout_rate=0.0, dropout_seed=None
 
 def _bwd_tail(q, dropout_rate, dropout_seed):
     B, H, T, D = q.shape
-    seed, t, keep = _dropout_args(dropout_rate, dropout_seed)
-    return (B * H, H, T, D, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], seed,
-            t, keep)
+    return (B * H, H, T, D, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+            *_dropout_args(dropout_rate, dropout_seed, q.device))
 
 
 def _bwd_ptrs(q, k, v, mask, do, lse, delta):
@@ -295,7 +298,7 @@ def _launch_bwd(q, k, v, mask, o, lse, do, dropout_rate=0.0,
     return dq, dk, dv
 
 
-def keep_scale_matrix(q_shape, dropout_rate: float, dropout_seed: int,
+def keep_scale_matrix(q_shape, dropout_rate: float, dropout_seed: Seed,
                       device) -> torch.Tensor:
     """The kernels' keep-scale matrix `[B,H,T,T]` for a seed, written by the
     mask-export kernel (a test aid: the card checks inject it into the
@@ -307,14 +310,14 @@ def keep_scale_matrix(q_shape, dropout_rate: float, dropout_seed: int,
         raise ValueError("keep_scale_matrix runs the export kernel: CUDA "
                          "devices only")
     fn = _build.bind(BWD_SOURCE, "azt_attn_keep_scale", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + SEED_ARGTYPES + [
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    seed, t, keep = _dropout_args(dropout_rate, dropout_seed)
-    if t == 0:
+    if dropout_rate <= 0.0:
         raise ValueError("keep_scale_matrix needs dropout_rate > 0")
+    drop = _dropout_args(dropout_rate, dropout_seed, device)
     out = torch.empty((B, H, T, T), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        rc = fn(out.data_ptr(), B * H, T, seed, t, keep, _stream(out))
+        rc = fn(out.data_ptr(), B * H, T, *drop, _stream(out))
     _build.check_launch(BWD_SOURCE, rc, "flash_attention_keep_scale")
     LAUNCHES.add(KEEP_SCALE_NAME)
     return out
@@ -322,7 +325,7 @@ def keep_scale_matrix(q_shape, dropout_rate: float, dropout_seed: int,
 
 def flash_attention_fwd(q, k, v, mask: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None
+                        dropout_seed: Optional[Seed] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O `[B,H,T,D]` in the input dtype, lse `[B,H,T]` float32) for a
     padding mask `[B,1,1,T]` or none. CPU tensors take the plain version;
@@ -340,7 +343,7 @@ def flash_attention_fwd(q, k, v, mask: Optional[torch.Tensor] = None,
 
 def flash_attention_bwd(q, k, v, mask, o, lse, do,
                         dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None
+                        dropout_seed: Optional[Seed] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the input dtype from the forward's inputs, O, lse
     and the output gradient. CPU tensors take the plain version; CUDA
@@ -379,15 +382,16 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, mask: Optional[torch.Tensor] = None,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None):
+                    dropout_seed: Optional[Seed] = None):
     """q, k, v: `[B, H, T, Dh]`. mask: additive `[B,1,1,T]` (padding) or
-    `[B,1,T,T]` (full; plain version only). `dropout_rate > 0` needs an
-    integer `dropout_seed`. Differentiable. Returns `[B, H, T, Dh]`."""
+    `[B,1,T,T]` (full; plain version only). `dropout_rate > 0` needs a
+    `dropout_seed` (an integer or a `DeviceSeed`). Differentiable. Returns
+    `[B, H, T, Dh]`."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("flash_attention: dropout_rate > 0 needs a "
                          "dropout_seed (deterministic in-kernel masks)")
     rate = float(dropout_rate) if dropout_rate > 0.0 else 0.0
-    seed = int(dropout_seed) if rate > 0.0 else None
+    seed = _as_seed(dropout_seed) if rate > 0.0 else None
     if mask is not None and mask.dim() == 4 and mask.shape[2] != 1:
         # full [B,1,T,T] mask: the kernels take padding masks only
         return _reference_attention(q, k, v, mask,

@@ -8,7 +8,12 @@ Port of `analytics_zoo_tpu/pallas/fused_adam.py`: `_fold_scalars` (L70),
 
 Numerics as there: the bias correction is folded into three f32 scalars on
 the host, `(a, b, lr·wd)` with `a = lr·√c2/c1`, `b = eps·√c2`,
-`c_i = 1 - βᵢᵗ`, so the per-element math is
+`c_i = 1 - βᵢᵗ` (`_fold_scalars`). They change every step, so the kernel
+reads them from device memory: a training step passes its row of the
+scalar table (an f32 tensor of three on the card), which the host writes
+before the step, and a captured CUDA graph reads each replay's values; a
+direct call with host floats copies them there first. The per-element
+math is
 `p ← p − a·m/(√v + b) − lr·wd·p` on the uncorrected new moments; moments
 are f32, params f32 or bf16. The update is in place: the params and
 moments tensors are written, never reallocated (the JAX kernel aliases
@@ -353,10 +358,27 @@ def launch_config() -> Dict[str, int]:
     return cfg
 
 
-MULTI_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                  + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+MULTI_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                  + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 """`azt_fused_adam_multi`'s C signature: the table's rows of one launch
-(`launch_args`), the folded scalars, b1, b2, 1 - b1, 1 - b2, the stream."""
+(`launch_args`), the address of the folded scalars on the card, b1, b2,
+1 - b1, 1 - b2, the stream."""
+
+
+def folded_on(scalars, device) -> torch.Tensor:
+    """The folded `(a, b, lr·wd)` as a contiguous f32 tensor of three on
+    `device`: a tensor there already (a row of the scalar table) as it
+    is, host floats copied there."""
+    if isinstance(scalars, torch.Tensor):
+        if (scalars.dtype != torch.float32 or scalars.numel() != 3
+                or scalars.device != torch.device(device)
+                or not scalars.is_contiguous()):
+            raise ValueError(f"folded scalars must be a contiguous f32 "
+                             f"tensor of 3 on {device}, got {scalars.dtype} "
+                             f"{tuple(scalars.shape)} on {scalars.device}")
+        return scalars
+    return torch.tensor([float(v) for v in scalars], dtype=torch.float32,
+                        device=device)
 
 
 def launch_args(table: Table):
@@ -373,13 +395,14 @@ def launch_args(table: Table):
 
 def _launch(table: Table, scalars, b1: float, b2: float) -> None:
     fn = _build.bind(SOURCE, "azt_fused_adam_multi", MULTI_ARGTYPES)
-    a, b, lrwd = scalars
+    folded = folded_on(scalars, table.device)
     with torch.cuda.device(table.device):
         if not _config_checked:
             launch_config()
         stream = torch.cuda.current_stream(table.device).cuda_stream
         for args in launch_args(table):
-            rc = fn(*args, a, b, lrwd, b1, b2, 1.0 - b1, 1.0 - b2, stream)
+            rc = fn(*args, folded.data_ptr(), b1, b2, 1.0 - b1, 1.0 - b2,
+                    stream)
             _build.check_launch(SOURCE, rc, "fused_adam")
             LAUNCHES.add(KERNEL_NAME)
 
@@ -397,11 +420,11 @@ def _sweep_cost(ps, gs):
 
 def _sweep(ps: List[torch.Tensor], ms: List[torch.Tensor],
            vs: List[torch.Tensor], gs: List[torch.Tensor],
-           scalars: Tuple[float, float, float], b1: float, b2: float
-           ) -> None:
+           scalars, b1: float, b2: float) -> None:
     """Every leaf, in place: CPU tensors through `_adam_math` leaf by
     leaf, CUDA tensors through the kernel, one launch for every
-    `MAX_LEAVES` leaves."""
+    `MAX_LEAVES` leaves. `scalars`: the folded `(a, b, lr·wd)`, host
+    floats or an f32 tensor of three on the leaves' device."""
     if not ps:
         return
     with kernel_region(_sweep_cost, ps, gs):
@@ -426,8 +449,7 @@ def _sweep_routes(ps, ms, vs, gs, scalars, b1: float, b2: float) -> None:
         _launch(table, scalars, float(b1), float(b2))
 
 
-def leaf_update(p, m, v, g, scalars: Tuple[float, float, float], b1: float,
-                b2: float) -> None:
+def leaf_update(p, m, v, g, scalars, b1: float, b2: float) -> None:
     """One leaf, in place: a sweep of one leaf."""
     _sweep([p], [m], [v], [g], scalars, b1, b2)
 
@@ -437,11 +459,15 @@ def fused_adam_step(params: Dict[str, torch.Tensor],
                     mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
                     grads: Mapping[str, torch.Tensor], count: int, *,
                     lr: float, b1: float = 0.9, b2: float = 0.999,
-                    eps: float = 1e-8, weight_decay: float = 0.0):
+                    eps: float = 1e-8, weight_decay: float = 0.0,
+                    folded: Optional[torch.Tensor] = None):
     """One fused Adam step over every leaf, in place: returns the same
     (params, mu, nu) dicts. `count` is the new step number (1 on the first
-    call); `lr` the resolved learning rate of this step."""
-    scalars = _fold_scalars(count, lr, b1, b2, eps, weight_decay)
+    call); `lr` the resolved learning rate of this step. `folded`, when
+    given, is this step's `(a, b, lr·wd)` already on the device (a row of
+    the scalar table), and `count` and `lr` are then not read."""
+    scalars = folded if folded is not None else _fold_scalars(
+        count, lr, b1, b2, eps, weight_decay)
     names = list(params)
     _sweep(list(params.values()), [mu[k] for k in names],
            [nu[k] for k in names], [grads[k] for k in names], scalars, b1,

@@ -16,10 +16,13 @@ Port of `analytics_zoo_tpu/pallas/segment_update.py`: `segment_compact`
 - **Row Adam** (`kernel_apply`): each valid slot's row of (table, mu, nu)
   takes the Adam update with the bias correction folded into `(a, b)`
   (`kernels/fused_adam._fold_scalars`, weight decay 0), in place; nothing
-  else is read or written. The kernel repeats `_adam_math`'s arithmetic
-  operation for operation, so it agrees with the plain version bit for bit.
-  Semantics are torch `SparseAdam`'s: moments decay only on touched rows,
-  bias correction by the global step.
+  else is read or written. The kernel reads `(a, b, lr·wd)` from device
+  memory, as the fused-Adam kernel does: a training step passes its row of
+  the scalar table, so a captured CUDA graph reads each replay's values. The
+  kernel repeats `_adam_math`'s arithmetic operation for operation, so it
+  agrees with the plain version bit for bit. Semantics are torch
+  `SparseAdam`'s: moments decay only on touched rows, bias correction by the
+  global step.
 - **The fused one-step** gathers each table's batch rows outside the
   differentiated function, rewrites the id column to `arange(B)`
   (`LazyEmbeddingSpec.set_ids_fn`) and runs the model with the rows in
@@ -36,7 +39,7 @@ step never waits for the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import torch
 from torch.func import functional_call
@@ -44,7 +47,8 @@ from torch.func import functional_call
 from analytics_zoo_tpu_torch.common.tree import tree_map
 from analytics_zoo_tpu_torch.kernels import LAUNCHES, _build, kernel_region
 from analytics_zoo_tpu_torch.kernels.fused_adam import (_adam_math,
-                                                        _fold_scalars)
+                                                        _fold_scalars,
+                                                        folded_on)
 
 KERNEL_NAME = "segment_adam"
 SUM_NAME = "segment_sum"
@@ -216,29 +220,30 @@ def _launch(table, mu, nu, uids, valid, g_slots, scal, b1, b2) -> None:
     B, dim = g_slots.shape
     if B == 0 or dim == 0 or table.shape[0] == 0:
         return
-    a, b, lrwd = (float(s) for s in scal)
+    folded = folded_on(scal, table.device)
     vec = (dim % 4 == 0 and _aligned(table, 16 if table.dtype ==
                                      torch.float32 else 8)
            and all(_aligned(t, 16) for t in (mu, nu, g_slots)))
     fn = _build.bind(SOURCE, "azt_segment_adam", [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_float] * 7
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = fn(table.data_ptr(), mu.data_ptr(), nu.data_ptr(),
                 uids.data_ptr(), valid.data_ptr(), g_slots.data_ptr(), B, dim,
-                table.shape[0], a, b, lrwd, b1, b2, 1.0 - b1, 1.0 - b2,
+                table.shape[0], folded.data_ptr(), b1, b2, 1.0 - b1, 1.0 - b2,
                 _P_DTYPE_CODES[table.dtype], int(vec), stream)
     _build.check_launch(SOURCE, rc, KERNEL_NAME)
     LAUNCHES.add(KERNEL_NAME)
 
 
-def kernel_apply(table, mu, nu, uids, valid, g_slots,
-                 scal: Sequence[float], *, b1: float = 0.9,
-                 b2: float = 0.999):
+def kernel_apply(table, mu, nu, uids, valid, g_slots, scal, *,
+                 b1: float = 0.9, b2: float = 0.999):
     """Row Adam over pre-compacted slots, in place; returns (table, mu,
-    nu), the same tensors. `scal` is `(a, b, lr·wd)` as host floats
-    (`_fold_scalars`). CPU tensors take the plain version, CUDA tensors the
+    nu), the same tensors. `scal` is `(a, b, lr·wd)` (`_fold_scalars`):
+    host floats, or an f32 tensor of three on the table's device (a row of
+    the scalar table). CPU tensors take the plain version, CUDA tensors the
     kernel. Its declared cost is `segment_adam_cost` over the slots (JAX
     L155)."""
     with kernel_region(segment_adam_cost, uids.shape[0], table.shape[1],
@@ -258,13 +263,16 @@ def kernel_apply(table, mu, nu, uids, valid, g_slots,
 @torch.no_grad()
 def segment_adam_update(table, mu, nu, ids, d_rows, count: int, *,
                         lr: float, b1: float = 0.9, b2: float = 0.999,
-                        eps: float = 1e-8):
+                        eps: float = 1e-8, folded=None):
     """Row-sparse Adam over the rows `ids` touches, the gradient given as
     per-example [B, dim] rows (duplicates summed here), in place. `count`
     is the global step after the increment (SparseAdam bias correction), a
-    host integer."""
+    host integer. `folded`, when given, is the step's `(a, b, 0)` already
+    on the device (a row of the scalar table), and `count` and `lr` are
+    then not read."""
     uids, valid, g_slots = segment_compact(ids, d_rows)
-    scal = _fold_scalars(count, lr, b1, b2, eps, 0.0)
+    scal = folded if folded is not None else _fold_scalars(
+        count, lr, b1, b2, eps, 0.0)
     return kernel_apply(table, mu, nu, uids, valid, g_slots, scal, b1=b1,
                         b2=b2)
 
@@ -275,10 +283,12 @@ def segment_adam_update(table, mu, nu, ids, d_rows, count: int, *,
 def make_fused_one_step(model, loss_fn, optimizer, specs,
                         mixed_precision: bool = False):
     """The fused twin of `learn.lazy_embedding.make_lazy_one_step`: the same
-    `(params, opt_state, xb, yb, seed)` signature and opt_state layout
-    (`lazy_embedding.init_state`), with the declared tables on the segment
-    kernels and every other parameter on `optimizer` (`fused_apply` when it
-    has one, else `update`).
+    `(params, opt_state, xb, yb, seed, scalars)` signature and opt_state
+    layout (`lazy_embedding.init_state`), with the declared tables on the
+    segment kernels and every other parameter on `optimizer` (`fused_apply`
+    when it has one, else `update`). Its row of per-step scalars
+    (`one_step.scalars(opt_state)`): each table's folded `(a, b, 0)`, in
+    spec order, then the rest optimizer's.
 
     Tables whose spec has `set_ids_fn` take the rows-reindexed backward; a
     spec without it takes the dense gradient, its touched rows picked out
@@ -286,14 +296,29 @@ def make_fused_one_step(model, loss_fn, optimizer, specs,
     without the gradient saving."""
     from analytics_zoo_tpu_torch.learn.lazy_embedding import (_get, _key,
                                                               _name,
+                                                              rest_update,
                                                               split_rest)
     from analytics_zoo_tpu_torch.learn.trainer import _cast_tree
+    from analytics_zoo_tpu_torch.ops.optimizers import (scalar_row,
+                                                        step_scalars,
+                                                        takes_scalars)
 
     reindexed = [s for s in specs if s.set_ids_fn is not None]
     dense = [s for s in specs if s.set_ids_fn is None]
     fused_rest = getattr(optimizer, "fused_apply", None)
+    at = {_key(s): 3 * i for i, s in enumerate(specs)}
+    rest_at = 3 * len(specs)
 
-    def one_step(params, opt_state, xb, yb, seed: int):
+    def row_fn(opt_state):
+        t = opt_state["t"] + 1
+        row = [v for s in specs
+               for v in _fold_scalars(t, s.lr, s.b1, s.b2, s.eps, 0.0)]
+        return row + step_scalars(optimizer, opt_state["rest"])
+
+    def one_step(params, opt_state, xb, yb, seed, scalars=None):
+        if scalars is None:
+            scalars = scalar_row(row_fn(opt_state),
+                                 next(iter(params.values())).device)
         ids_by_key = {_key(s): s.ids_fn(xb).long() for s in specs}
         # gather the touched rows outside the differentiated function and
         # point the model at them through rewritten position ids
@@ -334,26 +359,33 @@ def make_fused_one_step(model, loss_fn, optimizer, specs,
                 k = _key(s)
                 segment_adam_update(_get(params, s.path), *tables[k],
                                     ids_by_key[k], row_grads[k], t, lr=s.lr,
-                                    b1=s.b1, b2=s.b2, eps=s.eps)
+                                    b1=s.b1, b2=s.b2, eps=s.eps,
+                                    folded=scalars[at[k]:at[k] + 3])
             for s in dense:
                 k = _key(s)
                 ids = ids_by_key[k]
                 segment_adam_update(_get(params, s.path), *tables[k], ids,
                                     _dedup_rows(_get(grads, s.path), ids), t,
-                                    lr=s.lr, b1=s.b1, b2=s.b2, eps=s.eps)
+                                    lr=s.lr, b1=s.b1, b2=s.b2, eps=s.eps,
+                                    folded=scalars[at[k]:at[k] + 3])
             rest_grads = split_rest(grads, specs)
             rest_params = split_rest(params, specs)
+            rest_row = scalars[rest_at:]
             if fused_rest is not None:
                 _, rest_state = fused_rest(rest_grads, opt_state["rest"],
-                                           rest_params)
+                                           rest_params, scalars=rest_row) \
+                    if takes_scalars(optimizer) else fused_rest(
+                        rest_grads, opt_state["rest"], rest_params)
             else:
-                updates, rest_state = optimizer.update(
-                    rest_grads, opt_state["rest"], rest_params)
+                updates, rest_state = rest_update(
+                    optimizer, rest_grads, opt_state["rest"], rest_params,
+                    rest_row)
                 for name, value in rest_params.items():
                     value.add_(updates[name])
         return params, {"rest": rest_state, "tables": tables, "t": t}, \
             loss.detach()
 
+    one_step.scalars = row_fn
     return one_step
 
 

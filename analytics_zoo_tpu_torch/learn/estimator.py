@@ -121,10 +121,11 @@ class Estimator:
         `learn.trainer.fit_keras` (`mixed_precision=True` runs bf16
         compute with f32 masters, `fused_optimizer=True` swaps a stock
         adam/adamw for the fused-Adam kernel, `auto_resume`,
-        `step_retries`, `step_timeout_s`, `end_trigger`, and the input
+        `step_retries`, `step_timeout_s`, `end_trigger`, the input
         pipeline and telemetry: `prefetch`, `prefetch_depth`,
         `batch_iter_factory`, `flops_per_step`, `metrics_report_s`,
-        `profile_steps`, `profile_dir`). Labels may be a list of arrays,
+        `profile_steps`, `profile_dir`, and the programs: `steps_per_run`,
+        `device_cache`, `compile_cache_dir`). Labels may be a list of arrays,
         one per output of a model compiled with a list of losses.
         `validation_data` (any form `to_dataset` takes) is evaluated after
         every epoch into `history["val_<metric>"]`. Returns the history."""

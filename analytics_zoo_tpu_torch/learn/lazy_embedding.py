@@ -20,7 +20,9 @@ Differences from the JAX package, none of them in the numbers:
   "."), and `split_rest` drops the table keys where the JAX package sets
   its leaves to None;
 - `opt_state["t"]` is a host integer (the JAX package keeps a jnp int32),
-  so the bias correction is folded on the host without a device sync;
+  so the bias correction is computed on the host without a device sync
+  (`table_scalars`) and read by the step from its row of the trainer's
+  scalar table on the device;
 - updates are in place: `index_copy_` writes the new rows into the table
   and its moments. A duplicate id gathers the same row and gradient as its
   first occurrence, so it computes and writes the same bytes; the JAX
@@ -30,13 +32,15 @@ Differences from the JAX package, none of them in the numbers:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from analytics_zoo_tpu_torch.common.tree import tree_map
+from analytics_zoo_tpu_torch.ops.optimizers import (scalar_row, step_scalars,
+                                                    takes_scalars)
 
 
 class LazyEmbeddingSpec(NamedTuple):
@@ -106,19 +110,28 @@ def _dedup(ids: torch.Tensor) -> torch.Tensor:
     return torch.sort(ids.reshape(-1).long()).values
 
 
+def _corrections(spec: LazyEmbeddingSpec, t: int) -> Tuple[float, float]:
+    """(1 − β1ᵗ, 1 − β2ᵗ) in f32: the bias corrections at step `t`."""
+    f32 = np.float32
+    return (float(f32(1.0) - f32(spec.b1) ** f32(t)),
+            float(f32(1.0) - f32(spec.b2) ** f32(t)))
+
+
 @torch.no_grad()
 def row_adam_update(spec: LazyEmbeddingSpec, table, mu, nu, g_table, ids,
-                    t: int):
+                    t: int, corrections=None):
     """SparseAdam step over the rows `ids` touches, in place, in the JAX
     package's arithmetic (bias-corrected moments, then the step); every
-    other row is untouched bytes. Returns (table, mu, nu)."""
+    other row is untouched bytes. Returns (table, mu, nu).
+    `corrections`: the step's (1 − β1ᵗ, 1 − β2ᵗ) as an f32 tensor of two on
+    the table's device (a row of the scalar table); computed from `t` when
+    not given."""
+    c1, c2 = corrections if corrections is not None else scalar_row(
+        _corrections(spec, t), table.device)
     rows = _dedup(ids)
     g = g_table.index_select(0, rows).float()
     m = spec.b1 * mu.index_select(0, rows) + (1.0 - spec.b1) * g
     v = spec.b2 * nu.index_select(0, rows) + (1.0 - spec.b2) * g * g
-    f32 = np.float32
-    c1 = float(f32(1.0) - f32(spec.b1) ** f32(t))
-    c2 = float(f32(1.0) - f32(spec.b2) ** f32(t))
     mhat = m / c1
     vhat = v / c2
     p = (table.index_select(0, rows).float()
@@ -133,12 +146,22 @@ def make_lazy_one_step(model, loss_fn, optimizer,
                        specs: Sequence[LazyEmbeddingSpec],
                        mixed_precision: bool = False) -> Callable:
     """The trainer's one-step when lazy tables are declared and the fit is
-    not fused: `one_step(params, opt_state, xb, yb, seed) -> (params,
-    opt_state, loss)` with opt_state from `init_state`, params updated in
-    place."""
+    not fused: `one_step(params, opt_state, xb, yb, seed, scalars) ->
+    (params, opt_state, loss)` with opt_state from `init_state`, params
+    updated in place; `one_step.scalars(opt_state)` is its row of per-step
+    scalars (each table's bias corrections, then the rest optimizer's),
+    which `scalars` holds on the device."""
     from analytics_zoo_tpu_torch.learn.trainer import _cast_tree
 
-    def one_step(params, opt_state, xb, yb, seed: int):
+    def row_fn(opt_state) -> List[float]:
+        t = opt_state["t"] + 1
+        row = [c for s in specs for c in _corrections(s, t)]
+        return row + step_scalars(optimizer, opt_state["rest"])
+
+    def one_step(params, opt_state, xb, yb, seed, scalars=None):
+        if scalars is None:
+            scalars = scalar_row(row_fn(opt_state),
+                                 next(iter(params.values())).device)
         with torch.enable_grad():
             # inputs stay uncast: ids above 256 are not exact in bf16
             p = _cast_tree(params, torch.bfloat16) if mixed_precision \
@@ -155,19 +178,31 @@ def make_lazy_one_step(model, loss_fn, optimizer,
 
         t = opt_state["t"] + 1
         tables = dict(opt_state["tables"])
-        for s in specs:
+        for i, s in enumerate(specs):
             row_adam_update(s, _get(params, s.path), *tables[_key(s)],
-                            _get(grads, s.path), s.ids_fn(xb), t)
+                            _get(grads, s.path), s.ids_fn(xb), t,
+                            scalars[2 * i:2 * i + 2])
         with torch.no_grad():
             rest_params = split_rest(params, specs)
-            updates, rest_state = optimizer.update(
-                split_rest(grads, specs), opt_state["rest"], rest_params)
+            updates, rest_state = rest_update(
+                optimizer, split_rest(grads, specs), opt_state["rest"],
+                rest_params, scalars[2 * len(specs):])
             for name, value in rest_params.items():
                 value.add_(updates[name])
         return params, {"rest": rest_state, "tables": tables, "t": t}, \
             loss.detach()
 
+    one_step.scalars = row_fn
     return one_step
+
+
+def rest_update(optimizer, grads, state, params, scalars):
+    """`optimizer.update` with its part of the step's row, when it
+    declares per-step scalars (a transformation without them is called
+    as optax calls it)."""
+    if not takes_scalars(optimizer):
+        return optimizer.update(grads, state, params)
+    return optimizer.update(grads, state, params, scalars=scalars)
 
 
 def resolve_specs(model) -> Sequence[LazyEmbeddingSpec]:

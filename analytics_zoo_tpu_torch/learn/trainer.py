@@ -4,12 +4,16 @@ Port of the single-device path of `analytics_zoo_tpu/learn/trainer.py`:
 `_TrainingMetrics` (L38-141), `_tree_len` / `_tree_take` /
 `_num_batches` (L143-155), `iter_batches` (L158), `_step_with_watchdog`
 (L236-300), `_StepCostTracker` (L310-467), `_Prefetcher` (L470-549),
-`_cast_tree` (L647), `_make_one_step` (L737, without sharding) as
-`build_train_step` (L805), `_pick_one_step` (L968), `build_eval_step`
+`_chunk_batches` (L552), `_cast_tree` (L647), `_make_one_step` (L737,
+without sharding) as `build_train_step` (L805), `build_train_run` (L826)
+and `build_device_epoch_run` (L856) as the programs below,
+`_device_cache_eligible` (L905), `_data_fingerprint` (L931),
+`_device_cached_data` (L954), `_pick_one_step` (L968), `build_eval_step`
 (L985), `fit_keras` (L996) with its input pipeline (`batch_iter_factory`,
 `prefetch`, `prefetch_depth`: L1160-1260, L1720-1740), its lazy-embedding
 branch (L1327-1330, L1356-1369, L1385-1388), auto-resume (L1270-1316),
-the checkpoint manager and its default `EveryEpoch` trigger (L1496-1501),
+the step cache and `compile_cache_dir` (L1426-1490), the checkpoint
+manager and its default `EveryEpoch` trigger (L1496-1501),
 the TensorBoard writer (L1504) and `metrics_report_s` (L1511), the
 roofline cost harvest (L1518-1545), the profiler window (`profile_steps`,
 `_profile_tick`, L1574-1618), `_ckpt_extra` / `_ckpt_save`
@@ -116,23 +120,72 @@ epoch-boundary trigger (L1830-1840) and the emergency checkpoint
   switches: the harvest is always on and the prefetch depth defaults to
   2, as the JAX package's defaults are.
 
+- Programs, the counterpart of the JAX fit's jitted step. A fit runs its
+  steps as programs of `steps_per_run=k` steps (`build_train_run`; 1: the
+  single step): on the card each is captured once as a CUDA graph and
+  replayed (`compile_cache/graphs.TrainProgram`), on the CPU the same
+  buffer protocol runs eagerly. A program's first run is eager (the
+  roofline's counted step); it is captured right after, and every later
+  run replays it. Its buffers: a static batch (`[k, B, ...]`, which the
+  uploaded batches are copied into on the step's stream) or the
+  device-resident data, the model's own parameters and buffers, the
+  optimizer state (its tensors kept on the model across fits: a new fit's
+  fresh or restored state is written into them, and an update that
+  returns new tensors has them copied back), a loss buffer of k (read
+  back once an epoch with the others) and the step's scalar table.
+  Programs are kept on the model under the JAX cache key (the compiled
+  optimizer and loss, mixed precision, lazy tables, fused) and by kind,
+  length and batch signature; the short tail group of an epoch is a
+  program of its own length. A storage change of a parameter, buffer or
+  state tensor drops them. A capture that fails raises `CaptureError`:
+  nothing falls back to eager.
+- The scalar table. What a step reads that changes from step to step is
+  a row of a small device table (`_StepTable`): the step seed (int64),
+  drawn by `torch.randint` on the fit's generator as before, and the
+  one-step's f32 values (`one_step.scalars(opt_state)`: the optimizer's
+  scheduled rate and bias corrections or its folded `(a, b, lr·wd)`,
+  each lazy table's values), computed on the host by the functions that
+  computed them before and copied to the card before the run. The step
+  seed reaches the model as a `kernels.philox.DeviceSeed`, the kernels
+  read it and the optimizer scalars by pointer, and the eager run reads
+  the same rows, so eager and replayed steps compute the same bits. The
+  host advances the state's step counts itself for a replay (an update
+  advances each by one a step, checked on every eager run).
+- `device_cache` (JAX L905-965, L1701-1712): `None` keeps the epoch's data
+  on the device when the JAX rule allows (in-memory arrays of at most 256
+  MB, one device, no trigger that needs mid-epoch granularity), `True`
+  always, `False` never; streaming input (`batch_iter_factory`) never.
+  The data is uploaded once per distinct content and cached on the
+  model. Each epoch uploads the host path's own `np.random.RandomState(
+  seed + epoch)` order, and each step gathers its batch on the device
+  through a cursor its program increments, so the numbers are those of
+  the host batches (the JAX package draws its on-device permutation with
+  `jax.random` instead, ROADMAP queue 3). An epoch is ⌈steps/k⌉ runs with
+  no batch copied from the host; triggers are checked at the epoch
+  boundary only. With host batches they are checked every k iterations.
+- `compile_cache_dir` (JAX L1426-1490): the kernel libraries go through
+  the `CompileCache` store, and each program writes a capture record
+  keyed by `compile_cache/key.make_key` with the JAX discriminators (the
+  model, loss, optimizer, mixed precision, lazy, multi, device cache,
+  `dc_steps`, shuffle, fused). `program_sources(model)` says where each
+  program of the last fit came from: a fit in a fresh process on a warm
+  cache runs nvcc 0 times and reports its programs "cached".
+
 The optimizer state starts fresh at each call unless it resumes, as in the
-JAX package. Steps are dispatched one by one: `steps_per_run=k` is
-accepted for the JAX signature (k steps between loss reads there) and
-changes nothing here, since losses are read once per epoch anyway; a
-k-step CUDA graph is ROADMAP work. The arguments of the JAX loop that are
-not ported raise NotImplementedError when given a value other than their
-default.
+JAX package. The arguments of the JAX loop that are not ported raise
+NotImplementedError when given a value other than their default.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import itertools
 import logging
 import queue
 import threading
 import time
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -142,20 +195,20 @@ from torch.func import functional_call
 from analytics_zoo_tpu_torch.common import faults
 from analytics_zoo_tpu_torch.common import triggers as tg
 from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.kernels import _build
 from analytics_zoo_tpu_torch.observability.registry import get_registry
-from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE, as_fused
+from analytics_zoo_tpu_torch.kernels.philox import DeviceSeed
+from analytics_zoo_tpu_torch.ops.optimizers import (NOT_PORTED_QUEUE,
+                                                    as_fused, step_scalars,
+                                                    takes_scalars)
 
 log = logging.getLogger("analytics_zoo_tpu_torch.learn")
 
 # Arguments of the JAX `fit_keras` that the port does not run yet, with
 # their defaults and the work that ports them: a value other than the
 # default raises.
-_GRAPHS_1B = ("ROADMAP.md queue 1, item 1b: the training step as a CUDA "
-              "graph; the per-step host scalars must become device tensors "
-              "first")
 _NOT_PORTED_ARGS = {
     "sharding_rules": (None, NOT_PORTED_QUEUE),   # distributed (item 7)
-    "compile_cache_dir": (None, _GRAPHS_1B),
 }
 
 # The meta key of the step-seed generator's state (the JAX package keeps
@@ -408,6 +461,16 @@ class _StepCostTracker:
 
         return counted
 
+    def add(self, sig: Tuple, steps: int) -> None:
+        """`steps` replayed steps of input signature `sig`, at its
+        memoized cost."""
+        cost = self._memo.get(sig)
+        if cost is None:
+            return
+        self.flops += cost.flops * steps
+        self.bytes += cost.bytes * steps
+        self.calls += steps
+
 
 class _PinnedUploader:
     """The card's side of the prefetcher: a batch of numpy arrays copied
@@ -595,13 +658,16 @@ def _cast_tree(tree: Dict[str, torch.Tensor], dtype: torch.dtype,
 def build_train_step(model, loss_fn: Callable, optimizer,
                      mixed_precision: bool = False) -> Callable:
     """One iteration as a function, `one_step(params, opt_state, xb, yb,
-    seed) -> (params, opt_state, loss)`: forward, backward and the
-    optimizer step. `params` are the model's own parameters (the f32
-    masters), updated in place. PyTorch runs eagerly: there is no program
-    to compile or buffers to donate."""
+    seed, scalars) -> (params, opt_state, loss)`: forward, backward and
+    the optimizer step. `params` are the model's own parameters (the f32
+    masters), updated in place. `seed` is the step seed (an int, or a
+    `DeviceSeed` in the scalar table); `scalars`, the optimizer's part of
+    the step's row on the device (`one_step.scalars(opt_state)` gives its
+    host values; None: the optimizer computes and uploads them)."""
     fused_apply = getattr(optimizer, "fused_apply", None)
+    with_row = takes_scalars(optimizer)
 
-    def one_step(params, opt_state, xb, yb, seed: int):
+    def one_step(params, opt_state, xb, yb, seed, scalars=None):
         with torch.enable_grad():
             p = _cast_tree(params, torch.bfloat16) if mixed_precision \
                 else params
@@ -614,16 +680,20 @@ def build_train_step(model, loss_fn: Callable, optimizer,
                                         allow_unused=True)
         grads = {n: torch.zeros_like(t) if g is None else g
                  for (n, t), g in zip(params.items(), grads)}
+        kw = {"scalars": scalars} if with_row and scalars is not None \
+            else {}
         with torch.no_grad():
             if fused_apply is not None:
-                params, opt_state = fused_apply(grads, opt_state, params)
+                params, opt_state = fused_apply(grads, opt_state, params,
+                                                **kw)
             else:
                 updates, opt_state = optimizer.update(grads, opt_state,
-                                                      params)
+                                                      params, **kw)
                 for name, t in params.items():
                     t.add_(updates[name])
         return params, opt_state, loss.detach()
 
+    one_step.scalars = lambda opt_state: step_scalars(optimizer, opt_state)
     return one_step
 
 
@@ -726,6 +796,511 @@ def restore_training_state(model, optimizer, opt_state, gen: torch.Generator,
     return opt_state, meta
 
 
+# ---------------------------------------------------------------------------
+# The device-resident dataset (JAX L905-965)
+# ---------------------------------------------------------------------------
+# The auto device cache's limit (JAX `ZOO_DEVICE_CACHE_MB`, default 256):
+# the port has no environment switches.
+DEVICE_CACHE_MB = 256.0
+
+
+def _epoch_safe_trigger(trigger) -> bool:
+    """Triggers that only need epoch-boundary state keep their exact
+    semantics when the epoch's steps run without a host check between
+    them (JAX L898-902)."""
+    return trigger is None or isinstance(trigger, (tg.EveryEpoch,
+                                                   tg.MaxEpoch))
+
+
+def _device_cache_eligible(x, y, mesh, n_proc: int, device_cache,
+                           checkpoint_trigger=None,
+                           end_trigger=None) -> bool:
+    """Auto device residency (JAX L905-928): one process, one device,
+    in-memory arrays of at most `DEVICE_CACHE_MB` in all, and no trigger
+    that needs mid-epoch granularity; `device_cache=True` always, `False`
+    never. `mesh` (None, or an object with `n_devices`) and `n_proc` are
+    the JAX signature's; the port runs one process on one device."""
+    if device_cache is False or n_proc > 1:
+        return False
+    if device_cache is True:
+        return True
+    if mesh is not None and mesh.n_devices > 1:
+        return False
+    if not (_epoch_safe_trigger(checkpoint_trigger)
+            and _epoch_safe_trigger(end_trigger)):
+        return False
+    nbytes = sum(np.asarray(a).nbytes for a in tree_leaves((x, y))
+                 if a is not None)
+    return nbytes <= DEVICE_CACHE_MB * 1e6
+
+
+def _data_fingerprint(tree) -> tuple:
+    """Cheap content key of the device data cache (JAX L931-951): the
+    identity, shape and dtype of every leaf and the CRC of its head,
+    middle and tail 4 KB, so an array refreshed in place is uploaded
+    again."""
+    parts = []
+    for leaf in tree_leaves(tree):
+        if leaf is None:
+            continue
+        a = np.ascontiguousarray(np.asarray(leaf))
+        raw = a.reshape(-1).view(np.uint8)
+        k = min(len(raw), 4096)
+        mid = len(raw) // 2
+        parts.append((id(leaf), a.shape, str(a.dtype),
+                      zlib.crc32(raw[:k].tobytes()),
+                      zlib.crc32(raw[mid:mid + k].tobytes()),
+                      zlib.crc32(raw[-k:].tobytes())))
+    return tuple(parts)
+
+
+def _device_cached_data(model, entry, x, y, batch: int):
+    """The model's device-resident dataset (`entry.dc`) holding (x, y),
+    uploaded once per distinct content and cached on the model (JAX
+    L954-965: `model._device_data` keeps the content key, the device views
+    and strong references to the host arrays, so the key's identities stay
+    valid). New content of the same row shapes and dtypes, and at most as
+    many rows, is copied into the same device buffers, so the programs
+    captured on them stay valid; other content gets new buffers."""
+    key = (_data_fingerprint((x, y)), str(entry.device), batch)
+    cached = model.__dict__.get("_device_data")
+    dc = entry.dc
+    if cached is not None and cached[0] == key and dc is not None:
+        return dc
+    if dc is None or not dc.fits(x, y, batch):
+        dc = entry.new_device_epoch(x, y, batch)
+    dc.load(x, y)
+    model._device_data = (key, dc.x_view(), dc.y_view(), (x, y))
+    return dc
+
+
+def _epoch_order(n: int, batch: int, shuffle: bool, seed: int) -> np.ndarray:
+    """The rows of an epoch's whole batches in order: the host path's own
+    `np.random.RandomState(seed + epoch)` shuffle (`iter_batches`), so the
+    device-resident epoch trains on the same batches as the host path."""
+    idx = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(idx)
+    return idx[:(n // batch) * batch].astype(np.int64)
+
+
+def _chunk_batches(it, k: int):
+    """Group (xb, yb, real, uploaded) items into lists of up to k for
+    k-step runs (JAX L552-563); the last group may be short and runs as a
+    program of its own length."""
+    group = []
+    for item in it:
+        group.append(item)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+# ---------------------------------------------------------------------------
+# The graphed step: the scalar table, the state, the programs
+# ---------------------------------------------------------------------------
+def _state_merge(dst, src):
+    """`src`'s values in `dst`'s tensors: every tensor leaf of `src` copied
+    into `dst`'s leaf (unless it is that tensor), every other leaf taken
+    from `src`. A program reads and writes the same state tensors at every
+    replay, whatever tensors an update returns."""
+    if isinstance(src, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+        return dst
+    if isinstance(src, dict):
+        return {k: _state_merge(dst[k], v) for k, v in src.items()}
+    if isinstance(src, tuple) and hasattr(src, "_fields"):
+        return type(src)(*(_state_merge(d, v) for d, v in zip(dst, src)))
+    if isinstance(src, (list, tuple)):
+        return type(src)(_state_merge(d, v) for d, v in zip(dst, src))
+    return src
+
+
+def _is_count(leaf) -> bool:
+    return isinstance(leaf, (int, np.integer)) and not isinstance(leaf, bool)
+
+
+def _counts(tree) -> List[int]:
+    """The optimizer state's host integers, in order: its step counts."""
+    return [int(v) for v in tree_leaves(tree) if _is_count(v)]
+
+
+def _advance(tree, steps: int):
+    """The state `steps` steps on: every step count plus `steps`. An
+    update advances each of its counts by one a step (checked on every
+    eager run), so a replay's state needs no Python run of the step."""
+    if _is_count(tree):
+        return tree + steps
+    if isinstance(tree, dict):
+        return {k: _advance(v, steps) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_advance(v, steps) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_advance(v, steps) for v in tree)
+    return tree
+
+
+# host rows a table keeps in flight: the host writes step n + 1's rows
+# while the card may still copy step n's
+_TABLE_RING = 4
+
+
+class _StepTable:
+    """The per-step scalars of a program of `n` steps on the device, one row
+    a step: `seeds` int64 `[n]` (the step seeds) and `floats` f32
+    `[n, width]` (the one-step's values: the optimizer's rate, bias
+    corrections or folded scalars). The host fills the rows with the
+    functions that compute them (`torch.randint` on the fit's generator,
+    `one_step.scalars`) in pinned staging buffers and copies them to the
+    card on the caller's stream before each run."""
+
+    def __init__(self, n: int, width: int, device: torch.device):
+        self.width = width
+        self.device = device
+        self.seeds = torch.zeros(n, dtype=torch.int64, device=device)
+        self.floats = torch.zeros((n, max(width, 1)), dtype=torch.float32,
+                                  device=device)
+        pin = device.type == "cuda"
+        self._slots = [[torch.zeros(n, dtype=torch.int64, pin_memory=pin),
+                        torch.zeros((n, max(width, 1)), dtype=torch.float32,
+                                    pin_memory=pin), None]
+                       for _ in range(_TABLE_RING if pin else 1)]
+        self._next = 0
+
+    def write(self, seeds: List[int], rows: List[List[float]]) -> None:
+        slot = self._slots[self._next]
+        self._next = (self._next + 1) % len(self._slots)
+        if slot[2] is not None:
+            slot[2].synchronize()      # its last copy has left the buffer
+        slot[0].numpy()[:] = seeds
+        if self.width:
+            slot[1].numpy()[:, :self.width] = rows
+        self.seeds.copy_(slot[0], non_blocking=True)
+        self.floats.copy_(slot[1], non_blocking=True)
+        if self.device.type == "cuda":
+            slot[2] = torch.cuda.Event()
+            slot[2].record(torch.cuda.current_stream(self.device))
+
+    def seed(self, i: int) -> DeviceSeed:
+        return DeviceSeed(self.seeds[i:i + 1])
+
+    def row(self, i: int) -> torch.Tensor:
+        return self.floats[i, :self.width]
+
+
+def _rows_signature(tree) -> Tuple:
+    """Structure, row shape and dtype of every leaf of a dataset."""
+    leaves = [np.asarray(a) for a in tree_leaves(tree) if a is not None]
+    return (str(tree_map(lambda a: None, tree)),
+            tuple((a.shape[1:], a.dtype.str) for a in leaves))
+
+
+class _DeviceEpoch:
+    """The device-resident dataset of a model's fits and the cursor its
+    programs gather their batches with. The data lies in buffers of `rows`
+    rows; `perm` holds the epoch's rows (uploaded once an epoch), and every
+    step gathers row `cursor` of `perm` viewed as `[rows // batch, batch]`
+    and increments `cursor`, inside the graph."""
+
+    def __init__(self, x, y, batch: int, device: torch.device):
+        self.rows = _tree_len(x)
+        self.batch = batch
+        self.sig = _rows_signature((x, y))
+        alloc = lambda a: torch.empty(  # noqa: E731
+            np.shape(a), dtype=torch.from_numpy(
+                np.ascontiguousarray(np.asarray(a)[:1])).dtype,
+            device=device)
+        self.x = tree_map(alloc, x)
+        self.y = tree_map(alloc, y) if y is not None else None
+        self.n = self.steps = 0
+        cap = (self.rows // batch) * batch
+        self.perm = torch.zeros(cap, dtype=torch.int64, device=device)
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        self._stage = torch.zeros(cap, dtype=torch.int64,
+                                  pin_memory=device.type == "cuda")
+
+    def fits(self, x, y, batch: int) -> bool:
+        return (batch == self.batch and _tree_len(x) <= self.rows
+                and _rows_signature((x, y)) == self.sig)
+
+    def load(self, x, y) -> None:
+        """(x, y) into the first rows of the buffers."""
+        self.n = _tree_len(x)
+        self.steps = self.n // self.batch
+
+        def put(buf, a):
+            buf[:self.n].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        tree_map(put, self.x, x)
+        if y is not None:
+            tree_map(put, self.y, y)
+
+    def x_view(self):
+        return tree_map(lambda a: a[:self.n], self.x)
+
+    def y_view(self):
+        return tree_map(lambda a: a[:self.n], self.y) \
+            if self.y is not None else None
+
+    def start_epoch(self, order: np.ndarray) -> None:
+        self._stage.numpy()[:len(order)] = order
+        self.perm.copy_(self._stage, non_blocking=True)
+        self.cursor.zero_()
+        if self.perm.is_cuda:
+            # the next epoch rewrites the staging buffer
+            torch.cuda.current_stream(self.perm.device).synchronize()
+
+    def batch_at(self):
+        rows = self.perm.view(-1, self.batch).index_select(
+            0, self.cursor).view(-1)
+        take = lambda a: a.index_select(0, rows)  # noqa: E731
+        return (tree_map(take, self.x),
+                tree_map(take, self.y) if self.y is not None else None)
+
+
+class _Program:
+    """One training program and its buffers: `n` steps, their scalar
+    table and loss buffer, and the static batch of a host program (`xs`,
+    `ys`, `[n, B, ...]`) or the device epoch it gathers from."""
+
+    def __init__(self, n: int, table: _StepTable, device: torch.device):
+        self.n = n
+        self.table = table
+        self.loss = torch.zeros(n, dtype=torch.float32, device=device)
+        self.xs = self.ys = self.dc = None
+        self.program = None
+        self.cost_sig = None
+        # the capture record: its key, whether the cache held it and the
+        # build count when the program began; where it came from, once
+        # settled (`_TrainEntry._settle`)
+        self.cache_key = None
+        self.found = False
+        self.compiles = 0
+        self.source = None
+
+    def fill(self, group) -> None:
+        """Copy a group's batches into the static batch, on the caller's
+        stream."""
+        for j, (xb, yb, _, _) in enumerate(group):
+            tree_map(lambda s, a: s[j].copy_(a, non_blocking=True),
+                     self.xs, xb)
+            if yb is not None:
+                tree_map(lambda s, a: s[j].copy_(a, non_blocking=True),
+                         self.ys, yb)
+
+
+def _static_like(batch, n: int, device: torch.device):
+    return tree_map(lambda a: torch.empty((n,) + tuple(a.shape),
+                                          dtype=a.dtype, device=device),
+                    batch)
+
+
+class _TrainEntry:
+    """What the JAX fit caches on the model as its jitted step (L1439-1490):
+    the one-step, the optimizer it steps with, the optimizer state (its
+    tensors kept across fits: a new fit's fresh or restored state is
+    written into them) and the programs, by kind, length and input
+    signature. A fit that finds a storage change of any tensor the
+    programs read drops them, and they are captured again."""
+
+    def __init__(self, model, optimizer, one_step, device: torch.device,
+                 discriminators: Dict[str, Any]):
+        self.model = model
+        self.optimizer = optimizer
+        self.one_step = one_step
+        self.device = device
+        self.discriminators = discriminators
+        self.state = None
+        self.params: Dict[str, torch.Tensor] = {}
+        self.programs: Dict[Tuple, _Program] = {}
+        self.ptrs: Tuple = ()
+        self.dc: Optional[_DeviceEpoch] = None
+        self.width = 0
+        self.model_fp = None
+        # per fit
+        self.cost: Optional[_StepCostTracker] = None
+        self.cache = None
+        self.shuffle = True
+        self.sources: List[Dict[str, str]] = []
+
+    # -- state ------------------------------------------------------------
+    def adopt(self, params: Dict[str, torch.Tensor], opt_state):
+        """Take a fit's parameters and its starting optimizer state, the
+        latter written into the kept state tensors. Returns the state."""
+        self.params = params
+        self.state = opt_state if self.state is None \
+            else _state_merge(self.state, opt_state)
+        self.width = len(self.one_step.scalars(self.state))
+        return self.state
+
+    def check_storage(self) -> None:
+        ptrs = tuple(t.data_ptr() for t in itertools.chain(
+            self.params.values(), self.model.buffers(),
+            (v for v in tree_leaves(self.state)
+             if isinstance(v, torch.Tensor))))
+        if ptrs != self.ptrs:
+            self.programs.clear()
+            self.ptrs = ptrs
+
+    def new_device_epoch(self, x, y, batch: int) -> _DeviceEpoch:
+        """New device buffers for (x, y): the programs that gathered from
+        the old ones are dropped."""
+        self.dc = _DeviceEpoch(x, y, batch, self.device)
+        self.programs = {k: p for k, p in self.programs.items()
+                         if k[0] != "device"}
+        return self.dc
+
+    # -- programs ---------------------------------------------------------
+    def _steps(self, prog: _Program, capturing: bool, batch_at,
+               after_step=None):
+        st = self.state
+        for i in range(prog.n):
+            xb, yb = batch_at(i)
+            step = self.one_step
+            if not capturing:
+                if i == 0:
+                    prog.cost_sig = _StepCostTracker._sig((xb, yb))
+                if self.cost is not None:
+                    step = self.cost.step_fn(step, (xb, yb))
+            _, new, loss = step(self.params, st, xb, yb,
+                                prog.table.seed(i), prog.table.row(i))
+            st = _state_merge(st, new)
+            prog.loss[i].copy_(loss)
+            if after_step is not None:
+                after_step()
+        return st
+
+    def _new_program(self, key: Tuple, n: int, group=None) -> _Program:
+        from analytics_zoo_tpu_torch.compile_cache.graphs import TrainProgram
+        prog = _Program(n, _StepTable(n, self.width, self.device),
+                        self.device)
+        if group is None:
+            dc = prog.dc = self.dc
+            name = f"train device-epoch x{n}"
+
+            def fn(capturing):
+                return self._steps(prog, capturing, lambda i: dc.batch_at(),
+                                   lambda: dc.cursor.add_(1))
+        else:
+            prog.xs = _static_like(group[0][0], n, self.device)
+            prog.ys = _static_like(group[0][1], n, self.device) \
+                if group[0][1] is not None else None
+            name = f"train x{n}"
+
+            def fn(capturing):
+                return self._steps(prog, capturing, lambda i: (
+                    tree_map(lambda a: a[i], prog.xs),
+                    tree_map(lambda a: a[i], prog.ys)
+                    if prog.ys is not None else None))
+        prog.program = TrainProgram(name, fn, self.device)
+        self.programs[key] = prog
+        return prog
+
+    def _record_key(self, prog: _Program):
+        from analytics_zoo_tpu_torch.compile_cache.key import (
+            abstract_signature, make_key, model_fingerprint)
+        if self.model_fp is None:
+            self.model_fp = model_fingerprint(type(self.model), self.model)
+        inputs = [prog.table.seeds, prog.table.floats]
+        if prog.dc is not None:
+            inputs += [prog.dc.x, prog.dc.y, prog.dc.perm]
+        else:
+            inputs += [prog.xs, prog.ys]
+        dc = prog.dc
+        extra = dict(self.discriminators, multi=prog.n > 1,
+                     device_cache=dc is not None,
+                     dc_steps=dc.rows // dc.batch if dc is not None else 0,
+                     shuffle=self.shuffle if dc is not None else None)
+        return make_key("train", self.model_fp,
+                        abstract_signature(inputs), extra=extra,
+                        device=self.device)
+
+    def run(self, key: Tuple, n: int, seeds: List[int], group=None):
+        """One run of the program `key` (made on its first run) over the
+        next `n` steps: their rows into its table, the group's batches
+        into its static batch, then an eager run or a replay. Returns the
+        program's `n` losses (a device tensor)."""
+        prog = self.programs.get(key) or self._new_program(key, n, group)
+        rows, st = [], self.state
+        for _ in range(n):
+            rows.append(self.one_step.scalars(st))
+            st = _advance(st, 1)
+        prog.table.write(seeds, rows)
+        if group is not None:
+            prog.fill(group)
+        if self.cache is not None and prog.source is None \
+                and prog.cache_key is None:
+            prog.cache_key = self._record_key(prog)
+            prog.found = self.cache.load(prog.cache_key) is not None
+            prog.compiles = _build.build_events()["compiles"]
+        def libraries():
+            return _build.library_cache(self.cache) \
+                if self.cache is not None else contextlib.nullcontext()
+
+        with libraries():
+            out, replayed = prog.program()
+        if replayed:
+            self.state = _advance(self.state, n)
+            if self.cost is not None and prog.cost_sig is not None:
+                self.cost.add(prog.cost_sig, n)
+        else:
+            if _counts(out) != [c + n for c in _counts(self.state)]:
+                raise RuntimeError(
+                    f"{prog.program.name}: an optimizer update advanced "
+                    "its state's integers by other than one a step; a "
+                    "replayed step could not know its counts")
+            self.state = out
+            with libraries():
+                prog.program.capture()
+        if prog.source is None and (prog.program.graph is not None
+                                    or self.device.type != "cuda"):
+            self._settle(prog)
+        return prog.loss.clone()
+
+    def _settle(self, prog: _Program) -> None:
+        """Where the program came from, once it is captured (run, on the
+        CPU): "cached" when its capture record was in `compile_cache_dir`
+        and nvcc ran 0 times for it, else "compiled" (the record is then
+        written); "uncached" without a cache."""
+        if self.cache is None:
+            prog.source = "uncached"
+        elif prog.found and \
+                _build.build_events()["compiles"] == prog.compiles:
+            prog.source = "cached"
+        else:
+            prog.source = "compiled"
+            if not prog.found:
+                self.cache.put(prog.cache_key,
+                               prog.program.name.encode())
+        self.sources.append({"program": prog.program.name,
+                             "source": prog.source})
+
+
+def _train_entry(model, fused_optimizer: Optional[bool],
+                 mixed_precision: bool, lazy_specs, device: torch.device
+                 ) -> _TrainEntry:
+    """The model's cached entry under the JAX `cache_key` (L1439-1447: the
+    compiled optimizer and loss, mixed precision, lazy tables, fused), or
+    a new one."""
+    key = (id(model.optimizer), id(model.loss), mixed_precision,
+           bool(lazy_specs), bool(fused_optimizer), str(device))
+    cached = model.__dict__.get("_train_cache")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    optimizer = _resolve_fused(model, model.optimizer, fused_optimizer,
+                               lazy_specs)
+    one_step = _pick_one_step(model, model.loss, optimizer, mixed_precision,
+                              lazy_specs, bool(fused_optimizer))
+    entry = _TrainEntry(model, optimizer, one_step, device, dict(
+        loss=model.loss, optimizer=getattr(optimizer, "update", None),
+        mixed_precision=mixed_precision, lazy=bool(lazy_specs),
+        fused=bool(fused_optimizer)))
+    model._train_cache = (key, entry)
+    return entry
+
+
 def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
               validation_data=None, distributed: bool = True,
               shuffle: bool = True, checkpoint_trigger=None,
@@ -757,23 +1332,19 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
     `batch_iter_factory(epoch) -> iterator of (xb, yb, real)` replaces the
     in-memory batching (`x` and `y` are then not read). `prefetch`,
     `prefetch_depth`, `flops_per_step`, `metrics_report_s`,
-    `profile_steps` and `profile_dir` are the JAX package's (the module
-    docstring). `distributed` is accepted (one device: nothing to
-    distribute); `device_cache` may be None or False (host batches, the
-    JAX package's shuffle). `fused_optimizer=None` means False (the port
-    has no config file or environment switch). `checkpoint_trigger`,
-    `end_trigger`, `auto_resume`, `step_retries` and `step_timeout_s` are
-    the JAX package's too."""
-    given = dict(sharding_rules=sharding_rules,
-                 compile_cache_dir=compile_cache_dir)
+    `profile_steps`, `profile_dir`, `steps_per_run`, `device_cache` and
+    `compile_cache_dir` are the JAX package's (the module docstring).
+    `distributed` is accepted (one device: nothing to distribute).
+    `fused_optimizer=None` means False (the port has no config file or
+    environment switch). `checkpoint_trigger`, `end_trigger`,
+    `auto_resume`, `step_retries` and `step_timeout_s` are the JAX
+    package's too."""
+    given = dict(sharding_rules=sharding_rules)
     for name, (default, where) in _NOT_PORTED_ARGS.items():
         value = given[name]
         if (value is not None) if default is None else (value != default):
             raise NotImplementedError(
                 f"fit_keras({name}=...) is not ported yet ({where})")
-    if device_cache:
-        raise NotImplementedError(
-            f"fit_keras(device_cache=True) is not ported yet ({_GRAPHS_1B})")
     if flat_optimizer:
         raise ValueError("flat_optimizer was retired in the JAX package; "
                          "use fused_optimizer=True")
@@ -790,6 +1361,14 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             ProfileCapture
         profiler = ProfileCapture(profile_dir or "zoo_profiles")
     depth = int(prefetch_depth) if prefetch_depth else 2
+    streaming = batch_iter_factory is not None
+    if streaming and device_cache:
+        raise NotImplementedError(
+            "device_cache=True needs in-memory arrays; streaming input "
+            "(batch_iter_factory) has no host copy to keep on the device")
+    use_device_cache = not streaming and _device_cache_eligible(
+        x, y, None, 1, device_cache, checkpoint_trigger=checkpoint_trigger,
+        end_trigger=end_trigger)
     if batch_iter_factory is None:
         n = _tree_len(x)
         if n < batch_size:
@@ -821,10 +1400,11 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
     if lazy_embeddings:
         from analytics_zoo_tpu_torch.learn.lazy_embedding import resolve_specs
         lazy_specs = resolve_specs(model)
-    optimizer = _resolve_fused(model, model.optimizer, fused_optimizer,
-                               lazy_specs)
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
+    entry = _train_entry(model, fused_optimizer, mixed_precision, lazy_specs,
+                         device)
+    optimizer = entry.optimizer
     if lazy_specs:
         from analytics_zoo_tpu_torch.learn.lazy_embedding import init_state
         opt_state = init_state(params, lazy_specs, optimizer)
@@ -845,8 +1425,16 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             opt_state, meta = resumed
             start_epoch = int(meta.get("epoch", 0))
             iteration = int(meta["iteration"])
-    one_step = _pick_one_step(model, model.loss, optimizer, mixed_precision,
-                              lazy_specs, bool(fused_optimizer))
+    entry.adopt(params, opt_state)
+    if use_device_cache:
+        _device_cached_data(model, entry, x, y, batch_size)
+    entry.check_storage()
+    entry.cache = None
+    if compile_cache_dir is not None:
+        from analytics_zoo_tpu_torch.compile_cache.store import get_cache
+        entry.cache = get_cache(compile_cache_dir)
+    entry.sources = []
+    entry.shuffle = shuffle
 
     ckpt_mgr = None
     if ckpt_path:
@@ -882,6 +1470,7 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         memo_root = model._roofline_cost_memo = {}
     cost_tracker = _StepCostTracker(memo_root.setdefault(
         (mixed_precision, bool(lazy_specs), bool(fused_optimizer)), {}))
+    entry.cost = cost_tracker
     get_accountant().reset("train")
 
     uploader = _PinnedUploader(device) if prefetch \
@@ -933,8 +1522,8 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         version resumable but unpublished)."""
         tree = convert.state_to_jax(model.state_dict(), model)
         ckpt_mgr.save(iteration, tree,
-                      convert.opt_layout_to_jax(optimizer, opt_state, model,
-                                                lazy=bool(lazy_specs)),
+                      convert.opt_layout_to_jax(optimizer, entry.state,
+                                                model, lazy=bool(lazy_specs)),
                       extra=extra)
         if int8_sidecar:
             try:
@@ -964,46 +1553,76 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         for epoch in range(start_epoch, epochs):
             it0 = iteration
             n_seen = 0
-            losses = []   # device scalars; read once at the end of the epoch
+            losses = []   # device tensors; read once at the end of the epoch
             clock.start()
-            source = batch_iter_factory(epoch)
-            if prefetch:
-                batches = _Prefetcher(
-                    source, uploader or _host_transfer, depth=depth,
-                    on_wait=lambda w: telemetry.input_wait_ms.observe(
-                        w * 1e3))
+
+            def draw(k: int) -> List[int]:
+                return [int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+                        for _ in range(k)]
+
+            if use_device_cache:
+                # the device-resident epoch: ⌈steps/k⌉ runs, no batch
+                # copied from the host; triggers are checked at the epoch
+                # boundary only, as in the JAX package (L1701-1712)
+                dc = entry.dc
+                batches = None
+                dc.start_epoch(_epoch_order(_tree_len(x), batch_size,
+                                            shuffle, seed + epoch))
+                for at in range(0, dc.steps, steps_per_run):
+                    k = min(steps_per_run, dc.steps - at)
+                    seeds = draw(k)
+                    _profile_tick(iteration)
+                    loss = _step_with_watchdog(
+                        entry.run, (("device", k), k, seeds),
+                        step_retries, step_timeout_s,
+                        telemetry.step_retries, iteration, device)
+                    iteration += k
+                    n_seen += k * batch_size
+                    losses.append(loss)
             else:
-                batches = ((_to_device(xb, device),
-                            _to_device(yb, device) if yb is not None
-                            else None, real, None)
-                           for xb, yb, real in source)
-            for xb, yb, real, uploaded in batches:
-                _await_upload(uploaded, (xb, yb), device)
-                step_seed = int(torch.randint(0, 2 ** 62, (1,),
-                                              generator=gen))
-                _profile_tick(iteration)
-                params, opt_state, loss = _step_with_watchdog(
-                    cost_tracker.step_fn(one_step, (xb, yb)),
-                    (params, opt_state, xb, yb, step_seed),
-                    step_retries, step_timeout_s, telemetry.step_retries,
-                    iteration, device)
-                iteration += 1
-                n_seen += real
-                losses.append(loss)
-                # triggers that read .loss (Min/MaxLoss) sync on it;
-                # counter triggers stay asynchronous
-                state = tg.TriggerState(epoch=epoch, iteration=iteration,
-                                        loss=loss)
-                if checkpoint_trigger and ckpt_mgr and \
-                        checkpoint_trigger(state):
-                    _ckpt_save(_ckpt_extra(epoch, False))
-                if end_trigger and end_trigger(state):
-                    break
+                source = batch_iter_factory(epoch)
+                if prefetch:
+                    batches = _Prefetcher(
+                        source, uploader or _host_transfer, depth=depth,
+                        on_wait=lambda w: telemetry.input_wait_ms.observe(
+                            w * 1e3))
+                else:
+                    batches = ((_to_device(xb, device),
+                                _to_device(yb, device) if yb is not None
+                                else None, real, None)
+                               for xb, yb, real in source)
+                for group in _chunk_batches(batches, steps_per_run):
+                    for xb, yb, _, uploaded in group:
+                        _await_upload(uploaded, (xb, yb), device)
+                    k = len(group)
+                    seeds = draw(k)
+                    _profile_tick(iteration)
+                    key = ("host", k, _StepCostTracker._sig(
+                        (group[0][0], group[0][1])))
+                    loss = _step_with_watchdog(
+                        entry.run, (key, k, seeds, group),
+                        step_retries, step_timeout_s,
+                        telemetry.step_retries, iteration, device)
+                    iteration += k
+                    n_seen += sum(item[2] for item in group)
+                    losses.append(loss)
+                    # triggers that read .loss (Min/MaxLoss) sync on it;
+                    # counter triggers stay asynchronous; with k steps a
+                    # run they are checked every k iterations (JAX
+                    # L1741-1761)
+                    state = tg.TriggerState(epoch=epoch,
+                                            iteration=iteration,
+                                            loss=loss[-1])
+                    if checkpoint_trigger and ckpt_mgr and \
+                            checkpoint_trigger(state):
+                        _ckpt_save(_ckpt_extra(epoch, False))
+                    if end_trigger and end_trigger(state):
+                        break
             _close(batches)     # an early break leaves the worker mid-queue
             if epoch == start_epoch and not losses:
                 raise ValueError(
                     "Dataset produced no full batches; lower batch_size")
-            mean_loss = float(torch.stack(losses).cpu().numpy().mean()) \
+            mean_loss = float(torch.cat(losses).cpu().numpy().mean()) \
                 if losses else 0.0
             dt = clock.seconds()
             history["loss"].append(mean_loss)
@@ -1077,7 +1696,17 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             reporter.stop()   # a final digest (before the writer closes)
         if writer:
             writer.close()
+        entry.cost = None
     return history
+
+
+def program_sources(model) -> List[Dict[str, str]]:
+    """The training programs the model's last fit built, in order, each
+    with where it came from: "cached" (its capture record was in
+    `compile_cache_dir` and nvcc ran 0 times for it), "compiled" or
+    "uncached" (no `compile_cache_dir`)."""
+    cached = model.__dict__.get("_train_cache")
+    return list(cached[1].sources) if cached is not None else []
 
 
 # ---------------------------------------------------------------------------

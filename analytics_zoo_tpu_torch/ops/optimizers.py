@@ -34,16 +34,32 @@ their `to_optax(state)` and `from_optax(layout)` give and take the chain
 
 Schedules are host functions of the integer step count returning a float,
 computed in float32 as the JAX schedules compute them.
+
+Per-step scalars. What an update reads that changes from step to step (the
+scheduled rate, the bias corrections, the folded `(a, b, lr·wd)` of the
+fused twin) is computed on the host by each transformation's
+`scalars(state)`, from the state's host counts with the functions above,
+and read by `update(..., scalars=row)` from an f32 tensor on the
+parameters' device: the trainer's row of the step's scalar table, which it
+writes before the step, so a step captured as a CUDA graph reads each
+replay's values. No Python float enters an op of the update. Called
+without `scalars`, an update computes its row and copies it to the device
+itself. The arithmetic is the old one, operation for operation: a scalar
+operand is the row's f32 value cast to the operand's dtype, which is what
+the host float became. (On the card a division by a host scalar ran as a
+product with its reciprocal, PyTorch's fast path for a CPU scalar; a
+divisor on the device divides, as the CPU, optax and the JAX package do.)
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.kernels.fused_adam import fused_adam_step
+from analytics_zoo_tpu_torch.kernels.fused_adam import (_fold_scalars,
+                                                        fused_adam_step)
 
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
@@ -101,13 +117,69 @@ def _lr_state(learning_rate: LearningRate, count: int):
         else EmptyState()
 
 
-def _scale_by_lr(learning_rate: LearningRate, count: int, updates):
+def _neg_lr(learning_rate: LearningRate, count: int) -> float:
+    """−lr at `count`, an f32 value: the factor of
+    `scale_by_learning_rate`."""
+    return float(np.float32(-np.float32(_lr_at(learning_rate, count))))
+
+
+def _scale_by_lr(step: torch.Tensor, updates):
     """`scale_by_learning_rate`: a constant multiplies as a weak-typed
     scalar, a schedule's value is cast to each update's dtype; both equal
-    multiplying by −lr rounded to the update's dtype."""
-    step = np.float32(-np.float32(_lr_at(learning_rate, count)))
-    return {n: u * torch.tensor(float(step), dtype=u.dtype)
-            for n, u in updates.items()}
+    multiplying by −lr (`step`, the row's f32 value) rounded to the
+    update's dtype."""
+    cast = _Casts(step)
+    return {n: u * cast(u.dtype) for n, u in updates.items()}
+
+
+class _Casts:
+    """A row's f32 value cast to each dtype it meets, once a dtype."""
+
+    def __init__(self, value: torch.Tensor):
+        self._value = value
+        self._by_dtype: Dict[torch.dtype, torch.Tensor] = {}
+
+    def __call__(self, dtype: torch.dtype) -> torch.Tensor:
+        out = self._by_dtype.get(dtype)
+        if out is None:
+            out = self._by_dtype[dtype] = self._value.to(dtype)
+        return out
+
+
+def scalar_row(values, device) -> torch.Tensor:
+    """Host floats as the f32 row an update reads, on `device`."""
+    return torch.tensor([float(v) for v in values],
+                        dtype=torch.float32).to(device)
+
+
+def _row(scalars, scalars_fn, state, tree) -> torch.Tensor:
+    """The update's row: `scalars` as given (the trainer's table row), or
+    computed from `state` and copied to the device of `tree`'s leaves."""
+    if scalars is not None:
+        return scalars
+    device = next(iter(tree.values())).device if tree else "cpu"
+    return scalar_row(scalars_fn(state), device)
+
+
+def takes_scalars(optimizer) -> bool:
+    """Whether `optimizer` declares per-step scalars, and its update and
+    `fused_apply` then take them as `scalars=`."""
+    fn = getattr(optimizer, "scalars", None)
+    return fn is not None and fn is not _no_scalars
+
+
+def step_scalars(optimizer, state) -> List[float]:
+    """The f32 values `optimizer`'s next update reads, from its state's
+    host counts (none for a transformation that declares no `scalars`)."""
+    if not takes_scalars(optimizer):
+        return []
+    return [float(v) for v in optimizer.scalars(state)]
+
+
+def _lr_scalars(learning_rate: LearningRate) -> Callable:
+    """`scalars` of a chain whose only per-step value is the rate: (−lr,)
+    at the count its schedule link holds."""
+    return lambda state: (_neg_lr(learning_rate, _lr_count(state)),)
 
 
 def _lr_count(state) -> int:
@@ -167,6 +239,10 @@ def _identity_layout(state):
     return state
 
 
+def _no_scalars(state) -> List[float]:
+    return []
+
+
 class GradientTransformation(NamedTuple):
     """`init`, `update`, and the optax layout of the state: `to_optax`
     gives the chain's records, `from_optax` takes them back."""
@@ -175,6 +251,7 @@ class GradientTransformation(NamedTuple):
     update: Callable
     to_optax: Callable = _identity_layout
     from_optax: Callable = _identity_layout
+    scalars: Callable = _no_scalars
 
 
 class FusedGradientTransformation(NamedTuple):
@@ -188,6 +265,7 @@ class FusedGradientTransformation(NamedTuple):
     fused_apply: Callable
     to_optax: Callable = _identity_layout
     from_optax: Callable = _identity_layout
+    scalars: Callable = _no_scalars
 
 
 def _adam(learning_rate: LearningRate, b1: float, b2: float, eps: float,
@@ -204,28 +282,33 @@ def _adam(learning_rate: LearningRate, b1: float, b2: float, eps: float,
             0, {n: torch.zeros_like(p) for n, p in params.items()},
             {n: torch.zeros_like(p) for n, p in params.items()})
 
+    def scalars_fn(state):
+        """(1 − β1ᵗ, 1 − β2ᵗ, −lr) of the next step, each in f32."""
+        count = state.count + 1
+        return (float(f32(1.0) - f32(b1) ** f32(count)),
+                float(f32(1.0) - f32(b2) ** f32(count)),
+                -float(f32(_lr_at(learning_rate, state.count))))
+
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
+    def update_fn(grads, state, params=None, scalars=None):
         if weight_decay is not None and params is None:
             raise ValueError("adamw needs the params: call "
                              "update(grads, state, params)")
         decays = _decay_mask(mask, params, grads)
-        count = state.count + 1
-        bc1 = float(f32(1.0) - f32(b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(b2) ** f32(count))
-        step = -float(f32(_lr_at(learning_rate, state.count)))
+        row = _row(scalars, scalars_fn, state, grads)
+        bc1, bc2, step = _Casts(row[0]), _Casts(row[1]), _Casts(row[2])
         updates = {}
         for name, g in grads.items():
             mu, nu = state.mu[name], state.nu[name]
             mu.mul_(b1).add_((1 - b1) * g)
             nu.mul_(b2).add_((1 - b2) * (g * g))
-            mu_hat = mu / torch.tensor(bc1, dtype=torch.float32).to(mu.dtype)
-            nu_hat = nu / torch.tensor(bc2, dtype=torch.float32).to(nu.dtype)
+            mu_hat = mu / bc1(mu.dtype)
+            nu_hat = nu / bc2(nu.dtype)
             u = mu_hat / (torch.sqrt(nu_hat) + eps)
             if weight_decay is not None and decays[name]:
                 u = u + weight_decay * params[name]
-            updates[name] = u * torch.tensor(step, dtype=u.dtype)
-        return updates, FusedAdamState(count, state.mu, state.nu)
+            updates[name] = u * step(u.dtype)
+        return updates, FusedAdamState(state.count + 1, state.mu, state.nu)
 
     def to_optax(state):
         parts = [state]
@@ -238,7 +321,8 @@ def _adam(learning_rate: LearningRate, b1: float, b2: float, eps: float,
     def from_optax(layout):
         return layout[0]
 
-    return GradientTransformation(init_fn, update_fn, to_optax, from_optax)
+    return GradientTransformation(init_fn, update_fn, to_optax, from_optax,
+                                  scalars_fn)
 
 
 def _decay_mask(mask, params, grads) -> Dict[str, bool]:
@@ -299,12 +383,15 @@ def sgd(learning_rate: LearningRate = 0.01) -> GradientTransformation:
     def init_fn(params):
         return (EmptyState(), _lr_state(learning_rate, 0))
 
+    scalars_fn = _lr_scalars(learning_rate)
+
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
-        updates = _scale_by_lr(learning_rate, _lr_count(state), grads)
+    def update_fn(grads, state, params=None, scalars=None):
+        row = _row(scalars, scalars_fn, state, grads)
+        updates = _scale_by_lr(row[0], grads)
         return updates, (EmptyState(), _next_lr_state(learning_rate, state))
 
-    return GradientTransformation(init_fn, update_fn)
+    return GradientTransformation(init_fn, update_fn, scalars=scalars_fn)
 
 
 def rmsprop(learning_rate: LearningRate = 0.001, decay: float = 0.9,
@@ -317,16 +404,19 @@ def rmsprop(learning_rate: LearningRate = 0.001, decay: float = 0.9,
         return (ScaleByRmsState(_zeros(params)),
                 _lr_state(learning_rate, 0), EmptyState())
 
+    scalars_fn = _lr_scalars(learning_rate)
+
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
+    def update_fn(grads, state, params=None, scalars=None):
+        row = _row(scalars, scalars_fn, state, grads)
         nu = {n: (1 - decay) * (g * g) + decay * state[0].nu[n]
               for n, g in grads.items()}
         u = {n: torch.rsqrt(nu[n] + eps) * g for n, g in grads.items()}
-        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+        return (_scale_by_lr(row[0], u),
                 (ScaleByRmsState(nu), _next_lr_state(learning_rate, state),
                  EmptyState()))
 
-    return GradientTransformation(init_fn, update_fn)
+    return GradientTransformation(init_fn, update_fn, scalars=scalars_fn)
 
 
 def adamax(learning_rate: LearningRate = 0.002, b1: float = 0.9,
@@ -340,23 +430,28 @@ def adamax(learning_rate: LearningRate = 0.002, b1: float = 0.9,
         return (FusedAdamState(0, _zeros(params), _zeros(params)),
                 _lr_state(learning_rate, 0))
 
+    def scalars_fn(state):
+        """(1 − β1ᵗ, −lr) of the next step, each in f32."""
+        count = state[0].count + 1
+        return (float(f32(1.0) - f32(b1) ** f32(count)),
+                _neg_lr(learning_rate, _lr_count(state)))
+
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
+    def update_fn(grads, state, params=None, scalars=None):
+        row = _row(scalars, scalars_fn, state, grads)
+        bc1 = _Casts(row[0])
         adam_state = state[0]
-        count = adam_state.count + 1
-        bc1 = float(f32(1.0) - f32(b1) ** f32(count))
         mu, nu, u = {}, {}, {}
         for n, g in grads.items():
             mu[n] = (1 - b1) * g + b1 * adam_state.mu[n]
             nu[n] = torch.maximum(torch.abs(g) + eps, b2 * adam_state.nu[n])
-            mu_hat = mu[n] / torch.tensor(bc1, dtype=torch.float32).to(
-                mu[n].dtype)
+            mu_hat = mu[n] / bc1(mu[n].dtype)
             u[n] = mu_hat / nu[n]
-        return (_scale_by_lr(learning_rate, _lr_count(state), u),
-                (FusedAdamState(count, mu, nu),
+        return (_scale_by_lr(row[1], u),
+                (FusedAdamState(adam_state.count + 1, mu, nu),
                  _next_lr_state(learning_rate, state)))
 
-    return GradientTransformation(init_fn, update_fn)
+    return GradientTransformation(init_fn, update_fn, scalars=scalars_fn)
 
 
 def adagrad(learning_rate: LearningRate = 0.01,
@@ -370,16 +465,19 @@ def adagrad(learning_rate: LearningRate = 0.01,
         return (ScaleByRssState(_zeros(params, initial_accumulator_value)),
                 _lr_state(learning_rate, 0))
 
+    scalars_fn = _lr_scalars(learning_rate)
+
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
+    def update_fn(grads, state, params=None, scalars=None):
+        row = _row(scalars, scalars_fn, state, grads)
         sos = {n: g * g + state[0].sum_of_squares[n]
                for n, g in grads.items()}
         u = {n: torch.where(sos[n] > 0, torch.rsqrt(sos[n] + eps), 0.0) * g
              for n, g in grads.items()}
-        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+        return (_scale_by_lr(row[0], u),
                 (ScaleByRssState(sos), _next_lr_state(learning_rate, state)))
 
-    return GradientTransformation(init_fn, update_fn)
+    return GradientTransformation(init_fn, update_fn, scalars=scalars_fn)
 
 
 def adadelta(learning_rate: LearningRate = 1.0, rho: float = 0.9,
@@ -397,11 +495,14 @@ def adadelta(learning_rate: LearningRate = 1.0, rho: float = 0.9,
                 ScaleByAdaDeltaState(_zeros(params), _zeros(params)),
                 _lr_state(learning_rate, 0))
 
+    scalars_fn = _lr_scalars(learning_rate)
+
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
+    def update_fn(grads, state, params=None, scalars=None):
         if params is None:
             raise ValueError("adadelta needs the params: call "
                              "update(grads, state, params)")
+        row = _row(scalars, scalars_fn, state, grads)
         e_g, e_x, u = {}, {}, {}
         for n, g in grads.items():
             g = g + weight_decay * params[n]
@@ -409,11 +510,11 @@ def adadelta(learning_rate: LearningRate = 1.0, rho: float = 0.9,
             u[n] = (torch.sqrt(state[1].e_x[n] + eps)
                     / torch.sqrt(e_g[n] + eps)) * g
             e_x[n] = (1 - rho) * (u[n] * u[n]) + rho * state[1].e_x[n]
-        return (_scale_by_lr(learning_rate, _lr_count(state), u),
+        return (_scale_by_lr(row[0], u),
                 (EmptyState(), ScaleByAdaDeltaState(e_g, e_x),
                  _next_lr_state(learning_rate, state)))
 
-    return GradientTransformation(init_fn, update_fn)
+    return GradientTransformation(init_fn, update_fn, scalars=scalars_fn)
 
 
 def fused_adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
@@ -435,7 +536,14 @@ def fused_adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
             {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.items()})
 
-    def fused_apply(grads, state, params):
+    def scalars_fn(state):
+        """The folded `(a, b, lr·wd)` of the next step
+        (`kernels/fused_adam._fold_scalars`)."""
+        return _fold_scalars(state.count + 1,
+                             _lr_at(learning_rate, state.count), b1, b2, eps,
+                             weight_decay)
+
+    def fused_apply(grads, state, params, scalars=None):
         if params is None:
             raise ValueError(
                 "fused_adam is a params-aware transformation; call "
@@ -443,20 +551,21 @@ def fused_adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
         count = state.count + 1
         fused_adam_step(params, state.mu, state.nu, grads, count,
                         lr=_lr_at(learning_rate, state.count), b1=b1, b2=b2,
-                        eps=eps, weight_decay=weight_decay)
+                        eps=eps, weight_decay=weight_decay, folded=scalars)
         return params, FusedAdamState(count, state.mu, state.nu)
 
     @torch.no_grad()
-    def update_fn(grads, state, params=None):
+    def update_fn(grads, state, params=None, scalars=None):
         """The optax contract: returns updates (new − old) and leaves the
         params untouched, at the cost of one copy of them."""
         if params is None:
             raise ValueError("fused_adam.update needs the params")
         new = {n: p.clone() for n, p in params.items()}
-        _, state = fused_apply(grads, state, new)
+        _, state = fused_apply(grads, state, new, scalars)
         return {n: new[n] - params[n] for n in params}, state
 
-    return FusedGradientTransformation(init_fn, update_fn, fused_apply)
+    return FusedGradientTransformation(init_fn, update_fn, fused_apply,
+                                       scalars=scalars_fn)
 
 
 # String spec → fused equivalent: exactly the hyperparameters the registry

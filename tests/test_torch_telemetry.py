@@ -422,8 +422,9 @@ def _bitwise(a, b):
 
 def test_fit_with_prefetch_equals_without():
     data = _squad_data()
-    assert _bitwise(_squad_fit(_squad(), data),
-                    _squad_fit(_squad(), data, prefetch=False))
+    assert _bitwise(_squad_fit(_squad(), data, device_cache=False),
+                    _squad_fit(_squad(), data, prefetch=False,
+                               device_cache=False))
 
 
 def test_batch_iter_factory_feeds_the_fit():
@@ -474,7 +475,7 @@ def test_fit_publishes_training_metrics_and_mfu():
     reg = treg.get_registry()
     prev = reg.snapshot()
     fps = 3e9
-    _dense_fit(flops_per_step=fps)
+    _dense_fit(flops_per_step=fps, device_cache=False)
     d = reg.delta(prev)
     assert d["training_steps_total"]["series"][0]["value"] == 8
     assert d["training_samples_total"]["series"][0]["value"] == 64
@@ -652,7 +653,7 @@ def test_pinned_prefetch_equals_pageable_on_gpu():
         h = Estimator.from_keras(m, optimizer=optimizers.fused_adam(1e-3),
                                  loss=[loss, loss]).fit(
             data, epochs=2, batch_size=4, fused_optimizer=True,
-            mixed_precision=True, prefetch=prefetch)
+            mixed_precision=True, prefetch=prefetch, device_cache=False)
         runs.append((h["loss"], {k: v.detach().cpu().clone()
                                  for k, v in m.state_dict().items()}))
     assert _bitwise(*runs)

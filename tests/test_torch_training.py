@@ -325,38 +325,47 @@ def test_optimizer_state_round_trips(kind):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"sharding_rules": True},
-    {"device_cache": True}, {"compile_cache_dir": "cache"},
-])
-def test_unported_fit_arguments_raise(kwargs):
-    _, tloss = _loss_pair()
-    tm = _port_model(_jax_model().params, **NO_DROP)
-    est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.fit(_data(n=8), batch_size=BATCH, **kwargs)
-
-
 def _one_batch_factory(epoch):
     d = _data(n=8)
     return iter([(d["x"], d["y"], 8)])
 
 
 @pytest.mark.parametrize("kwargs", [
+    {"sharding_rules": True},
+    {"device_cache": True, "batch_iter_factory": _one_batch_factory},
+    {"feature_cols": ["x"]},
+])
+def test_unported_fit_arguments_raise(kwargs):
+    """What the port does not run raises: sharding rules and DataFrame
+    columns (ROADMAP work), and a device cache of streaming input, which
+    has no host copy to keep on the device (as in the JAX package)."""
+    _, tloss = _loss_pair()
+    tm = _port_model(_jax_model().params, **NO_DROP)
+    est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
+                               device="cpu")
+    match = "streaming" if "batch_iter_factory" in kwargs else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=match):
+        est.fit(_data(n=8), batch_size=BATCH, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
     {"metrics_report_s": 1.0}, {"prefetch_depth": 2},
     {"batch_iter_factory": _one_batch_factory},
     {"profile_steps": (0, 1)}, {"flops_per_step": 1.0},
+    {"device_cache": True}, {"compile_cache_dir": "cache"},
+    {"steps_per_run": 2},
 ])
 def test_ported_fit_arguments_run(kwargs, tmp_path):
-    """The telemetry and input-pipeline arguments that used to raise run
-    a one-step fit."""
+    """The telemetry, input-pipeline and program arguments that used to
+    raise (or, for `steps_per_run`, change nothing) run a short fit."""
     _, tloss = _loss_pair()
     tm = _port_model(_jax_model().params, **NO_DROP)
     est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
                                device="cpu")
     if "profile_steps" in kwargs:
         kwargs = dict(kwargs, profile_dir=str(tmp_path))
+    if "compile_cache_dir" in kwargs:
+        kwargs = dict(kwargs, compile_cache_dir=str(tmp_path / "cache"))
     h = est.fit(_data(n=8), batch_size=BATCH, **kwargs)
     assert len(h["loss"]) == 1 and np.isfinite(h["loss"][0])
     if "profile_steps" in kwargs:
