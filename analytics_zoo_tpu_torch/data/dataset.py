@@ -1,0 +1,442 @@
+"""TPUDataset — the TFDataset-equivalent bridge from data to device batches.
+
+Copied from `analytics_zoo_tpu/data/dataset.py` (L1-485): `TPUDataset`
+(L24) with `from_ndarrays`, `from_xshards`, `from_dataframe`,
+`from_feature_set` and `from_tfrecord` (L99), `materialize`,
+`global_batch` and `iter_train` (L159, on the port's
+`learn/trainer.iter_batches`); `_FeatureSetDataset` (L171);
+`_TFRecordDataset` (L199) with `first_sample` (L290), `materialize`
+(L300), `_read_shard` (L332), `_iter_samples` (L355) and `iter_train`
+(L400). The `jax.tree_util` calls (L139, L303-312, L418-420) are the
+port's `common/tree.py`; `jax.process_count()` (L394-403) is
+`data/pipeline.process_topology`, and a fit over more than one process
+raises NotImplementedError until distributed training is ported
+(ROADMAP.md queue 1, item 7), where the JAX package splits the batch
+across hosts and equalises their steps (L404-449, L476-485).
+
+Mirrors the contract of `pyzoo/zoo/tfpark/tf_dataset.py:115-173` exactly:
+training takes a *global* `batch_size` that must divide by the total
+data-parallel size; inference/eval take per-device `batch_per_thread`;
+setting both is an error. `hard_code_batch_size` semantics are the default
+here — TPU programs want static shapes, so training batches are always
+whole (`drop_remainder`) and eval tails compile a second (smaller) program.
+
+Sources: ndarrays, XShards of {"x": ..., "y": ...}, pandas DataFrames
+(feature/label columns, the `to_dataset` path of
+`orca/learn/tf/estimator.py:225-276`), and python generators.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from analytics_zoo_tpu_torch.common.tree import stack_trees, tree_flatten
+from analytics_zoo_tpu_torch.data.shards import XShards
+
+
+class TPUDataset:
+    """Feed abstraction carrying (x, y) numpy structures + batching rules."""
+
+    def __init__(self, x, y=None, batch_size: int = -1,
+                 batch_per_thread: int = -1, shuffle: bool = True):
+        if batch_size != -1 and batch_per_thread != -1:
+            raise ValueError(
+                "bath_size and batch_per_thread should not be set simultaneously"
+            )  # message mirrors tf_dataset.py:134
+        self.x, self.y = x, y
+        self.batch_size = batch_size
+        self.batch_per_thread = batch_per_thread
+        self.shuffle = shuffle
+        self.val: Optional["TPUDataset"] = None  # optional validation split
+
+    # -- constructors (`TFDataset.from_*`) ---------------------------------
+    @staticmethod
+    def from_ndarrays(tensors, batch_size: int = -1,
+                      batch_per_thread: int = -1, val_tensors=None,
+                      shuffle: bool = True) -> "TPUDataset":
+        """`TFDataset.from_ndarrays` (`tf_dataset.py:378`): tensors is
+        (x, y) or {"x":..., "y":...} or a single x structure."""
+        if isinstance(tensors, dict):
+            x, y = tensors["x"], tensors.get("y")
+        elif isinstance(tensors, (tuple, list)) and len(tensors) == 2:
+            x, y = tensors
+        else:
+            x, y = tensors, None
+        ds = TPUDataset(x, y, batch_size, batch_per_thread, shuffle)
+        if val_tensors is not None:
+            # val inherits the caller's batching (the reference's
+            # from_ndarrays carries val through with the same batch), no
+            # shuffle
+            ds.val = TPUDataset.from_ndarrays(
+                val_tensors, batch_size=batch_size,
+                batch_per_thread=batch_per_thread, shuffle=False)
+        return ds
+
+    @staticmethod
+    def from_xshards(shards: XShards, batch_size: int = -1,
+                     batch_per_thread: int = -1,
+                     shuffle: bool = True) -> "TPUDataset":
+        """XShards of {"x": ndarray|tuple, "y": ...} → dataset
+        (`to_dataset` XShards path, `orca/learn/tf/utils.py:23-54`)."""
+        merged = shards.to_numpy()
+        if isinstance(merged, dict):
+            x, y = merged["x"], merged.get("y")
+        else:
+            raise ValueError(
+                'XShards for training must hold {"x": ..., "y": ...} dicts; '
+                "got " + type(merged).__name__)
+        return TPUDataset(x, y, batch_size, batch_per_thread, shuffle)
+
+    @staticmethod
+    def from_dataframe(df, feature_cols: Sequence[str],
+                       label_cols: Optional[Sequence[str]] = None,
+                       batch_size: int = -1, batch_per_thread: int = -1,
+                       shuffle: bool = True) -> "TPUDataset":
+        """pandas DataFrame + feature/label columns (`to_dataset` DataFrame
+        path, `orca/learn/tf/estimator.py:251-265`)."""
+        feats = [np.stack(df[c].to_numpy()) for c in feature_cols]
+        x = feats[0] if len(feats) == 1 else tuple(feats)
+        y = None
+        if label_cols:
+            labels = [np.stack(df[c].to_numpy()) for c in label_cols]
+            y = labels[0] if len(labels) == 1 else tuple(labels)
+        return TPUDataset(x, y, batch_size, batch_per_thread, shuffle)
+
+    @staticmethod
+    def from_feature_set(fs, batch_size: int = -1,
+                         batch_per_thread: int = -1) -> "TPUDataset":
+        return fs.to_dataset(batch_size=batch_size,
+                             batch_per_thread=batch_per_thread)
+
+    @staticmethod
+    def from_tfrecord(paths, parse_fn: Callable[[Dict[str, Any]], Tuple],
+                      batch_size: int = -1, batch_per_thread: int = -1,
+                      shuffle: bool = True, shuffle_buffer: int = 8192,
+                      verify_payload: bool = False,
+                      num_workers: Optional[int] = None,
+                      pipeline_workers: Optional[int] = None
+                      ) -> "TPUDataset":
+        """Stream a TFRecord corpus into training (the reference's
+        `TFDataset.from_tf_data_dataset`/`TFBytesDataset` role,
+        `tf_dataset.py:593,911`, minus the tf.data graph shuttling).
+
+        `paths` is a glob pattern, directory, or file list; `parse_fn` maps
+        one decoded `tf.train.Example` dict ({name: ndarray | list[bytes]})
+        to an (x, y) sample of fixed-shape arrays. Records stream through a
+        `shuffle_buffer`-sized shuffle window per epoch (file order is also
+        reshuffled per epoch); batches are stacked to static shapes and the
+        tail remainder is dropped, per the training batch contract.
+
+        `pipeline_workers` (default: env ZOO_PIPELINE_WORKERS, else
+        `num_workers`) runs read+decode
+        through the parallel shard pipeline (`data/pipeline.py`): each
+        FILE is decoded on a worker thread — frame batches through the
+        vectorized `decode_example_batch`, then `parse_fn` per sample —
+        and a bounded reorder buffer re-serializes shard order, so the
+        batch stream is bitwise-identical at any worker count (a pure
+        function of `(seed, epoch)`). Multi-process fits (disjoint
+        files per host) are not ported yet. `num_workers` is the legacy
+        spelling of the
+        same knob: when passed (any value, including an explicit 1 to
+        opt out of decode threads) it wins over ambient config, and
+        `pipeline_workers` wins over both."""
+        from analytics_zoo_tpu_torch.data import tfrecord as tfr
+        files = tfr.expand_files(paths)
+        return _TFRecordDataset(files, parse_fn, batch_size,
+                                batch_per_thread, shuffle, shuffle_buffer,
+                                verify_payload, num_workers,
+                                pipeline_workers)
+
+    # -- consumption -------------------------------------------------------
+    def n_samples(self) -> int:
+        return len(tree_flatten(self.x)[0][0])
+
+    def materialize(self) -> Tuple[Any, Any]:
+        """(x, y) as in-memory arrays — lazy/streaming subclasses override.
+        Eval/predict paths run over arrays; training streams."""
+        return self.x, self.y
+
+    def global_batch(self, data_parallel: int) -> int:
+        """Resolve the per-step global batch, enforcing the reference's
+        divisibility contract (`tf_dataset.py:142-147`)."""
+        if self.batch_size != -1:
+            if self.batch_size % data_parallel:
+                raise ValueError(
+                    f"batch_size ({self.batch_size}) must be a multiple of "
+                    f"the data-parallel size ({data_parallel})")
+            return self.batch_size
+        per = self.batch_per_thread if self.batch_per_thread != -1 else 32
+        return per * data_parallel
+
+    def iter_train(self, data_parallel: int, seed: int = 0):
+        from analytics_zoo_tpu_torch.learn.trainer import iter_batches
+        batch = self.global_batch(data_parallel)
+        return iter_batches(self.x, self.y, batch, shuffle=self.shuffle,
+                            seed=seed, drop_remainder=True)
+
+    def __repr__(self):
+        return (f"TPUDataset(n={self.n_samples()}, "
+                f"batch_size={self.batch_size}, "
+                f"batch_per_thread={self.batch_per_thread})")
+
+
+class _FeatureSetDataset(TPUDataset):
+    """Lazy bridge over a disk-tier FeatureSet: batches gather from the
+    memmapped store per step instead of materializing the whole set."""
+
+    def __init__(self, fs, batch_size: int = -1, batch_per_thread: int = -1):
+        super().__init__(x=None, y=None, batch_size=batch_size,
+                         batch_per_thread=batch_per_thread)
+        self._fs = fs
+
+    def n_samples(self) -> int:
+        return len(self._fs)
+
+    def materialize(self):
+        merged = self._fs.take(np.arange(len(self._fs)))
+        if isinstance(merged, dict) and "x" in merged:
+            return merged["x"], merged.get("y")
+        return merged, None
+
+    def iter_train(self, data_parallel: int, seed: int = 0):
+        batch = self.global_batch(data_parallel)
+        for b in self._fs.iter_batches(batch, shuffle=self.shuffle,
+                                       seed=seed):
+            if isinstance(b, dict) and "x" in b:
+                yield b["x"], b.get("y"), batch
+            else:
+                yield b, None, batch
+
+
+class _TFRecordDataset(TPUDataset):
+    """Streaming TFRecord corpus → static-shape batches, via a bounded
+    shuffle buffer (no full materialization; a corpus larger than host RAM
+    trains fine). Read+decode runs through the parallel shard pipeline
+    (`data/pipeline.py`): files decode concurrently, the reorder buffer
+    keeps the sample stream a pure function of `(seed, epoch)`."""
+
+    # frame batch per vectorized decode_example_batch call
+    _DECODE_CHUNK = 256
+    # records per pipeline shard: big files split into bounded record
+    # ranges, so a worker's residency is ≤ this many parsed samples no
+    # matter the file size (a one-file 100 GB corpus still streams)
+    _SHARD_RECORDS = 1024
+
+    def __init__(self, files: List[str], parse_fn, batch_size: int,
+                 batch_per_thread: int, shuffle: bool, shuffle_buffer: int,
+                 verify_payload: bool, num_workers: Optional[int] = None,
+                 pipeline_workers: Optional[int] = None):
+        super().__init__(x=None, y=None, batch_size=batch_size,
+                         batch_per_thread=batch_per_thread, shuffle=shuffle)
+        if parse_fn is None:
+            raise ValueError(
+                "from_tfrecord needs a parse_fn mapping an Example dict to "
+                "an (x, y) sample")
+        self._files = files
+        self._parse_fn = parse_fn
+        self._shuffle_buffer = max(1, shuffle_buffer)
+        self._verify_payload = verify_payload
+        self._num_workers = num_workers
+        self._pipeline_workers = pipeline_workers
+        self._n: Optional[int] = None
+        self._index_cache: Dict[str, Tuple] = {}
+        self._count_cache: Dict[str, int] = {}
+
+    def _workers(self) -> int:
+        from analytics_zoo_tpu_torch.data.pipeline import resolve_workers
+        if self._pipeline_workers is None and self._num_workers is not None:
+            # an explicitly-passed legacy num_workers is a call-site
+            # decision — INCLUDING num_workers=1 (opting out of decode
+            # threads on a co-tenant host): ambient config must not
+            # silently override it
+            return max(1, self._num_workers)
+        return resolve_workers(self._pipeline_workers)
+
+    def _file_index(self, path: str):
+        """(payload_offsets, payload_lengths) for one file, memoized —
+        the file set is immutable, so the header walk is paid once per
+        file per dataset, not per epoch (a fuse-mounted corpus must not
+        re-scan every shard at every epoch start)."""
+        idx = self._index_cache.get(path)
+        if idx is None:
+            from analytics_zoo_tpu_torch.data import tfrecord as tfr
+            idx = self._index_cache[path] = tfr.scan_index(
+                path, verify_payload=self._verify_payload)
+        return idx
+
+    def _file_indexes(self, files: List[str]):
+        """Memoized indexes for `files`, the uncached ones scanned on
+        the worker pool."""
+        from analytics_zoo_tpu_torch.data.pipeline import parallel_read
+        missing = [f for f in files if f not in self._index_cache]
+        if missing:
+            parallel_read(missing, self._file_index,
+                          workers=self._workers())
+        return {f: self._file_index(f) for f in files}
+
+    def _file_count(self, path: str) -> int:
+        """Record count for one file, memoized. Reads the index cache
+        when the parallel path already built it, else the O(1)-memory
+        native/header count — counting must NOT grow a per-record
+        index the single-threaded path never needs."""
+        idx = self._index_cache.get(path)
+        if idx is not None:
+            return len(idx[0])
+        n = self._count_cache.get(path)
+        if n is None:
+            from analytics_zoo_tpu_torch.data import tfrecord as tfr
+            n = self._count_cache[path] = tfr.count_records(path)
+        return n
+
+    def n_samples(self) -> int:
+        if self._n is None:
+            from analytics_zoo_tpu_torch.data.pipeline import parallel_read
+            self._n = sum(parallel_read(self._files, self._file_count,
+                                        workers=self._workers()))
+        return self._n
+
+    def first_sample(self):
+        """Parse just the first record (shape/dtype probe for model build —
+        avoids paying a full shuffle-buffer fill for one sample)."""
+        from analytics_zoo_tpu_torch.data import tfrecord as tfr
+        for path in self._files:
+            for payload in tfr.read_records(
+                    path, verify_payload=self._verify_payload):
+                return self._parse_fn(tfr.decode_example(payload))
+        raise ValueError(f"TFRecord corpus is empty: {self._files!r}")
+
+    def materialize(self):
+        """Read the whole corpus into stacked arrays (eval/predict path —
+        training should stream via iter_train instead)."""
+        samples = list(self._iter_samples(np.random.RandomState(0),
+                                          ordered=True))
+        if not samples:
+            raise ValueError(f"TFRecord corpus is empty: {self._files!r}")
+        xs = [s[0] for s in samples]
+        ys = [s[1] for s in samples]
+        return stack_trees(xs), None if ys[0] is None else stack_trees(ys)
+
+    def _shard_chunks(self, path: str):
+        """ONE file's samples, a decode-chunk at a time: frames batch
+        through the vectorized Example codec, `parse_fn` runs per
+        sample. Yields lists of up to `_DECODE_CHUNK` samples."""
+        from analytics_zoo_tpu_torch.data import tfrecord as tfr
+        chunk: List[bytes] = []
+        for payload in tfr.read_records(
+                path, verify_payload=self._verify_payload):
+            chunk.append(payload)
+            if len(chunk) >= self._DECODE_CHUNK:
+                yield [self._parse_fn(ex)
+                       for ex in tfr.decode_example_batch(chunk)]
+                chunk = []
+        if chunk:
+            yield [self._parse_fn(ex)
+                   for ex in tfr.decode_example_batch(chunk)]
+
+    def _read_shard(self, shard: Tuple[str, int]) -> List[Tuple]:
+        """Worker unit for the PARALLEL path: ONE bounded record range
+        of one file — seek-read via the memoized index, chunked
+        vectorized decode, `parse_fn` per sample. Residency per
+        in-flight shard is ≤ `_SHARD_RECORDS` parsed samples no matter
+        how big the file is."""
+        from analytics_zoo_tpu_torch.data import tfrecord as tfr
+        path, start = shard
+        offs, lens = self._file_index(path)
+        sl = slice(start, start + self._SHARD_RECORDS)
+        out: List[Tuple] = []
+        chunk: List[bytes] = []
+        for payload in tfr.read_payloads_at(path, offs[sl], lens[sl]):
+            chunk.append(payload)
+            if len(chunk) >= self._DECODE_CHUNK:
+                out.extend(self._parse_fn(ex)
+                           for ex in tfr.decode_example_batch(chunk))
+                chunk = []
+        if chunk:
+            out.extend(self._parse_fn(ex)
+                       for ex in tfr.decode_example_batch(chunk))
+        return out
+
+    def _iter_samples(self, rng: np.random.RandomState,
+                      ordered: bool = False,
+                      files: Optional[List[str]] = None):
+        """Sample stream in deterministic shard order: `files` (or the
+        per-epoch shuffled file list) read+decoded by the worker pool,
+        re-serialized by the reorder buffer — bitwise-identical at any
+        worker count. workers<=1 streams chunk-by-chunk (one decode
+        chunk resident — a corpus stored as one giant file still
+        trains in bounded memory, the class's original contract);
+        workers>1 splits every file into `_SHARD_RECORDS`-record
+        ranges via the memoized header index, so residency is
+        (workers+1) × bounded ranges, never whole files."""
+        from analytics_zoo_tpu_torch.data.pipeline import ShardPipeline
+        if files is None:
+            files = list(self._files)
+            if self.shuffle and not ordered:
+                rng.shuffle(files)
+        workers = self._workers()
+        if workers <= 1:
+            for path in files:
+                for chunk in self._shard_chunks(path):
+                    yield from chunk
+            return
+        indexes = self._file_indexes(files)
+        shards = [(path, start)
+                  for path in files
+                  for start in range(0, len(indexes[path][0]),
+                                     self._SHARD_RECORDS)]
+        pipe = ShardPipeline(shards, self._read_shard, workers=workers,
+                             label_fn=lambda s: s[0])
+        try:
+            yield from pipe.samples()
+        finally:
+            pipe.close()
+
+    def iter_train(self, data_parallel: int, seed: int = 0):
+        from analytics_zoo_tpu_torch.data.pipeline import (
+            DISTRIBUTED_NOT_PORTED, process_topology)
+        batch = self.global_batch(data_parallel)
+        if process_topology()[1] > 1:
+            # the JAX package streams each host's stride of the files
+            # (`_host_files` L390), splits the global batch across hosts
+            # and equalises their steps (L404-449)
+            raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
+        rng = np.random.RandomState(seed)
+
+        def stack(samples):
+            xs = [s[0] for s in samples]
+            ys = [s[1] for s in samples]
+            yb = None if ys[0] is None else stack_trees(ys)
+            return stack_trees(xs), yb, batch
+
+        files = list(self._files)
+        if self.shuffle:
+            rng.shuffle(files)
+        buf: List[Tuple] = []
+        pending: List[Tuple] = []
+        samples = self._iter_samples(rng, files=files)
+        try:
+            for sample in samples:
+                if self.shuffle:
+                    buf.append(sample)
+                    if len(buf) < self._shuffle_buffer:
+                        continue
+                    i = rng.randint(len(buf))
+                    buf[i], sample = buf[-1], buf[i]
+                    buf.pop()
+                pending.append(sample)
+                if len(pending) == batch:
+                    yield stack(pending)
+                    pending = []
+        finally:
+            samples.close()      # unwinds the shard pipeline's pool
+        # drain the shuffle window; drop the tail remainder (static
+        # shapes)
+        if self.shuffle and buf:
+            rng.shuffle(buf)
+            for sample in buf:
+                pending.append(sample)
+                if len(pending) == batch:
+                    yield stack(pending)
+                    pending = []

@@ -5,9 +5,21 @@ Port of `analytics_zoo_tpu/learn/estimator.py`: `Estimator.__init__`
 (L244-292), `_restore_latest` and `_restore` (L294-310), `predict`,
 `evaluate` with `_evaluate_quantized` (L322-381) and its
 `QuantizationQualityError` (L47), `get_model`, `save`, `load` (L312-449) and
-`load_orca_checkpoint` (L451); and from `to_dataset` (L56) the in-memory
-forms `TPUDataset.from_ndarrays` takes: `{"x": ..., "y": ...}`, `(x, y)`
-or a bare x.
+`load_orca_checkpoint` (L451); and `to_dataset` (L56), which takes
+what the JAX one takes: a `TPUDataset` (`data/dataset.py`: in-memory,
+a TFRecord stream, a disk-tier `FeatureSet`), an `XShards` of
+`{"x": ..., "y": ...}`, a pandas DataFrame with `feature_cols` /
+`label_cols`, or the in-memory forms of `TPUDataset.from_ndarrays`
+(`{"x": ..., "y": ...}`, `(x, y)` or a bare x).
+
+A dataset without in-memory arrays (`x` None: a TFRecord stream, a
+disk-tier `FeatureSet`) trains through the JAX `fit`'s lazy bridge
+(L183-230): its own batch size wins over `fit`'s, its `iter_train(1,
+seed=seed + epoch)` is the fit's `batch_iter_factory` (the JAX fit's
+`shards_per_host` mark waits on multi-process fits, item 7), and an
+unbuilt model is built from the dataset's `first_sample` (one record, not a
+shuffle buffer's fill). `evaluate` and `predict` run over the dataset's
+`materialize()`.
 
 With `model_dir`, `fit` checkpoints into it (`model.set_checkpoint`) and
 runs the reference's retry loop (`Topology.scala:1255-1337`): on a
@@ -33,17 +45,19 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch import convert
 from analytics_zoo_tpu_torch.common.device import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.common.tree import tree_map
+from analytics_zoo_tpu_torch.data.dataset import TPUDataset
+from analytics_zoo_tpu_torch.data.shards import XShards
 from analytics_zoo_tpu_torch.learn import checkpoint as ckpt_mod
 from analytics_zoo_tpu_torch.learn import trainer
 from analytics_zoo_tpu_torch.observability.registry import get_registry
-from analytics_zoo_tpu_torch.ops.optimizers import NOT_PORTED_QUEUE
 
 log = logging.getLogger("analytics_zoo_tpu_torch.estimator")
 
@@ -72,18 +86,24 @@ class FailureConfig:
     retry_time_interval_s: int = 120
 
 
-def to_dataset(data):
-    """`(x, y)` from the in-memory forms of `TPUDataset.from_ndarrays`."""
-    if isinstance(data, dict):
-        return data["x"], data.get("y")
-    if isinstance(data, (tuple, list)) and len(data) == 2:
-        return data[0], data[1]
-    if isinstance(data, (np.ndarray, tuple, list)):
-        return data, None
-    raise NotImplementedError(
-        f"Estimator takes in-memory arrays ({{'x': ..., 'y': ...}}, "
-        f"(x, y) or x); {type(data).__name__} is not ported yet "
-        f"({NOT_PORTED_QUEUE})")
+def to_dataset(data, batch_size: int = -1, batch_per_thread: int = -1,
+               feature_cols: Optional[Sequence[str]] = None,
+               label_cols: Optional[Sequence[str]] = None) -> TPUDataset:
+    """Normalize any supported data form into a TPUDataset."""
+    if isinstance(data, TPUDataset):
+        return data
+    if isinstance(data, XShards):
+        return TPUDataset.from_xshards(data, batch_size, batch_per_thread)
+    try:
+        import pandas as pd
+        if isinstance(data, pd.DataFrame):
+            if not feature_cols:
+                raise ValueError("DataFrame input needs feature_cols")
+            return TPUDataset.from_dataframe(data, feature_cols, label_cols,
+                                             batch_size, batch_per_thread)
+    except ImportError:
+        pass
+    return TPUDataset.from_ndarrays(data, batch_size, batch_per_thread)
 
 
 class Estimator:
@@ -129,14 +149,32 @@ class Estimator:
         one per output of a model compiled with a list of losses.
         `validation_data` (any form `to_dataset` takes) is evaluated after
         every epoch into `history["val_<metric>"]`. Returns the history."""
-        if feature_cols is not None or label_cols is not None:
-            raise NotImplementedError(
-                "feature_cols/label_cols (DataFrame input) are not ported "
-                f"yet ({NOT_PORTED_QUEUE})")
-        x, y = to_dataset(data)
-        val = to_dataset(validation_data) if validation_data is not None \
-            else None
+        ds = to_dataset(data, batch_size=batch_size or 32,
+                        feature_cols=feature_cols, label_cols=label_cols)
+        # a pre-built TPUDataset's own batch/shuffle settings win over fit()
+        # defaults (the dataset carries the contract, `tf_dataset.py:116`)
+        if ds.batch_size != -1:
+            batch_size = ds.batch_size
+        elif batch_size is None:
+            batch_size = 32
+        lazy = ds.x is None  # disk-tier FeatureSet / TFRecord stream bridge
+        batch_iter_factory = fit_kwargs.pop("batch_iter_factory", None)
+        if batch_iter_factory is None and lazy:
+            def batch_iter_factory(epoch):
+                return ds.iter_train(1, seed=seed + epoch)
         self._on_device()
+        if lazy and not self.model.built and hasattr(ds, "first_sample"):
+            # cheap shape probe: one record, not a shuffle-buffer fill
+            sx, _ = ds.first_sample()
+            self.model.ensure_built(
+                tree_map(lambda a: np.expand_dims(a, 0), sx), seed=seed)
+        val = None
+        if validation_data is not None:
+            val = to_dataset(validation_data, batch_size=batch_size,
+                             feature_cols=feature_cols,
+                             label_cols=label_cols).materialize()
+        elif ds.val is not None:
+            val = ds.val.materialize()
         if self.model_dir:
             self.model.set_checkpoint(self.model_dir)
         if self._load_ckpt is not None:
@@ -149,10 +187,12 @@ class Estimator:
         while epoch_done < epochs:
             try:
                 h = trainer.fit_keras(
-                    self.model, x, y, batch_size=batch_size or 32,
+                    self.model, ds.x, ds.y, batch_size=batch_size,
                     epochs=epochs - epoch_done, validation_data=val,
-                    shuffle=True, checkpoint_trigger=checkpoint_trigger,
-                    seed=seed + epoch_done, **fit_kwargs)
+                    shuffle=ds.shuffle,
+                    checkpoint_trigger=checkpoint_trigger,
+                    seed=seed + epoch_done,
+                    batch_iter_factory=batch_iter_factory, **fit_kwargs)
                 for k, v in h.items():
                     history.setdefault(k, []).extend(v)
                 break
@@ -209,11 +249,8 @@ class Estimator:
 
     # -- inference ---------------------------------------------------------
     def predict(self, data, batch_per_thread: int = 32, feature_cols=None):
-        if feature_cols is not None:
-            raise NotImplementedError(
-                "feature_cols (DataFrame input) is not ported yet "
-                f"({NOT_PORTED_QUEUE})")
-        x, _ = to_dataset(data)
+        x, _ = to_dataset(data, batch_per_thread=batch_per_thread,
+                          feature_cols=feature_cols).materialize()
         self._on_device()
         return self.model.predict(x, batch_per_thread=batch_per_thread)
 
@@ -231,22 +268,20 @@ class Estimator:
         here unless `baseline_metrics` (an earlier f32 `evaluate()`) is
         given; the result holds the int8 metrics and the baseline's as
         `baseline_<name>`."""
-        if feature_cols is not None or label_cols is not None:
-            raise NotImplementedError(
-                "feature_cols/label_cols (DataFrame input) are not ported "
-                f"yet ({NOT_PORTED_QUEUE})")
+        ds = to_dataset(data, batch_per_thread=batch_per_thread,
+                        feature_cols=feature_cols, label_cols=label_cols)
         if quantize is not None:
-            return self._evaluate_quantized(data, batch_per_thread, metrics,
+            return self._evaluate_quantized(ds, batch_per_thread, metrics,
                                             quantize, quality_tolerance,
                                             baseline_metrics)
         self._on_device()
-        return self._evaluate(self.model, data, batch_per_thread, metrics)
+        return self._evaluate(self.model, ds, batch_per_thread, metrics)
 
     @staticmethod
-    def _evaluate(model, data, batch_per_thread, metrics):
+    def _evaluate(model, ds, batch_per_thread, metrics):
         from analytics_zoo_tpu_torch.ops import metrics as zmetrics
         ms = zmetrics.resolve(metrics) if metrics else None
-        x, y = to_dataset(data)
+        x, y = ds.materialize()
         return model.evaluate(x, y, batch_per_thread=batch_per_thread,
                               metrics=ms)
 

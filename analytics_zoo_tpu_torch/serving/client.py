@@ -4,8 +4,7 @@ Copied from `analytics_zoo_tpu/serving/client.py` (L1-568) as it is, with
 `token_row_field` (the decode engine's, `serving/decode.py:133`) kept here
 so that the client needs no decode module; `engines_key` comes from
 `serving/fleet.py`, as in the JAX client. Image payloads (`_encode_image`,
-L170) need the data layer's image loader (ROADMAP.md queue 1, item 6) and
-raise NotImplementedError until it is ported.
+L170) decode through the port's `data/image.py` `load_image`.
 
 Protocol preserved from the reference: `enqueue` XADDs a b64-encoded ndarray
 to the serving stream (`client.py:114`), `predict` is the
@@ -48,9 +47,6 @@ log = logging.getLogger("analytics_zoo_tpu_torch.serving.client")
 
 STREAM = "serving_stream"          # reference stream name
 RESULT_KEY = "result:serving_stream"
-IMAGES_NOT_PORTED = (
-    "image payloads need the data layer's image loader, which is not "
-    "ported yet (ROADMAP.md queue 1, item 6)")
 
 
 def token_row_field(uri: str, index: int) -> str:
@@ -188,8 +184,11 @@ class InputQueue(_Reconnecting):
     @staticmethod
     def _encode_image(value) -> Dict:
         """Image path/bytes -> decoded float ndarray record (the reference
-        ships b64 JPEG and decodes OpenCV-side)."""
-        raise NotImplementedError(IMAGES_NOT_PORTED)
+        ships b64 JPEG and decodes OpenCV-side; decode client-side here so
+        the server stays shape-generic)."""
+        from analytics_zoo_tpu_torch.data.image import load_image
+        arr = load_image(value)
+        return encode_ndarray(arr.astype(np.float32))
 
     def predict(self, data: np.ndarray, timeout_s: float = 30.0,
                 tier: Optional[str] = None,

@@ -4,8 +4,8 @@ Copied from `analytics_zoo_tpu/serving/pre_post.py` as it is (L1-129): the
 arrow codec (L24-53, `pyarrow` imported inside each function),
 `decode_record_field` (L56), `record_meta` (L76), `decode_record_into`
 (L90), `top_n` (L106), `format_top_n` (L115) and `apply_filter` (L122).
-The ``image_b64`` payload needs the data layer's image loader (ROADMAP.md
-queue 1, item 6) and raises NotImplementedError until it is ported.
+The ``image_b64`` payload decodes through the port's `data/image.py`
+`load_image`.
 
 Reference: `zoo/.../serving/preprocessing/PreProcessing.scala:127` (base64
 image decode, arrow tensor decode), `postprocessing/PostProcessing.scala:174`
@@ -23,11 +23,6 @@ import base64
 from typing import Dict, List, Tuple, Union
 
 import numpy as np
-
-IMAGES_NOT_PORTED = (
-    "the image_b64 payload needs the data layer's image loader, which is "
-    "not ported yet (ROADMAP.md queue 1, item 6)")
-
 
 # ---------------------------------------------------------------------------
 # Arrow tensor codec (`ArrowSerializer.scala:162`)
@@ -75,7 +70,9 @@ def decode_record_field(value) -> np.ndarray:
         if "arrow" in value:
             return arrow_decode(value["arrow"])
         if "image_b64" in value:
-            raise NotImplementedError(IMAGES_NOT_PORTED)
+            from analytics_zoo_tpu_torch.data.image import load_image
+            raw = base64.b64decode(value["image_b64"])
+            return load_image(raw).astype(np.float32)
         raise ValueError(f"Unknown record encoding: {sorted(value)}")
     if isinstance(value, (bytes, bytearray)):
         return arrow_decode(bytes(value))

@@ -15,7 +15,8 @@ watched by the trainer's own MFU and roofline gauges and its profiler
 window), time the prefetch thread on ResNet-50, serve a fleet of BERT-base
 engines started by the serving CLI behind its HTTP gateway (heartbeats,
 fleet metrics, merged traces, a live rollout, a killed engine) and a
-generative engine streaming by SSE, and print what it measured.
+generative engine streaming by SSE, train the ImageNet model from TFRecord
+shards streamed through the data layer, and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -158,10 +159,10 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    (`lazy_embeddings=False`, 1 fused_adam a step over 12 leaves); the
    kernel path against the plain path (3 steps); the loss falling on a
    learnable rule; `evaluate(metrics=["accuracy"])` on held-out pairs and
-   `recommend_for_user` against a top-k of `predict`; a warm restart: two
-   child processes, each with an empty kernel build directory, fit against
-   one `compile_cache_dir`, the second running nvcc 0 times and reporting
-   its program "cached";
+   `recommend_for_user` against a top-k of `predict`; a warm restart: a
+   fit in this process writes an empty `compile_cache_dir`, then a child
+   process with an empty kernel build directory fits against it, running
+   nvcc 0 times and reporting its program "cached";
 11. the decode-attention kernels, contiguous and paged, at 32 slots, 12
    heads, head dim 64, a 1024-position pool and blocks of 16, kv buckets
    128, 1024 and 512 (and 192, checks only), ragged lengths, f32 and bf16:
@@ -289,9 +290,24 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    copy's device ms a step, its streams and the share of it under
    compute kernels (the fit's own profiler window), bytes a step;
    losses and parameters bitwise equal;
-29. the seconds of every phase, and the run's;
-30. a `kernels` line listing every kernel of the port;
-31. the last line, `{"ok": true, "device": {...}}`.
+29. the ImageNet model of phase 21 trained at batch 256 from TFRecord
+   shards (8 of 160 records, raw 240×240×3 pixels in the ImageNet layout,
+   written from the seed) streamed through `TPUDataset.from_tfrecord`
+   with 8 decode workers and the native scanner, a random 224 crop and
+   mirror per record: the first two batches at 1 and 8 workers bitwise
+   equal to each other and to a serial read of the same records; a warm
+   streamed epoch, then the timed one (step ms, images/s, the producer's
+   ms a batch and the input-pipeline share, `training_input_bound`, 2
+   dropout + 1 fused-Adam launches a step, no build, no new capture, no
+   pipeline or prefetch thread left); the idle share over a streamed
+   2-step window; the streamed fit's per-step losses against an in-memory
+   fit of the same batches (1e-5 relative); where cv2 imports, a JPEG
+   corpus through the example's parse chain (2 steps of batch 64) and 8
+   `image=` JPEG requests through `ClusterServing` against the direct
+   forward (5e-4, same argmax);
+30. the seconds of every phase, and the run's;
+31. a `kernels` line listing every kernel of the port;
+32. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -303,6 +319,7 @@ import contextlib
 import copy
 import functools
 import gc
+import hashlib
 import io
 import itertools
 import json
@@ -314,6 +331,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -337,7 +355,13 @@ from analytics_zoo_tpu_torch.compile_cache import \
 from analytics_zoo_tpu_torch.common.device import \
     resolve_device  # noqa: E402
 from analytics_zoo_tpu_torch.common.tree import tree_leaves  # noqa: E402
+from analytics_zoo_tpu_torch.data import image as zimage  # noqa: E402
+from analytics_zoo_tpu_torch.data import tfrecord as tfr  # noqa: E402
+from analytics_zoo_tpu_torch.data.dataset import TPUDataset  # noqa: E402
+from analytics_zoo_tpu_torch.data.pipeline import \
+    parallel_read  # noqa: E402
 from analytics_zoo_tpu_torch.keras import layers as KL  # noqa: E402
+from analytics_zoo_tpu_torch.keras import engine as kengine  # noqa: E402
 from analytics_zoo_tpu_torch.keras.engine import (  # noqa: E402
     Input, Model, Sequential)
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
@@ -4185,68 +4209,77 @@ def table_rows_touched(x: np.ndarray, spec_col: int, rows: int):
     return touched
 
 
-# a child process's NCF fit against a compile cache: its kernel builds and
-# where each training program came from
+def ncf_cache_fit(cfg, n: int, batch: int, spr: int, cache: str) -> dict:
+    """NeuralCF (`cfg`, `n` samples from seed 0, `spr` steps a run)
+    fitted against `compile_cache_dir=cache`: its kernel builds and where
+    each training program came from."""
+    from analytics_zoo_tpu_torch.learn import trainer
+    ncf = NeuralCF(**cfg)
+    rs = np.random.default_rng(0)
+    x = np.stack([rs.integers(1, cfg["user_count"], n),
+                  rs.integers(1, cfg["item_count"], n)],
+                 axis=1).astype(np.int32)
+    y = rs.integers(0, 2, n).astype(np.int32)
+    est = Estimator.from_keras(ncf.model, optimizer="adam",
+                               loss="sparse_categorical_crossentropy")
+    h = est.fit((x, y), epochs=1, batch_size=batch, steps_per_run=spr,
+                lazy_embeddings=True, fused_optimizer=True,
+                compile_cache_dir=cache)
+    return {"build_events": _build.build_events(),
+            "programs": trainer.program_sources(ncf.model),
+            "loss": h["loss"]}
+
+
+# a child process's `ncf_cache_fit`
 NCF_CHILD = r'''
 import json, sys
-import numpy as np
 sys.path.insert(0, sys.argv[2])
-from analytics_zoo_tpu_torch.kernels import _build
-from analytics_zoo_tpu_torch.learn import trainer
-from analytics_zoo_tpu_torch.learn.estimator import Estimator
-from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
-cfg, n, batch, spr, cache = json.loads(sys.argv[1])
-ncf = NeuralCF(**cfg)
-rs = np.random.default_rng(0)
-x = np.stack([rs.integers(1, cfg["user_count"], n),
-              rs.integers(1, cfg["item_count"], n)], axis=1).astype(np.int32)
-y = rs.integers(0, 2, n).astype(np.int32)
-est = Estimator.from_keras(ncf.model, optimizer="adam",
-                           loss="sparse_categorical_crossentropy")
-h = est.fit((x, y), epochs=1, batch_size=batch, steps_per_run=spr,
-            lazy_embeddings=True, fused_optimizer=True,
-            compile_cache_dir=cache)
-print(json.dumps({"build_events": _build.build_events(),
-                  "programs": trainer.program_sources(ncf.model),
-                  "loss": h["loss"]}))
+import chip_smoke
+print(json.dumps(chip_smoke.ncf_cache_fit(*json.loads(sys.argv[1]))))
 '''
 
 
 def ncf_warm_restart(card: str) -> dict:
-    """Two child processes, one after the other, each fitting NeuralCF
-    (the phase's widths, 128 steps, the 64-step device-cached program)
-    against one `compile_cache_dir`, each with an empty kernel build
-    directory of its own: the first builds its kernels with nvcc and
-    reports its program "compiled"; the second must run nvcc 0 times and
-    report every program "cached"."""
+    """`ncf_cache_fit` (the phase's widths, 128 steps, the 64-step
+    device-cached program) into an empty `compile_cache_dir`, first in
+    this process, whose kernels are built (every program "compiled"; the
+    layer names counted afresh, as a new process counts them, since a
+    capture record's key holds the state dict's names), then in a child
+    process with an empty kernel build directory of its own, which must
+    run nvcc 0 times, report every program "cached" and give the same
+    loss."""
     root = tempfile.mkdtemp(prefix="azt_ncf_cc_")
     here = os.path.dirname(os.path.abspath(__file__))
-    args = json.dumps([NCF_CFG, NCF_CHILD_SAMPLES, NCF_BATCH, NCF_SPR,
-                       os.path.join(root, "cache")])
-    children = []
+    args = [NCF_CFG, NCF_CHILD_SAMPLES, NCF_BATCH, NCF_SPR,
+            os.path.join(root, "cache")]
     try:
-        for name in ("cold", "warm"):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-c", NCF_CHILD, args, here],
-                env=build_dir_env(root, name), cwd=here, text=True,
-                capture_output=True, timeout=NCF_CHILD_S)
-            if proc.returncode != 0:
-                raise SystemExit(f"chip_smoke: NCF {name} child failed:\n"
-                                 f"{proc.stderr[-4000:]}")
-            got = json.loads(proc.stdout.strip().splitlines()[-1])
-            children.append(dict(got, child=name,
-                                 seconds=time.perf_counter() - t0))
+        counters = dict(kengine._name_counters)
+        kengine._name_counters.clear()
+        t0 = time.perf_counter()
+        try:
+            cold = ncf_cache_fit(*args)
+        finally:
+            kengine._name_counters.clear()
+            kengine._name_counters.update(counters)
+        cold.update(leg="in_process", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", NCF_CHILD, json.dumps(args), here],
+            env=build_dir_env(root, "warm"), cwd=here, text=True,
+            capture_output=True, timeout=NCF_CHILD_S)
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_smoke: NCF warm child failed:\n"
+                             f"{proc.stderr[-4000:]}")
+        warm = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                    leg="child", seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    cold, warm = children
-    ok = (cold["build_events"]["compiles"] > 0
-          and warm["build_events"]["compiles"] == 0
-          and bool(warm["programs"])
+    ok = (warm["build_events"]["compiles"] == 0
+          and bool(warm["programs"]) and bool(cold["programs"])
           and all(p["source"] == "cached" for p in warm["programs"])
           and all(p["source"] == "compiled" for p in cold["programs"])
           and cold["loss"] == warm["loss"])
-    out = {"phase": "ncf_warm_restart", "children": children, "ok": ok,
+    out = {"phase": "ncf_warm_restart", "children": [cold, warm], "ok": ok,
            "card": card}
     emit(out)
     return out
@@ -7877,6 +7910,499 @@ def _prefetch_ab(card: str, seed: int):
     return {"counts": runs[1]["launches"]}
 
 
+# the streamed path of `examples/inception_imagenet.py:147-199`: TFRecord
+# shards in the ImageNet layout (`image/encoded`, `image/class/label`,
+# `image/height` / `width` / `channels`, `image/filename`) holding raw
+# 240×240×3 pixels, read through `TPUDataset.from_tfrecord` with 8 decode
+# workers, each record cropped to 224×224 at random and mirrored at random
+# (`ImageRandomCropper`, seeded from the record's file name, so the stream
+# is the same at any worker count), batch 256: 5 full batches an epoch,
+# the tail dropped. The JPEG legs need cv2 on the host.
+TFR_SHARDS = 8
+TFR_PER_SHARD = 160
+TFR_STORED = (240, 240, 3)
+TFR_SHUFFLE = 1024
+TFR_WORKERS = 8
+TFR_SPR = 4                       # the example's --steps-per-run default
+TFR_STEPS = TFR_SHARDS * TFR_PER_SHARD // INC_BATCH
+TFR_CHECK_BATCHES = 2
+TFR_PROFILE_SHARDS = 4            # 640 records: a 2-step profiled window
+TFR_PROFILE_STEPS = TFR_PROFILE_SHARDS * TFR_PER_SHARD // INC_BATCH
+# the streamed fit against the in-memory fit of the same batches
+TFR_LOSS_RTOL = 1e-5
+TFR_JPEG_SHARDS = 2
+TFR_JPEG_PER_SHARD = 64
+TFR_JPEG_BATCH = 64
+TFR_JPEG_STORED = (256, 320, 3)   # an aspect the scale step has to fix
+TFR_JPEG_REQUESTS = 8
+TFR_JPEG_TOL = 5e-4               # probabilities, f32, as IMG_PROB_TOL
+TFR_THREADS = ("input-pipeline-", "train-prefetch")
+
+
+def imagenet_record(encoded: bytes, shape, label: int, name: str,
+                    fmt: str) -> bytes:
+    """One `tf.train.Example` in the layout of TensorFlow's ImageNet
+    converter (`build_imagenet_data.py`)."""
+    h, w, c = shape
+    return tfr.encode_example({
+        "image/height": [h], "image/width": [w], "image/channels": [c],
+        "image/colorspace": b"RGB", "image/format": fmt.encode(),
+        "image/filename": name.encode(),
+        "image/class/label": np.asarray([label], np.int64),
+        "image/encoded": encoded})
+
+
+def write_corpus(root: str, shards: int, per_shard: int, make_record,
+                 seed: int) -> int:
+    """`shards` files of `per_shard` records `make_record(rs, name)`, each
+    file from its own generator of `seed`, written on the pipeline's
+    workers; returns the bytes written."""
+    def write(s):
+        rs = np.random.default_rng([seed, s])
+        path = os.path.join(root, f"train-{s:05d}-of-{shards:05d}")
+        tfr.write_tfrecord(path, [make_record(rs, f"train_{s:05d}_{i:05d}")
+                                  for i in range(per_shard)])
+        return os.path.getsize(path)
+    return sum(parallel_read(range(shards), write, workers=TFR_WORKERS))
+
+
+def raw_record(rs, name: str) -> bytes:
+    img = rs.integers(0, 256, TFR_STORED, dtype=np.uint8)
+    return imagenet_record(img.tobytes(), TFR_STORED,
+                           int(rs.integers(0, IMG_CLASSES)), name, "RAW")
+
+
+def record_cropper(seed: int, ex):
+    """The record's `ImageRandomCropper` at the model's size: its RNG is
+    seeded from the record's file name, not shared by the workers."""
+    key = zlib.crc32(ex["image/filename"][0])
+    return zimage.ImageRandomCropper(IMG_SHAPE[1], IMG_SHAPE[0], mirror=True,
+                                     seed=(seed * 1_000_003 + key) % 2 ** 32)
+
+
+def raw_parse_fn(seed: int):
+    def parse(ex):
+        shape = tuple(int(ex[f"image/{k}"][0])
+                      for k in ("height", "width", "channels"))
+        img = np.frombuffer(ex["image/encoded"][0], np.uint8).reshape(shape)
+        return (record_cropper(seed, ex)(img),
+                np.int32(ex["image/class/label"][0]))
+    return parse
+
+
+def jpeg_parse_fn(seed: int):
+    """The example's `make_parse_fn` chain (`examples/inception_imagenet.
+    py:80-104`): JPEG decode, `ImageAspectScale` to a short side of
+    224 + 28, the random crop and mirror."""
+    import cv2
+    size = IMG_SHAPE[0]
+    scale = zimage.ImageAspectScale(size + size // 8)
+
+    def parse(ex):
+        raw = np.frombuffer(ex["image/encoded"][0], np.uint8)
+        img = cv2.cvtColor(cv2.imdecode(raw, cv2.IMREAD_COLOR),
+                           cv2.COLOR_BGR2RGB)
+        img = scale(img)
+        if min(img.shape[:2]) < size:
+            img = cv2.resize(img, (size + size // 8, size + size // 8))
+        label = int(ex["image/class/label"][0]) % IMG_CLASSES
+        return (record_cropper(seed, ex)(img).astype(np.uint8),
+                np.int32(label))
+    return parse
+
+
+def direct_batches(files, parse, seed: int, n: int):
+    """The first `n` batches of `iter_train(1, seed)` built without the
+    pipeline: the seeded file order, each record read by `read_records`
+    and decoded by `decode_example` one at a time on this thread, the same
+    shuffle window (`data/dataset.py` `_TFRecordDataset.iter_train`)."""
+    rng = np.random.RandomState(seed)
+    files = list(files)
+    rng.shuffle(files)
+    buf, pending, out = [], [], []
+
+    def emit_one(sample):
+        pending.append(sample)
+        if len(pending) == INC_BATCH:
+            out.append((np.stack([p[0] for p in pending]),
+                        np.stack([p[1] for p in pending])))
+            pending.clear()
+
+    for path in files:
+        for payload in tfr.read_records(path):
+            buf.append(parse(tfr.decode_example(payload)))
+            if len(buf) < TFR_SHUFFLE:
+                continue
+            i = rng.randint(len(buf))
+            buf[i], sample = buf[-1], buf[i]
+            buf.pop()
+            emit_one(sample)
+    rng.shuffle(buf)
+    for sample in buf:
+        emit_one(sample)
+    return out[:n]
+
+
+def batch_hashes(batches) -> list:
+    return [hashlib.sha256(np.ascontiguousarray(x).tobytes()
+                           + np.ascontiguousarray(y).tobytes()).hexdigest()
+            for x, y, *_ in batches]
+
+
+def stream_head(files, parse, seed: int, workers: int, n: int) -> list:
+    ds = TPUDataset.from_tfrecord(files, parse, batch_size=INC_BATCH,
+                                  shuffle_buffer=TFR_SHUFFLE,
+                                  num_workers=workers)
+    it = ds.iter_train(1, seed=seed)
+    try:
+        return list(itertools.islice(it, n))
+    finally:
+        it.close()
+
+
+def captured_programs(model) -> dict:
+    """The model's training programs: whether each is a captured graph."""
+    cached = model.__dict__.get("_train_cache")
+    programs = cached[1].programs if cached is not None else {}
+    return {str(k): p.program.graph is not None for k, p in programs.items()}
+
+
+def data_threads() -> list:
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(TFR_THREADS)]
+
+
+def no_data_threads(wait_s: float = 5.0) -> list:
+    """The pipeline and prefetch threads still alive after `wait_s` (a
+    prefetch thread exits right after its last put)."""
+    deadline = time.monotonic() + wait_s
+    while data_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return data_threads()
+
+
+class _StepLosses:
+    """An `end_trigger` that keeps every step's loss (one step a run; the
+    epoch-boundary call carries none) and never ends the fit."""
+
+    def __init__(self):
+        self.losses = []
+
+    def __call__(self, state) -> bool:
+        if not state.epoch_finished:
+            self.losses.append(float(state.loss))
+        return False
+
+
+def streamed_vs_in_memory(state, ds, seed: int) -> dict:
+    """The streamed fit against an in-memory fit (`shuffle=False`, the
+    host-batch program: `device_cache=False`) of the batches the stream
+    gives for the fit's seed, from the same weights with the same fit
+    seed, one step a run, each step's loss kept; cuDNN deterministic."""
+    batches = list(ds.iter_train(1, seed=seed))
+    mem = TPUDataset.from_ndarrays(
+        (np.concatenate([b[0] for b in batches]),
+         np.concatenate([b[1] for b in batches])),
+        batch_size=INC_BATCH, shuffle=False)
+    legs = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, data, extra in (("streamed", ds, {}),
+                                  ("in_memory", mem,
+                                   {"device_cache": False})):
+            model = load_by_order(imagenet_model(), state)
+            rec = _StepLosses()
+            est = Estimator.from_keras(model, optimizer="adam",
+                                       loss=IMG_LOSS)
+            est.fit(data, epochs=1, seed=seed, steps_per_run=1,
+                    mixed_precision=True, fused_optimizer=True,
+                    end_trigger=rec, **extra)
+            legs[name] = (rec.losses, [p.detach().float().cpu()
+                                       for p in model.parameters()])
+            del est, model
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (ls, ps), (lm, pm) = legs["streamed"], legs["in_memory"]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(ls, lm)) \
+        if len(ls) == len(lm) else float("inf")
+    out = {"steps": len(ls), "losses_streamed": ls, "losses_in_memory": lm,
+           "max_rel_loss_diff": rel, "losses_bitwise": ls == lm,
+           "params_bitwise": all(torch.equal(a, b) for a, b in zip(ps, pm)),
+           "max_rel_param_diff": max_rel_diff(ps, pm)}
+    del legs, batches, mem
+    torch.cuda.empty_cache()
+    return out
+
+
+def jpeg_legs(card: str, seed: int, est, model, fit_kw, root) -> dict:
+    """Where cv2 imports: a JPEG corpus through the example's parse chain
+    for 2 steps of batch 64, and `image=` JPEG requests through
+    `ClusterServing` on the memory broker against the direct forward on
+    `load_image`."""
+    import cv2
+    from analytics_zoo_tpu_torch.serving.server import ClusterServing
+
+    def jpeg_record(rs, name):
+        img = rs.integers(0, 256, TFR_JPEG_STORED, dtype=np.uint8)
+        ok, enc = cv2.imencode(".jpg", img)
+        assert ok
+        return imagenet_record(enc.tobytes(), TFR_JPEG_STORED,
+                               int(rs.integers(0, IMG_CLASSES)), name,
+                               "JPEG")
+
+    jroot = os.path.join(root, "jpeg")
+    os.makedirs(jroot)
+    write_corpus(jroot, TFR_JPEG_SHARDS, TFR_JPEG_PER_SHARD, jpeg_record,
+                 seed + 121)
+    ds = TPUDataset.from_tfrecord(os.path.join(jroot, "train-*"),
+                                  jpeg_parse_fn(seed),
+                                  batch_size=TFR_JPEG_BATCH,
+                                  shuffle_buffer=TFR_SHUFFLE,
+                                  num_workers=TFR_WORKERS)
+    steps = TFR_JPEG_SHARDS * TFR_JPEG_PER_SHARD // TFR_JPEG_BATCH
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    hist = est.fit(ds, seed=seed, **fit_kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    train = {"steps": steps, "batch": TFR_JPEG_BATCH,
+             "stored": list(TFR_JPEG_STORED), "loss": hist["loss"],
+             "fit_s": fit_s, "launches": counts}
+    train_ok = (all(math.isfinite(v) for v in hist["loss"])
+                and counts.get(dr.KERNEL_NAME, 0) == 2 * steps
+                and counts.get(fad.KERNEL_NAME, 0) == steps)
+
+    rs = np.random.default_rng(seed + 122)
+    jpegs = []
+    for _ in range(TFR_JPEG_REQUESTS):
+        img = rs.integers(0, 256, IMG_SHAPE, dtype=np.uint8)
+        ok, enc = cv2.imencode(".jpg", img)
+        assert ok
+        jpegs.append(enc.tobytes())
+    im = InferenceModel(max_batch=TFR_JPEG_REQUESTS).load_keras(model)
+    im.warmup(np.zeros(IMG_SHAPE, np.float32))
+    want = im.predict(np.stack([zimage.load_image(b).astype(np.float32)
+                                for b in jpegs]))
+    engine = ClusterServing(im, broker=MemoryBroker(),
+                            batch_size=TFR_JPEG_REQUESTS)
+    engine.start()
+    try:
+        q = InputQueue(engine.broker)
+        uris = [q.enqueue(f"jpeg{i}", image=b) for i, b in enumerate(jpegs)]
+        out, res = OutputQueue(engine.broker), {}
+        deadline = time.monotonic() + 60
+        while len(res) < len(uris) and time.monotonic() < deadline:
+            res.update(out.query_many([u for u in uris if u not in res],
+                                      delete=True))
+            time.sleep(0.01)
+    finally:
+        _stop_timed(engine)
+    err = _answers("jpeg serving", [res.get(u) for u in uris],
+                   range(len(uris)), want, TFR_JPEG_TOL)
+    serve = {"requests": len(uris), "max_abs_err": err,
+             "tol": TFR_JPEG_TOL}
+    del im
+    torch.cuda.empty_cache()
+    emit({"phase": "imagenet_tfrecord_jpeg", "train": train,
+          "serving": serve, "ok": train_ok, "card": card})
+    if not train_ok:
+        raise SystemExit("chip_smoke: JPEG TFRecord fit check failed")
+    return {"train": train, "serving": serve}
+
+
+def phase_imagenet_tfrecord(card: str, seed: int, in_memory_step_ms: float):
+    """The ImageNet model of `examples/inception_imagenet.py` trained at
+    batch 256 (`mixed_precision=True`, `fused_optimizer=True`) from
+    TFRecord shards streamed through `TPUDataset.from_tfrecord` and the
+    parallel shard pipeline: the stream held against a serial read, a warm
+    streamed epoch, then the timed streamed epoch (the main path), a
+    profiled window, the streamed fit against an in-memory fit of the same
+    batches, and the JPEG legs where cv2 imports."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if tfr._native_lib() is None:
+        raise SystemExit("chip_smoke: the native TFRecord scanner did not "
+                         "build (g++)")
+    root = tempfile.mkdtemp(prefix="azt_imagenet_tfr_")
+    try:
+        return _imagenet_tfrecord(card, seed, in_memory_step_ms, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _imagenet_tfrecord(card: str, seed: int, in_memory_step_ms: float,
+                       root: str):
+    t0 = time.perf_counter()
+    corpus_bytes = write_corpus(root, TFR_SHARDS, TFR_PER_SHARD, raw_record,
+                                seed + 120)
+    write_s = time.perf_counter() - t0
+    files = tfr.expand_files(os.path.join(root, "train-*"))
+    parse = raw_parse_fn(seed)
+
+    # -- the stream at 1 and at 8 workers against a serial read -----------
+    t0 = time.perf_counter()
+    heads = {w: batch_hashes(stream_head(files, parse, seed, w,
+                                         TFR_CHECK_BATCHES))
+             for w in (1, TFR_WORKERS)}
+    direct = batch_hashes(direct_batches(files, parse, seed,
+                                         TFR_CHECK_BATCHES))
+    stream_ok = (heads[1] == heads[TFR_WORKERS] == direct
+                 and len(direct) == TFR_CHECK_BATCHES)
+    emit({"phase": "imagenet_tfrecord_stream", "shards": TFR_SHARDS,
+          "records": TFR_SHARDS * TFR_PER_SHARD,
+          "stored": list(TFR_STORED), "corpus_bytes": corpus_bytes,
+          "corpus_write_s": write_s, "native_scanner": True,
+          "batch_sha256": {"workers_1": heads[1],
+                           f"workers_{TFR_WORKERS}": heads[TFR_WORKERS],
+                           "serial_read": direct},
+          "check_s": time.perf_counter() - t0, "ok": stream_ok,
+          "card": card})
+    if not stream_ok:
+        raise SystemExit("chip_smoke: the TFRecord stream differs across "
+                         "worker counts or from the serial read")
+
+    model = imagenet_model()
+    model.ensure_built(seed=seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sweep = fad.sweep_launches(model.parameters())
+    ds = TPUDataset.from_tfrecord(os.path.join(root, "train-*"), parse,
+                                  batch_size=INC_BATCH,
+                                  shuffle_buffer=TFR_SHUFFLE,
+                                  num_workers=TFR_WORKERS)
+    est = Estimator.from_keras(model, optimizer="adam", loss=IMG_LOSS)
+    fit_kw = dict(epochs=1, steps_per_run=TFR_SPR, mixed_precision=True,
+                  fused_optimizer=True)
+    # the warm epoch runs on the stream itself: in-memory batches of this
+    # size would fit the device cache and capture another program
+    t0 = time.perf_counter()
+    est.fit(ds, seed=seed, **fit_kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    builds = _build.build_events()
+    programs = captured_programs(model)
+
+    # the example's producer shim (`examples/inception_imagenet.py:186-199`):
+    # the seconds the prefetch thread waits on each batch of the stream
+    stats = {"stall_s": 0.0, "batches": 0}
+    orig_iter = ds.iter_train
+
+    def timed_iter(dp, seed=0):
+        it = orig_iter(dp, seed)
+        try:
+            while True:
+                t1 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                stats["stall_s"] += time.perf_counter() - t1
+                stats["batches"] += 1
+                yield item
+        finally:
+            it.close()
+
+    ds.iter_train = timed_iter
+    # -- the main path: every count is 0 just before, read just after -----
+    LAUNCHES.reset()
+    t1 = time.perf_counter()
+    hist = est.fit(ds, seed=seed, **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    ds.iter_train = orig_iter
+    from analytics_zoo_tpu_torch.learn import trainer
+    input_bound = gauge("training_input_bound")
+    builds_after = _build.build_events()
+    programs_after = captured_programs(model)
+    new_sources = trainer.program_sources(model)
+    steps = stats["batches"]
+    step_ms = dt / max(1, steps) * 1e3
+    producer_ms = stats["stall_s"] / max(1, steps) * 1e3
+    expected = {dr.KERNEL_NAME: 2, fad.KERNEL_NAME: sweep}
+    per_step = {k: counts.get(k, 0) / max(1, steps) for k in expected}
+    threads_left = no_data_threads()
+    out = {"phase": "imagenet_tfrecord_train", "model": "inception_v1",
+           "input": list(IMG_SHAPE), "input_dtype": "uint8",
+           "classes": IMG_CLASSES, "batch": INC_BATCH, "steps": steps,
+           "steps_per_run": TFR_SPR, "workers": TFR_WORKERS,
+           "shuffle_buffer": TFR_SHUFFLE, "warm_fit_s": warm_s,
+           "epoch_s": dt, "step_ms": step_ms,
+           "images_per_s": steps * INC_BATCH / dt,
+           "producer_ms_per_batch": producer_ms,
+           "input_pipeline_share": producer_ms / step_ms,
+           "training_input_bound": input_bound,
+           "in_memory_step_ms": in_memory_step_ms, "loss": hist["loss"],
+           "launches": counts, "launches_per_step": per_step,
+           "expected_per_step": expected, "builds_before": builds,
+           "builds_after": builds_after, "programs": programs,
+           "programs_after": programs_after,
+           "new_program_sources": new_sources,
+           "threads_left": threads_left, "card": card}
+    emit(out)
+    if steps != TFR_STEPS or per_step != {k: float(v)
+                                          for k, v in expected.items()}:
+        raise SystemExit(f"chip_smoke: streamed ImageNet steps {steps}, "
+                         f"launches per step {per_step}, expected "
+                         f"{TFR_STEPS} and {expected}")
+    if builds_after != builds or programs_after != programs \
+            or not all(programs.values()) or new_sources:
+        raise SystemExit("chip_smoke: the timed streamed epoch built a "
+                         "kernel or captured a program")
+    if threads_left or not all(math.isfinite(v) for v in hist["loss"]):
+        raise SystemExit(f"chip_smoke: streamed ImageNet fit: threads "
+                         f"{threads_left}, loss {hist['loss']}")
+
+    # the card's idle share over a streamed 2-step window (its program
+    # captured by the profiler's untraced warm-up fit)
+    ds_prof = TPUDataset.from_tfrecord(files[:TFR_PROFILE_SHARDS], parse,
+                                       batch_size=INC_BATCH,
+                                       shuffle_buffer=TFR_SHUFFLE,
+                                       num_workers=TFR_WORKERS)
+    dev, classes, top = profile_classes(
+        lambda: est.fit(ds_prof, seed=seed, **fit_kw), 1)
+    dev /= TFR_PROFILE_STEPS
+    emit({"phase": "imagenet_tfrecord_profile", "steps": TFR_PROFILE_STEPS,
+          "device_ms_per_step": dev, "step_ms": step_ms,
+          "idle_share": (1.0 - dev / step_ms) if dev else None,
+          "by_class": {k: {"ms": v["ms"] / TFR_PROFILE_STEPS,
+                           "calls": v["calls"] / TFR_PROFILE_STEPS}
+                       for k, v in classes.items()},
+          "top": top[:6], "card": card})
+
+    cmp = streamed_vs_in_memory(state, ds, seed)
+    cmp_ok = (cmp["steps"] == TFR_STEPS
+              and cmp["max_rel_loss_diff"] <= TFR_LOSS_RTOL
+              and all(math.isfinite(v) for v in cmp["losses_streamed"]))
+    emit(dict(cmp, phase="imagenet_tfrecord_vs_in_memory",
+              tol=TFR_LOSS_RTOL, ok=cmp_ok, card=card))
+    if not cmp_ok:
+        raise SystemExit("chip_smoke: the streamed fit's losses differ from "
+                         "the in-memory fit's")
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        jpeg = None
+        emit({"phase": "imagenet_tfrecord_jpeg", "ran": False,
+              "reason": "cv2 does not import on this host: the JPEG "
+              "legs did not run here (the CPU tests cover them)",
+              "card": card})
+    else:
+        jpeg = jpeg_legs(card, seed, est, model, fit_kw, root)
+    left = no_data_threads()
+    if left:
+        raise SystemExit(f"chip_smoke: data threads left: {left}")
+    del est, model, ds, ds_prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": step_ms, "jpeg": jpeg,
+            "idle_share": (1.0 - dev / step_ms) if dev else None}
+
+
 BY_EVENTS = {"ms": "events", "plain_ms": "events", "library_ms": "events"}
 BY_GRAPH = {"ms": "graph", "plain_ms": "graph", "library_ms": "graph"}
 # the backward kernels: SDPA's backward (fwd+bwd minus fwd) by CUDA graph,
@@ -8104,6 +8630,8 @@ def main(argv=None) -> int:
     squad = timed(phase_bert_squad, card, args.seed)
     ner = timed(phase_bert_ner, card, args.seed)
     prefetch = timed(phase_prefetch_ab, card, args.seed)
+    streamed = timed(phase_imagenet_tfrecord, card, args.seed,
+                     inception["step_ms"])
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -8127,6 +8655,7 @@ def main(argv=None) -> int:
             launches_text_gru=text["gru"]["counts"].get(name, 0),
             launches_anomaly=anomaly["counts"].get(name, 0),
             launches_inception_imagenet=inception["counts"].get(name, 0),
+            launches_imagenet_tfrecord=streamed["counts"].get(name, 0),
             launches_wide_and_deep=wide["counts"].get(name, 0))
     for name in (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME,
                  dr.KERNEL_NAME, fad.KERNEL_NAME):

@@ -278,15 +278,19 @@ def test_image_b64_payload(m):
     buf = io.BytesIO()
     img.save(buf, format="PNG")
     rec = {"image_b64": base64.b64encode(buf.getvalue()).decode()}
-    if m.name == "jax":
-        assert m.pre_post.decode_record_field(rec).shape == (8, 8, 3)
-        return
-    # the port has no image loader yet (the data layer, queue 1 item 6)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        m.pre_post.decode_record_field(rec)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        m.client.InputQueue(m.broker.MemoryBroker()).enqueue(
-            "u", image=buf.getvalue())
+    # each package's decode of the payload against the JAX module's
+    from analytics_zoo_tpu.serving import pre_post as jpre_post
+    want = jpre_post.decode_record_field(rec)
+    got = m.pre_post.decode_record_field(rec)
+    assert got.shape == (8, 8, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    # `image=` bytes go out as the decoded image's record
+    broker = m.broker.MemoryBroker()
+    m.client.InputQueue(broker).enqueue("u", image=buf.getvalue())
+    (record,) = broker._streams["serving_stream"].values()
+    assert record["uri"] == "u"
+    np.testing.assert_array_equal(
+        m.broker.decode_ndarray(record["data"]["image"]), want)
 
 
 def test_top_n_and_apply_filter(m):

@@ -333,12 +333,11 @@ def _one_batch_factory(epoch):
 @pytest.mark.parametrize("kwargs", [
     {"sharding_rules": True},
     {"device_cache": True, "batch_iter_factory": _one_batch_factory},
-    {"feature_cols": ["x"]},
 ])
 def test_unported_fit_arguments_raise(kwargs):
-    """What the port does not run raises: sharding rules and DataFrame
-    columns (ROADMAP work), and a device cache of streaming input, which
-    has no host copy to keep on the device (as in the JAX package)."""
+    """What the port does not run raises: sharding rules (ROADMAP work),
+    and a device cache of streaming input, which has no host copy to keep
+    on the device (as in the JAX package)."""
     _, tloss = _loss_pair()
     tm = _port_model(_jax_model().params, **NO_DROP)
     est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
@@ -354,10 +353,12 @@ def test_unported_fit_arguments_raise(kwargs):
     {"profile_steps": (0, 1)}, {"flops_per_step": 1.0},
     {"device_cache": True}, {"compile_cache_dir": "cache"},
     {"steps_per_run": 2},
+    {"feature_cols": ["ids", "mask"], "label_cols": ["y"]},
 ])
 def test_ported_fit_arguments_run(kwargs, tmp_path):
     """The telemetry, input-pipeline and program arguments that used to
-    raise (or, for `steps_per_run`, change nothing) run a short fit."""
+    raise (or, for `steps_per_run`, change nothing) run a short fit, and
+    so do a DataFrame's `feature_cols` / `label_cols`."""
     _, tloss = _loss_pair()
     tm = _port_model(_jax_model().params, **NO_DROP)
     est = Estimator.from_keras(tm, optimizer="adam", loss=tloss,
@@ -366,7 +367,12 @@ def test_ported_fit_arguments_run(kwargs, tmp_path):
         kwargs = dict(kwargs, profile_dir=str(tmp_path))
     if "compile_cache_dir" in kwargs:
         kwargs = dict(kwargs, compile_cache_dir=str(tmp_path / "cache"))
-    h = est.fit(_data(n=8), batch_size=BATCH, **kwargs)
+    data = _data(n=8)
+    if "feature_cols" in kwargs:
+        import pandas as pd
+        (ids, mask), y = data["x"], data["y"]
+        data = pd.DataFrame({"ids": list(ids), "mask": list(mask), "y": y})
+    h = est.fit(data, batch_size=BATCH, **kwargs)
     assert len(h["loss"]) == 1 and np.isfinite(h["loss"][0])
     if "profile_steps" in kwargs:
         assert len(h["profile_artifacts"]) == 1
@@ -376,8 +382,9 @@ def test_estimator_guards(monkeypatch):
     _, tloss = _loss_pair()
     tm = _port_model(_jax_model().params, **NO_DROP)
     assert Estimator(tm, model_dir="/nowhere").model_dir == "/nowhere"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Estimator(tm, device="cpu").fit(_data(n=8), feature_cols=["a"])
+    import pandas as pd
+    with pytest.raises(ValueError, match="needs feature_cols"):
+        Estimator(tm, device="cpu").fit(pd.DataFrame({"a": [1, 2]}))
     with pytest.raises(ValueError, match="Unsupported metric"):
         Estimator.from_keras(tm, optimizer="adam", loss=tloss,
                              metrics=["no_such_metric"])
