@@ -15,3 +15,13 @@ a GPU they raise instead of running on the CPU.
 """
 
 __version__ = "0.1.0"
+
+from analytics_zoo_tpu_torch.common.context import (  # noqa: F401
+    init_zoo_context,
+    init_orca_context,
+    stop_orca_context,
+    ZooContext,
+    OrcaContext,
+)
+from analytics_zoo_tpu_torch.common.mesh import DeviceMesh  # noqa: F401
+from analytics_zoo_tpu_torch.common.config import ZooConfig  # noqa: F401

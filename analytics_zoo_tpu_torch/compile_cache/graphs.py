@@ -382,13 +382,17 @@ class TrainProgram:
     graph in its own memory pool, and replays the graph from then on; the
     caller's stream waits for the program. On the CPU every call runs `fn`
     eagerly and `capture()` does nothing. `launches`: the repo's kernel
-    nodes of the graph, which each replay adds to `LAUNCHES`."""
+    nodes of the graph, which each replay adds to `LAUNCHES`.
+    `graphs=False` keeps a program eager on the card too (a fit whose
+    collectives run over gloo, which a CUDA graph cannot hold): decided
+    before any capture, never by a failed one."""
 
     def __init__(self, name: str, fn: Callable[[bool], Any],
-                 device: torch.device):
+                 device: torch.device, graphs: bool = True):
         self.name = name
         self.device = torch.device(device)
         self._fn = fn
+        self.graphs = graphs
         self.launches: Dict[str, int] = {}
         self.graph = None
         self.stream = torch.cuda.Stream(self.device) \
@@ -424,7 +428,7 @@ class TrainProgram:
         """Capture the program (on the card, once, after an eager run has
         built and loaded its kernels; not inside `eager_programs()`)."""
         if self.stream is None or self.graph is not None \
-                or _eager_only.is_set():
+                or not self.graphs or _eager_only.is_set():
             return
         with self._on_stream():
             self._capture()

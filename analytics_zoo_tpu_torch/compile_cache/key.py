@@ -17,7 +17,14 @@ the same fields and digest rules. What differs in the port:
   and the tensor uploaded from it sign alike, and both as the JAX
   functions sign the numpy batch;
 - trees are flattened in jax's order (dict keys sorted), which is not the
-  port's `common.tree.tree_leaves` (insertion order).
+  port's `common.tree.tree_leaves` (insertion order);
+- a training program's `sharding` field is its fit's layout
+  (`parallel/sharding.sharding_descriptor`: the mesh's axis sizes, its
+  rank count and the rule table's `fingerprint()`: an empty table
+  without the FSDP fallback for a fit over a process group without
+  rules; empty for a fit without a process group),
+  so a sharded program and a replicated one never share a capture
+  record.
 
 An entry is reusable exactly when re-capturing would produce the same
 program, and MUST miss when anything that feeds the capture changed. A

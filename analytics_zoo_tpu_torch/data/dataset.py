@@ -9,10 +9,12 @@ Copied from `analytics_zoo_tpu/data/dataset.py` (L1-485): `TPUDataset`
 (L300), `_read_shard` (L332), `_iter_samples` (L355) and `iter_train`
 (L400). The `jax.tree_util` calls (L139, L303-312, L418-420) are the
 port's `common/tree.py`; `jax.process_count()` (L394-403) is
-`data/pipeline.process_topology`, and a fit over more than one process
-raises NotImplementedError until distributed training is ported
-(ROADMAP.md queue 1, item 7), where the JAX package splits the batch
-across hosts and equalises their steps (L404-449, L476-485).
+`data/pipeline.process_topology`. Over more than one process each host
+streams its stride of the (seed, epoch)-shuffled files (`_host_files`,
+L390), the global batch splits across hosts and the hosts take equal
+steps (L404-449, L476-485: `pipeline.allgather_counts` in place of
+`multihost_utils.process_allgather`); the dataset declares
+`shards_per_host`, which the trainer's multi-process guard admits.
 
 Mirrors the contract of `pyzoo/zoo/tfpark/tf_dataset.py:115-173` exactly:
 training takes a *global* `batch_size` that must divide by the total
@@ -28,6 +30,7 @@ Sources: ndarrays, XShards of {"x": ..., "y": ...}, pandas DataFrames
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -217,6 +220,10 @@ class _TFRecordDataset(TPUDataset):
     (`data/pipeline.py`): files decode concurrently, the reorder buffer
     keeps the sample stream a pure function of `(seed, epoch)`."""
 
+    # multi-host fits read disjoint files per host (iter_train), so the
+    # trainer's streaming-duplication guard does not apply
+    shards_per_host = True
+
     # frame batch per vectorized decode_example_batch call
     _DECODE_CHUNK = 256
     # records per pipeline shard: big files split into bounded record
@@ -393,15 +400,29 @@ class _TFRecordDataset(TPUDataset):
         finally:
             pipe.close()
 
+    def _host_files(self, files: List[str]) -> List[str]:
+        """Disjoint per-host file assignment for multi-process fits —
+        each host streams only its stride of the (seed, epoch)-shuffled
+        list, over the mesh's data axis."""
+        from analytics_zoo_tpu_torch.data.pipeline import (host_shard,
+                                                           process_topology)
+        if process_topology()[1] <= 1:
+            return files
+        return host_shard(files)
+
     def iter_train(self, data_parallel: int, seed: int = 0):
-        from analytics_zoo_tpu_torch.data.pipeline import (
-            DISTRIBUTED_NOT_PORTED, process_topology)
+        from analytics_zoo_tpu_torch.data.pipeline import process_topology
         batch = self.global_batch(data_parallel)
-        if process_topology()[1] > 1:
-            # the JAX package streams each host's stride of the files
-            # (`_host_files` L390), splits the global batch across hosts
-            # and equalises their steps (L404-449)
-            raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
+        n_proc = process_topology()[1]
+        if n_proc > 1:
+            # the GLOBAL batch splits across hosts; each host stacks its
+            # LOCAL share from its own disjoint file stride
+            if batch % n_proc:
+                raise ValueError(
+                    f"global batch_size ({batch}) must divide by the "
+                    f"process count ({n_proc}) to stream per-host "
+                    "TFRecord shards")
+            batch //= n_proc
         rng = np.random.RandomState(seed)
 
         def stack(samples):
@@ -413,30 +434,62 @@ class _TFRecordDataset(TPUDataset):
         files = list(self._files)
         if self.shuffle:
             rng.shuffle(files)
-        buf: List[Tuple] = []
-        pending: List[Tuple] = []
-        samples = self._iter_samples(rng, files=files)
+        files = self._host_files(files)
+        max_batches = None
+        if n_proc > 1:
+            # equalize STEPS across hosts: per-host file strides rarely
+            # hold identical record counts, and an uneven epoch would
+            # desync the per-step collectives and deadlock mid-epoch.
+            # Counts come from the memoized header index, so only the
+            # FIRST epoch pays the scan.
+            from analytics_zoo_tpu_torch.data.pipeline import (
+                allgather_counts, parallel_read)
+            local_n = sum(parallel_read(files, self._file_count,
+                                        workers=self._workers()))
+            counts = allgather_counts(local_n)
+            max_batches = min(counts) // batch
+            if max_batches == 0:
+                raise ValueError(
+                    "Multi-host TFRecord fit: the smallest host shard "
+                    f"holds {min(counts)} records, fewer than "
+                    f"the per-host batch ({batch}); add shard files "
+                    "or lower batch_size")
+
+        def batches():
+            buf: List[Tuple] = []
+            pending: List[Tuple] = []
+            samples = self._iter_samples(rng, files=files)
+            try:
+                for sample in samples:
+                    if self.shuffle:
+                        buf.append(sample)
+                        if len(buf) < self._shuffle_buffer:
+                            continue
+                        i = rng.randint(len(buf))
+                        buf[i], sample = buf[-1], buf[i]
+                        buf.pop()
+                    pending.append(sample)
+                    if len(pending) == batch:
+                        yield stack(pending)
+                        pending = []
+            finally:
+                samples.close()      # unwinds the shard pipeline's pool
+            # drain the shuffle window; drop the tail remainder (static
+            # shapes)
+            if self.shuffle and buf:
+                rng.shuffle(buf)
+                for sample in buf:
+                    pending.append(sample)
+                    if len(pending) == batch:
+                        yield stack(pending)
+                        pending = []
+
+        if max_batches is None:
+            yield from batches()
+            return
+        it = batches()
         try:
-            for sample in samples:
-                if self.shuffle:
-                    buf.append(sample)
-                    if len(buf) < self._shuffle_buffer:
-                        continue
-                    i = rng.randint(len(buf))
-                    buf[i], sample = buf[-1], buf[i]
-                    buf.pop()
-                pending.append(sample)
-                if len(pending) == batch:
-                    yield stack(pending)
-                    pending = []
+            # every host emits EXACTLY min-host batches per epoch
+            yield from itertools.islice(it, max_batches)
         finally:
-            samples.close()      # unwinds the shard pipeline's pool
-        # drain the shuffle window; drop the tail remainder (static
-        # shapes)
-        if self.shuffle and buf:
-            rng.shuffle(buf)
-            for sample in buf:
-                pending.append(sample)
-                if len(pending) == batch:
-                    yield stack(pending)
-                    pending = []
+            it.close()       # unwinds the shard pipeline's pool

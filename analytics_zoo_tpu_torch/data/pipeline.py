@@ -3,13 +3,15 @@
 Copied from `analytics_zoo_tpu/data/pipeline.py` (L1-249): `_ShardError`
 (L91), `ShardPipeline` (L113) and `parallel_read` (L225) as they are;
 `resolve_workers` (L48) and `host_shard` (L67) with their JAX parts
-rewritten. The port has no context config: an explicit value wins, then
-the environment's `ZOO_PIPELINE_WORKERS` (the spelling of the JAX
-`ZooConfig.pipeline_workers`, `common/config.py:122`), then the default.
-`host_shard` reads its host from `torch.distributed` when that is
-initialised (index 0 of 1 otherwise); more than one process raises
-NotImplementedError until distributed training is ported (ROADMAP.md
-queue 1, item 7).
+rewritten: an explicit value wins, then the context config's
+`pipeline_workers` (`common/config.py`, env `ZOO_PIPELINE_WORKERS`) or,
+without a context, the environment's `ZOO_PIPELINE_WORKERS`, then the
+default.
+`host_shard` reads its host from `process_topology`: `torch.distributed`'s
+rank and world size when a process group is initialised (index 0 of 1
+otherwise), where the JAX package reads `jax.process_index()` /
+`jax.process_count()`; `allgather_counts` is the JAX package's
+`multihost_utils.process_allgather` of one count (`dataset.py:434`).
 
 Every compute-side lever the platform pulls — sharded pjit fit, fused
 Pallas optimizer, shared AOT cache — assumes the accelerator is FED. On
@@ -62,23 +64,22 @@ _WAIT_S = 0.1
 def resolve_workers(explicit: Optional[int] = None,
                     default: int = 1) -> int:
     """One resolution rule for every dataset/reader knob: an explicit
-    per-call `pipeline_workers` wins; otherwise the environment's
-    `ZOO_PIPELINE_WORKERS`; otherwise `default` (single-threaded —
+    per-call `pipeline_workers` wins; otherwise the context config's
+    `pipeline_workers` (env `ZOO_PIPELINE_WORKERS`; the environment's alone
+    without a context); otherwise `default` (single-threaded —
     parallelism is opt-in)."""
     if explicit is not None:
         return max(1, int(explicit))
+    from analytics_zoo_tpu_torch.common.context import current_context
+    ctx = current_context()
     try:
-        w = int(os.environ.get("ZOO_PIPELINE_WORKERS", "0") or 0)
+        w = int(ctx.config.pipeline_workers) if ctx is not None else \
+            int(os.environ.get("ZOO_PIPELINE_WORKERS", "0") or 0)
         if w > 0:
             return w
     except ValueError:
         pass
     return max(1, int(default))
-
-
-DISTRIBUTED_NOT_PORTED = (
-    "reading disjoint shards per process needs distributed training, "
-    "which is not ported yet (ROADMAP.md queue 1, item 7)")
 
 
 def process_topology() -> Tuple[int, int]:
@@ -90,19 +91,32 @@ def process_topology() -> Tuple[int, int]:
     return 0, 1
 
 
+def allgather_counts(n: int) -> List[int]:
+    """Every process's `n`, in rank order (a one-process topology: [n])."""
+    import torch
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return [int(n)]
+    dev = "cpu"
+    if dist.get_backend() == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    v = torch.tensor([int(n)], dtype=torch.int64, device=dev)
+    parts = [torch.empty_like(v) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, v)
+    return [int(p.item()) for p in parts]
+
+
 def host_shard(items: Sequence[Any], index: Optional[int] = None,
                count: Optional[int] = None) -> List[Any]:
     """Deterministic per-host shard assignment: host `index` of `count`
     owns `items[index::count]` — disjoint across hosts, union = all
     items, and a pure function of the item order (shuffle first, then
     assign, and every host's subset is reproducible from the same
-    `(seed, epoch)`). Defaults read `process_topology()`; a topology of
-    more than one process raises until distributed training is
-    ported."""
+    `(seed, epoch)`). Defaults read `process_topology()`, under which
+    process order is the data-axis order (the mesh lays ranks out
+    row-major with the batch axes outermost of those a fit may use)."""
     if index is None or count is None:
         rank, world = process_topology()
-        if world > 1:
-            raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
         index = rank if index is None else index
         count = world if count is None else count
     if not (0 <= index < count):

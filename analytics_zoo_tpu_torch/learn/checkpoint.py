@@ -1,9 +1,12 @@
 """Pytree artifacts and training checkpoints in the JAX package's on-disk
 format.
 
-Port of `analytics_zoo_tpu/learn/checkpoint.py` (the whole file but
-`gather_leaf` / `gather_tree`, which gather sharded jax arrays):
-`CorruptCheckpointError` (L40), `_walk` (L86), `save_pytree` (L108),
+Port of `analytics_zoo_tpu/learn/checkpoint.py`: `gather_leaf` (L49),
+which gathers a leaf sharded over the mesh's fsdp axis (this rank's
+block along a dim) into the whole array, a collective of the axis where
+the JAX function assembles a sharded `jax.Array` (the trainer gathers a
+sharded fit's whole state with its `ShardLayout`, and only rank 0 writes
+and publishes); `CorruptCheckpointError` (L40), `_walk` (L86), `save_pytree` (L108),
 `_struct_path` (L146), `verify_pytree` (L151), `load_pytree` (L170),
 `_insert` (L206), `CheckpointManager` (L225), `list_checkpoints` (L281),
 `checkpoint_intact` (L300), `latest_checkpoint` (L313),
@@ -79,6 +82,16 @@ def _host_leaf(a: Any) -> np.ndarray:
         a = a.detach().cpu()
         return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
+
+
+def gather_leaf(a: Any, mesh=None, dim: Optional[int] = None) -> np.ndarray:
+    """Host copy of one checkpoint leaf. A tensor that is this rank's
+    block, along `dim`, of a leaf sharded over `mesh`'s fsdp axis is
+    gathered whole first (a collective: every rank of the axis calls it);
+    a replicated tensor, a numpy array or a scalar converts as it is."""
+    if isinstance(a, torch.Tensor) and mesh is not None and dim is not None:
+        a = mesh.all_gather(a, "fsdp", dim=dim)
+    return _host_leaf(a)
 
 
 def _walk(tree: Any, path: List[List[Any]], paths: List[Any],

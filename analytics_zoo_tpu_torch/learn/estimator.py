@@ -1,4 +1,4 @@
-"""Estimator — the unified training façade, single device.
+"""Estimator — the unified training façade.
 
 Port of `analytics_zoo_tpu/learn/estimator.py`: `Estimator.__init__`
 (L79), `from_keras` (L89), `fit` (L160) with its retry-and-restore loop
@@ -14,11 +14,14 @@ a TFRecord stream, a disk-tier `FeatureSet`), an `XShards` of
 
 A dataset without in-memory arrays (`x` None: a TFRecord stream, a
 disk-tier `FeatureSet`) trains through the JAX `fit`'s lazy bridge
-(L183-230): its own batch size wins over `fit`'s, its `iter_train(1,
-seed=seed + epoch)` is the fit's `batch_iter_factory` (the JAX fit's
-`shards_per_host` mark waits on multi-process fits, item 7), and an
-unbuilt model is built from the dataset's `first_sample` (one record, not a
-shuffle buffer's fill). `evaluate` and `predict` run over the dataset's
+(L183-230): its own batch size wins over `fit`'s, its `iter_train(dp,
+seed=seed + epoch)` is the fit's `batch_iter_factory` (`dp` the context
+mesh's data-parallel size, 1 without a context) carrying the dataset's
+`shards_per_host` mark (a TFRecord stream reads disjoint files per host,
+which the trainer's multi-process guard admits), and an unbuilt model is
+built from the dataset's `first_sample` (one record, not a shuffle
+buffer's fill). `distributed` and `sharding_rules` pass through to the
+trainer (JAX L169), which runs the fit over the context's mesh of ranks. `evaluate` and `predict` run over the dataset's
 `materialize()`.
 
 With `model_dir`, `fit` checkpoints into it (`model.set_checkpoint`) and
@@ -31,8 +34,10 @@ As in the JAX package, the reload restores the parameters only
 (`_restore_latest`), so a retried fit starts its optimizer state afresh,
 and the retry runs `fit_keras` with `seed + epoch_done`.
 
-`device`: where `fit`, `predict` and `evaluate` run; `None` is `cuda`, and
-asking for `cuda` without a GPU raises. The model is moved there in place.
+`device`: where `fit`, `predict` and `evaluate` run; `None` is this
+rank's device under an initialised context (`init_orca_context`), else
+`cuda`, and asking for `cuda` without a GPU raises. The model is moved
+there in place.
 
 `evaluate(quantize="int8")` evaluates the int8 twin of the model
 (`serving/quantization.quantize_model_params`, a new module), so the f32
@@ -130,7 +135,13 @@ class Estimator:
         return Estimator(keras_model, model_dir, device)
 
     def _on_device(self):
-        self.model.to(resolve_device(self.device))
+        """The model onto `device`; None is the context's rank device when
+        a context is initialised, else `cuda`."""
+        from analytics_zoo_tpu_torch.common.context import current_context
+        ctx = current_context()
+        device = self.device if self.device is not None or ctx is None \
+            else ctx.device
+        self.model.to(resolve_device(device))
 
     # -- training with retry/resume ---------------------------------------
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
@@ -144,8 +155,11 @@ class Estimator:
         `step_retries`, `step_timeout_s`, `end_trigger`, the input
         pipeline and telemetry: `prefetch`, `prefetch_depth`,
         `batch_iter_factory`, `flops_per_step`, `metrics_report_s`,
-        `profile_steps`, `profile_dir`, and the programs: `steps_per_run`,
-        `device_cache`, `compile_cache_dir`). Labels may be a list of arrays,
+        `profile_steps`, `profile_dir`, the programs: `steps_per_run`,
+        `device_cache`, `compile_cache_dir`, and the distributed fit:
+        `distributed`, `sharding_rules=True` or a
+        `parallel.sharding.ShardingRules`, over the mesh of
+        `init_orca_context`). Labels may be a list of arrays,
         one per output of a model compiled with a list of losses.
         `validation_data` (any form `to_dataset` takes) is evaluated after
         every epoch into `history["val_<metric>"]`. Returns the history."""
@@ -158,10 +172,18 @@ class Estimator:
         elif batch_size is None:
             batch_size = 32
         lazy = ds.x is None  # disk-tier FeatureSet / TFRecord stream bridge
+        from analytics_zoo_tpu_torch.common.context import current_context
+        ctx = current_context()
+        dp = ctx.mesh.data_parallel_size if ctx is not None else 1
         batch_iter_factory = fit_kwargs.pop("batch_iter_factory", None)
         if batch_iter_factory is None and lazy:
             def batch_iter_factory(epoch):
-                return ds.iter_train(1, seed=seed + epoch)
+                return ds.iter_train(dp, seed=seed + epoch)
+            # datasets that read DISJOINT files per host declare it so the
+            # trainer's multi-process streaming-duplication guard admits
+            # them
+            batch_iter_factory.shards_per_host = getattr(
+                ds, "shards_per_host", False)
         self._on_device()
         if lazy and not self.model.built and hasattr(ds, "first_sample"):
             # cheap shape probe: one record, not a shuffle-buffer fill

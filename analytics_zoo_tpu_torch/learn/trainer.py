@@ -171,9 +171,55 @@ epoch-boundary trigger (L1830-1840) and the emergency checkpoint
   program of the last fit came from: a fit in a fresh process on a warm
   cache runs nvcc 0 times and reports its programs "cached".
 
+- The distributed fit (JAX `_resolve_sharding_rules` L581,
+  `check_global_batch` L183, the checks of L1126-1200 and the sharded
+  placement of L1316-1398). With `distributed=True` (the default) a fit
+  under a context (`common/context.py`) runs over its mesh of ranks: each
+  process is one rank, feeds its own share of the global `batch_size`
+  (`batch_size / ranks` rows a step, from its own data, as each JAX
+  process feeds its local shard), and every reduction the JAX package
+  gets from GSPMD is an explicit collective of the mesh: the whole
+  batch's mean gradient (one all-reduce of the replicated leaves'
+  gradients over the batch axes, with the step's loss riding in it as
+  the last element, so the loss of every step and the epoch's mean are
+  the global batch's; one reduce-scatter of the sharded leaves'
+  gradients over fsdp, then an all-reduce over data). The optimizers have
+  no global-norm clipping to reduce (nor does the JAX package's).
+  `sharding_rules` (True: `TRANSFORMER_RULES`; a `ShardingRules`; None:
+  the config's `sharded_fit`) shards parameters and optimizer state over
+  the fsdp axis (`parallel/sharding.ShardLayout`): each rank keeps its
+  blocks of the sharded leaves as the f32 masters and their moments, the
+  module's own tensors of those leaves are emptied during the fit, and
+  each step gathers the whole parameters for its forward. The optimizer
+  steps the local blocks and replicated leaves (the fused-Adam kernel:
+  one launch a sweep per rank). After the fit the module holds the whole
+  parameters again. A checkpoint gathers the blocks into the JAX layout
+  and rank 0 alone writes and publishes it; auto-resume reads it on every
+  rank and shards it again. The JAX refusals are kept: `sharding_rules`
+  with `distributed=False`, with `lazy_embeddings`, the fsdp=1 warning,
+  the global batch against data x fsdp and the process count, a mesh whose
+  batch axes do not span every rank, unequal local sample counts, a
+  streaming factory without `shards_per_host`, `device_cache=True` over
+  more than one process. The port runs `sharding_rules` across
+  processes, which the JAX fit refuses (L1183-1191): there a process
+  spans several devices. Departures: a spec that names `tensor` (size >
+  1) raises NotImplementedError (ROADMAP item 7b); a multi-rank fit of a
+  model with buffers (BatchNorm's moving statistics, which the JAX
+  forward reduces over the global batch) and a fit with
+  `lazy_embeddings` over a process group raise NotImplementedError; each
+  rank folds its batch index into its step seeds, so the ranks draw
+  other dropout masks for their rows, as the rows of a JAX global batch
+  do; a fit that fails across ranks leaves no emergency checkpoint (it
+  would need every rank). Validation: each rank evaluates the validation
+  data it holds on the whole parameters, as each JAX process evaluates
+  its own (L1906-1913). Programs: a fit whose
+  collectives run over NCCL captures its steps, collectives included; a
+  fit over gloo (ranks on the CPU, or sharing a card) runs them eagerly,
+  a rule decided before any capture, logged and exposed as the
+  `training_step_graphs` gauge.
+
 The optimizer state starts fresh at each call unless it resumes, as in the
-JAX package. The arguments of the JAX loop that are not ported raise
-NotImplementedError when given a value other than their default.
+JAX package.
 """
 
 from __future__ import annotations
@@ -198,18 +244,10 @@ from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.kernels import _build
 from analytics_zoo_tpu_torch.observability.registry import get_registry
 from analytics_zoo_tpu_torch.kernels.philox import DeviceSeed
-from analytics_zoo_tpu_torch.ops.optimizers import (NOT_PORTED_QUEUE,
-                                                    as_fused, step_scalars,
+from analytics_zoo_tpu_torch.ops.optimizers import (as_fused, step_scalars,
                                                     takes_scalars)
 
 log = logging.getLogger("analytics_zoo_tpu_torch.learn")
-
-# Arguments of the JAX `fit_keras` that the port does not run yet, with
-# their defaults and the work that ports them: a value other than the
-# default raises.
-_NOT_PORTED_ARGS = {
-    "sharding_rules": (None, NOT_PORTED_QUEUE),   # distributed (item 7)
-}
 
 # The meta key of the step-seed generator's state (the JAX package keeps
 # its jax key under "rng").
@@ -258,6 +296,24 @@ class _TrainingMetrics:
             "fraction of the last epoch's time the step loop spent "
             "blocked on the prefetch queue (0 = device-bound, 1 = fully "
             "input-bound)")
+        self.graphs = reg.gauge(
+            "training_step_graphs",
+            "1 when the fit's steps replay CUDA graphs, 0 when they run "
+            "eagerly (the CPU, or collectives over gloo)")
+        self.state_bytes = reg.gauge(
+            "training_state_bytes_per_rank",
+            "bytes of this rank's f32 master parameters and optimizer "
+            "state in the last fit (1/fsdp of a replicated fit's for the "
+            "sharded leaves)")
+        self.collective_ms = reg.gauge(
+            "training_collective_ms",
+            "host milliseconds a step spent in the mesh's collectives "
+            "over the last epoch's eager steps (a replayed graph's are "
+            "not seen)")
+        self.host_staged = reg.counter(
+            "training_collectives_host_staged_total",
+            "collectives that copied a CUDA tensor to the host and back "
+            "(gloo)")
 
     def epoch(self, steps: int, n_seen: int, dt: float, mean_loss: float,
               flops_per_step: Optional[float] = None,
@@ -656,30 +712,44 @@ def _cast_tree(tree: Dict[str, torch.Tensor], dtype: torch.dtype,
 # One step
 # ---------------------------------------------------------------------------
 def build_train_step(model, loss_fn: Callable, optimizer,
-                     mixed_precision: bool = False) -> Callable:
+                     mixed_precision: bool = False,
+                     layout=None) -> Callable:
     """One iteration as a function, `one_step(params, opt_state, xb, yb,
     seed, scalars) -> (params, opt_state, loss)`: forward, backward and
     the optimizer step. `params` are the model's own parameters (the f32
     masters), updated in place. `seed` is the step seed (an int, or a
     `DeviceSeed` in the scalar table); `scalars`, the optimizer's part of
     the step's row on the device (`one_step.scalars(opt_state)` gives its
-    host values; None: the optimizer computes and uploads them)."""
+    host values; None: the optimizer computes and uploads them).
+
+    With a `layout` (`parallel/sharding.ShardLayout`, a fit over a process
+    group) `params` holds this rank's blocks of the sharded leaves: the
+    step gathers the whole parameters for the forward, reduces the
+    gradients to the global batch's mean (`layout.reduce_grads`), steps
+    the blocks and returns the global batch's mean loss."""
     fused_apply = getattr(optimizer, "fused_apply", None)
     with_row = takes_scalars(optimizer)
 
     def one_step(params, opt_state, xb, yb, seed, scalars=None):
+        leaves = params
+        if layout is not None:
+            leaves = layout.gather_dict(params)
+            for name in layout.sharded:
+                leaves[name].requires_grad_()
         with torch.enable_grad():
-            p = _cast_tree(params, torch.bfloat16) if mixed_precision \
-                else params
+            p = _cast_tree(leaves, torch.bfloat16) if mixed_precision \
+                else leaves
             pred = functional_call(model, p, (xb,),
                                    {"training": True, "seed": seed})
             if mixed_precision:
                 pred = tree_map(lambda a: a.float(), pred)
             loss = loss_fn(yb, pred)
-            grads = torch.autograd.grad(loss, list(params.values()),
+            grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
         grads = {n: torch.zeros_like(t) if g is None else g
-                 for (n, t), g in zip(params.items(), grads)}
+                 for (n, t), g in zip(leaves.items(), grads)}
+        if layout is not None:
+            grads, loss = layout.reduce_grads(grads, loss)
         kw = {"scalars": scalars} if with_row and scalars is not None \
             else {}
         with torch.no_grad():
@@ -722,7 +792,10 @@ def _resolve_fused(model, optimizer, fused_optimizer: Optional[bool],
 
 
 def _pick_one_step(model, loss_fn, optimizer, mixed_precision: bool,
-                   lazy_specs, fused: bool) -> Callable:
+                   lazy_specs, fused: bool, layout=None) -> Callable:
+    if layout is not None:
+        return build_train_step(model, loss_fn, optimizer, mixed_precision,
+                                layout)
     if lazy_specs:
         if fused:
             from analytics_zoo_tpu_torch.kernels.segment_update import \
@@ -741,6 +814,93 @@ def _opt_layout(optimizer) -> str:
     (FusedAdamState) differs from the stock optax chain's."""
     return "fused" if getattr(optimizer, "fused_apply", None) is not None \
         else "tree"
+
+
+# ---------------------------------------------------------------------------
+# The distributed fit (JAX L183, L581-594, L1126-1200, L1316-1398)
+# ---------------------------------------------------------------------------
+def check_global_batch(batch_size: int, dp: int, fsdp: int = 1) -> None:
+    """`dp` is the full batch-splitting extent (data × fsdp — BOTH are
+    batch axes, `common/mesh.BATCH_AXES`); `fsdp` names the fsdp part so
+    the error can say which axis the caller actually configured."""
+    if batch_size % dp != 0:
+        if fsdp > 1:
+            raise ValueError(
+                f"global batch_size ({batch_size}) must be a multiple of "
+                f"the batch-splitting extent {dp} = data ({dp // fsdp}) × "
+                f"fsdp ({fsdp}) — the fsdp axis splits the batch too "
+                f"(ZeRO-style sharding rides the data path). Use a "
+                f"batch_size that is a multiple of {dp}, or shrink the "
+                f"fsdp axis to a divisor of your batch.")
+        raise ValueError(
+            f"global batch_size ({batch_size}) must be a multiple of the "
+            f"data-parallel size ({dp}) — the reference's total-core-number "
+            f"contract (tf_dataset.py:142-147)")
+
+
+def _resolve_sharding_rules(sharding_rules, ctx):
+    """Normalize the fit's `sharding_rules` knob: None consults the
+    config passthrough (`ZooConfig.sharded_fit` / env ZOO_SHARDED_FIT),
+    True means the default transformer table, a `ShardingRules` passes
+    through. Returns a ShardingRules or None (replicated fit)."""
+    if sharding_rules is None and ctx is not None \
+            and getattr(ctx.config, "sharded_fit", False):
+        sharding_rules = True
+    if sharding_rules is True:
+        from analytics_zoo_tpu_torch.parallel.sharding import \
+            TRANSFORMER_RULES
+        return TRANSFORMER_RULES
+    if sharding_rules is False:
+        return None
+    return sharding_rules
+
+
+# an odd 64-bit constant: a rank's step seed is the drawn seed plus its
+# batch index times this (mod 2^62), so the ranks' dropout masks differ
+_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+class _Distributed:
+    """A fit over a process group: the mesh, the parameters' layout
+    (`ShardLayout`: every leaf replicated without sharding rules), whether
+    its steps may be captured (NCCL only) and its key."""
+
+    def __init__(self, mesh, rules, params: Dict[str, torch.Tensor]):
+        from analytics_zoo_tpu_torch.parallel.sharding import (
+            ShardingRules, ShardLayout, sharding_descriptor)
+        if rules is None:      # every leaf replicated
+            rules = ShardingRules([], fsdp_fallback=False)
+        self.mesh = mesh
+        self.layout = ShardLayout(params, mesh, rules)
+        self.graphs = mesh.backend == "nccl"
+        self.key = sharding_descriptor(mesh, rules)
+
+    def seeds(self, seeds: List[int]) -> List[int]:
+        i = self.mesh.batch_index
+        return [(s + i * _RANK_SEED_STRIDE) % 2 ** 62 for s in seeds]
+
+    def shard(self, model, params, opt_state):
+        """(masters, state): this rank's blocks of the sharded leaves (the
+        replicated leaves are the module's own parameters) and of their
+        moments; the module's tensors of the sharded leaves are emptied."""
+        masters = self.layout.shard(params)
+        opt_state = self.layout.shard(opt_state)
+        self.release(model)
+        return masters, opt_state
+
+    def release(self, model) -> None:
+        for name in self.layout.sharded:
+            p = model.get_parameter(name)
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    def restore(self, model, masters: Dict[str, torch.Tensor]) -> None:
+        """The whole parameters back into the module (a collective: every
+        rank calls it)."""
+        if not self.layout.sharded:
+            return
+        full = self.layout.gather_dict(masters)
+        for name in self.layout.sharded:
+            model.get_parameter(name).data = full[name].detach()
 
 
 def restore_training_state(model, optimizer, opt_state, gen: torch.Generator,
@@ -1106,8 +1266,11 @@ class _TrainEntry:
     programs read drops them, and they are captured again."""
 
     def __init__(self, model, optimizer, one_step, device: torch.device,
-                 discriminators: Dict[str, Any]):
+                 discriminators: Dict[str, Any], graphs: bool = True,
+                 sharding: str = ""):
         self.model = model
+        self.graphs = graphs
+        self.sharding = sharding
         self.optimizer = optimizer
         self.one_step = one_step
         self.device = device
@@ -1194,7 +1357,7 @@ class _TrainEntry:
                     tree_map(lambda a: a[i], prog.xs),
                     tree_map(lambda a: a[i], prog.ys)
                     if prog.ys is not None else None))
-        prog.program = TrainProgram(name, fn, self.device)
+        prog.program = TrainProgram(name, fn, self.device, self.graphs)
         self.programs[key] = prog
         return prog
 
@@ -1214,8 +1377,8 @@ class _TrainEntry:
                      dc_steps=dc.rows // dc.batch if dc is not None else 0,
                      shuffle=self.shuffle if dc is not None else None)
         return make_key("train", self.model_fp,
-                        abstract_signature(inputs), extra=extra,
-                        device=self.device)
+                        abstract_signature(inputs), sharding=self.sharding,
+                        extra=extra, device=self.device)
 
     def run(self, key: Tuple, n: int, seeds: List[int], group=None):
         """One run of the program `key` (made on its first run) over the
@@ -1255,7 +1418,8 @@ class _TrainEntry:
             with libraries():
                 prog.program.capture()
         if prog.source is None and (prog.program.graph is not None
-                                    or self.device.type != "cuda"):
+                                    or self.device.type != "cuda"
+                                    or not self.graphs):
             self._settle(prog)
         return prog.loss.clone()
 
@@ -1279,24 +1443,29 @@ class _TrainEntry:
 
 
 def _train_entry(model, fused_optimizer: Optional[bool],
-                 mixed_precision: bool, lazy_specs, device: torch.device
-                 ) -> _TrainEntry:
+                 mixed_precision: bool, lazy_specs, device: torch.device,
+                 dfit: Optional[_Distributed] = None) -> _TrainEntry:
     """The model's cached entry under the JAX `cache_key` (L1439-1447: the
-    compiled optimizer and loss, mixed precision, lazy tables, fused), or
-    a new one."""
+    compiled optimizer and loss, mixed precision, lazy tables, fused, the
+    sharding descriptor), or a new one."""
+    sharding = dfit.key if dfit is not None else ""
     key = (id(model.optimizer), id(model.loss), mixed_precision,
-           bool(lazy_specs), bool(fused_optimizer), str(device))
+           bool(lazy_specs), bool(fused_optimizer), str(device), sharding,
+           id(dfit.mesh) if dfit is not None else None)
     cached = model.__dict__.get("_train_cache")
     if cached is not None and cached[0] == key:
         return cached[1]
     optimizer = _resolve_fused(model, model.optimizer, fused_optimizer,
                                lazy_specs)
     one_step = _pick_one_step(model, model.loss, optimizer, mixed_precision,
-                              lazy_specs, bool(fused_optimizer))
+                              lazy_specs, bool(fused_optimizer),
+                              dfit.layout if dfit is not None else None)
     entry = _TrainEntry(model, optimizer, one_step, device, dict(
         loss=model.loss, optimizer=getattr(optimizer, "update", None),
         mixed_precision=mixed_precision, lazy=bool(lazy_specs),
-        fused=bool(fused_optimizer)))
+        fused=bool(fused_optimizer)),
+        graphs=dfit.graphs if dfit is not None else True,
+        sharding=sharding)
     model._train_cache = (key, entry)
     return entry
 
@@ -1334,20 +1503,86 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
     `prefetch_depth`, `flops_per_step`, `metrics_report_s`,
     `profile_steps`, `profile_dir`, `steps_per_run`, `device_cache` and
     `compile_cache_dir` are the JAX package's (the module docstring).
-    `distributed` is accepted (one device: nothing to distribute).
-    `fused_optimizer=None` means False (the port has no config file or
-    environment switch). `checkpoint_trigger`, `end_trigger`,
-    `auto_resume`, `step_retries` and `step_timeout_s` are the JAX
-    package's too."""
-    given = dict(sharding_rules=sharding_rules)
-    for name, (default, where) in _NOT_PORTED_ARGS.items():
-        value = given[name]
-        if (value is not None) if default is None else (value != default):
-            raise NotImplementedError(
-                f"fit_keras({name}=...) is not ported yet ({where})")
+    `distributed` and `sharding_rules` run the fit over the context's mesh
+    of ranks (the module docstring). `fused_optimizer=None` means False
+    (the port has no environment switch for it). `checkpoint_trigger`,
+    `end_trigger`, `auto_resume`, `step_retries` and `step_timeout_s` are
+    the JAX package's too."""
     if flat_optimizer:
         raise ValueError("flat_optimizer was retired in the JAX package; "
                          "use fused_optimizer=True")
+    from analytics_zoo_tpu_torch.common.context import current_context
+    ctx = current_context()
+    mesh = ctx.mesh if distributed and ctx is not None else None
+    shard_rules = _resolve_sharding_rules(sharding_rules, ctx)
+    if shard_rules is not None and mesh is None:
+        if sharding_rules is None:
+            # config-driven default (ZooConfig.sharded_fit) quietly
+            # steps aside for an explicitly non-distributed fit;
+            # only the explicit kwarg is a hard contradiction
+            shard_rules = None
+        elif not distributed:
+            raise ValueError(
+                "sharding_rules needs distributed=True (the rule "
+                "table shards over the context mesh); drop "
+                "distributed=False or the rules")
+        else:
+            # no context: the one-rank mesh a JAX local context on one
+            # device would give
+            from analytics_zoo_tpu_torch.common.mesh import DeviceMesh
+            mesh = DeviceMesh()
+    if shard_rules is not None:
+        if lazy_embeddings:
+            raise NotImplementedError(
+                "sharding_rules is incompatible with lazy_embeddings: "
+                "the per-table state re-packs the parameter tree the "
+                "rule table is written against")
+        if mesh.size("fsdp") == 1 and mesh.size("tensor") == 1:
+            log.warning(
+                "sharding_rules requested but the mesh has fsdp=1 and "
+                "tensor=1 (%s): params/opt_state will be fully "
+                "replicated. Set the fsdp axis (e.g. "
+                "init_orca_context(data=1, fsdp=-1) or ZOO_MESH_FSDP) "
+                "to actually shard state.", mesh)
+    dp = mesh.data_parallel_size if mesh is not None else 1
+    check_global_batch(batch_size, dp,
+                       fsdp=mesh.size("fsdp") if mesh is not None else 1)
+    # Multi-process: `batch_size` stays GLOBAL (the reference's
+    # total-core contract); each process feeds its LOCAL data, sliced at
+    # global/process_count per step
+    n_proc = mesh.world if mesh is not None else 1
+    local_batch = batch_size
+    if n_proc > 1:
+        if batch_size % n_proc:
+            raise ValueError(
+                f"global batch_size ({batch_size}) must divide by the "
+                f"process count ({n_proc})")
+        if dp != n_proc:
+            raise NotImplementedError(
+                "Multi-process fit currently supports pure data-parallel "
+                "meshes (data×fsdp covering all ranks); got "
+                f"dp={dp} of {n_proc} ranks")
+        if batch_iter_factory is not None and not getattr(
+                batch_iter_factory, "shards_per_host", False):
+            # a streaming factory that does NOT declare per-host shard
+            # assignment would feed every process the same records
+            raise NotImplementedError(
+                "Multi-process fit over streaming datasets needs "
+                "per-host shard assignment: every process would feed "
+                "the same records. Use TPUDataset.from_tfrecord (which "
+                "shards files per host) or materialize a per-host "
+                "shard and pass arrays instead")
+        if device_cache is True:
+            raise NotImplementedError(
+                "device_cache=True is single-process only (each process "
+                "would pin the full global dataset); drop the flag for "
+                "multi-process fits")
+        local_batch = batch_size // n_proc
+    dist_fit = mesh is not None and mesh.distributed
+    if dist_fit and lazy_embeddings:
+        raise NotImplementedError(
+            "lazy_embeddings in a fit over a process group: the row-sparse "
+            "step has no collective yet (ROADMAP item 7b)")
     if steps_per_run < 1:
         raise ValueError(f"steps_per_run must be >=1, got {steps_per_run}")
     profiler = None
@@ -1367,20 +1602,29 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             "device_cache=True needs in-memory arrays; streaming input "
             "(batch_iter_factory) has no host copy to keep on the device")
     use_device_cache = not streaming and _device_cache_eligible(
-        x, y, None, 1, device_cache, checkpoint_trigger=checkpoint_trigger,
-        end_trigger=end_trigger)
+        x, y, mesh, n_proc, device_cache,
+        checkpoint_trigger=checkpoint_trigger, end_trigger=end_trigger)
     if batch_iter_factory is None:
         n = _tree_len(x)
-        if n < batch_size:
+        if n_proc > 1:
+            # unequal shards would desync the per-step collectives; gather
+            # the counts BEFORE any local raise (a rank bailing early would
+            # strand the others inside this very collective)
+            counts = mesh.all_gather_ints([n])[:, 0]
+            if not (counts == counts[0]).all():
+                raise ValueError(
+                    "Every process must hold the same number of local "
+                    f"samples; got {counts.tolist()} across ranks")
+        if n < local_batch:
             raise ValueError(
-                f"Dataset has {n} samples but the batch is {batch_size}; "
+                f"Dataset has {n} samples but the batch is {local_batch}; "
                 "training batches are whole-batch only. Lower batch_size "
                 "or add data.")
         if not model.built:
             model.ensure_built(x, seed=seed)
 
         def batch_iter_factory(epoch):  # noqa: F811 — the default factory
-            return iter_batches(x, y, batch_size, shuffle=shuffle,
+            return iter_batches(x, y, local_batch, shuffle=shuffle,
                                 seed=seed + epoch)
     elif not model.built:
         try:
@@ -1402,8 +1646,27 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         lazy_specs = resolve_specs(model)
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
+    dfit = None
+    if dist_fit:
+        if n_proc > 1 and any(b.is_floating_point()
+                              for b in model.buffers()):
+            raise NotImplementedError(
+                "a multi-rank fit of a model with buffers (BatchNorm's "
+                "moving statistics): the JAX forward reduces them over "
+                "the global batch, a synchronised BatchNorm is not ported "
+                "(ROADMAP item 7b)")
+        if shard_rules is not None:
+            from analytics_zoo_tpu_torch.parallel.sharding import \
+                check_fsdp_divisibility
+            # fail at config time, not at OOM time
+            check_fsdp_divisibility(params, mesh, shard_rules)
+        dfit = _Distributed(mesh, shard_rules, params)
+        if not dfit.graphs and device.type == "cuda":
+            log.info("fit over %s ranks by %s: its steps run eagerly (a "
+                     "CUDA graph cannot hold gloo's collectives)",
+                     mesh.world, mesh.backend)
     entry = _train_entry(model, fused_optimizer, mixed_precision, lazy_specs,
-                         device)
+                         device, dfit)
     optimizer = entry.optimizer
     if lazy_specs:
         from analytics_zoo_tpu_torch.learn.lazy_embedding import init_state
@@ -1425,9 +1688,11 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             opt_state, meta = resumed
             start_epoch = int(meta.get("epoch", 0))
             iteration = int(meta["iteration"])
+    if dfit is not None:
+        params, opt_state = dfit.shard(model, params, opt_state)
     entry.adopt(params, opt_state)
     if use_device_cache:
-        _device_cached_data(model, entry, x, y, batch_size)
+        _device_cached_data(model, entry, x, y, local_batch)
     entry.check_storage()
     entry.cache = None
     if compile_cache_dir is not None:
@@ -1443,7 +1708,9 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             CheckpointManager, write_publish_marker)
         from analytics_zoo_tpu_torch.serving.quantization import \
             write_int8_sidecar
-        ckpt_mgr = CheckpointManager(ckpt_path)
+        if dfit is None or mesh.rank == 0:
+            # only rank 0 writes and publishes
+            ckpt_mgr = CheckpointManager(ckpt_path)
         if checkpoint_trigger is None:
             checkpoint_trigger = tg.EveryEpoch()
 
@@ -1460,6 +1727,10 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                                    writer=writer).start()
     if resumed is not None:
         telemetry.resumes.inc()
+    telemetry.graphs.set(1.0 if device.type == "cuda" and entry.graphs
+                         else 0.0)
+    telemetry.state_bytes.set(float(
+        _tensor_bytes(entry.params) + _tensor_bytes(entry.state)))
 
     # the counted roofline: one harvest per (step kind, input signature),
     # memoized on the model (`compile` clears it)
@@ -1520,9 +1791,26 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         would quantize at load is not the one meant to be published); then
         the publish marker, the last act (a failure there leaves the
         version resumable but unpublished)."""
-        tree = convert.state_to_jax(model.state_dict(), model)
+        if dfit is not None:
+            # every rank gathers; rank 0 writes while the others wait
+            full = dfit.layout.gather_dict(entry.params)
+            state_dict = {k: full.get(k, v)
+                          for k, v in model.state_dict().items()}
+            opt_state = dfit.layout.gather(entry.state)
+            if ckpt_mgr is None:
+                mesh.barrier()
+                return
+            try:
+                _ckpt_write(extra, state_dict, opt_state)
+            finally:
+                mesh.barrier()
+            return
+        _ckpt_write(extra, model.state_dict(), entry.state)
+
+    def _ckpt_write(extra, state_dict, opt_state) -> None:
+        tree = convert.state_to_jax(state_dict, model)
         ckpt_mgr.save(iteration, tree,
-                      convert.opt_layout_to_jax(optimizer, entry.state,
+                      convert.opt_layout_to_jax(optimizer, opt_state,
                                                 model, lazy=bool(lazy_specs)),
                       extra=extra)
         if int8_sidecar:
@@ -1556,6 +1844,8 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             losses = []   # device tensors; read once at the end of the epoch
             clock.start()
 
+            coll0 = _collective_totals()
+
             def draw(k: int) -> List[int]:
                 return [int(torch.randint(0, 2 ** 62, (1,), generator=gen))
                         for _ in range(k)]
@@ -1566,18 +1856,20 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                 # boundary only, as in the JAX package (L1701-1712)
                 dc = entry.dc
                 batches = None
-                dc.start_epoch(_epoch_order(_tree_len(x), batch_size,
+                dc.start_epoch(_epoch_order(_tree_len(x), local_batch,
                                             shuffle, seed + epoch))
                 for at in range(0, dc.steps, steps_per_run):
                     k = min(steps_per_run, dc.steps - at)
                     seeds = draw(k)
+                    if dfit is not None:
+                        seeds = dfit.seeds(seeds)
                     _profile_tick(iteration)
                     loss = _step_with_watchdog(
                         entry.run, (("device", k), k, seeds),
                         step_retries, step_timeout_s,
                         telemetry.step_retries, iteration, device)
                     iteration += k
-                    n_seen += k * batch_size
+                    n_seen += k * local_batch
                     losses.append(loss)
             else:
                 source = batch_iter_factory(epoch)
@@ -1596,6 +1888,8 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                         _await_upload(uploaded, (xb, yb), device)
                     k = len(group)
                     seeds = draw(k)
+                    if dfit is not None:
+                        seeds = dfit.seeds(seeds)
                     _profile_tick(iteration)
                     key = ("host", k, _StepCostTracker._sig(
                         (group[0][0], group[0][1])))
@@ -1613,7 +1907,7 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
                     state = tg.TriggerState(epoch=epoch,
                                             iteration=iteration,
                                             loss=loss[-1])
-                    if checkpoint_trigger and ckpt_mgr and \
+                    if checkpoint_trigger and ckpt_path and \
                             checkpoint_trigger(state):
                         _ckpt_save(_ckpt_extra(epoch, False))
                     if end_trigger and end_trigger(state):
@@ -1633,6 +1927,11 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             input_wait_s = batches.wait_s \
                 if isinstance(batches, _Prefetcher) else 0.0
             telemetry.input_bound.set(min(1.0, input_wait_s / max(dt, 1e-9)))
+            if dfit is not None:
+                coll = _collective_totals()
+                telemetry.collective_ms.set(
+                    (coll[0] - coll0[0]) * 1e3 / max(iteration - it0, 1))
+                telemetry.host_staged.inc(coll[1] - coll0[1])
             get_accountant().account_stall("train", input_wait_s)
             if cost_tracker.calls:
                 telemetry.roofline(cost_tracker.flops, cost_tracker.bytes,
@@ -1648,8 +1947,12 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
 
             if validation_data is not None:
                 vx, vy = validation_data
+                if dfit is not None:
+                    dfit.restore(model, entry.params)
                 val = evaluate_keras(model, vx, vy,
                                      batch_per_thread=max(batch_size, 1))
+                if dfit is not None:
+                    dfit.release(model)
                 for k, v in val.items():
                     history.setdefault("val_" + k, []).append(v)
                     telemetry.val.set(v, name=k)
@@ -1659,7 +1962,7 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             # epoch-boundary checkpoint trigger (EveryEpoch semantics)
             state = tg.TriggerState(epoch=epoch + 1, iteration=iteration,
                                     epoch_finished=True)
-            if checkpoint_trigger and ckpt_mgr and checkpoint_trigger(state):
+            if checkpoint_trigger and ckpt_path and checkpoint_trigger(state):
                 _ckpt_save(_ckpt_extra(epoch + 1, True))
             if end_trigger and end_trigger(state):
                 break
@@ -1669,7 +1972,12 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         # leave an emergency checkpoint so auto_resume (or an operator)
         # can continue; skipped when this iteration is already on disk (an
         # emergency save would demote a boundary checkpoint's meta)
-        if ckpt_mgr is not None and iteration > 0 \
+        if dfit is not None and mesh.world > 1:
+            log.warning("a fit across %d ranks failed at iteration %d: no "
+                        "emergency checkpoint (it would need every rank); "
+                        "the last periodic checkpoint is the resume point",
+                        mesh.world, iteration)
+        elif ckpt_mgr is not None and iteration > 0 \
                 and iteration not in ckpt_mgr._saved:
             try:
                 _ckpt_save(dict(_ckpt_extra(epoch, False), emergency=True))
@@ -1682,6 +1990,8 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
         raise
     finally:
         _close(batches)
+        if dfit is not None:
+            dfit.restore(model, entry.params)
         if profiler is not None and profile_state["active"]:
             # a fit that ends (or dies) inside the window still leaves a
             # finished, loadable artifact behind
@@ -1698,6 +2008,19 @@ def fit_keras(model, x, y=None, batch_size: int = 32, epochs: int = 1,
             writer.close()
         entry.cost = None
     return history
+
+
+def _collective_totals() -> Tuple[float, int]:
+    """(host seconds, host-staged calls) of the mesh's collectives so far."""
+    from analytics_zoo_tpu_torch.common.mesh import collective_stats
+    stats = collective_stats().values()
+    return (sum(v["seconds"] for v in stats),
+            sum(v["host_staged"] for v in stats))
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
 
 
 def program_sources(model) -> List[Dict[str, str]]:

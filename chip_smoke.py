@@ -16,7 +16,9 @@ window), time the prefetch thread on ResNet-50, serve a fleet of BERT-base
 engines started by the serving CLI behind its HTTP gateway (heartbeats,
 fleet metrics, merged traces, a live rollout, a killed engine) and a
 generative engine streaming by SSE, train the ImageNet model from TFRecord
-shards streamed through the data layer, and print what it measured.
+shards streamed through the data layer, train BERT-base sharded over two
+ranks (with ring attention and a pipeline over the same ranks, and the
+graphed step over NCCL at one rank), and print what it measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -98,14 +100,15 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    (a batch dispatched before it answers with the old weights, the next
    as an eager forward with the new, no capture, no build) and a
    "restructured" one to int8, two graphed replicas on one card against
-   one, eager and graphed, pipelined at 8, and `cli start` with an empty
-   `--compile-cache-dir` and build directory (nvcc builds, every bucket
-   "compiled", seconds to the first answer); then
+   one, eager and graphed, pipelined at 8, and `cli start` of the fleet's
+   model (`FLEET_BERT`: BERT-base's widths at 4 of its 12 blocks) with
+   an empty `--compile-cache-dir` and build directory (nvcc
+   builds, every bucket "compiled", seconds to the first answer); then
    the fleet (`phase_fleet_serving`), as a user starts it, its engines
    restarting warm from that cache (nvcc 0 times, every bucket "cached")
    and its generative engine rebuilding the one entry whose byte was
    flipped: a `cli
-   gateway` and two `cli start` engines of the same BERT-base in
+   gateway` and two `cli start` engines of that model in
    processes of their own over the port's `MiniRedisServer`, heartbeats
    every 0.5 s, fleet metrics, every request traced, rollout from a
    `CheckpointManager` run dir: 50 `POST /predict` with one in flight
@@ -305,9 +308,30 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    corpus through the example's parse chain (2 steps of batch 64) and 8
    `image=` JPEG requests through `ClusterServing` against the direct
    forward (5e-4, same argmax);
-30. the seconds of every phase, and the run's;
-31. a `kernels` line listing every kernel of the port;
-32. the last line, `{"ok": true, "device": {...}}`.
+30. the distributed slice (`phase_distributed`): the collective routes;
+   a one-process BERT-base fit (seq 512, global batch 32, bf16, fused
+   AdamW, dropout 0, 4 steps) here, then one
+   `launch_local_cluster(platform="cuda")` of 2 ranks on the one card over
+   gloo (NCCL refuses two ranks on one device) whose workers run
+   `init_orca_context(data=1, fsdp=2)` and the same fit with
+   `sharding_rules=True`, each rank fed its half of every global batch:
+   losses against the one-process fit (`DIST_LOSS_TOL`), each rank's
+   parameter and optimizer-state bytes against the replicated fit's
+   (about half), launches a step per rank (12 flash forward, 12 dK/dV, 12
+   dQ, 1 fused Adam) and one step with dropout 0.1 (the dropout kernel),
+   the collectives' calls, host seconds and host-staged copies; ring
+   attention at seq 2048 split over the 2 ranks (BERT-base heads, a
+   padding mask, f32 and bf16) against the one-process flash kernels at
+   full length, forward and gradients, and against the ring's plain path,
+   with each rank's flash launches; 12 BERT-base blocks as 2 pipeline
+   stages over 4 microbatches against the sequential stack, forward and
+   gradients; then `zoo-launch --nproc 1` of this script
+   (`--nccl-leg`): `init_orca_context(cluster_mode="multi-host")` over
+   NCCL, the graphed BERT-base fit with its gradient all-reduce, bitwise
+   the non-distributed graphed fit under deterministic algorithms;
+31. the seconds of every phase, and the run's;
+32. a `kernels` line listing every kernel of the port;
+33. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -477,10 +501,10 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: int = 3) -> float:
     """Mean device ms per call over `reps` calls, by CUDA events, after
-    three warm calls."""
-    for _ in range(3):
+    `warm` warm calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -493,16 +517,16 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, warm: int = 3):
     """(ms, "profiler" | "graph"): the mean device time per call and how
     it was taken. "profiler": the time of every CUDA kernel and copy
-    `torch.profiler` records over `reps` calls (after three warm ones),
+    `torch.profiler` records over `reps` calls (after `warm` warm ones),
     summed. For calls whose kernels are shorter than their host-side
     launch, CUDA events around a run of calls measure the host's launch
     rate instead; this measures the kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     # Now and then a profiling window records no device activity at all,
@@ -2115,7 +2139,7 @@ def _graph_cold_start(card, model_dir, want_row, row, root):
     from analytics_zoo_tpu_torch.compile_cache import store as ccstore
     from analytics_zoo_tpu_torch.serving.broker import connect_broker
     from analytics_zoo_tpu_torch.serving.redis_server import MiniRedisServer
-    cfg = BERT_BASE
+    cfg = FLEET_BERT
     conf = "".join(f"    {k}: {v}\n" for k, v in cfg.items())
     redis = MiniRedisServer().start()
     cfg_path = os.path.join(root, "bert_cold.yaml")
@@ -2204,10 +2228,14 @@ def phase_graphs(card: str, seed: int):
     tmp = tempfile.mkdtemp(prefix="graph_smoke_")
     ok = False
     try:
-        # the weights `cli start` serves
+        # the weights `cli start` serves: the fleet's model
         model_dir = os.path.join(tmp, "model")
         os.makedirs(model_dir)
-        base.save_weights(os.path.join(model_dir, "weights"))
+        fleet_model = BERTClassifier(NUM_CLASSES, use_flash=True,
+                                     device="cuda", **FLEET_BERT)
+        fleet_model.load_state_dict(convert.params_from_jax(
+            random_classifier_tree(FLEET_BERT, NUM_CLASSES, seed)))
+        fleet_model.save_weights(os.path.join(model_dir, "weights"))
         cc = CompileCache(os.path.join(tmp, "cc"),
                           registry=MetricsRegistry())
         legs = {}
@@ -2224,7 +2252,8 @@ def phase_graphs(card: str, seed: int):
         torch.cuda.empty_cache()
         replicas = _graph_replicas(card, base, e32, g32, requests, cc)
         # `cli start` serves ids-only rows, as the Cluster Serving phase
-        want_row = e32.predict(check[0][:1])[0]
+        want_row = fleet_model.predict(check[0][:1])[0]
+        del fleet_model
         swaps = _graph_swaps(card, g32, state, requests, check, seed)
         del g32, e32
         torch.cuda.empty_cache()
@@ -2246,6 +2275,11 @@ def phase_graphs(card: str, seed: int):
             "cache_root": tmp, "cache_dir": cold["cache_dir"]}
 
 
+# the model of the cold `cli start` and of the fleet: BERT-base's widths
+# at a third of its depth (4 of 12 blocks), cut to pay for the
+# distributed phase: its weights file (written, read and CRC-checked by
+# every engine start and rollout) falls from 438 MB to about 210 MB
+FLEET_BERT = dict(BERT_BASE, n_block=4)
 FS_ROWS = 32                # distinct id rows (each held against v1 and v2)
 FS_SINGLE = 50              # gateway requests with one in flight
 FS_BURST = 24               # requests in flight when an engine is killed
@@ -2625,7 +2659,7 @@ def _inprocess_leg(cfg_path, url, rows, want, tol, card):
         gc.collect()
     launches = counts.get(fa.KERNEL_NAME, 0)
     live = snap["cuda:0"]["live_bytes"]
-    ok = (launches == BERT_BASE["n_block"] * forwards and forwards >= 1
+    ok = (launches == FLEET_BERT["n_block"] * forwards and forwards >= 1
           and builds_after == builds and live == allocated
           and snap["cuda:0"]["source"] == "memory_stats")
     out = {"phase": "fleet_inprocess", "requests": FS_INPROC,
@@ -2670,7 +2704,7 @@ def phase_fleet_serving(card: str, seed: int, graphs=None):
         raise SystemExit("chip_smoke: the card is in Exclusive_Process "
                          "compute mode; two engine processes cannot share "
                          "it")
-    cfg, T = BERT_BASE, BERT_BASE["seq_len"]
+    cfg, T = FLEET_BERT, FLEET_BERT["seq_len"]
     tol = LOGIT_TOL["float32"]
     tmp = tempfile.mkdtemp(prefix="fleet_smoke_")
     children, codes = {}, {}
@@ -2943,7 +2977,7 @@ def phase_fleet_serving(card: str, seed: int, graphs=None):
         emit({"phase": "fleet_engine_b_counts", "counts": child_launch,
               "card": card})
         if child_launch is None or child_launch["flash_launches"] != \
-                BERT_BASE["n_block"] * (child_launch["dispatches"]
+                FLEET_BERT["n_block"] * (child_launch["dispatches"]
                                         + 2 * swaps_b) or \
                 child_launch["builds_start"]["compiles"] != \
                 child_launch["builds_stop"]["compiles"]:
@@ -6235,7 +6269,10 @@ def recurrent_yardstick(card: str, seed: int):
     yardstick and never called by the port. Times by CUDA events (the
     port's loop is host-bound, so its events read the wall) and the
     port's device time under torch.profiler; the bound counts the input
-    and recurrent GEMMs (backward 2x the forward)."""
+    and recurrent GEMMs (backward 2x the forward). The port's host-bound
+    loop is timed over one call after one warm call (cut from 3 and 3 to
+    pay for the distributed phase; a call took 54-533 ms on an NVIDIA
+    H100 80GB HBM3 at 700 W)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     B, T, E, H = TXT_BATCH, TXT_SEQ, TXT_EMBED, TXT_HIDDEN
@@ -6272,10 +6309,12 @@ def recurrent_yardstick(card: str, seed: int):
             row = {"phase": "recurrent_yardstick", "label":
                    RNN_YARDSTICK_LABEL, "cell": cell,
                    "dtype": str(dtype)[6:], "shape": [B, T, E, H],
-                   "port_fwd_ms": time_ms(port_fwd, 3),
-                   "port_fwd_device_ms": device_ms(port_fwd, 1)[0],
-                   "port_fwd_bwd_ms": time_ms(port_fwd_bwd, 3),
-                   "port_fwd_bwd_device_ms": device_ms(port_fwd_bwd, 1)[0],
+                   "port_fwd_ms": time_ms(port_fwd, 1, warm=1),
+                   "port_fwd_device_ms": device_ms(port_fwd, 1,
+                                                   warm=1)[0],
+                   "port_fwd_bwd_ms": time_ms(port_fwd_bwd, 1, warm=1),
+                   "port_fwd_bwd_device_ms": device_ms(port_fwd_bwd, 1,
+                                                       warm=1)[0],
                    "library": f"torch.nn.{lib_cls.__name__}",
                    "library_on_cudnn": torch.backends.cudnn.is_acceptable(x),
                    "library_fwd_ms": time_ms(lib_fwd, 10),
@@ -8403,6 +8442,425 @@ def _imagenet_tfrecord(card: str, seed: int, in_memory_step_ms: float,
             "idle_share": (1.0 - dev / step_ms) if dev else None}
 
 
+# ---------------------------------------------------------------------------
+# the distributed slice (`phase_distributed`): 2 gloo ranks on the card,
+# NCCL at world size 1
+# ---------------------------------------------------------------------------
+DIST_RANKS = 2
+DIST_BATCH = 32             # the global batch: 16 rows a rank
+DIST_STEPS = 4
+DIST_RING = (4, 12, 2048, 64)   # B, H, T, D: T split over the 2 ranks
+DIST_PIPE = (2, 4, 8)       # stages, microbatches, rows (2 a microbatch)
+DIST_NCCL_STEPS = 4
+# the sharded bf16 fit against the one-process fit, 4 steps, dropout 0:
+# the same kernels and weights, but each rank's GEMMs run over 16 rows
+# (cuBLAS may tile them otherwise) and its bf16 weight gradients are
+# rounded per half batch before the f32 mean; the same rounding argument
+# and bound as the kernel-vs-plain check (`BF16_LOSS_TOL`)
+DIST_LOSS_TOL = BF16_LOSS_TOL
+# the ring's blocks against the one-process flash kernels at full length,
+# each error relative to the largest magnitude of the compared tensor:
+# f32 SIMT blocks merged in f32 by lse (a few ulps); bf16 blocks return O
+# rounded to bf16 (2^-9 relative) before the f32 merge, which is rounded
+# again, and the backward adds the blocks' bf16 dQ / dK / dV in f32: a
+# few bf16 ulps of the largest value
+DIST_RING_TOL = {torch.float32: {"o": 1e-5, "grad": 1e-4},
+                 torch.bfloat16: {"o": 2e-2, "grad": 3e-2}}
+# the pipeline against the sequential stack: the same blocks on the same
+# microbatches (f32, exact copies between the stages)
+DIST_PIPE_TOL = 1e-5
+
+
+def _dist_global_data(seed: int):
+    rs = np.random.default_rng(seed + 70)
+    return make_training_data(rs, DIST_BATCH * DIST_STEPS, BERT_BASE)
+
+
+def _dist_rows(index: int, n: int):
+    """The rows of the global data rank `index` of `n` feeds: its half of
+    every global batch."""
+    share = DIST_BATCH // n
+    return np.concatenate([np.arange(b * DIST_BATCH + index * share,
+                                     b * DIST_BATCH + (index + 1) * share)
+                           for b in range(DIST_STEPS)])
+
+
+def _dist_fit(model, data, steps: int, warm: bool = False, **kw):
+    """A bf16 fused-AdamW fit of `model` on `data`: `steps` steps, one an
+    epoch, step e on the e-th block of `len(y) / steps` rows (this rank's
+    share of the e-th global batch), so the history holds every step's
+    loss: (losses, host seconds a step, every kernel count of the fit,
+    counted from 0 just before it). With `warm`, a second fit of the same
+    data follows, and the seconds a step are its (the first step of a fit
+    harvests its counted cost and, on NCCL or without a process group,
+    captures its program)."""
+    model.compile(optimizer=optimizers.fused_adam(
+        learning_rate=ADAM_HP["lr"], b1=ADAM_HP["b1"], b2=ADAM_HP["b2"],
+        eps=ADAM_HP["eps"], weight_decay=ADAM_HP["weight_decay"]),
+        loss=objectives.get("sparse_categorical_crossentropy",
+                            from_logits=True))
+    from analytics_zoo_tpu_torch.learn import trainer
+    rows = len(data["y"]) // steps
+
+    def batches(epoch):
+        at = slice(epoch * rows, (epoch + 1) * rows)
+        return iter([([a[at] for a in data["x"]], data["y"][at], rows)])
+    # each rank reads its own rows
+    batches.shards_per_host = True
+
+    def fit():
+        t0 = time.perf_counter()
+        h = trainer.fit_keras(model, None, None, batch_size=DIST_BATCH,
+                              epochs=steps, batch_iter_factory=batches,
+                              mixed_precision=True, prefetch=False, **kw)
+        torch.cuda.synchronize()
+        return h["loss"], (time.perf_counter() - t0) / steps
+    LAUNCHES.reset()
+    losses, step_s = fit()
+    counts = LAUNCHES.snapshot()
+    if warm:
+        step_s = fit()[1]
+    return losses, step_s, counts
+
+
+def _ring_leg(mesh, dtype, seed: int) -> dict:
+    """The ring on this rank's block of a seq-2048 input against the
+    one-process flash kernels at full length (its gradients too) and
+    against the ring's plain path on the card."""
+    from analytics_zoo_tpu_torch.parallel import ring_attention as ra
+    B, H, T, D = DIST_RING
+    g = torch.Generator().manual_seed(seed + 80)
+    q, k, v, do = (torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
+                   for _ in range(4))
+    lengths = torch.tensor([T, T * 7 // 8, T * 5 // 8, T // 3])[:B]
+    mask = padding_mask(lengths, T).view(B, T).cuda()
+    n, i = mesh.size("sequence"), mesh.coordinate("sequence")
+    sl = slice(i * (T // n), (i + 1) * (T // n))
+    ql, kl, vl = (t[:, :, sl].contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ml = mask[:, sl].contiguous()
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ra.ring_attention(ql, kl, vl, ml, mesh=mesh)
+    o.backward(do[:, :, sl])
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    # the one-process flash kernels at full length
+    qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+    of = fa.flash_attention(qf, kf, vf, mask[:, None, None].contiguous())
+    of.backward(do)
+    # the ring's plain path (the JAX body's einsum online softmax)
+    qp, kp, vp = (t[:, :, sl].contiguous().requires_grad_()
+                  for t in (q, k, v))
+    op = ra._ring_plain(qp, kp, vp, ml, mesh, "sequence")
+    op.backward(do[:, :, sl])
+    tol = DIST_RING_TOL[dtype]
+
+    def err(a, b):
+        """max |a - b| over max |b|"""
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+    row = {"dtype": str(dtype).replace("torch.", ""), "shape": DIST_RING,
+           "block": [B, H, T // n, D], "launches": counts,
+           "ring_fwd_bwd_s": ring_s,
+           "o_err": err(o, of[:, :, sl]),
+           "dq_err": err(ql.grad, qf.grad[:, :, sl]),
+           "dk_err": err(kl.grad, kf.grad[:, :, sl]),
+           "dv_err": err(vl.grad, vf.grad[:, :, sl]),
+           "plain_o_err": err(o, op),
+           "plain_grad_err": max(err(a.grad, b.grad) for a, b in
+                                 ((ql, qp), (kl, kp), (vl, vp))),
+           "tol": tol}
+    row["ok"] = (row["o_err"] <= tol["o"] and row["plain_o_err"] <= tol["o"]
+                 and max(row["dq_err"], row["dk_err"], row["dv_err"],
+                         row["plain_grad_err"]) <= tol["grad"]
+                 and counts.get(fa.KERNEL_NAME, 0) == n
+                 and counts.get(fa.BWD_DKV_NAME, 0) == n
+                 and counts.get(fa.BWD_DQ_NAME, 0) == n)
+    return row
+
+
+def _pipeline_leg(mesh, seed: int) -> dict:
+    """12 BERT-base blocks as 2 stages of 6 over 4 microbatches, f32,
+    against the sequential stack on the same microbatches: outputs and the
+    blocks' gradients."""
+    from torch.func import functional_call
+    from analytics_zoo_tpu_torch.keras.transformer import \
+        TransformerEncoderBlock
+    from analytics_zoo_tpu_torch.parallel.pipeline import (
+        from_microbatches, pipeline_apply, to_microbatches)
+    S, M, rows = DIST_PIPE
+    cfg = BERT_BASE
+    per = cfg["n_block"] // S
+    torch.manual_seed(seed + 90)
+    blocks = [TransformerEncoderBlock(
+        cfg["hidden_size"], cfg["n_head"], cfg["intermediate_size"],
+        hidden_dropout=0.0, attn_dropout=0.0, use_flash=True, device="cuda",
+        name=f"pipe_block{j}").build(torch.Generator().manual_seed(seed + j))
+        for j in range(cfg["n_block"])]
+    names = [n for n, _ in blocks[0].named_parameters()]
+    template = blocks[0]
+    stacked = {f"b{j}.{n}": torch.stack([
+        dict(blocks[s * per + j].named_parameters())[n].detach()
+        for s in range(S)]).requires_grad_()
+        for j in range(per) for n in names}
+
+    def stage_fn(p, x):
+        for j in range(per):
+            x = functional_call(template, {n: p[f"b{j}.{n}"] for n in names},
+                                (x,))
+        return x
+
+    g = torch.Generator().manual_seed(seed + 91)
+    x = torch.randn(rows, 256, cfg["hidden_size"], generator=g).cuda()
+    mbs = to_microbatches(x, M)
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipeline_apply(stage_fn, stacked, mbs, mesh)
+    (y ** 2).mean().backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    grads = {k: mesh.all_reduce(v.grad.clone(), ("pipeline",))
+             for k, v in stacked.items()}
+    # the sequential stack on the same microbatches
+    ref_params = {k: v.detach().clone().requires_grad_()
+                  for k, v in stacked.items()}
+    outs = []
+    for mb in mbs:
+        h = mb
+        for s in range(S):
+            h = stage_fn({k: v[s] for k, v in ref_params.items()}, h)
+        outs.append(h)
+    y_ref = torch.stack(outs)
+    (y_ref ** 2).mean().backward()
+    y_err = (from_microbatches(y.detach()) - from_microbatches(
+        y_ref.detach())).abs().max().item()
+    g_err = max(((grads[k] - ref_params[k].grad).abs().max()
+                 / ref_params[k].grad.abs().max().clamp_min(1e-30)).item()
+                for k in stacked)
+    return {"stages": S, "microbatches": M, "rows": rows, "seq": 256,
+            "blocks_per_stage": per, "launches": counts, "fwd_bwd_s": pipe_s,
+            "y_err": y_err, "grad_rel_err": g_err, "tol": DIST_PIPE_TOL,
+            "ok": y_err <= DIST_PIPE_TOL and g_err <= DIST_PIPE_TOL}
+
+
+def dist_worker(out: str, seed: str):
+    """One rank of `phase_distributed`'s gloo group on the card: the
+    sharded BERT-base fit (leg A), the ring (leg B) and the pipeline (leg
+    C); its results into `<out>/rank<r>.json`."""
+    from analytics_zoo_tpu_torch.common import mesh as mesh_mod
+    from analytics_zoo_tpu_torch.common.context import init_orca_context
+    from analytics_zoo_tpu_torch.common.mesh import DeviceMesh
+    from analytics_zoo_tpu_torch.common.config import MeshConfig
+    from analytics_zoo_tpu_torch.observability.registry import get_registry
+    seed = int(seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = init_orca_context(data=1, fsdp=DIST_RANKS)
+    mesh = ctx.mesh
+    r = mesh.rank
+    res = {"rank": r, "backend": mesh.backend, "device": str(mesh.device),
+           "mesh": repr(mesh), "routes": mesh.routes()}
+    # leg A: the sharded fit, this rank's half of every global batch
+    data = _dist_global_data(seed)
+    rows = _dist_rows(mesh.batch_index, mesh.data_parallel_size)
+    local = {"x": [a[rows] for a in data["x"]], "y": data["y"][rows]}
+    state = convert.params_from_jax(random_classifier_tree(
+        BERT_BASE, NUM_CLASSES, seed))
+    mesh_mod.reset_collective_stats()
+    model = new_model(state, hidden_drop=0.0, attn_drop=0.0, dropout=0.0)
+    losses, step_s, counts = _dist_fit(model, local, DIST_STEPS, warm=True,
+                                       sharding_rules=True)
+    reg = get_registry()
+    res["fit"] = {"losses": losses, "step_ms": step_s * 1e3,
+                  "launches": counts,
+                  "state_bytes": reg.gauge(
+                      "training_state_bytes_per_rank").value(),
+                  "graphs": reg.gauge("training_step_graphs").value(),
+                  "collective_ms_per_step": reg.gauge(
+                      "training_collective_ms").value(),
+                  "collectives": mesh_mod.collective_stats()}
+    del model
+    model = new_model(state, hidden_drop=0.1, attn_drop=0.1, dropout=0.1)
+    one = {"x": [a[:DIST_BATCH // DIST_RANKS] for a in local["x"]],
+           "y": local["y"][:DIST_BATCH // DIST_RANKS]}
+    d_losses, _, d_counts = _dist_fit(model, one, 1, sharding_rules=True)
+    res["dropout_step"] = {"loss": d_losses, "launches": d_counts}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # leg B: the ring on a sequence axis of 2 over the same ranks
+    mesh_mod.reset_collective_stats()
+    ring_mesh = DeviceMesh(MeshConfig(data=1, sequence=DIST_RANKS),
+                           device=mesh.device)
+    res["ring"] = [_ring_leg(ring_mesh, dt, seed)
+                   for dt in (torch.float32, torch.bfloat16)]
+    res["ring_collectives"] = mesh_mod.collective_stats()
+    # leg C: the pipeline on a pipeline axis of 2
+    mesh_mod.reset_collective_stats()
+    pipe_mesh = DeviceMesh(MeshConfig(data=1, pipeline=DIST_RANKS),
+                           device=mesh.device)
+    res["pipeline"] = _pipeline_leg(pipe_mesh, seed)
+    res["pipeline_collectives"] = mesh_mod.collective_stats()
+    with open(os.path.join(out, f"rank{r}.json"), "w") as fh:
+        json.dump(res, fh, default=str)
+
+
+def nccl_leg(out: str, seed: int) -> None:
+    """Leg D, run by `zoo-launch --nproc 1` as its script: the graphed
+    BERT-base step with its gradient all-reduce over NCCL at world size 1
+    against the non-distributed graphed fit, bitwise, under deterministic
+    algorithms."""
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.common import mesh as mesh_mod
+    from analytics_zoo_tpu_torch.learn import trainer
+    from analytics_zoo_tpu_torch.observability.registry import get_registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rs = np.random.default_rng(seed + 71)
+    data = make_training_data(rs, DIST_BATCH * DIST_NCCL_STEPS, BERT_BASE)
+    state = convert.params_from_jax(random_classifier_tree(
+        BERT_BASE, NUM_CLASSES, seed))
+    res = {}
+    model = new_model(state, hidden_drop=0.1, attn_drop=0.1, dropout=0.1)
+    res["plain_losses"], _, _ = _dist_fit(model, data, DIST_NCCL_STEPS)
+    res["plain_sources"] = trainer.program_sources(model)
+    want = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    ctx = zoo.init_orca_context(cluster_mode="multi-host")
+    mesh_mod.reset_collective_stats()
+    model = new_model(state, hidden_drop=0.1, attn_drop=0.1, dropout=0.1)
+    res["losses"], step_s, res["launches"] = _dist_fit(model, data,
+                                                       DIST_NCCL_STEPS)
+    res["step_ms"] = step_s * 1e3
+    res["sources"] = trainer.program_sources(model)
+    res["backend"] = ctx.mesh.backend
+    res["mesh"] = repr(ctx.mesh)
+    res["collectives"] = mesh_mod.collective_stats()
+    res["graphs"] = get_registry().gauge("training_step_graphs").value()
+    res["bitwise"] = res["losses"] == res["plain_losses"] and all(
+        torch.equal(v, want[k]) for k, v in model.state_dict().items())
+    zoo.stop_orca_context()
+    with open(out, "w") as fh:
+        json.dump(res, fh, default=str)
+
+
+def phase_distributed(card: str, seed: int) -> dict:
+    """The distributed slice on the one card: a 2-rank gloo group (NCCL
+    refuses two ranks on one device) runs the sharded BERT-base fit, the
+    ring and the pipeline; the one-process replicated fit of the same
+    weights and global batches runs here; then `zoo-launch --nproc 1` runs
+    the NCCL leg at world size 1."""
+    from analytics_zoo_tpu_torch.common import launch as zlaunch
+    from analytics_zoo_tpu_torch.common import mesh as mesh_mod
+    from analytics_zoo_tpu_torch.common.cluster import (launch_local_cluster,
+                                                        wait_all)
+    from analytics_zoo_tpu_torch.observability.registry import get_registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    repo = os.path.dirname(os.path.abspath(__file__))
+    emit({"phase": "distributed_routes", "card": card,
+          "routes": mesh_mod.route_table()})
+    # the one-process replicated fit of the same weights and global batches
+    data = _dist_global_data(seed)
+    state = convert.params_from_jax(random_classifier_tree(
+        BERT_BASE, NUM_CLASSES, seed))
+    model = new_model(state, hidden_drop=0.0, attn_drop=0.0, dropout=0.0)
+    ref_losses, ref_step_s, _ = _dist_fit(model, data, DIST_STEPS,
+                                          warm=True)
+    ref_bytes = get_registry().gauge("training_state_bytes_per_rank").value()
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="chip-dist-")
+    env = {"PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    wait_all(launch_local_cluster("chip_smoke:dist_worker", DIST_RANKS,
+                                  worker_args=[out, str(seed)], env=env,
+                                  platform="cuda"), timeout=600)
+    group_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json")))
+             for r in range(DIST_RANKS)]
+    # leg D: NCCL at world size 1, through the launcher a user runs
+    nccl_out = os.path.join(out, "nccl.json")
+    t0 = time.perf_counter()
+    rc = zlaunch.main(["--nproc", "1", "--timeout", "300",
+                       os.path.join(repo, "chip_smoke.py"),
+                       "--nccl-leg", nccl_out, "--seed", str(seed)])
+    nccl_s = time.perf_counter() - t0
+    nccl = json.load(open(nccl_out)) if rc == 0 else {"rc": rc}
+    shutil.rmtree(out, ignore_errors=True)
+
+    fails = []
+    for res in ranks:
+        fit = res["fit"]
+        err = max(abs(a - b) for a, b in zip(fit["losses"], ref_losses))
+        per_step = {k: v / DIST_STEPS for k, v in fit["launches"].items()}
+        fit.update(loss_err=err, loss_tol=DIST_LOSS_TOL,
+                   replicated_state_bytes=ref_bytes,
+                   state_share=fit["state_bytes"] / ref_bytes,
+                   replicated_step_ms=ref_step_s * 1e3,
+                   launches_per_step=per_step)
+        emit({"phase": "distributed_fit", "card": card, "rank": res["rank"],
+              "backend": res["backend"], "mesh": res["mesh"],
+              "ref_losses": ref_losses, **fit,
+              "dropout_step": res["dropout_step"]})
+        for row in res["ring"]:
+            emit({"phase": "distributed_ring", "card": card,
+                  "rank": res["rank"], **row})
+        emit({"phase": "distributed_pipeline", "card": card,
+              "rank": res["rank"], **res["pipeline"],
+              "collectives": res["pipeline_collectives"]})
+        if err > DIST_LOSS_TOL:
+            fails.append(f"rank {res['rank']} loss {err}")
+        if not 0.4 < fit["state_share"] < 0.6:
+            fails.append(f"rank {res['rank']} state share "
+                         f"{fit['state_share']}")
+        if per_step.get(fa.KERNEL_NAME) != BERT_BASE["n_block"] \
+                or per_step.get(fa.BWD_DKV_NAME) != BERT_BASE["n_block"] \
+                or per_step.get(fa.BWD_DQ_NAME) != BERT_BASE["n_block"] \
+                or per_step.get(fad.KERNEL_NAME) != 1:
+            fails.append(f"rank {res['rank']} launches {per_step}")
+        if not res["dropout_step"]["launches"].get(dr.KERNEL_NAME):
+            fails.append(f"rank {res['rank']} no dropout launch")
+        fails += [f"rank {res['rank']} ring {row['dtype']}"
+                  for row in res["ring"] if not row["ok"]]
+        if not res["pipeline"]["ok"]:
+            fails.append(f"rank {res['rank']} pipeline")
+    emit({"phase": "distributed_collectives", "card": card,
+          "fit": {r["rank"]: r["fit"]["collectives"] for r in ranks},
+          "ring": {r["rank"]: r["ring_collectives"] for r in ranks},
+          "host_staged": {r["rank"]: {
+              leg: {k: v["host_staged"] for k, v in stats.items()
+                    if v["host_staged"]}
+              for leg, stats in (("fit", r["fit"]["collectives"]),
+                                 ("ring", r["ring_collectives"]),
+                                 ("pipeline", r["pipeline_collectives"]))}
+              for r in ranks},
+          "group_s": group_s})
+    emit({"phase": "distributed_nccl", "card": card, "seconds": nccl_s,
+          **nccl})
+    if not nccl.get("bitwise") or nccl.get("backend") != "nccl" \
+            or not nccl.get("graphs"):
+        fails.append("nccl leg")
+    if fails:
+        raise SystemExit(f"chip_smoke: distributed checks failed: {fails}")
+    counts = {}
+    for name in (fa.KERNEL_NAME, fa.BWD_DKV_NAME, fa.BWD_DQ_NAME,
+                 dr.KERNEL_NAME, fad.KERNEL_NAME):
+        counts[name] = {
+            "sharded_fit_rank0": ranks[0]["fit"]["launches"].get(name, 0),
+            "dropout_step_rank0":
+                ranks[0]["dropout_step"]["launches"].get(name, 0),
+            "ring_rank0": sum(row["launches"].get(name, 0)
+                              for row in ranks[0]["ring"]),
+            "nccl_fit": nccl.get("launches", {}).get(name, 0)}
+    return {"counts": counts}
+
+
 BY_EVENTS = {"ms": "events", "plain_ms": "events", "library_ms": "events"}
 BY_GRAPH = {"ms": "graph", "plain_ms": "graph", "library_ms": "graph"}
 # the backward kernels: SDPA's backward (fwd+bwd minus fwd) by CUDA graph,
@@ -8582,20 +9040,37 @@ def keep_scale_entry(seed: int):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--nccl-leg", default=None,
+                        help="run phase_distributed's NCCL leg as the "
+                             "script `zoo-launch` starts, writing its "
+                             "results to this file")
     args = parser.parse_args(argv)
+    if args.nccl_leg:
+        nccl_leg(args.nccl_leg, args.seed)
+        return 0
     t0 = time.perf_counter()
     seconds = {}
+    memory_gb = {}
 
     def timed(fn, *a):
         """`fn(*a)`, its seconds kept under its name (and a string
-        argument's, for a phase run twice)."""
+        argument's, for a phase run twice). A phase's models hold their
+        CUDA graphs' memory pools through reference cycles (a model's
+        cached training programs refer back to it), so each phase ends
+        with a collection: the next starts on a card its predecessors
+        have let go of; the card's allocated and reserved GB after it are
+        kept beside its seconds."""
         t1 = time.perf_counter()
         try:
             return fn(*a)
         finally:
             name = "_".join([fn.__name__] + [x for x in a[2:]
                                              if isinstance(x, str)])
+            gc.collect()
+            torch.cuda.empty_cache()
             seconds[name] = time.perf_counter() - t1
+            memory_gb[name] = [torch.cuda.memory_allocated() / 1e9,
+                               torch.cuda.memory_reserved() / 1e9]
 
     card = timed(phase_device_and_build)
     attn = timed(phase_kernels, card, args.seed)
@@ -8632,6 +9107,7 @@ def main(argv=None) -> int:
     prefetch = timed(phase_prefetch_ab, card, args.seed)
     streamed = timed(phase_imagenet_tfrecord, card, args.seed,
                      inception["step_ms"])
+    distributed = timed(phase_distributed, card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -8683,6 +9159,8 @@ def main(argv=None) -> int:
                                                           0))
     entries[fad.KERNEL_NAME].update(
         launches_prefetch_ab=prefetch["counts"].get(fad.KERNEL_NAME, 0))
+    for name, by_leg in distributed["counts"].items():
+        entries[name].update(launches_distributed=by_leg)
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]
@@ -8690,6 +9168,7 @@ def main(argv=None) -> int:
     if bad:
         raise SystemExit(f"chip_smoke: kernels failed their checks: {bad}")
     emit({"phase": "phase_seconds", "seconds": seconds})
+    emit({"phase": "phase_memory_gb", "allocated_reserved": memory_gb})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
