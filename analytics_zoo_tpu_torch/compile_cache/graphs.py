@@ -146,9 +146,9 @@ def graph_kernel_symbols(graph: int) -> List[str]:
 @contextlib.contextmanager
 def _no_collection():
     """No garbage collection inside a capture: a collection could destroy
-    a dead program's graph (a model and its programs form a reference
-    cycle), which the capturing thread may not do, and the capture would
-    be invalidated. `torch.cuda.graph` collects just before it begins."""
+    a dead program's graph (one that some other reference cycle held),
+    which the capturing thread may not do, and the capture would be
+    invalidated. `torch.cuda.graph` collects just before it begins."""
     collecting = gc.isenabled()
     gc.disable()
     try:
@@ -374,20 +374,22 @@ def eager_programs():
 
 
 class TrainProgram:
-    """One training program `fn(capturing)` on `device`. `fn` runs the
-    program's steps on its caller's buffers and returns what its caller
-    keeps from an eager run (`capturing` is True while it is captured, and
-    its result is then dropped). On the card a call runs `fn` eagerly on
-    the program's stream until `capture()` has captured it into a CUDA
-    graph in its own memory pool, and replays the graph from then on; the
-    caller's stream waits for the program. On the CPU every call runs `fn`
+    """One training program `fn(*args, capturing)` on `device`. `fn` runs
+    the program's steps on its caller's buffers and returns what its
+    caller keeps from an eager run (`capturing` is True while it is
+    captured, and its result is then dropped); `args` are what the caller
+    passes to each call and to `capture` (the objects that hold the
+    program, which it then does not hold back). On the card a call runs
+    `fn` eagerly on the program's stream until `capture()` has captured it
+    into a CUDA graph in its own memory pool, and replays the graph from
+    then on; the caller's stream waits for the program. On the CPU every call runs `fn`
     eagerly and `capture()` does nothing. `launches`: the repo's kernel
     nodes of the graph, which each replay adds to `LAUNCHES`.
     `graphs=False` keeps a program eager on the card too (a fit whose
     collectives run over gloo, which a CUDA graph cannot hold): decided
     before any capture, never by a failed one."""
 
-    def __init__(self, name: str, fn: Callable[[bool], Any],
+    def __init__(self, name: str, fn: Callable[..., Any],
                  device: torch.device, graphs: bool = True):
         self.name = name
         self.device = torch.device(device)
@@ -411,29 +413,29 @@ class TrainProgram:
         finally:
             cur.wait_stream(self.stream)
 
-    def __call__(self) -> Tuple[Any, bool]:
+    def __call__(self, *args) -> Tuple[Any, bool]:
         """One run: `(fn's result, False)` for an eager run, `(None,
         True)` for a replay."""
         if self.stream is None:
-            return self._fn(False), False
+            return self._fn(*args, False), False
         if self.graph is None or _eager_only.is_set():
             with self._on_stream():
-                return self._fn(False), False
+                return self._fn(*args, False), False
         with self._on_stream():
             self.graph.replay()
         LAUNCHES.add_counts(self.launches)
         return None, True
 
-    def capture(self) -> None:
+    def capture(self, *args) -> None:
         """Capture the program (on the card, once, after an eager run has
         built and loaded its kernels; not inside `eager_programs()`)."""
         if self.stream is None or self.graph is not None \
                 or not self.graphs or _eager_only.is_set():
             return
         with self._on_stream():
-            self._capture()
+            self._capture(args)
 
-    def _capture(self) -> None:
+    def _capture(self, args) -> None:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _CAPTURE_LOCK, _no_collection():
             try:
@@ -441,7 +443,7 @@ class TrainProgram:
                         torch.cuda.device(self.device):
                     with torch.cuda.graph(graph, stream=self.stream,
                                           capture_error_mode="thread_local"):
-                        self._fn(True)
+                        self._fn(*args, True)
                 self.stream.synchronize()
                 nodes = kernel_counts(graph_kernel_symbols(
                     graph.raw_cuda_graph()))

@@ -38,8 +38,8 @@ layers nest: a `Sequential` or a functional `Model` inside one is a
 subtree of its own layers (matched by position too: its entry in the name
 list is `(name, [its layers' names])`, as `layer_names` lists a port
 model's), converted in both directions like the outer model, its
-convolution kernels transposed too; `Bidirectional`'s `{"forward", "backward"}` subtrees are
-its submodules `forward_layer` and `backward_layer`; and `TimeDistributed`
+convolution kernels transposed too; `Bidirectional`'s `{"forward",
+"backward"}` subtrees are its submodules `forward_layer` and `backward_layer`; and `TimeDistributed`
 keeps its inner layer's leaves at its own level in the JAX tree, under its
 submodule `layer` in the port. The
 lazy-embedding optimizer state (`learn/lazy_embedding.init_state`: the
@@ -48,7 +48,13 @@ crosses the same way.
 
 A convolution's kernel is HWIO in the JAX tree (`[*window, in / groups,
 out]`) and OIHW in the port (`[out, in / groups, *window]`): it is
-transposed each way, its Adam moments too. The int8 form of a tree
+transposed each way, its Adam moments too, and so are the kernels of the
+layers_ext convolutions: `SeparableConvolution2D`'s `depthwise` and
+`pointwise`, `ConvLSTM2D/3D`'s `kernel` and `recurrent`, and
+`Deconvolution2D`'s kernel (HWIO ↔ `conv_transpose2d`'s `[in, out, kh,
+kw]`). A `TransformerLayer`'s `<name>_block{i}` subtrees are its
+`blocks.{i}` modules, as BERT's are. Seq2seq's net has a tree of its own
+(`seq2seq_params_from_jax` / `_to_jax`). The int8 form of a tree
 (`serving/quantization.py`: `<leaf>_q` int8 and `<leaf>_scale` f32 leaves)
 crosses both ways like the f32 leaves: a convolution's `kernel_q` is
 transposed as `kernel` is, its per-output-channel scale is not, and a
@@ -74,7 +80,11 @@ from analytics_zoo_tpu_torch.common.tree import tree_leaves
 from analytics_zoo_tpu_torch.keras.engine import KerasNet
 from analytics_zoo_tpu_torch.keras.layers import (Bidirectional,
                                                   TimeDistributed, _ConvND)
-from analytics_zoo_tpu_torch.keras.transformer import (stack_block_params,
+from analytics_zoo_tpu_torch.keras.layers_ext import (ConvLSTM2D,
+                                                      Deconvolution2D,
+                                                      SeparableConvolution2D)
+from analytics_zoo_tpu_torch.keras.transformer import (TransformerLayer,
+                                                       stack_block_params,
                                                        unstack_block_params)
 from analytics_zoo_tpu_torch.ops.optimizers import FusedAdamState
 
@@ -239,10 +249,60 @@ def _oihw_to_hwio(a: np.ndarray, rank: int) -> np.ndarray:
         np.transpose(a, tuple(range(2, rank + 2)) + (1, 0)))
 
 
+def _kernel_leaves(layer):
+    """`(leaves, JAX layout → port, port → JAX)` of a layer whose kernels
+    the two packages lay out differently, else None."""
+    if isinstance(layer, _ConvND):
+        r = layer.spatial_rank
+        return (_CONV_KERNELS, lambda a: _hwio_to_oihw(a, r),
+                lambda a: _oihw_to_hwio(a, r))
+    if isinstance(layer, ConvLSTM2D):
+        r = layer.spatial_rank
+        return (("kernel", "recurrent"), lambda a: _hwio_to_oihw(a, r),
+                lambda a: _oihw_to_hwio(a, r))
+    if isinstance(layer, SeparableConvolution2D):
+        return (("depthwise", "pointwise"), lambda a: _hwio_to_oihw(a, 2),
+                lambda a: _oihw_to_hwio(a, 2))
+    if isinstance(layer, Deconvolution2D):
+        # HWIO [kh, kw, in, out] ↔ conv_transpose2d's [in, out, kh, kw]
+        def swap(a):
+            return np.ascontiguousarray(np.transpose(a, (2, 3, 0, 1)))
+        return ("kernel",), swap, swap
+    return None
+
+
+def _transformer_from_jax(sub: Mapping) -> Dict[str, Any]:
+    """A `TransformerLayer`'s subtree: its `<name>_block{i}` subtrees
+    become `blocks.{i}.`, flattened."""
+    out: Dict[str, Any] = {}
+    for key, value in sub.items():
+        m = _BLOCK_KEY.match(key)
+        if m:
+            _flatten(value, f"blocks.{m.group('index')}.", out)
+        else:
+            out[key] = value
+    return out
+
+
+def _transformer_to_jax(flat: Mapping[str, np.ndarray], prefix: str) -> Dict:
+    tree: Dict = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            parts = [f"{prefix}_block{parts[1]}"] + parts[2:]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
 def _layer_from_jax(layer, sub: Mapping, entry) -> Dict[str, Any]:
     """One layer's JAX subtree → {state-dict key below the layer: leaf}."""
     if isinstance(layer, KerasNet):
         return _tree_from_jax(sub, entry[1], layer)
+    if isinstance(layer, TransformerLayer):
+        return _transformer_from_jax(sub)
     if isinstance(layer, Bidirectional):
         return {f"{half}_layer.{leaf}": value
                 for half in ("forward", "backward")
@@ -251,11 +311,12 @@ def _layer_from_jax(layer, sub: Mapping, entry) -> Dict[str, Any]:
         return {f"layer.{key}": value for key, value in
                 _layer_from_jax(layer.layer, sub, None).items()}
     out = dict(sub)
-    if isinstance(layer, _ConvND):
-        for key in _CONV_KERNELS:
+    kernels = _kernel_leaves(layer)
+    if kernels is not None:
+        leaves, to_port, _ = kernels
+        for key in leaves:
             if out.get(key) is not None:
-                out[key] = _hwio_to_oihw(np.asarray(out[key]),
-                                         layer.spatial_rank)
+                out[key] = to_port(np.asarray(out[key]))
     return out
 
 
@@ -286,11 +347,16 @@ def _layer_to_jax(layer, flat: Mapping[str, np.ndarray], entry) -> Dict:
         return _layer_to_jax(layer.layer, {key.split(".", 1)[1]: value
                                            for key, value in flat.items()},
                              None)
+    if isinstance(layer, TransformerLayer):
+        return _transformer_to_jax(flat, entry if isinstance(entry, str)
+                                   else layer.name)
     out = dict(flat)
-    if isinstance(layer, _ConvND):
-        for key in _CONV_KERNELS:
+    kernels = _kernel_leaves(layer)
+    if kernels is not None:
+        leaves, _, to_jax = kernels
+        for key in leaves:
             if key in out:
-                out[key] = _oihw_to_hwio(out[key], layer.spatial_rank)
+                out[key] = to_jax(out[key])
     return out
 
 
@@ -414,6 +480,44 @@ def lazy_state_to_jax(state: Mapping, jax_layer_names: Sequence[str],
 # training checkpoints: the model tree and the optimizer state in optax's
 # layout (`learn/checkpoint.py`, `learn/trainer.fit_keras`)
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Seq2seq's own tree (`models/seq2seq._Seq2seqNet`)
+# ---------------------------------------------------------------------------
+def seq2seq_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX `_Seq2seqNet` tree (`{enc_0: {kernel, recurrent, bias}, ...,
+    bridge_0: [{kernel, bias}, ...], generator: {kernel, bias}}`) → the
+    port net's state dict: the cells by name, the bridge's list as
+    `bridge_{i}.{j}.`, the generator's leaves under `generator.`."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        if isinstance(value, (list, tuple)):
+            for j, leaves in enumerate(value):
+                _flatten(leaves, f"{key}.{j}.", flat)
+        else:
+            _flatten(value, f"{key}.", flat)
+    return {k: _to_tensor(v) for k, v in flat.items()}
+
+
+def seq2seq_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of `seq2seq_params_from_jax`."""
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        if parts[0].startswith("bridge_"):
+            maps = tree.setdefault(parts[0], [])
+            j = int(parts[1])
+            maps.extend({} for _ in range(j + 1 - len(maps)))
+            maps[j][parts[2]] = _to_numpy(value)
+        else:
+            tree.setdefault(parts[0], {})[parts[1]] = _to_numpy(value)
+    return tree
+
+
+def _seq2seq_net(model) -> bool:
+    from analytics_zoo_tpu_torch.models.seq2seq import _Seq2seqNet
+    return isinstance(model, _Seq2seqNet)
+
+
 def _graph_model(model) -> bool:
     """A functional `Model` or a `Sequential` (its tree is keyed by layer
     name); else a model converted whole, as BERT is."""
@@ -423,9 +527,12 @@ def _graph_model(model) -> bool:
 def state_to_jax(flat: Mapping[str, torch.Tensor], model) -> Dict:
     """A state dict (or a dict of moments keyed like it) → the JAX tree of
     `model`: `model_params_to_jax` under the model's own layer names, or
-    `params_to_jax` for a model without layers (BERT)."""
+    `params_to_jax` for a model without layers (BERT), or Seq2seq's own
+    tree."""
     if _graph_model(model):
         return model_params_to_jax(flat, layer_names(model), model)
+    if _seq2seq_net(model):
+        return seq2seq_params_to_jax(flat)
     return params_to_jax(flat)
 
 
@@ -434,6 +541,8 @@ def state_from_jax(tree: Mapping, model) -> Dict[str, torch.Tensor]:
     names (remap a saved tree first: `KerasNet._remap_loaded`)."""
     if _graph_model(model):
         return model_params_from_jax(tree, layer_names(model), model)
+    if _seq2seq_net(model):
+        return seq2seq_params_from_jax(tree)
     return params_from_jax(tree)
 
 

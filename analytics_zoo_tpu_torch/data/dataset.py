@@ -139,10 +139,9 @@ class TPUDataset:
         vectorized `decode_example_batch`, then `parse_fn` per sample —
         and a bounded reorder buffer re-serializes shard order, so the
         batch stream is bitwise-identical at any worker count (a pure
-        function of `(seed, epoch)`). Multi-process fits (disjoint
-        files per host) are not ported yet. `num_workers` is the legacy
-        spelling of the
-        same knob: when passed (any value, including an explicit 1 to
+        function of `(seed, epoch)`). In a multi-process fit each
+        process reads its own disjoint files (`shards_per_host`).
+        `num_workers` is the legacy spelling of the same knob: when passed (any value, including an explicit 1 to
         opt out of decode threads) it wins over ambient config, and
         `pipeline_workers` wins over both."""
         from analytics_zoo_tpu_torch.data import tfrecord as tfr

@@ -1,7 +1,8 @@
 """Keras-style model engine: the `Layer` and `KerasNet` base classes, the
 symbolic graph (`Node`, `Input`) and the functional `Model`.
 
-Port of `analytics_zoo_tpu/keras/engine.py`: `Layer` (L49) with
+Port of `analytics_zoo_tpu/keras/engine.py`: `reset_name_scope` (L45),
+`Layer` (L49) with
 `stateful` and `call_and_state` (L61-80) and its symbolic `__call__`
 (L82), `Node` (L110), `Input` (L128), `_topo_sort` (L134), `KerasNet`
 (L151) with `compile` (L183, a list of losses summed over the outputs,
@@ -109,6 +110,12 @@ _AUTO_NAME = re.compile(r"^(.*)_(\d+)$")
 def _auto_name(cls_name: str) -> str:
     _name_counters[cls_name] += 1
     return f"{cls_name.lower()}_{_name_counters[cls_name]}"
+
+
+def reset_name_scope() -> None:
+    """Restart the counts of auto-generated layer names (JAX L45): the
+    next `Dense` is `dense_1` again."""
+    _name_counters.clear()
 
 
 def new_parameter(shape, device: DeviceLike, dtype: torch.dtype
@@ -263,19 +270,22 @@ def Input(shape: Shape, name: Optional[str] = None) -> Node:
 
 
 def _topo_sort(outputs: Sequence[Node]) -> List[Node]:
+    """The nodes in depth-first post-order (each node after its inputs,
+    inputs in order). Iterative: a recursive closure would be a reference
+    cycle holding the node list, and with it every layer and parameter of
+    the graph, until a garbage collection."""
     order: List[Node] = []
     seen: set = set()
-
-    def visit(n: Node):
-        if id(n) in seen:
-            return
-        seen.add(id(n))
-        for i in n.inputs:
-            visit(i)
-        order.append(n)
-
     for out in outputs:
-        visit(out)
+        stack = [(out, False)]
+        while stack:
+            node, expanded = stack.pop()
+            if expanded:
+                order.append(node)
+            elif id(node) not in seen:
+                seen.add(id(node))
+                stack.append((node, True))
+                stack.extend((i, False) for i in reversed(node.inputs))
     return order
 
 

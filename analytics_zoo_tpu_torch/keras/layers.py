@@ -3,15 +3,19 @@
 Port of the part of `analytics_zoo_tpu/keras/layers.py` that BERT,
 NeuralCF, the image models and the recurrent models use: `get_init` (L44,
 with the whole table of L30-41), `get_activation` (L73), `Dense` (L96),
-`Activation` (L131), `Dropout` (L140), `Flatten` (L156), `Select` (L241),
+`Activation` (L131), `Dropout` (L140), `Flatten` (L156), `Reshape` (L164),
+`Permute` (L184), `RepeatVector` (L198), `Squeeze` (L210), `ExpandDim`
+(L227), `Select` (L241), `Narrow` (L257),
 `Merge` (L275, all seven modes), `merge` (L329), `Embedding` (L338),
 `WordEmbedding` (L380), `BatchNormalization` (L392), `LayerNormalization`
-(L456), the convolutions and pools of L479-704 (`_ConvND` with
-`Convolution1D/2D/3D` and their `Conv*D` aliases, `_PoolND` with
-`MaxPooling1D/2D` and `AveragePooling1D/2D`, `_GlobalPool` with its four
-subclasses), `ZeroPadding2D` (L706), `UpSampling2D` (L727), and the
-recurrent layers of L753-928: `_Recurrent`, `SimpleRNN`, `LSTM`, `GRU`
-(both reset forms), `Bidirectional` and `TimeDistributed`. Initializers
+(L456), the convolutions and pools of L479-704 (`_to_channels_last`,
+`_from_channels_last`, `_ConvND` with `Convolution1D/2D/3D` and their
+`Conv*D` aliases, `_PoolND` with `MaxPooling1D/2D` and
+`AveragePooling1D/2D`, `_GlobalPool` with its four subclasses),
+`ZeroPadding2D` (L706), `UpSampling2D` (L727), the recurrent layers of
+L753-928 (`_Recurrent`, `SimpleRNN`, `LSTM`, `GRU` (both reset forms),
+`Bidirectional` and `TimeDistributed`) and, as L944 does, every layer of
+`keras/layers_ext.py` in this namespace. Initializers
 match the JAX ones in distribution, not in bits (the two frameworks draw
 different numbers from one seed); `"uniform"` is
 `jax.nn.initializers.uniform(0.05)`, which draws from [0, 0.05), not
@@ -310,6 +314,87 @@ class Flatten(Layer):
         return (input_shape[0], int(np.prod(input_shape[1:])))
 
 
+class Reshape(Layer):
+    """`keras/layers/Reshape.scala`: the target shape excludes the batch;
+    one -1 is allowed."""
+
+    def __init__(self, target_shape: Sequence[int],
+                 input_shape: Optional[Sequence] = None,
+                 name: Optional[str] = None):
+        super().__init__(name=name, input_shape=input_shape)
+        self.target_shape = tuple(target_shape)
+
+    def call(self, x, *, training: bool = False):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+    def compute_output_shape(self, input_shape):
+        known = int(np.prod(input_shape[1:]))
+        tgt = list(self.target_shape)
+        if -1 in tgt:
+            tgt[tgt.index(-1)] = known // int(-np.prod(tgt))
+        return (input_shape[0],) + tuple(tgt)
+
+
+class Permute(Layer):
+    """Dims are 1-indexed over the non-batch axes (the Keras contract)."""
+
+    def __init__(self, dims: Sequence[int], name: Optional[str] = None):
+        super().__init__(name=name)
+        self.dims = tuple(dims)
+
+    def call(self, x, *, training: bool = False):
+        return x.permute((0,) + self.dims)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0],) + tuple(input_shape[d] for d in self.dims)
+
+
+class RepeatVector(Layer):
+    def __init__(self, n: int, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.n = n
+
+    def call(self, x, *, training: bool = False):
+        return x[:, None, :].expand(-1, self.n, -1)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], self.n, input_shape[1])
+
+
+class Squeeze(Layer):
+    """`keras/layers/Squeeze.scala`: drop axis `dim` (counted with the
+    batch, as the JAX layer counts it) of size 1."""
+
+    def __init__(self, dim: int, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.dim = dim
+
+    def call(self, x, *, training: bool = False):
+        if x.shape[self.dim] != 1:
+            raise ValueError(f"{self.name}: cannot squeeze axis {self.dim} "
+                             f"of size {x.shape[self.dim]}")
+        return x.squeeze(self.dim)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        del s[self.dim]
+        return tuple(s)
+
+
+class ExpandDim(Layer):
+    def __init__(self, dim: int, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.dim = dim
+
+    def call(self, x, *, training: bool = False):
+        return x.unsqueeze(self.dim)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        s.insert(self.dim, 1)
+        return tuple(s)
+
+
 class Select(Layer):
     """`keras/layers/Select.scala`: index `index` along `dim`, which goes
     away."""
@@ -324,6 +409,24 @@ class Select(Layer):
     def compute_output_shape(self, input_shape):
         s = list(input_shape)
         del s[self.dim]
+        return tuple(s)
+
+
+class Narrow(Layer):
+    """`keras/layers/Narrow.scala`: `length` elements from `offset` along
+    `dim`."""
+
+    def __init__(self, dim: int, offset: int, length: int = 1,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.dim, self.offset, self.length = dim, offset, length
+
+    def call(self, x, *, training: bool = False):
+        return x.narrow(self.dim, self.offset, self.length)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        s[self.dim] = self.length
         return tuple(s)
 
 
@@ -527,6 +630,16 @@ def _channels_first(x, dim_ordering: str, spatial_rank: int):
     return x if dim_ordering == "th" else x.movedim(spatial_rank + 1, 1)
 
 
+def _to_channels_last(x, dim_ordering: str, spatial_rank: int):
+    """An NC... input ("th") as the N...C view the layer computes on."""
+    return x.movedim(1, spatial_rank + 1) if dim_ordering == "th" else x
+
+
+def _from_channels_last(x, dim_ordering: str, spatial_rank: int):
+    """Inverse of `_to_channels_last`."""
+    return x.movedim(spatial_rank + 1, 1) if dim_ordering == "th" else x
+
+
 def _spatial_out(size, k: int, s: int, padding: str):
     if size is None:
         return None
@@ -580,9 +693,17 @@ class _ConvND(Layer):
         self.use_bias = use_bias
         self.init = get_init(init)
         self.groups = int(groups)
+        # rhs dilation: 1 here, the atrous rate in `AtrousConvolution*D`
+        self.dilation = (1,) * self.spatial_rank
         self._device, self._dtype = device, dtype
         if self.input_shape is not None:
             self.ensure_parameters(self.input_shape)
+
+    def _window(self) -> Tuple[int, ...]:
+        """The dilated window, which "same" padding and the output size
+        follow."""
+        return tuple((k - 1) * r + 1 for k, r in
+                     zip(self.kernel_size, self.dilation))
 
     def create_parameters(self, input_shape):
         in_ch = input_shape[1] if self.dim_ordering == "th" \
@@ -621,7 +742,7 @@ class _ConvND(Layer):
                             self.dim_ordering, self.spatial_rank)
         padding: Any = 0
         if self.padding == "SAME":
-            pads = _same_pads(x.shape[2:], self.kernel_size, self.strides)
+            pads = _same_pads(x.shape[2:], self._window(), self.strides)
             if all(lo == hi for lo, hi in pads):
                 padding = tuple(lo for lo, _ in pads)
             else:
@@ -635,7 +756,8 @@ class _ConvND(Layer):
                 y = y + self.bias.reshape((-1,) + (1,) * self.spatial_rank)
         else:
             y = conv(x, self.kernel, self.bias if self.use_bias else None,
-                     stride=self.strides, padding=padding, groups=self.groups)
+                     stride=self.strides, padding=padding,
+                     dilation=self.dilation, groups=self.groups)
         # the activation runs channels-last, as in the JAX package (softmax
         # takes the last axis)
         y = self.activation(y.movedim(1, -1))
@@ -645,7 +767,7 @@ class _ConvND(Layer):
         th = self.dim_ordering == "th"
         spatial = input_shape[2:] if th else input_shape[1:-1]
         out = tuple(_spatial_out(d, k, s, self.padding) for d, k, s in
-                    zip(spatial, self.kernel_size, self.strides))
+                    zip(spatial, self._window(), self.strides))
         if th:
             return (input_shape[0], self.nb_filter) + out
         return (input_shape[0],) + out + (self.nb_filter,)
@@ -680,9 +802,12 @@ Conv2D = Convolution2D
 Conv3D = Convolution3D
 
 
+_POOLS = {2: (F.max_pool2d, F.avg_pool2d), 3: (F.max_pool3d, F.avg_pool3d)}
+
+
 class _PoolND(Layer):
-    """Max or average pooling over 1 or 2 spatial axes. Under "same" the
-    max pads with −inf and the average divides each window's sum by its
+    """Max or average pooling over 1, 2 or 3 spatial axes. Under "same"
+    the max pads with −inf and the average divides each window's sum by its
     count of real elements (the JAX package's two `reduce_window`s). A 1-d
     pool runs as a 2-d one over a unit height."""
 
@@ -705,19 +830,20 @@ class _PoolND(Layer):
             xc, window, strides = xc.unsqueeze(2), (1,) + window, \
                 (1,) + strides
         pads = _same_pads(xc.shape[2:], window, strides) \
-            if self.padding == "SAME" else [(0, 0)] * 2
+            if self.padding == "SAME" else [(0, 0)] * len(window)
         flat = _pad_arg(pads)
+        max_pool, avg_pool = _POOLS[len(window)]
         if self.reducer == "max":
             if any(flat):
                 xc = F.pad(xc, flat, value=float("-inf"))
-            y = F.max_pool2d(xc, window, strides)
+            y = max_pool(xc, window, strides)
         else:
             ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
                               device=xc.device)
-            sums = F.avg_pool2d(F.pad(xc, flat), window, strides,
-                                divisor_override=1)
-            counts = F.avg_pool2d(F.pad(ones, flat), window, strides,
-                                  divisor_override=1)
+            sums = avg_pool(F.pad(xc, flat), window, strides,
+                            divisor_override=1)
+            counts = avg_pool(F.pad(ones, flat), window, strides,
+                              divisor_override=1)
             y = sums / counts
         if r == 1:
             y = y.squeeze(2)
@@ -1082,3 +1208,13 @@ class TimeDistributed(Layer):
         inner = self.layer.compute_output_shape(
             self._inner_shape(input_shape))
         return (input_shape[0], input_shape[1]) + tuple(inner[1:])
+
+
+# `LayerNorm.scala` names layer normalization this way too (JAX L939)
+LayerNorm = LayerNormalization
+
+# The extended Keras1 set (advanced activations, noise, the convolution
+# variants, ConvLSTM, LRN, the torch-style elementwise layers, ...) lives
+# in layers_ext and belongs to this namespace, as in the JAX package (L944);
+# it imports from this module, so it comes last.
+from analytics_zoo_tpu_torch.keras.layers_ext import *  # noqa: E402,F401,F403

@@ -2,8 +2,9 @@
 
 Port of `analytics_zoo_tpu/keras/transformer.py`: `dot_product_attention`
 (L44), `MultiHeadSelfAttention` (L71), `TransformerEncoderBlock` (L127),
-`stack_block_params` / `unstack_block_params` (L238/L252) and `BERT`
-(L261) with `make_mask` (L358). Same math, same layouts:
+`TransformerLayer` (L187), `stack_block_params` / `unstack_block_params`
+(L238/L252) and `BERT` (L261) with `make_mask` (L358). Same math, same
+layouts:
 
 - fused QKV: one `[D, 3D]` matmul, reshaped `(B, T, 3, H, Dh)`;
 - attention on `[B, H, T, Dh]` with an additive `[B, 1, 1, T]` mask of
@@ -215,6 +216,66 @@ class TransformerEncoderBlock(Layer):
         if ffn_seed is not None and self.hidden_dropout > 0:
             h = _dropout(ffn_seed, self.hidden_dropout, h)
         return self.ln2.call(x + h)
+
+
+class TransformerLayer(Layer):
+    """A transformer stack over token ids (`TransformerLayer.scala:56`):
+    word and position embeddings, N(0, 0.02) at build, then `n_block`
+    post-norm encoder blocks without a mask (the JAX layer passes none:
+    every position attends to every other). `[B, T]` ids give `[B, T,
+    hidden]`. With `use_flash` each block runs the flash-attention kernel
+    on the card. Dropout follows the JAX layer: after the embeddings, then
+    inside each block, each site's seed derived from the node's (the
+    layer's `call_and_state` takes it, as a model hands it)."""
+
+    def __init__(self, vocab: int, seq_len: int, n_block: int = 12,
+                 hidden_size: int = 768, n_head: int = 12,
+                 embedding_drop: float = 0.1, hidden_drop: float = 0.1,
+                 attn_drop: float = 0.1, use_flash: bool = False,
+                 device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.vocab, self.seq_len = vocab, seq_len
+        self.hidden_size = hidden_size
+        self.embedding_drop = embedding_drop
+        self.word_embeddings = new_parameter((vocab, hidden_size), device,
+                                             dtype)
+        self.position_embeddings = new_parameter((seq_len, hidden_size),
+                                                 device, dtype)
+        self.blocks = nn.ModuleList(
+            TransformerEncoderBlock(hidden_size, n_head,
+                                    hidden_dropout=hidden_drop,
+                                    attn_dropout=attn_drop,
+                                    use_flash=use_flash, device=device,
+                                    dtype=dtype,
+                                    name=f"{self.name}_block{i}")
+            for i in range(n_block))
+
+    def build(self, generator):
+        for emb in (self.word_embeddings, self.position_embeddings):
+            fill_(emb, torch.randn(tuple(emb.shape), generator=generator)
+                  * 0.02)
+        return super().build(generator)
+
+    def call(self, x, *, training: bool = False,
+             seed: Optional[Seed] = None):
+        seeds = _site_seeds(training, seed, 1 + len(self.blocks))
+        ids = torch.as_tensor(x, device=self.word_embeddings.device).long()
+        h = (F.embedding(ids, self.word_embeddings)
+             + self.position_embeddings[None, :ids.shape[1]])
+        if seeds[0] is not None and self.embedding_drop > 0:
+            h = _dropout(seeds[0], self.embedding_drop, h)
+        for blk, blk_seed in zip(self.blocks, seeds[1:]):
+            h = blk.call(h, training=training, seed=blk_seed)
+        return h
+
+    def call_and_state(self, x, *, training: bool = False,
+                       seed: Optional[Seed] = None):
+        return self.call(x, training=training, seed=seed), {}
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], self.seq_len, self.hidden_size)
 
 
 def _parameter_slots(module: nn.Module):

@@ -39,6 +39,7 @@ step never waits for the card.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Tuple
 
 import torch
@@ -293,7 +294,8 @@ def make_fused_one_step(model, loss_fn, optimizer, specs,
     Tables whose spec has `set_ids_fn` take the rows-reindexed backward; a
     spec without it takes the dense gradient, its touched rows picked out
     once per distinct id (`_dedup_rows`) — still the in-place row update,
-    without the gradient saving."""
+    without the gradient saving. It holds `model` weakly
+    (`trainer.build_train_step` says why)."""
     from analytics_zoo_tpu_torch.learn.lazy_embedding import (_get, _key,
                                                               _name,
                                                               rest_update,
@@ -303,6 +305,7 @@ def make_fused_one_step(model, loss_fn, optimizer, specs,
                                                         step_scalars,
                                                         takes_scalars)
 
+    model = weakref.ref(model)
     reindexed = [s for s in specs if s.set_ids_fn is not None]
     dense = [s for s in specs if s.set_ids_fn is None]
     fused_rest = getattr(optimizer, "fused_apply", None)
@@ -340,7 +343,7 @@ def make_fused_one_step(model, loss_fn, optimizer, specs,
             if mixed_precision:
                 # inputs stay uncast: ids above 256 are not exact in bf16
                 p = _cast_tree(p, torch.bfloat16)
-            pred = functional_call(model, p, (xb_sub,),
+            pred = functional_call(model(), p, (xb_sub,),
                                    {"training": True, "seed": seed})
             if mixed_precision:
                 pred = tree_map(lambda a: a.float(), pred)

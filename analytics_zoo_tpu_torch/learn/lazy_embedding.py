@@ -32,6 +32,7 @@ Differences from the JAX package, none of them in the numbers:
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -150,8 +151,11 @@ def make_lazy_one_step(model, loss_fn, optimizer,
     (params, opt_state, loss)` with opt_state from `init_state`, params
     updated in place; `one_step.scalars(opt_state)` is its row of per-step
     scalars (each table's bias corrections, then the rest optimizer's),
-    which `scalars` holds on the device."""
+    which `scalars` holds on the device. It holds `model` weakly
+    (`trainer.build_train_step` says why)."""
     from analytics_zoo_tpu_torch.learn.trainer import _cast_tree
+
+    model = weakref.ref(model)
 
     def row_fn(opt_state) -> List[float]:
         t = opt_state["t"] + 1
@@ -166,7 +170,7 @@ def make_lazy_one_step(model, loss_fn, optimizer,
             # inputs stay uncast: ids above 256 are not exact in bf16
             p = _cast_tree(params, torch.bfloat16) if mixed_precision \
                 else params
-            pred = functional_call(model, p, (xb,),
+            pred = functional_call(model(), p, (xb,),
                                    {"training": True, "seed": seed})
             if mixed_precision:
                 pred = tree_map(lambda a: a.float(), pred)

@@ -231,6 +231,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -726,7 +727,13 @@ def build_train_step(model, loss_fn: Callable, optimizer,
     group) `params` holds this rank's blocks of the sharded leaves: the
     step gathers the whole parameters for the forward, reduces the
     gradients to the global batch's mean (`layout.reduce_grads`), steps
-    the blocks and returns the global batch's mean loss."""
+    the blocks and returns the global batch's mean loss.
+
+    The step holds `model` weakly, as the lazy and fused one-steps do: the
+    trainer caches it on the model (`_train_cache`), and a strong
+    reference would make a cycle that keeps a dead model's programs and
+    graph pools until a garbage collection. The caller keeps the model."""
+    model = weakref.ref(model)
     fused_apply = getattr(optimizer, "fused_apply", None)
     with_row = takes_scalars(optimizer)
 
@@ -739,7 +746,7 @@ def build_train_step(model, loss_fn: Callable, optimizer,
         with torch.enable_grad():
             p = _cast_tree(leaves, torch.bfloat16) if mixed_precision \
                 else leaves
-            pred = functional_call(model, p, (xb,),
+            pred = functional_call(model(), p, (xb,),
                                    {"training": True, "seed": seed})
             if mixed_precision:
                 pred = tree_map(lambda a: a.float(), pred)
@@ -1268,7 +1275,9 @@ class _TrainEntry:
     def __init__(self, model, optimizer, one_step, device: torch.device,
                  discriminators: Dict[str, Any], graphs: bool = True,
                  sharding: str = ""):
-        self.model = model
+        # the model holds this entry (`_train_cache`): held back weakly,
+        # so the two make no reference cycle
+        self._model = weakref.ref(model)
         self.graphs = graphs
         self.sharding = sharding
         self.optimizer = optimizer
@@ -1287,6 +1296,10 @@ class _TrainEntry:
         self.cache = None
         self.shuffle = True
         self.sources: List[Dict[str, str]] = []
+
+    @property
+    def model(self):
+        return self._model()
 
     # -- state ------------------------------------------------------------
     def adopt(self, params: Dict[str, torch.Tensor], opt_state):
@@ -1335,28 +1348,35 @@ class _TrainEntry:
                 after_step()
         return st
 
+    def _device_epoch_steps(self, prog: _Program, capturing: bool):
+        dc = prog.dc
+        return self._steps(prog, capturing, lambda i: dc.batch_at(),
+                           lambda: dc.cursor.add_(1))
+
+    def _group_steps(self, prog: _Program, capturing: bool):
+        return self._steps(prog, capturing, lambda i: (
+            tree_map(lambda a: a[i], prog.xs),
+            tree_map(lambda a: a[i], prog.ys)
+            if prog.ys is not None else None))
+
     def _new_program(self, key: Tuple, n: int, group=None) -> _Program:
         from analytics_zoo_tpu_torch.compile_cache.graphs import TrainProgram
         prog = _Program(n, _StepTable(n, self.width, self.device),
                         self.device)
         if group is None:
-            dc = prog.dc = self.dc
+            prog.dc = self.dc
             name = f"train device-epoch x{n}"
-
-            def fn(capturing):
-                return self._steps(prog, capturing, lambda i: dc.batch_at(),
-                                   lambda: dc.cursor.add_(1))
+            fn = _TrainEntry._device_epoch_steps
         else:
             prog.xs = _static_like(group[0][0], n, self.device)
             prog.ys = _static_like(group[0][1], n, self.device) \
                 if group[0][1] is not None else None
             name = f"train x{n}"
-
-            def fn(capturing):
-                return self._steps(prog, capturing, lambda i: (
-                    tree_map(lambda a: a[i], prog.xs),
-                    tree_map(lambda a: a[i], prog.ys)
-                    if prog.ys is not None else None))
+            fn = _TrainEntry._group_steps
+        # the entry and the program are arguments of each call: a function
+        # that closed over them would make a reference cycle with them,
+        # which keeps a dead model's programs and graph pools until a
+        # garbage collection
         prog.program = TrainProgram(name, fn, self.device, self.graphs)
         self.programs[key] = prog
         return prog
@@ -1403,7 +1423,7 @@ class _TrainEntry:
                 if self.cache is not None else contextlib.nullcontext()
 
         with libraries():
-            out, replayed = prog.program()
+            out, replayed = prog.program(self, prog)
         if replayed:
             self.state = _advance(self.state, n)
             if self.cost is not None and prog.cost_sig is not None:
@@ -1416,7 +1436,7 @@ class _TrainEntry:
                     "replayed step could not know its counts")
             self.state = out
             with libraries():
-                prog.program.capture()
+                prog.program.capture(self, prog)
         if prog.source is None and (prog.program.graph is not None
                                     or self.device.type != "cuda"
                                     or not self.graphs):

@@ -19,6 +19,10 @@ model on the card unless the caller passes `device="cpu"`.
 `set_tensorboard` (JAX L95) its TensorBoard directory, where `fit` writes
 its summaries (`utils/tensorboard.py`).
 
+`Ranker` (JAX L99-155) is the JAX class copied as it is: numpy only,
+NDCG@k and MAP over per-query candidate lists, scored through the model's
+`predict`.
+
 Not ported yet: `save_model_encrypted` (`learn/encrypted.py`, ROADMAP.md
 queue 1, item 8); it raises NotImplementedError.
 """
@@ -107,3 +111,63 @@ class ZooModel:
 
     def set_tensorboard(self, log_dir: str, app_name: str):
         self.model.set_tensorboard(log_dir, app_name)
+
+
+# Copied from `analytics_zoo_tpu/models/common.py` L99-155 (numpy only).
+class Ranker:
+    """Ranking-evaluation mixin (`models/common/Ranker.scala`): NDCG@k and
+    MAP over per-query candidate lists. A "query" is one (x, y) pair where
+    `x` is the model input for that query's candidates and `y` their
+    relevance labels; metrics average over queries."""
+
+    @staticmethod
+    def ndcg_score(y_true, y_pred, k: int, threshold: float = 0.0) -> float:
+        """One query (`Ranker.scala:113-146`): DCG over the top-k by
+        predicted score / ideal DCG over the top-k by label, with gains
+        2^g and only g > threshold contributing."""
+        if k <= 0:
+            raise ValueError(f"k for NDCG should be positive, got {k}")
+        y_true = np.ravel(np.asarray(y_true, np.float64))
+        y_pred = np.ravel(np.asarray(y_pred, np.float64))
+        denom = np.log(2.0 + np.arange(len(y_true)))
+        by_label = np.sort(y_true)[::-1][:k]
+        idcg = float(np.sum(np.where(by_label > threshold,
+                                     2.0 ** by_label, 0.0)
+                            / denom[:len(by_label)]))
+        by_pred = y_true[np.argsort(-y_pred)][:k]
+        dcg = float(np.sum(np.where(by_pred > threshold,
+                                    2.0 ** by_pred, 0.0)
+                           / denom[:len(by_pred)]))
+        return 0.0 if idcg == 0.0 else dcg / idcg
+
+    @staticmethod
+    def map_score(y_true, y_pred, threshold: float = 0.0) -> float:
+        """One query (`Ranker.scala:148-173`): mean average precision —
+        precision accumulated at each relevant (> threshold) position of
+        the score-sorted list."""
+        y_true = np.ravel(np.asarray(y_true, np.float64))
+        y_pred = np.ravel(np.asarray(y_pred, np.float64))
+        order = np.argsort(-y_pred)
+        s, ipos = 0.0, 0
+        for i, g in enumerate(y_true[order]):
+            if g > threshold:
+                ipos += 1
+                s += ipos / (i + 1.0)
+        return 0.0 if ipos == 0 else s / ipos
+
+    def evaluate_ndcg(self, queries, k: int, threshold: float = 0.0,
+                      batch_per_thread: int = 32) -> float:
+        """`evaluateNDCG`: mean NDCG@k over `queries` =
+        iterable of (x_candidates, y_relevance)."""
+        vals = [self.ndcg_score(y, self.predict(
+            x, batch_per_thread=batch_per_thread), k, threshold)
+            for x, y in queries]
+        return float(np.mean(vals)) if vals else 0.0
+
+    def evaluate_map(self, queries, threshold: float = 0.0,
+                     batch_per_thread: int = 32) -> float:
+        """`evaluateMAP`: mean MAP over per-query candidate lists."""
+        vals = [self.map_score(y, self.predict(
+            x, batch_per_thread=batch_per_thread), threshold)
+            for x, y in queries]
+        return float(np.mean(vals)) if vals else 0.0

@@ -64,8 +64,6 @@ from analytics_zoo_tpu_torch.kernels.fused_adam import (_fold_scalars,
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
 
-NOT_PORTED_QUEUE = "ROADMAP.md queue 1, 'The rest of training'"
-
 
 # ---------------------------------------------------------------------------
 # Schedules

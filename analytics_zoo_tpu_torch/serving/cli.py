@@ -642,7 +642,7 @@ def main(argv=None) -> int:
                     help="override params.mesh: the sharded placement's "
                          'device-mesh factorization, e.g. '
                          '"data=1,fsdp=2,tensor=4" (not ported: raises '
-                         "naming ROADMAP.md queue 1, item 7)")
+                         "naming ROADMAP.md queue 1, item 7b)")
     ps.add_argument("--compile-cache-dir", default=None,
                     help="override params.compile_cache_dir: the "
                          "persistent compile cache (kernel libraries and "

@@ -19,7 +19,7 @@ the port:
   package's `jax.local_device_count()`); on the CPU each replica is a
   copy on the host;
 - `placement: sharded` and `params.mesh` raise NotImplementedError naming
-  ROADMAP.md queue 1, item 7 (the mesh spellings still parse and
+  ROADMAP.md queue 1, item 7b (the mesh spellings still parse and
   validate); `secure.model_encrypted`
   raises naming item 8 (`learn/encrypted.py`), though `POST
   /model-secure` and `wait_model_secret` are ported;
@@ -30,9 +30,9 @@ the port:
 - `build_model` also serves a Keras-style net that is not a `ZooModel`
   (the BERT task models): `model.class` names it, `model.config` holds
   its constructor arguments and `<path>/weights` its artifact
-  (`KerasNet.save_weights`);
-- a model class that only the JAX package's `seq2seq` or `textmatching`
-  modules define raises naming item 8.
+  (`KerasNet.save_weights`); the classes are searched in the JAX
+  package's order, `textmatching` (KNRM) and `seq2seq` included, then
+  `textmodels` (NER and the taggers), which the JAX lookup leaves out.
 """
 
 from __future__ import annotations
@@ -46,9 +46,6 @@ import torch
 ENCRYPTED_NOT_PORTED = (
     "secure.model_encrypted needs learn/encrypted.py, which is not ported "
     "yet (ROADMAP.md queue 1, item 8)")
-# model classes only the JAX package's models/seq2seq.py and
-# models/textmatching.py define
-JAX_ONLY_CLASSES = {"Seq2seq": "seq2seq", "KNRM": "textmatching"}
 
 
 def _load_yaml(path: str) -> Dict[str, Any]:
@@ -540,7 +537,7 @@ class ServingConfig:
     def _validate_placement(self):
         """Reject bad `placement`/`num_replicas`/`device` values with a
         clear error while still parsing the config. The sharded placement
-        and its mesh are not ported (ROADMAP.md queue 1, item 7): a mesh
+        and its mesh are not ported (ROADMAP.md queue 1, item 7b): a mesh
         under the replicated placement is still the JAX package's
         ValueError, and a sharded config raises NotImplementedError."""
         from analytics_zoo_tpu_torch.serving.inference_model import \
@@ -558,7 +555,7 @@ class ServingConfig:
         if self.placement == "sharded":
             raise NotImplementedError(
                 "params.placement: sharded (and params.mesh) is not ported "
-                "yet (ROADMAP.md queue 1, item 7); serve replicated")
+                "yet (ROADMAP.md queue 1, item 7b); serve replicated")
         try:
             dev = torch.device(self.device)
         except (RuntimeError, TypeError):
@@ -1130,14 +1127,11 @@ def wait_model_secret(broker, timeout_s: float = 60.0,
 def _find_model_class(name: str):
     from analytics_zoo_tpu_torch.models import (anomalydetection, bert,
                                                 generative, image,
-                                                recommendation,
-                                                textclassification)
+                                                recommendation, seq2seq,
+                                                textclassification,
+                                                textmatching, textmodels)
     for mod in (recommendation, anomalydetection, textclassification,
-                image, bert, generative):
+                textmatching, seq2seq, image, bert, generative, textmodels):
         if hasattr(mod, name):
             return getattr(mod, name)
-    if name in JAX_ONLY_CLASSES:
-        raise NotImplementedError(
-            f"model class {name!r} (models/{JAX_ONLY_CLASSES[name]}.py) is "
-            "not ported yet (ROADMAP.md queue 1, item 8)")
     raise ValueError(f"Unknown model class {name!r}")

@@ -94,7 +94,7 @@ built and loaded and cuBLAS is set up before any request: the request path
 builds no kernel (`kernels._build.build_events` shows it).
 
 Not ported yet: sharded placement (`placement="sharded"`, ROADMAP.md queue
-1, item 7) and `load_keras_encrypted` (item 8).
+1, item 7b) and `load_keras_encrypted` (item 8).
 """
 
 from __future__ import annotations
@@ -432,7 +432,7 @@ class InferenceModel:
         if placement == "sharded":
             raise NotImplementedError(
                 "placement='sharded' is not ported yet (ROADMAP.md queue 1, "
-                "item 7)")
+                "item 7b)")
         if devices is not None:
             devs = [resolve_device(d) for d in devices]
             if not devs:

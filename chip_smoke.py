@@ -18,7 +18,9 @@ fleet metrics, merged traces, a live rollout, a killed engine) and a
 generative engine streaming by SSE, train the ImageNet model from TFRecord
 shards streamed through the data layer, train BERT-base sharded over two
 ranks (with ring attention and a pipeline over the same ranks, and the
-graphed step over NCCL at one rank), and print what it measured.
+graphed step over NCCL at one rank), train and serve the text zoo (NER
+with its CRF head, KNRM, TransformerLayer, Seq2seq), and print what it
+measured.
 
     python3 chip_smoke.py [--seed N]
 
@@ -329,9 +331,21 @@ CUDA toolkit. Phases, in order; any failure exits non-zero:
    (`--nccl-leg`): `init_orca_context(cluster_mode="multi-host")` over
    NCCL, the graphed BERT-base fit with its gradient all-reduce, bitwise
    the non-distributed graphed fit under deterministic algorithms;
-31. the seconds of every phase, and the run's;
-32. a `kernels` line listing every kernel of the port;
-33. the last line, `{"ok": true, "device": {...}}`.
+31. the text zoo (`phase_text_zoo`): NER at the JAX defaults (9 tags,
+   vocabularies of 20,000 words and 100 chars, 40-word sentences, batch
+   128) trained through `Estimator.fit` with fused AdamW (2 dropout and
+   1 fused-Adam launches a step) against the CPU's fit, served at batches
+   1 and 128, its CRF log-likelihood, loss and Viterbi paths on the card's
+   emissions against the CPU's; KNRM at WikiQA's ranker widths fitted with
+   `rank_hinge`, its NDCG@3/5 and MAP over 32 queries of 8 candidates
+   against the CPU's; TransformerLayer at GPT-1's widths (12 blocks,
+   hidden 768, seq 512, batch 8), flash against plain in f32 and bf16, 12
+   flash launches a forward; Seq2seq (LSTM, dense bridge, generator)
+   forward, fit and `infer` against the CPU; a fitted model deleted with
+   the collector off gives its card memory back;
+32. the seconds of every phase, and the run's;
+33. a `kernels` line listing every kernel of the port;
+34. the last line, `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -388,6 +402,8 @@ from analytics_zoo_tpu_torch.keras import layers as KL  # noqa: E402
 from analytics_zoo_tpu_torch.keras import engine as kengine  # noqa: E402
 from analytics_zoo_tpu_torch.keras.engine import (  # noqa: E402
     Input, Model, Sequential)
+from analytics_zoo_tpu_torch.keras.transformer import \
+    TransformerLayer  # noqa: E402
 from analytics_zoo_tpu_torch.learn.estimator import Estimator  # noqa: E402
 from analytics_zoo_tpu_torch.models.anomalydetection import (  # noqa: E402
     AnomalyDetector, detect_anomalies, unroll)
@@ -399,8 +415,11 @@ from analytics_zoo_tpu_torch.models.image import (  # noqa: E402
     ImageClassifier, inception_v1, resnet)
 from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: E402
     NeuralCF, SessionRecommender, UserItemFeature, WideAndDeep)
+from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq  # noqa: E402
 from analytics_zoo_tpu_torch.models.textclassification import \
     TextClassifier  # noqa: E402
+from analytics_zoo_tpu_torch.models.textmatching import KNRM  # noqa: E402
+from analytics_zoo_tpu_torch.models.textmodels import NER  # noqa: E402
 from analytics_zoo_tpu_torch.observability.capture import \
     load_trace_events  # noqa: E402
 from analytics_zoo_tpu_torch.observability.registry import (  # noqa: E402
@@ -408,7 +427,7 @@ from analytics_zoo_tpu_torch.observability.registry import (  # noqa: E402
 from analytics_zoo_tpu_torch.observability.roofline import \
     get_accountant  # noqa: E402
 from analytics_zoo_tpu_torch.ops import (  # noqa: E402
-    autograd, objectives, optimizers)
+    autograd, crf, objectives, optimizers)
 from analytics_zoo_tpu_torch.ops.autograd import Lambda  # noqa: E402
 from analytics_zoo_tpu_torch.serving.broker import MemoryBroker  # noqa: E402
 from analytics_zoo_tpu_torch.serving.client import (  # noqa: E402
@@ -5960,19 +5979,25 @@ def plain_dropout_layers():
         KL.fused_dropout = saved
 
 
-def rnn_fit_runs(new_model, state, data, batch: int, loss: str,
-                 mixed_precision: bool):
+def rnn_fit_runs(new_model, state, data, batch: int, loss,
+                 mixed_precision: bool, lr: float = RNN_PATH_LR,
+                 weight_decay: float = 0.0):
     """The kernel path and the plain path from the same weights over 3
     steps of one batch: {name: (losses, launch counts, the parameters
-    after, in graph order)} and, under "initial", the parameters
-    before."""
+    after, in graph order)} and, under "initial", the parameters before.
+    The kernel path steps fused Adam, the plain path Adam (AdamW with a
+    `weight_decay`) at `lr`."""
     runs = {}
     for name in ("kernel", "plain"):
         m = load_by_order(new_model(), state)
         runs["initial"] = [p.detach().clone() for p in m.parameters()]
         kernel = name == "kernel"
-        opt = optimizers.fused_adam(RNN_PATH_LR) if kernel \
-            else optimizers.adam(RNN_PATH_LR)
+        if kernel:
+            opt = optimizers.fused_adam(lr, weight_decay=weight_decay)
+        elif weight_decay:
+            opt = optimizers.adamw(lr, weight_decay=weight_decay)
+        else:
+            opt = optimizers.adam(lr)
         LAUNCHES.reset()
         with contextlib.nullcontext() if kernel else plain_dropout_layers():
             h = Estimator.from_keras(m, optimizer=opt, loss=loss).fit(
@@ -6007,15 +6032,18 @@ def update_errors(initial, kernel, plain) -> dict:
 
 
 def rnn_path_checks(phase: str, new_model, state, data, batch: int,
-                    loss: str, sweep: int, drops: int, dtypes, card: str):
+                    loss, sweep: int, drops: int, dtypes, card: str,
+                    **run_kw):
     """`rnn_fit_runs` in each dtype: losses within RNN_PATH_TOL, the 3-step
     parameter update within RNN_UPDATE_TOL of the plain path's, the kernel
     path launching `drops` dropout kernels and `sweep` fused-Adam launches
     a step, the plain path none; and the sweep bit-exact at the path's own
-    leaves (`sweep_exact_at`)."""
+    leaves (`sweep_exact_at`). `run_kw`: `rnn_fit_runs`'s `lr` and
+    `weight_decay`."""
     ok = True
     for mp in dtypes:
-        runs = rnn_fit_runs(new_model, state, data, batch, loss, mp)
+        runs = rnn_fit_runs(new_model, state, data, batch, loss, mp,
+                            **run_kw)
         (lk, ck, pk), (lp, cp, pp) = runs["kernel"], runs["plain"]
         errs = [abs(a - b) for a, b in zip(lk, lp)]
         want = {dr.KERNEL_NAME: 3 * drops, fad.KERNEL_NAME: 3 * sweep}
@@ -6031,7 +6059,9 @@ def rnn_path_checks(phase: str, new_model, state, data, batch: int,
                    and not any(cp.get(k, 0) for k in want))
         emit({"phase": phase + "_kernel_vs_plain",
               "dtype": "bfloat16" if mp else "float32", "steps": 3,
-              "batch": batch, "lr": RNN_PATH_LR, "loss_kernel": lk,
+              "batch": batch, "lr": run_kw.get("lr", RNN_PATH_LR),
+              "weight_decay": run_kw.get("weight_decay", 0.0),
+              "loss_kernel": lk,
               "loss_plain": lp, "loss_err_per_step": errs,
               "loss_tol": RNN_PATH_TOL[mp],
               "loss_drop_steps_1_3": lp[0] - lp[-1], **upd,
@@ -6183,7 +6213,8 @@ def phase_text_training(card: str, seed: int, encoder: str):
 def phase_text_serving(card: str, seed: int):
     """TextClassifier (lstm, gru, cnn) through `InferenceModel`, f32 and
     bf16, at batches 1, 8, 32 and 128; probabilities against the port's
-    CPU run."""
+    CPU run. Warmup captures the buckets the requests use (and the check's
+    rows'), not all eight up to 128: cut to pay for the text zoo phase."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     matrix = text_matrix(seed + 83)
@@ -6202,7 +6233,9 @@ def phase_text_serving(card: str, seed: int):
         for dtype_name, m in (("float32", model), ("bfloat16", m16)):
             im = InferenceModel(max_batch=TXT_SERVE_BATCHES[-1]).load_keras(m)
             t0 = time.perf_counter()
-            im.warmup(np.zeros((TXT_SEQ,), np.int32))
+            im.warmup(np.zeros((TXT_SEQ,), np.int32), buckets=sorted(
+                set(TXT_SERVE_BATCHES)
+                | {_next_bucket(TXT_CHECK_ROWS, im.buckets)}))
             emit({"phase": "text_warmup", "encoder": encoder,
                   "dtype": dtype_name, "seconds": time.perf_counter() - t0,
                   "buckets": sorted(im.warmed_buckets)})
@@ -6272,7 +6305,12 @@ def recurrent_yardstick(card: str, seed: int):
     and recurrent GEMMs (backward 2x the forward). The port's host-bound
     loop is timed over one call after one warm call (cut from 3 and 3 to
     pay for the distributed phase; a call took 54-533 ms on an NVIDIA
-    H100 80GB HBM3 at 700 W)."""
+    H100 80GB HBM3 at 700 W). bf16 only, the recurrent phases' training
+    dtype: the f32 rows (26 s of the 52.2) went to pay for the text zoo
+    phase, and so did the forward's device time (each profiled window of
+    the 500-step loop cost ~9 s of host time on the same card); the
+    forward + backward's device time, profiled right after its timed
+    call, shows the loop host-bound."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     B, T, E, H = TXT_BATCH, TXT_SEQ, TXT_EMBED, TXT_HIDDEN
@@ -6280,7 +6318,7 @@ def recurrent_yardstick(card: str, seed: int):
     rows = []
     for cell, n, port_cls, lib_cls in (("lstm", 4, KL.LSTM, torch.nn.LSTM),
                                        ("gru", 3, KL.GRU, torch.nn.GRU)):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.bfloat16,):
             layer = port_cls(H, input_shape=(T, E), dtype=dtype)
             layer.build(torch.Generator().manual_seed(seed))
             lib = lib_cls(E, H, batch_first=True).to("cuda", dtype)
@@ -6310,11 +6348,9 @@ def recurrent_yardstick(card: str, seed: int):
                    RNN_YARDSTICK_LABEL, "cell": cell,
                    "dtype": str(dtype)[6:], "shape": [B, T, E, H],
                    "port_fwd_ms": time_ms(port_fwd, 1, warm=1),
-                   "port_fwd_device_ms": device_ms(port_fwd, 1,
-                                                   warm=1)[0],
                    "port_fwd_bwd_ms": time_ms(port_fwd_bwd, 1, warm=1),
                    "port_fwd_bwd_device_ms": device_ms(port_fwd_bwd, 1,
-                                                       warm=1)[0],
+                                                       warm=0)[0],
                    "library": f"torch.nn.{lib_cls.__name__}",
                    "library_on_cudnn": torch.backends.cudnn.is_acceptable(x),
                    "library_fwd_ms": time_ms(lib_fwd, 10),
@@ -9037,6 +9073,545 @@ def keep_scale_entry(seed: int):
                 verdict="ok" if err == 0.0 else "fail")
 
 
+# ---------------------------------------------------------------------------
+# The text zoo: NER with its CRF head, KNRM, TransformerLayer and
+# Seq2seq on the layers under them
+# ---------------------------------------------------------------------------
+# NER at the JAX `NER` defaults (`models/textmodels.py:47-50`, the
+# reference's `ner.py:21`): CoNLL-2003's 9 BIO tags over four entity types,
+# a 20,000-word and a 100-char vocabulary, 40-word sentences
+TZ_NER = dict(num_entities=9, word_vocab_size=20_000, char_vocab_size=100,
+              word_length=12, word_emb_dim=100, char_emb_dim=30,
+              tagger_lstm_dim=100, dropout=0.5, crf_mode="reg")
+TZ_SEQ = 40
+TZ_BATCH = 128
+# the `ner_drop` Dropout's input: word vectors and the char BiLSTM's two
+# directions (its width is char_emb_dim)
+TZ_NER_FEATS = TZ_NER["word_emb_dim"] + 2 * TZ_NER["char_emb_dim"]
+TZ_STEPS = 32               # steps of each timed fit (one epoch)
+TZ_TIMED_FITS = 3           # the main path's fit, then two timed repeats
+TZ_CHECK_STEPS = 2          # steps (one a epoch) of the card-vs-CPU fit
+TZ_LR = 1e-3
+TZ_WEIGHT_DECAY = 0.01
+TZ_SERVE = {1: 300, 128: 300}  # predict batch: requests
+TZ_TOL = 5e-4               # card f32 against the CPU f32
+# a fit's losses, card against CPU from the same weights and batches: 2.4e-7
+# at most on an H100 80GB HBM3 (700 W), for NER, KNRM and Seq2seq
+TZ_FIT_LOSS_TOL = 1e-5
+# every weight after a card fit against the CPU's fit from the same start:
+# Adam's m/sqrt(v) turns rounding noise in a near-zero gradient into a step
+# of up to lr either way, so an element may differ by up to 2*lr a step;
+# at most TZ_PARAM_FRAC of the elements by more than 1e-6 (5.5e-6 at most
+# on the same card), and the update (final - initial) in relative L2 over
+# all leaves within TZ_UPDATE_TOL (3.8e-6 at most there)
+TZ_PARAM_FRAC = 1e-4
+TZ_UPDATE_TOL = 1e-4
+# KNRM at the reference's WikiQA ranker widths
+TZ_KNRM = dict(text1_length=10, text2_length=40, vocab_size=20_000,
+               embed_size=300, kernel_num=21, sigma=0.1, exact_sigma=0.001)
+TZ_KNRM_BATCH = 256         # 128 (positive, negative) pairs, rank_hinge
+TZ_KNRM_STEPS = 3
+TZ_QUERIES, TZ_CANDIDATES = 32, 8
+# TransformerLayer at GPT-1's widths
+TZ_GPT = dict(vocab=40_990, seq_len=512, n_block=12, hidden_size=768,
+              n_head=12)
+TZ_GPT_BATCH = 8
+TZ_GPT_TOL = 5e-4           # f32: the flash forward against the plain one
+TZ_GPT_TURNS = 6            # flash and plain timed in alternating turns
+TZ_GPT_REPS = 5             # forwards a turn (CUDA events)
+# Seq2seq: an LSTM encoder and decoder, the dense bridge and a generator
+TZ_S2S = dict(rnn_type="lstm", encoder_hidden=(256,), decoder_hidden=(256,),
+              bridge="dense", generator_units=300)
+TZ_S2S_SHAPE = (64, 20, 300)    # batch, steps, features (word vectors)
+TZ_S2S_STEPS = 3
+TZ_S2S_INFER = 10
+
+
+def _on_card(cpu_zoo):
+    """A ZooModel built on the CPU, moved to the card."""
+    card = copy.deepcopy(cpu_zoo)
+    card.model.to("cuda")
+    return card
+
+
+def _from_jax_tree(cpu_zoo, sample, seed: int):
+    """Build `cpu_zoo` from `seed`, carry its weights to the JAX package's
+    tree and back through `convert` (the path a JAX-trained model takes),
+    and return the tree."""
+    net = cpu_zoo.model
+    net.ensure_built(sample, seed=seed)
+    names = convert.layer_names(net)
+    tree = convert.model_params_to_jax(net.state_dict(), names, net)
+    net.load_state_dict(convert.model_params_from_jax(tree, names, net))
+    return tree
+
+
+def _err(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _tz_check(name: str, err: float, tol: float, **extra) -> None:
+    ok = bool(np.isfinite(err)) and err <= tol
+    emit(dict({"phase": "text_zoo_check", "check": name, "max_abs_err": err,
+               "tol": tol, "ok": ok}, **extra))
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} outside tolerance")
+
+
+def _tz_weights(name: str, initial, got, want, steps: int) -> dict:
+    """The weights of the card's fit (`got`) against the CPU's (`want`),
+    both from `initial` (lists in parameter order), by TZ_PARAM_FRAC and
+    TZ_UPDATE_TOL, each element within 2 * TZ_LR * `steps`."""
+    got = [t.detach().cpu() for t in got]
+    want = [t.detach().cpu() for t in want]
+    upd = update_errors(initial, got, want)
+    over = sum(int(((g - w).abs() > 1e-6).sum()) for g, w in zip(got, want))
+    frac = over / sum(t.numel() for t in want)
+    bound = 2 * TZ_LR * steps
+    ok = (upd["update_rel_l2_err"] is not None
+          and upd["update_rel_l2_err"] <= TZ_UPDATE_TOL
+          and upd["param_max_abs_err"] <= bound and frac <= TZ_PARAM_FRAC)
+    emit(dict({"phase": "text_zoo_check", "check": name, "leaves": len(got),
+               "elements": sum(t.numel() for t in want), "steps": steps,
+               "param_tol": bound, "param_frac_over_1e-6": frac,
+               "param_frac_tol": TZ_PARAM_FRAC,
+               "update_tol": TZ_UPDATE_TOL, "ok": ok}, **upd))
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} outside tolerance")
+    return upd
+
+
+def _ner_data(rs, n: int):
+    cfg = TZ_NER
+    return ([rs.integers(0, cfg["word_vocab_size"], (n, TZ_SEQ)).astype(
+        np.int32), rs.integers(0, cfg["char_vocab_size"],
+                               (n, TZ_SEQ, cfg["word_length"])).astype(
+        np.int32)], rs.integers(0, cfg["num_entities"],
+                                (n, TZ_SEQ)).astype(np.int32))
+
+
+def _ner_loss():
+    return objectives.get("sparse_categorical_crossentropy",
+                          from_logits=True)
+
+
+def _ner_estimator(zoo):
+    return Estimator.from_keras(
+        zoo.model, optimizer=optimizers.fused_adam(
+            TZ_LR, weight_decay=TZ_WEIGHT_DECAY),
+        loss=_ner_loss(), device=next(zoo.model.parameters()).device)
+
+
+def _text_zoo_ner(card: str, seed: int) -> dict:
+    rs = np.random.default_rng(seed + 220)
+    x, y = _ner_data(rs, TZ_BATCH * TZ_STEPS)
+    cpu = NER(device="cpu", **TZ_NER)
+    _from_jax_tree(cpu, [a[:1] for a in x], seed)
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    initial = [p.detach().clone() for p in cpu.model.parameters()]
+    ner = _on_card(cpu)
+    fit_kw = dict(epochs=1, batch_size=TZ_BATCH, fused_optimizer=True)
+    # the card's fit and the CPU's from the same weights on the same batch
+    # and step seeds (the dropout masks are the same Philox bits), one step
+    # an epoch so each step's loss is kept; also the card's warm fit
+    sub = ([a[:TZ_BATCH] for a in x], y[:TZ_BATCH])
+    check_kw = dict(fit_kw, epochs=TZ_CHECK_STEPS)
+    cpu_hist = _ner_estimator(cpu).fit(sub, **check_kw)
+    est = _ner_estimator(ner)
+    card_hist = est.fit(sub, **check_kw)
+    _tz_check("ner_fit_loss_card_vs_cpu",
+              _err(card_hist["loss"], cpu_hist["loss"]), TZ_FIT_LOSS_TOL,
+              card_loss=card_hist["loss"], cpu_loss=cpu_hist["loss"])
+    _tz_weights("ner_fit_weights_card_vs_cpu", initial,
+                list(ner.model.parameters()), list(cpu.model.parameters()),
+                TZ_CHECK_STEPS)
+    est.fit((x, y), **fit_kw)                 # the timed fit's programs
+    torch.cuda.synchronize()
+
+    # -- the main path (training): counts 0 just before, read just after --
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    hist = est.fit((x, y), **fit_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    fit_ms = [dt / TZ_STEPS * 1e3]
+    for _ in range(TZ_TIMED_FITS - 1):
+        t0 = time.perf_counter()
+        est.fit((x, y), **fit_kw)
+        torch.cuda.synchronize()
+        fit_ms.append((time.perf_counter() - t0) / TZ_STEPS * 1e3)
+    step_ms = float(np.median(fit_ms))
+    # the `ner_drop` Dropout: one launch forward, one backward; one fused
+    # sweep over every leaf
+    sweep = fad.sweep_launches(ner.model.parameters())
+    want = {dr.KERNEL_NAME: 2, fad.KERNEL_NAME: sweep}
+    per_step = {k: v / TZ_STEPS for k, v in counts.items()}
+    emit({"phase": "text_zoo_ner_train", "config": TZ_NER, "seq_len": TZ_SEQ,
+          "batch": TZ_BATCH, "steps": TZ_STEPS, "fits": TZ_TIMED_FITS,
+          "step_ms": step_ms, "step_ms_per_fit": fit_ms,
+          "words_per_s": TZ_BATCH * TZ_SEQ / step_ms * 1e3,
+          "loss": hist["loss"], "launches_per_step": per_step,
+          "expected_per_step": want, "card": card})
+    if per_step != {k: float(v) for k, v in want.items()} or not all(
+            math.isfinite(v) for v in hist["loss"]):
+        raise SystemExit("chip_smoke: NER training check failed")
+
+    im = InferenceModel(max_batch=TZ_BATCH).load_keras(ner.model)
+    im.warmup([np.zeros(TZ_SEQ, np.int32),
+               np.zeros((TZ_SEQ, TZ_NER["word_length"]), np.int32)],
+              buckets=sorted(TZ_SERVE))
+    requests = {b: [_ner_data(rs, b)[0] for _ in range(k)]
+                for b, k in TZ_SERVE.items()}
+    # -- the main path (serving) ---------------------------------------------
+    LAUNCHES.reset()
+    latencies = {}
+    for b, reqs in requests.items():
+        times = []
+        for req in reqs:
+            t1 = time.perf_counter()
+            out = im.predict(req)
+            times.append((time.perf_counter() - t1) * 1e3)
+            if out.shape != (b, TZ_SEQ, TZ_NER["num_entities"]) or \
+                    not np.isfinite(out).all():
+                raise SystemExit(f"chip_smoke: bad NER output {out.shape}")
+        latencies[b] = times
+    serve_counts = LAUNCHES.snapshot()
+    # -------------------------------------------------------------------------
+    for b, times in latencies.items():
+        emit({"phase": "text_zoo_ner_serving", "batch": b,
+              "requests": len(times),
+              "p50_ms": float(np.percentile(times, 50)),
+              "p99_ms": float(np.percentile(times, 99)),
+              "launches": serve_counts, "card": card})
+    if serve_counts:            # inference runs no dropout, no optimizer
+        raise SystemExit(f"chip_smoke: NER serving launched {serve_counts}")
+
+    # the CRF head on the card's emissions against the CPU's, with the
+    # card's weights on both
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               ner.model.state_dict().items()})
+    tr = rs.standard_normal((TZ_NER["num_entities"],) * 2).astype(
+        np.float32)
+    ner.transitions = cpu.transitions = tr
+    xc, tags = _ner_data(rs, TZ_BATCH)
+    em = {"card": ner.emissions(xc), "cpu": cpu.emissions(xc)}
+    _tz_check("ner_emissions_card_vs_cpu",
+              _err(em["card"].cpu(), em["cpu"]), TZ_TOL)
+    ll = {k: crf.crf_log_likelihood(e, tags, tr) for k, e in em.items()}
+    _tz_check("ner_crf_log_likelihood_card_vs_cpu",
+              _err(ll["card"].cpu(), ll["cpu"]), TZ_TOL,
+              device=str(ll["card"].device))
+    loss = {"card": ner.crf_loss(xc, tags), "cpu": cpu.crf_loss(xc, tags)}
+    _tz_check("ner_crf_loss_card_vs_cpu", abs(loss["card"] - loss["cpu"]),
+              TZ_TOL, card_loss=loss["card"], cpu_loss=loss["cpu"])
+    paths = {"card": ner.decode(xc), "cpu": cpu.decode(xc)}
+    same = bool(np.array_equal(paths["card"], paths["cpu"]))
+    emit({"phase": "text_zoo_ner_viterbi", "paths_equal": same,
+          "shape": list(paths["card"].shape), "card": card})
+    if not same:
+        raise SystemExit("chip_smoke: NER Viterbi paths differ card vs CPU")
+    del est, im, ner
+    torch.cuda.empty_cache()
+
+    # each kernel at the path's own shapes against its plain version: the
+    # fit with the dropout kernel and fused AdamW against the plain
+    # dropout (the same Philox masks) and plain AdamW, every weight
+    # compared, and the sweep bit-exact at NER's leaves; the dropout kernel
+    # at the `ner_drop` input
+    rnn_path_checks("text_zoo_ner", lambda: NER(device="cuda",
+                                                **TZ_NER).model,
+                    state, sub, TZ_BATCH, _ner_loss(), sweep, 2, (False,),
+                    card, lr=TZ_LR, weight_decay=TZ_WEIGHT_DECAY)
+    shape = (TZ_BATCH, TZ_SEQ, TZ_NER_FEATS)
+    drop_err = dropout_at(shape, torch.float32, TZ_NER["dropout"], seed + 225)
+    emit({"phase": "text_zoo_ner_dropout_shape", "shape": list(shape),
+          "dtype": "float32", "rate": TZ_NER["dropout"],
+          "max_abs_err_vs_plain": drop_err, "ok": drop_err == 0.0,
+          "card": card})
+    if drop_err != 0.0:
+        raise SystemExit("chip_smoke: dropout kernel at the NER shape")
+    return {"counts": counts, "serve_counts": serve_counts,
+            "step_ms": step_ms}
+
+
+def _knrm_queries(rs, n: int):
+    cfg = TZ_KNRM
+    width = cfg["text1_length"] + cfg["text2_length"]
+    return [(rs.integers(1, cfg["vocab_size"], (TZ_CANDIDATES, width)).astype(
+        np.int32), rs.integers(0, 3, TZ_CANDIDATES).astype(np.float32))
+        for _ in range(n)]
+
+
+def _text_zoo_knrm(card: str, seed: int) -> dict:
+    rs = np.random.default_rng(seed + 221)
+    width = TZ_KNRM["text1_length"] + TZ_KNRM["text2_length"]
+    cpu = KNRM(device="cpu", **TZ_KNRM)
+    x = rs.integers(1, TZ_KNRM["vocab_size"], (TZ_KNRM_BATCH,
+                                               width)).astype(np.int32)
+    _from_jax_tree(cpu, x[:1], seed + 1)
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    initial = [p.detach().clone() for p in cpu.model.parameters()]
+    knrm = _on_card(cpu)
+    y = np.zeros((len(x), 1), np.float32)   # rank_hinge reads the order
+    # the pairs stay in order (no shuffle); one step an epoch
+    fit_kw = dict(nb_epoch=TZ_KNRM_STEPS, batch_size=TZ_KNRM_BATCH,
+                  shuffle=False, fused_optimizer=True)
+    hists = {}
+    for name, zoo in (("cpu", cpu), ("card", knrm)):
+        zoo.compile(optimizers.fused_adam(TZ_LR), "rank_hinge")
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        hists[name] = zoo.fit(x, y, **fit_kw)
+        hists[name + "_s"] = time.perf_counter() - t0
+        hists[name + "_counts"] = LAUNCHES.snapshot()
+    _tz_check("knrm_fit_loss_card_vs_cpu",
+              _err(hists["card"]["loss"], hists["cpu"]["loss"]),
+              TZ_FIT_LOSS_TOL,
+              card_loss=hists["card"]["loss"])
+    _tz_weights("knrm_fit_weights_card_vs_cpu", initial,
+                list(knrm.model.parameters()), list(cpu.model.parameters()),
+                TZ_KNRM_STEPS)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               knrm.model.state_dict().items()})
+    queries = _knrm_queries(rs, TZ_QUERIES)
+    scores = {}
+    for name, zoo in (("card", knrm), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        scores[name] = {"ndcg@3": zoo.evaluate_ndcg(queries, k=3),
+                        "ndcg@5": zoo.evaluate_ndcg(queries, k=5),
+                        "map": zoo.evaluate_map(queries)}
+        scores[name + "_s"] = time.perf_counter() - t0
+    emit({"phase": "text_zoo_knrm", "config": TZ_KNRM,
+          "batch": TZ_KNRM_BATCH, "steps": TZ_KNRM_STEPS,
+          "fit_s": hists["card_s"], "loss": hists["card"]["loss"],
+          "launches": hists["card_counts"], "queries": TZ_QUERIES,
+          "candidates": TZ_CANDIDATES, "card_metrics": scores["card"],
+          "cpu_metrics": scores["cpu"], "eval_s": scores["card_s"],
+          "card": card})
+    _tz_check("knrm_ndcg_map_card_vs_cpu",
+              max(abs(scores["card"][k] - scores["cpu"][k])
+                  for k in scores["card"]), 1e-6)
+    sweep = fad.sweep_launches(knrm.model.parameters())
+    del knrm
+    torch.cuda.empty_cache()
+    # fused Adam against plain Adam on the card (KNRM has no dropout); the
+    # pairs stay in order
+    pairs = TPUDataset.from_ndarrays((x, y), batch_size=TZ_KNRM_BATCH,
+                                     shuffle=False)
+    rnn_path_checks("text_zoo_knrm", lambda: KNRM(device="cuda",
+                                                  **TZ_KNRM).model,
+                    state, pairs, TZ_KNRM_BATCH, "rank_hinge", sweep, 0,
+                    (False,), card, lr=TZ_LR)
+    return {"counts": hists["card_counts"], "metrics": scores["card"]}
+
+
+def _text_zoo_transformer(card: str, seed: int) -> dict:
+    cfg = TZ_GPT
+    gen = torch.Generator().manual_seed(seed + 222)
+    ids = torch.randint(0, cfg["vocab"], (TZ_GPT_BATCH, cfg["seq_len"]),
+                        generator=gen)
+    inp = Input(shape=(cfg["seq_len"],))
+    layer = TransformerLayer(device="cpu", **cfg)
+    cpu = Model(inp, layer(inp))
+    cpu.ensure_built(seed=seed)
+    tree = convert.model_params_to_jax(cpu.state_dict(), [layer.name], cpu)
+    cpu.load_state_dict(convert.model_params_from_jax(tree, [layer.name],
+                                                      cpu))
+    out = {"launches_per_forward": {}}
+    ref = None              # the f32 flash forward, the bf16 paths' yardstick
+    for dtype in (torch.float32, torch.bfloat16):
+        net = copy.deepcopy(cpu).to("cuda", dtype)
+        blocks = net.get_submodule(layer.name).blocks
+        x = ids.to("cuda")
+        outs, counts = {}, {}
+
+        def use_flash(flash):
+            for blk in blocks:
+                blk.attn.use_flash = flash
+
+        def fwd():
+            with torch.inference_mode():
+                return net.apply(x)
+        for flash in (True, False):
+            use_flash(flash)
+            fwd()
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            outs[flash] = fwd().float().cpu()
+            torch.cuda.synchronize()
+            counts[flash] = LAUNCHES.snapshot()
+        # flash and plain in alternating turns, each turn's order reversed
+        turns = {True: [], False: []}
+        for t in range(TZ_GPT_TURNS):
+            for flash in (True, False) if t % 2 == 0 else (False, True):
+                use_flash(flash)
+                turns[flash].append(time_ms(fwd, TZ_GPT_REPS, warm=1))
+        ms = {k: float(np.median(v)) for k, v in turns.items()}
+        name = str(dtype)[6:]
+        err = _err(outs[True], outs[False])
+        row = {"phase": "text_zoo_transformer_layer", "dtype": name,
+               "config": cfg, "batch": TZ_GPT_BATCH, "flash_ms": ms[True],
+               "plain_ms": ms[False], "flash_ms_turns": turns[True],
+               "plain_ms_turns": turns[False], "launches_flash": counts[True],
+               "launches_plain": counts[False],
+               "flash_vs_plain_max_abs_err": err,
+               "output_abs_max": float(outs[False].abs().max()),
+               "card": card}
+        if dtype == torch.float32:
+            ref = outs[True]
+            emit(row)
+            _tz_check("transformer_layer_flash_vs_plain_float32", err,
+                      TZ_GPT_TOL)
+        else:
+            # two bf16 computations differ by bf16 roundings (an ulp is
+            # 1/16 at |x| = 8); the kernel path must be as close to the f32
+            # forward as the plain path is
+            row.update(flash_vs_f32=_err(outs[True], ref),
+                       plain_vs_f32=_err(outs[False], ref))
+            emit(row)
+            _tz_check("transformer_layer_bf16_flash_vs_f32",
+                      row["flash_vs_f32"], 1.25 * row["plain_vs_f32"],
+                      plain_vs_f32=row["plain_vs_f32"])
+        if counts[True] != {fa.KERNEL_NAME: cfg["n_block"]} or counts[False]:
+            raise SystemExit(f"chip_smoke: TransformerLayer launches "
+                             f"{counts}")
+        out["launches_per_forward"][name] = counts[True].get(fa.KERNEL_NAME)
+        del net, outs
+    return out
+
+
+def _s2s_data(rs, n: int):
+    b, t, f = TZ_S2S_SHAPE
+    return [rs.standard_normal((n, t, f)).astype(np.float32),
+            rs.standard_normal((n, t, f)).astype(np.float32)]
+
+
+def _text_zoo_seq2seq(card: str, seed: int) -> dict:
+    rs = np.random.default_rng(seed + 223)
+    b = TZ_S2S_SHAPE[0]
+    x = _s2s_data(rs, b)
+    y = rs.standard_normal(x[1].shape).astype(np.float32)
+    cpu = Seq2seq(device="cpu", **TZ_S2S)
+    cpu.model.ensure_built([a[:1] for a in x], seed=seed)
+    tree = convert.seq2seq_params_to_jax(cpu.model.state_dict())
+    cpu.model.load_state_dict(convert.seq2seq_params_from_jax(tree))
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    initial = [p.detach().clone() for p in cpu.model.parameters()]
+    s2s = _on_card(cpu)
+    fwd = {"card": s2s.predict(x, batch_per_thread=b),
+           "cpu": cpu.predict(x, batch_per_thread=b)}
+    _tz_check("seq2seq_forward_card_vs_cpu", _err(fwd["card"], fwd["cpu"]),
+              TZ_TOL)
+    hists = {}
+    for name, zoo in (("cpu", cpu), ("card", s2s)):
+        zoo.compile(optimizers.fused_adam(TZ_LR), "mse")
+        t0 = time.perf_counter()
+        hists[name] = zoo.fit(x, y, batch_size=b, nb_epoch=TZ_S2S_STEPS,
+                              fused_optimizer=True)
+        hists[name + "_s"] = time.perf_counter() - t0
+    _tz_check("seq2seq_fit_loss_card_vs_cpu",
+              _err(hists["card"]["loss"], hists["cpu"]["loss"]),
+              TZ_FIT_LOSS_TOL,
+              card_loss=hists["card"]["loss"])
+    _tz_weights("seq2seq_fit_weights_card_vs_cpu", initial,
+                list(s2s.model.parameters()), list(cpu.model.parameters()),
+                TZ_S2S_STEPS)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               s2s.model.state_dict().items()})
+    start = x[1][:, 0]
+    t0 = time.perf_counter()
+    card_inf = s2s.infer(x[0], start, max_seq_len=TZ_S2S_INFER)
+    infer_ms = (time.perf_counter() - t0) * 1e3
+    _tz_check("seq2seq_infer_card_vs_cpu", _err(
+        card_inf, cpu.infer(x[0], start, max_seq_len=TZ_S2S_INFER)),
+        TZ_TOL)
+    emit({"phase": "text_zoo_seq2seq", "config": TZ_S2S,
+          "shape": list(TZ_S2S_SHAPE), "steps": TZ_S2S_STEPS,
+          "fit_s": hists["card_s"], "loss": hists["card"]["loss"],
+          "infer_steps": TZ_S2S_INFER, "infer_ms": infer_ms, "card": card})
+    sweep = fad.sweep_launches(s2s.model.parameters())
+    del s2s
+    torch.cuda.empty_cache()
+
+    def new_net():
+        net = Seq2seq(device="cuda", **TZ_S2S).model
+        net.ensure_built([a[:1] for a in x], seed=seed)
+        return net
+    # fused Adam against plain Adam on the card (no dropout in Seq2seq)
+    rnn_path_checks("text_zoo_seq2seq", new_net, state, (x, y), b, "mse",
+                    sweep, 0, (False,), card, lr=TZ_LR)
+    return {"loss": hists["card"]["loss"]}
+
+
+def _text_zoo_freed(card: str, seed: int) -> dict:
+    """A model fitted on the card (its step programs captured as CUDA
+    graphs), then deleted: with the collector off, the card's allocated
+    bytes return to what they were before the model was built."""
+    from analytics_zoo_tpu_torch.learn import trainer
+    rs = np.random.default_rng(seed + 224)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        zoo = KNRM(device="cuda", **TZ_KNRM)
+        width = TZ_KNRM["text1_length"] + TZ_KNRM["text2_length"]
+        x = rs.integers(1, TZ_KNRM["vocab_size"], (2 * TZ_KNRM_BATCH,
+                                                   width)).astype(np.int32)
+        zoo.model.ensure_built(x[:1], seed=seed)
+        zoo.compile(optimizers.fused_adam(TZ_LR), "rank_hinge")
+        zoo.fit(x, np.zeros((len(x), 1), np.float32), nb_epoch=2,
+                batch_size=TZ_KNRM_BATCH, shuffle=False,
+                fused_optimizer=True)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        graphs = trainer.program_sources(zoo.model)
+        del zoo
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    emit({"phase": "text_zoo_freed_without_collection",
+          "allocated_before": before, "allocated_fitted": held,
+          "allocated_after_del": after, "programs": graphs, "card": card})
+    if after != before or held <= before:
+        raise SystemExit("chip_smoke: a deleted fitted model kept card "
+                         f"memory ({after - before} bytes)")
+    return {"before": before, "held": held, "after": after}
+
+
+def phase_text_zoo(card: str, seed: int) -> dict:
+    """The text zoo on the card: NER at the JAX defaults trained
+    through `Estimator.fit` (fused AdamW, the `ner_drop` Dropout on the
+    dropout kernel) against the CPU's fit, served through `InferenceModel`
+    at batches 1 and 128, its CRF log-likelihood, loss and Viterbi paths on
+    the card's emissions against the CPU's; KNRM at WikiQA's ranker widths
+    fitted with `rank_hinge`, ranked by NDCG@3/5 and MAP, card against CPU;
+    TransformerLayer at GPT-1's widths, the flash forward (12 launches a
+    forward) against the plain path in f32 and bf16; Seq2seq (LSTM, dense
+    bridge, generator) forward, fit and `infer` against the CPU; and a
+    fitted model freed on `del` without a collection. Each model is built
+    on the CPU, its weights carried to the JAX package's tree and back by
+    `convert`, then moved to the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, seconds = {}, {}
+    for name, part in (("ner", _text_zoo_ner), ("knrm", _text_zoo_knrm),
+                       ("transformer_layer", _text_zoo_transformer),
+                       ("seq2seq", _text_zoo_seq2seq),
+                       ("freed", _text_zoo_freed)):
+        t0 = time.perf_counter()
+        out[name] = part(card, seed)
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "text_zoo_seconds", "seconds": seconds})
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -9054,12 +9629,14 @@ def main(argv=None) -> int:
 
     def timed(fn, *a):
         """`fn(*a)`, its seconds kept under its name (and a string
-        argument's, for a phase run twice). A phase's models hold their
-        CUDA graphs' memory pools through reference cycles (a model's
-        cached training programs refer back to it), so each phase ends
-        with a collection: the next starts on a card its predecessors
-        have let go of; the card's allocated and reserved GB after it are
-        kept beside its seconds."""
+        argument's, for a phase run twice). A dead model frees its
+        training programs and their CUDA graph pools by reference count
+        (the trainer's cached entry holds the model weakly,
+        `phase_text_zoo` checks it); each phase still ends with a
+        collection, for whatever other cycles it leaves (frames an
+        exception holds, its own closures), so the next starts on a card
+        its predecessors have let go of; the card's allocated and
+        reserved GB after it are kept beside its seconds."""
         t1 = time.perf_counter()
         try:
             return fn(*a)
@@ -9108,6 +9685,7 @@ def main(argv=None) -> int:
     streamed = timed(phase_imagenet_tfrecord, card, args.seed,
                      inception["step_ms"])
     distributed = timed(phase_distributed, card, args.seed)
+    text_zoo = timed(phase_text_zoo, card, args.seed)
     entries = kernel_entries(attn, bwd, drop, adam, serve_counts,
                              train_counts, adrop, segs, ncf_counts)
     entries.update(decode_entries(decs, gen))
@@ -9161,6 +9739,12 @@ def main(argv=None) -> int:
         launches_prefetch_ab=prefetch["counts"].get(fad.KERNEL_NAME, 0))
     for name, by_leg in distributed["counts"].items():
         entries[name].update(launches_distributed=by_leg)
+    for name in (dr.KERNEL_NAME, fad.KERNEL_NAME):
+        entries[name].update(
+            launches_text_ner=text_zoo["ner"]["counts"].get(name, 0))
+    entries[fa.KERNEL_NAME].update(
+        launches_transformer_layer=text_zoo["transformer_layer"][
+            "launches_per_forward"])
     entries[fa.KEEP_SCALE_NAME] = keep_scale_entry(args.seed)
     kernels = [dict(spec, **entries[spec["name"]], card=card)
                for spec in KERNELS]

@@ -6,8 +6,9 @@ tests/test_rollout.py (`TestRolloutConfig`) and
 tests/test_profiling_slo.py (`TestServingConfigSLO`); a model saved by the
 JAX package is built by both configs and answers the same. Then the
 port's own: the refusals that name the ROADMAP.md item each waits on
-(sharded placement and mesh: item 7; the compile cache: item 1; encrypted
-models and the JAX-only model classes: item 8), the device rule, and two
+(sharded placement and mesh: item 7b; the compile cache: item 1; encrypted
+models: item 8), the model classes the text zoo added (Seq2seq and KNRM,
+built from a config and served), the device rule, and two
 end-to-end runs of ``python -m analytics_zoo_tpu_torch.serving.cli`` as
 subprocesses with ``--device cpu`` (a broker and an engine; a gateway and
 an engine with heartbeats, SIGTERM exiting 0, and an engine without
@@ -248,15 +249,37 @@ def test_port_accepts_compile_cache_dir(tmp_path):
     assert cache.path == str(cc) and cache.max_bytes == 64 << 20
 
 
-def test_port_refuses_jax_only_classes_and_unknown_names():
-    from analytics_zoo_tpu_torch.serving.config import _find_model_class
-    for name in ("Seq2seq", "KNRM"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            _find_model_class(name)
+def test_port_refuses_jax_only_classes_and_unknown_names(tmp_path):
+    """`Seq2seq` and `KNRM` were refused here until the text zoo was
+    ported; now each is built from a config (its saved ZooModel
+    directory) and serves a request on the CPU as its own forward does.
+    An unknown name is still refused."""
+    from analytics_zoo_tpu_torch.models import seq2seq, textmatching
+    from analytics_zoo_tpu_torch.serving.config import (ServingConfig,
+                                                        _find_model_class)
+    assert _find_model_class("Seq2seq") is seq2seq.Seq2seq
+    assert _find_model_class("KNRM") is textmatching.KNRM
     with pytest.raises(ValueError, match="Unknown model class"):
         _find_model_class("NoSuchModel")
     assert _find_model_class("BERTClassifier").__module__ == \
         "analytics_zoo_tpu_torch.models.bert"
+    rs = np.random.RandomState(2)
+    s2s = seq2seq.Seq2seq(encoder_hidden=[4], decoder_hidden=[3],
+                          bridge="dense", generator_units=2, device="cpu")
+    s2s_x = [rs.randn(2, 5, 3).astype(np.float32),
+             rs.randn(2, 4, 2).astype(np.float32)]
+    knrm = textmatching.KNRM(3, 4, vocab_size=20, embed_size=6,
+                             kernel_num=4, device="cpu")
+    knrm_x = rs.randint(1, 20, (2, 7)).astype(np.int32)
+    for model, x in ((s2s, s2s_x), (knrm, knrm_x)):
+        model.model.ensure_built(x, seed=1)
+        path = tmp_path / type(model).__name__
+        model.save_model(str(path))
+        cfg = ServingConfig.load(_write(
+            tmp_path, f"model:\n  path: {path}\nparams:\n  device: cpu\n"))
+        im = cfg.build_model()
+        np.testing.assert_allclose(im.predict(x), model.predict(x),
+                                   rtol=0, atol=1e-6)
 
 
 def test_port_device_defaults_to_cuda(tmp_path, saved_text_classifier):
